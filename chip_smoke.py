@@ -1,7 +1,8 @@
 """Smoke run of quickstep_tpu_torch on one CUDA card: builds the kernels,
-holds each against its plain torch version at SF10 shapes, checks TPC-H Q6
-and Q1 at SF0.01 against sqlite, and runs Q6 and Q1 at SF10 with lineitem
-resident on the card against an exact oracle.
+holds each against its plain torch version at SF10 shapes, checks TPC-H
+queries at SF0.01 against sqlite, and runs Q1, Q6, Q3, Q4, Q5 and Q10 (and
+Q7, Q12, Q14, Q19) at SF10 with all 8 tables generated in the process and
+resident on the card, against the generator's exact oracle.
 
     python3 chip_smoke.py
 
@@ -13,6 +14,7 @@ its power limit, and the one before that holds the kernels' numbers.
 
 import json
 import math
+import resource
 import statistics
 import subprocess
 import sys
@@ -28,9 +30,37 @@ SF_LARGE = 10.0
 WARM_RUNS = 3
 REPS = 10
 REL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
-SOURCE = "quickstep_tpu_torch/csrc/agg_kernels.cu"
-REPLACES = {"scalar_agg": "quickstep_tpu/ops/groupby.py:435",
-            "dense_groupby": "quickstep_tpu/ops/groupby.py:56"}
+N_BUILD_ROWS = 15_000_000      # ~ orders rows at SF10
+N_PACKED_KEYS = 100_000         # ~ supplier rows at SF10 (Q5's composite key)
+N_SEGMENTS = 15_000_000
+SMALL_QUERIES = (1, 3, 4, 5, 6, 10, 7, 8, 12, 13, 14, 19)
+# SF10 queries and the kernels each must launch
+LARGE_QUERIES = {
+    1: ("dense_groupby",),
+    6: ("scalar_agg",),
+    3: ("direct_join", "sort_groupby", "multi_gather"),
+    4: ("direct_join", "dense_groupby", "multi_gather"),
+    5: ("direct_join", "merge_unique_probe", "dense_groupby", "multi_gather"),
+    10: ("direct_join", "sort_groupby", "multi_gather"),
+    7: ("direct_join", "sort_groupby", "multi_gather"),
+    12: ("direct_join", "dense_groupby", "multi_gather"),
+    14: ("direct_join", "scalar_agg", "multi_gather"),
+    19: ("direct_join", "scalar_agg", "multi_gather"),
+}
+KERNELS = {   # name: (source, the reference function it replaces)
+    "scalar_agg": ("quickstep_tpu_torch/csrc/agg_kernels.cu",
+                   "quickstep_tpu/ops/groupby.py:435"),
+    "dense_groupby": ("quickstep_tpu_torch/csrc/agg_kernels.cu",
+                      "quickstep_tpu/ops/groupby.py:56"),
+    "direct_join": ("quickstep_tpu_torch/csrc/join_kernels.cu",
+                    "quickstep_tpu/ops/join.py:43"),
+    "merge_unique_probe": ("quickstep_tpu_torch/csrc/join_kernels.cu",
+                           "quickstep_tpu/ops/join.py:382"),
+    "sort_groupby": ("quickstep_tpu_torch/csrc/agg_kernels.cu",
+                     "quickstep_tpu/ops/groupby.py:204"),
+    "multi_gather": ("quickstep_tpu_torch/csrc/gather_kernels.cu",
+                     "quickstep_tpu/ops/kernels.py:88"),
+}
 
 
 def log(msg: str) -> None:
@@ -150,7 +180,103 @@ def phase_kernels(G):
                                                        [(fn, v, vv)], alive)
                 return occ, d, nn
             case("dense_groupby", label, k, p, main=(main and domain == 6))
+    del vals, alive, valid, keys
+    torch.cuda.empty_cache()
+    phase_join_kernels(case, rng, dev)
     return rows
+
+
+def phase_join_kernels(case, rng, dev):
+    """K3-K6 against their plain versions at SF10 shapes: a probe of
+    N_KERNEL_ROWS rows against an orders-sized build (orderkey-like keys,
+    domain 4x the build rows), Q5's composite-key probe, the segmented
+    reduce over ~N_SEGMENTS groups, and a six-column gather."""
+    from quickstep_tpu_torch.ops import bloom as B, cuda, groupby as G
+    from quickstep_tpu_torch.ops import join as J, kernels as K
+    n, nb = N_KERNEL_ROWS, N_BUILD_ROWS
+    lo, domain = 4, 4 * nb
+    bkey = (torch.arange(1, nb + 1, device=dev, dtype=torch.int32) * 4)
+    balive = torch.from_numpy(rng.random(nb) < 0.5).to(dev)
+    pkey = torch.from_numpy(rng.integers(1, domain + 4, n)
+                            .astype(np.int32)).to(dev)
+    palive = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    table, _ = J.direct_build(bkey, balive, lo, domain)
+    case("direct_join", "build 15M, domain 60M",
+         lambda: J.direct_build(bkey, balive, lo, domain),
+         lambda: J.direct_build_plain(bkey, balive, lo, domain))
+    case("direct_join", "probe 60M int32",
+         lambda: J.direct_probe(table, pkey, palive, lo, domain),
+         lambda: J.direct_probe_plain(table, pkey, palive, lo, domain),
+         main=True)
+    case("direct_join", "probe 60M int64",
+         lambda: J.direct_probe(table, pkey.long(), palive, lo, domain),
+         lambda: J.direct_probe_plain(table, pkey.long(), palive, lo, domain))
+    del table
+    case("direct_join", "filter build 60M (presence)",
+         lambda: (B.exact_filter_build(pkey, palive, lo, domain),),
+         lambda: (B.exact_filter_build_plain(pkey, palive, lo, domain),))
+    bits = B.exact_filter_build(pkey, palive, lo, domain)
+    case("direct_join", "filter probe 15M (presence)",
+         lambda: (B.exact_filter_probe(bits, bkey, balive, lo),),
+         lambda: (B.exact_filter_probe_plain(bits, bkey, balive, lo),))
+    del bits, bkey, balive
+    torch.cuda.empty_cache()
+
+    # Q5's (suppkey, nationkey) key range-packed into int64
+    nk = N_PACKED_KEYS
+    supp = torch.arange(1, nk + 1, device=dev, dtype=torch.int64)
+    packed_b = supp * 25 + torch.from_numpy(rng.integers(0, 25, nk)).to(dev)
+    b_alive = torch.from_numpy(rng.random(nk) < 0.9).to(dev)
+    packed_p = torch.from_numpy(rng.integers(0, 25 * (nk + 1), n)).to(dev)
+    case("merge_unique_probe", "60M probes, 100K keys",
+         lambda: J.merge_unique_probe(packed_b, b_alive, packed_p, palive),
+         lambda: J.merge_unique_probe_plain(packed_b, b_alive, packed_p,
+                                            palive), main=True)
+    del packed_p
+
+    # the sort group-by: ~N_SEGMENTS groups over N_KERNEL_ROWS rows
+    gkey = torch.from_numpy(rng.integers(0, N_SEGMENTS, n)).to(dev)
+    money = torch.from_numpy(rng.integers(0, 10**7, n)).to(dev)
+    price = torch.from_numpy(rng.random(n) * 1000).to(dev)
+    sent = torch.iinfo(torch.int64).max
+    s_key, perm = torch.sort(torch.where(palive, gkey, sent), stable=True)
+    s_alive = s_key != sent
+    change = s_alive & torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                                  s_key[1:] != s_key[:-1]])
+    last = s_alive & torch.cat([change[1:] | ~s_alive[1:],
+                                torch.ones(1, dtype=torch.bool, device=dev)])
+    for fn, v, main in (("sum", money, True), ("max", price, False),
+                        ("count", None, False)):
+        case("sort_groupby", f"segment {fn} 60M rows, 15M groups",
+             lambda fn=fn, v=v: cuda.segment_reduce(fn, change, s_alive,
+                                                    perm, v, None),
+             lambda fn=fn, v=v: G._segment_reduce_plain(
+                 fn, change, s_alive, last, perm, v, None), main=main)
+    del s_key, perm, s_alive, change, last
+    specs = [("sum", money, None), ("avg", price, None), ("min", money, None),
+             ("count", None, None)]
+
+    def flat(out):
+        keys, valids, occ, n_groups, results, rep = out
+        return [*keys, occ, n_groups, *[t for r in results for t in r], rep]
+    case("sort_groupby", "sort_groupby 60M rows, 4 aggregates",
+         lambda: flat(G.sort_groupby([gkey], [None], specs, palive,
+                                     packed_key=gkey, want_rows=True)),
+         lambda: flat(G.sort_groupby_plain([gkey], [None], specs, palive,
+                                           packed_key=gkey, want_rows=True)))
+    del specs
+
+    # six lineitem-like columns gathered by one 60M-row index
+    cols = [palive, pkey, pkey + 1, money, price.float(), price]
+    idx = torch.from_numpy(rng.integers(0, n, n)).to(dev)
+    case("multi_gather", "6 columns by a 60M index",
+         lambda: K.multi_gather(cols, idx),
+         lambda: K.multi_gather_plain(cols, idx), main=True)
+    case("multi_gather", "6 columns by a 60M int32 index",
+         lambda: K.multi_gather(cols, idx.int()),
+         lambda: K.multi_gather_plain(cols, idx.int()))
+    del cols, idx, gkey, money, price, pkey, palive
+    torch.cuda.empty_cache()
 
 
 def row_eq(a, b):
@@ -172,84 +298,90 @@ def row_eq(a, b):
     return True
 
 
-def phase_small():
+def phase_small(cuda):
     from quickstep_tpu_torch import Database
     from quickstep_tpu_torch.bench.tpch import (
         TPCH_QUERIES, ORACLE_OVERRIDES, load_tpch, load_sqlite, to_sqlite_sql,
         with_tiebreak)
-    log(f"phase 2: TPC-H SF{SF_SMALL} Q6 and Q1 against sqlite")
+    log(f"phase 2: TPC-H SF{SF_SMALL} against sqlite")
     db = Database(device="cuda")
     try:
         data = load_tpch(db, scale=SF_SMALL, seed=SEED)
         conn = load_sqlite(data)
-        for q in (6, 1):
+        for q in SMALL_QUERIES:
+            cuda.reset_launches()
             ours = db.execute(with_tiebreak(q, TPCH_QUERIES[q])).rows
+            launched = sorted(k for k, v in cuda.LAUNCHES.items() if v)
             oracle_sql = with_tiebreak(q, ORACLE_OVERRIDES.get(
                 q, TPCH_QUERIES[q]))
             oracle = conn.execute(to_sqlite_sql(oracle_sql)).fetchall()
-            if len(ours) != len(oracle) or not all(
+            if not ours or len(ours) != len(oracle) or not all(
                     row_eq(a, b) for a, b in zip(ours, oracle)):
                 raise AssertionError(f"Q{q} SF{SF_SMALL}: {ours} != {oracle}")
-            log(f"  Q{q}: {len(ours)} rows match sqlite")
+            log(f"  Q{q}: {len(ours)} rows match sqlite; launched "
+                f"{', '.join(launched)}")
     finally:
         db.close()
 
 
-def check_against_oracle(q, rows, oracle):
-    if q == 6:
-        want = [(oracle["q6"],)]
-    else:
-        want = [tuple(g.values()) for g in oracle["q1"]]
-    if len(rows) != len(want):
-        raise AssertionError(f"Q{q}: {len(rows)} rows, oracle {len(want)}")
-    for got_row, want_row in zip(rows, want):
-        for g, w in zip(got_row, want_row):
-            if isinstance(w, float):
-                if not math.isclose(g, w, rel_tol=1e-12, abs_tol=0.0):
-                    raise AssertionError(f"Q{q}: {got_row} != {want_row}")
-            elif g != w:
-                raise AssertionError(f"Q{q}: {got_row} != {want_row}")
-
-
 def phase_large(cuda):
+    """All 8 tables at SF_LARGE, each query cold and WARM_RUNS warm against
+    the exact oracle. Each query's launches are counted from 0 and must
+    include the kernels LARGE_QUERIES names; returns their sum."""
     from quickstep_tpu_torch import Database
-    from quickstep_tpu_torch.bench.lineitem_gen import load_lineitem
-    from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES
-    log(f"phase 3: lineitem SF{SF_LARGE:g} resident on the card")
+    from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES, with_tiebreak
+    from quickstep_tpu_torch.bench.tpch_fullgen import (
+        check_rows, load_tpch_full)
+    log(f"phase 3: all 8 TPC-H tables at SF{SF_LARGE:g} on the card")
     db = Database(device="cuda")
     try:
         t0 = time.perf_counter()
-        _rel, oracle = load_lineitem(db, SF_LARGE)
-        log(f"  generated {oracle['rows']} rows in "
-            f"{time.perf_counter() - t0:.1f} s")
-        torch.cuda.reset_peak_memory_stats()
-        cuda.reset_launches()
-        launches_before = dict(cuda.LAUNCHES)
-        for q, kernel in ((6, "scalar_agg"), (1, "dense_groupby")):
-            before = cuda.LAUNCHES[kernel]
-            times = []
+        oracle = load_tpch_full(db, SF_LARGE, log=lambda msg: None)
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        log(f"  generated {oracle['rows']} in {time.perf_counter() - t0:.1f}"
+            f" s; peak host RSS {rss:.2f} GiB")
+        total = dict.fromkeys(cuda.LAUNCHES, 0)
+        for q, must in LARGE_QUERIES.items():
+            sql = with_tiebreak(q, TPCH_QUERIES[q])
+            times, syncs, retries = [], [], []
+            torch.cuda.reset_peak_memory_stats()
+            cuda.reset_launches()
             for _ in range(1 + WARM_RUNS):
                 t0 = time.perf_counter()
-                rows = db.execute(TPCH_QUERIES[q]).rows
+                rows = db.execute(sql).rows
                 times.append((time.perf_counter() - t0) * 1000)
-                check_against_oracle(q, rows, oracle)
-            if cuda.LAUNCHES[kernel] <= before:
-                raise AssertionError(f"Q{q} never launched {kernel}")
+                syncs.append(db.executor.host_syncs)
+                retries.append(db.executor.retries)
+                check_rows(q, rows, oracle)
+            launches = dict(cuda.LAUNCHES)
+            missing = [k for k in must if not launches[k]]
+            if missing:
+                raise AssertionError(f"Q{q} never launched {missing}")
+            if any(r != 0 or s != 1 for r, s in zip(retries[1:], syncs[1:])):
+                raise AssertionError(f"Q{q} warm runs: host syncs {syncs[1:]}"
+                                     f", retries {retries[1:]}")
+            for k, v in launches.items():
+                total[k] += v
             log(f"  Q{q}: cold {times[0]:.1f} ms, warm "
                 + ", ".join(f"{t:.1f}" for t in times[1:])
-                + f" ms; {len(rows)} rows match the exact oracle; "
-                f"host syncs per query {db.executor.host_syncs}")
-        launches = {k: cuda.LAUNCHES[k] - launches_before[k]
-                    for k in cuda.LAUNCHES}
+                + f" ms; {len(rows)} rows match the exact oracle; host syncs"
+                f" {syncs}, retries {retries}; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                "launches " + ", ".join(f"{k} {v}" for k, v in
+                                         launches.items() if v))
         cols = [t for key, (cs, _m) in db.executor._device_cache.items()
-                if key[0] == "lineitem" for name, pair in cs.items()
+                for name, pair in cs.items()
                 if name != "__num_rows__" for t in pair if t is not None]
-        if not cols or any(t.device.type != "cuda" for t in cols):
-            raise AssertionError("lineitem is not resident on the card")
-        log(f"  lineitem: {len(cols)} columns on "
-            f"{sorted({str(t.device) for t in cols})}; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        return launches
+        tables = sorted({key[0] for key in db.executor._device_cache})
+        # partsupp is generated too; none of these queries reads it
+        if set(tables) != set(oracle["rows"]) - {"partsupp"} or any(
+                t.device.type != "cuda" for t in cols):
+            raise AssertionError(f"not every table is resident: {tables}")
+        log(f"  {len(cols)} columns of {len(tables)} tables resident on "
+            f"{sorted({str(t.device) for t in cols})}, "
+            f"{sum(t.numel() * t.element_size() for t in cols) / 2**30:.2f}"
+            " GiB")
+        return total
     finally:
         db.close()
 
@@ -268,7 +400,7 @@ def main():
 
     rows = phase_kernels(G)
     torch.cuda.empty_cache()
-    phase_small()
+    phase_small(cuda)
     launches = phase_large(cuda)
 
     bad = [m for m in sys.modules
@@ -277,12 +409,12 @@ def main():
     if bad:
         raise AssertionError(f"imported {bad}")
     kernels = []
-    for name in ("scalar_agg", "dense_groupby"):
+    for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         main_case = next(r for r in mine if r["main"])
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]})
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,11 @@
-"""Where the time of TPC-H Q6 and Q1 goes on one CUDA card, with lineitem
-(bench/lineitem_gen.py) resident in device memory.
+"""Where the time of TPC-H queries goes on one CUDA card, with their tables
+resident in device memory.
 
     python -m quickstep_tpu_torch.bench.profile_slice [--scale 10] [--runs 5]
-        [--trace-dir DIR]
+        [--queries 6,1] [--trace-dir DIR]
+
+Q1 and Q6 alone run on lineitem's 7 columns from bench/lineitem_gen.py; any
+other query in the list loads all 8 tables from bench/tpch_fullgen.py.
 
 For each query it prints, on the host clock, the median time of planning
 (parse, resolve, optimize), of `Executor.run_plan` and of `Database.execute`
@@ -27,6 +30,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from quickstep_tpu_torch import Database
 from quickstep_tpu_torch.bench.lineitem_gen import load_lineitem
+from quickstep_tpu_torch.bench.tpch_fullgen import load_tpch_full
 from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES
 from quickstep_tpu_torch.optimizer.resolver import Resolver
 from quickstep_tpu_torch.optimizer.rules import optimize_plan
@@ -89,17 +93,25 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--queries", default="6,1",
+                    help="comma-separated TPC-H query numbers")
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args(argv)
+    queries = [int(q) for q in args.queries.split(",")]
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")
     db = Database(device="cuda")
     try:
         t0 = time.perf_counter()
-        _rel, oracle = load_lineitem(db, args.scale)
-        print(f"lineitem SF{args.scale:g}: {oracle['rows']} rows generated "
+        if set(queries) <= {1, 6}:
+            _rel, oracle = load_lineitem(db, args.scale)
+            what = "lineitem"
+        else:
+            oracle = load_tpch_full(db, args.scale, log=lambda msg: None)
+            what = "all 8 tables"
+        print(f"{what} SF{args.scale:g}: {oracle['rows']} rows generated "
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
-        for q in (6, 1):
+        for q in queries:
             profile_query(db, q, args.runs, args.trace_dir)
     finally:
         db.close()

@@ -1,5 +1,6 @@
-// Aggregation kernels for Hopper (sm_90a): the masked scalar reduce and the
-// dense (collision-free) group-by. Plain C interface, loaded with ctypes by
+// Aggregation kernels for Hopper (sm_90a): the masked scalar reduce, the
+// dense (collision-free) group-by and the segmented reduce of the sort
+// group-by. Plain C interface, loaded with ctypes by
 // quickstep_tpu_torch/ops/cuda.py; every function launches on the stream it is
 // given, allocates nothing, and returns the cudaError_t of its launches.
 //
@@ -8,6 +9,13 @@
 // qs_dense_group_reduce replaces quickstep_tpu/ops/groupby.py:56
 // dense_groupby (_dense_groupby_broadcast :72 / _dense_groupby_scatter :110,
 // and the retired Pallas kernel ops/pallas_groupby.py:95 _run).
+// qs_segment_reduce replaces the segmented reductions of
+// quickstep_tpu/ops/groupby.py:204 sort_groupby (:146 _seg_fill, :187
+// _seg_minmax32 and the prefix-sum differences); the sort itself is
+// torch.sort. The TPU formulation (packed cummax scans, differences of
+// prefix sums) existed because TPU gathers and scatters are slow; here the
+// thread at a group's first row sums the group directly, which also makes
+// float64 sums more exact than the reference's.
 //
 // What bounds them on an H100: bytes read from device memory. Each row is
 // touched once; per row the scalar reduce reads 1 byte of live mask, 1 byte
@@ -290,6 +298,65 @@ dense_group_final(const A* __restrict__ part_val,
   }
 }
 
+// ---------------------------------------------------------------------
+// K5: segmented reduce over key-sorted rows (sort GROUP BY). Row i of the
+// sorted order holds input row perm[i]; live rows form a prefix (s_alive)
+// and change[i] marks the first row of each group. The thread that owns a
+// group's first row walks the group, reading the values through perm (no
+// sorted copy of the payload is materialised), and writes the group's
+// result and live non-null count at its LAST row; every other row gets 0.
+// Deterministic: a group is summed by one thread in sorted (stable) order.
+// Slow when one group is huge (one thread walks it); TPC-H's groups are
+// short.
+// ---------------------------------------------------------------------
+template <int FN, typename T, typename A, typename O>
+__global__ void __launch_bounds__(kThreads)
+segment_reduce_kernel(const uint8_t* __restrict__ change,
+                      const uint8_t* __restrict__ s_alive,
+                      const long long* __restrict__ perm, int64_t n,
+                      const T* __restrict__ vals,
+                      const uint8_t* __restrict__ valid,
+                      O* __restrict__ out_val, int* __restrict__ out_nn) {
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += stride) {
+    if (!s_alive[i]) {
+      if constexpr (FN != kCount) out_val[i] = O(0);
+      out_nn[i] = 0;
+      continue;
+    }
+    if (!change[i]) continue;  // written by the walker of its group
+    A acc = identity<FN, A>();
+    int nn = 0;
+    int64_t j = i;
+    while (true) {
+      const long long r = perm[j];
+      if (valid == nullptr || valid[r]) {
+        nn += 1;
+        if constexpr (FN != kCount) acc = combine<FN, A>(acc, (A)vals[r]);
+      }
+      if (j + 1 >= n || !s_alive[j + 1] || change[j + 1]) break;
+      if constexpr (FN != kCount) out_val[j] = O(0);
+      out_nn[j] = 0;
+      ++j;
+    }
+    if constexpr (FN != kCount) out_val[j] = (O)acc;
+    out_nn[j] = nn;
+  }
+}
+
+template <int FN, typename T, typename A, typename O>
+cudaError_t launch_segment_reduce(const void* change, const void* s_alive,
+                                  const void* perm, int64_t n,
+                                  const void* vals, const void* valid,
+                                  void* out_val, void* out_nn, int blocks,
+                                  cudaStream_t stream) {
+  segment_reduce_kernel<FN, T, A, O><<<blocks, kThreads, 0, stream>>>(
+      (const uint8_t*)change, (const uint8_t*)s_alive, (const long long*)perm,
+      n, (const T*)vals, (const uint8_t*)valid, (O*)out_val, (int*)out_nn);
+  return cudaGetLastError();
+}
+
 template <int FN, typename T, typename A, typename O>
 cudaError_t launch_dense_group(const void* idx, const void* vals,
                                const void* valid, const void* alive, int64_t n,
@@ -366,6 +433,15 @@ int qs_dense_group_reduce(int fn, int dtype, const void* idx, const void* vals,
   QS_DISPATCH(launch_dense_group, idx, vals, valid, alive, n, domain, part_val,
               part_nn, part_occ, blocks, out_val, out_nn, out_occ,
               (cudaStream_t)stream)
+}
+
+int qs_segment_reduce(int fn, int dtype, const void* change,
+                      const void* s_alive, const void* perm, int64_t n,
+                      const void* vals, const void* valid, void* out_val,
+                      void* out_nn, int blocks, void* stream) {
+  if (n == 0) return cudaSuccess;
+  QS_DISPATCH(launch_segment_reduce, change, s_alive, perm, n, vals, valid,
+              out_val, out_nn, blocks, (cudaStream_t)stream)
 }
 
 const char* qs_error_string(int err) {

@@ -1,9 +1,19 @@
 """Chunk: the in-flight columnar batch flowing between operators.
 
-The counterpart of quickstep_tpu/exec/chunk.py without late materialization:
-a dict of equal-length device columns keyed by ExprId, plus a live-row bool
-mask. Every slot holds a materialized (data, valid) pair of torch tensors;
-the lazy join gather chain (RowIds/LazyCol) comes with joins.
+The counterpart of quickstep_tpu/exec/chunk.py (:30-320): a dict of
+equal-length device columns keyed by ExprId, plus a live-row bool mask.
+
+Late materialization: a slot may hold a `LazyCol`, a base column plus a
+shared `RowIds` gather map, instead of a materialized (data, valid) pair.
+Joins and compactions then move one row-id array per upstream source instead
+of gathering every payload column at every operator; payload bytes are
+gathered once, at the point of use (expression evaluation or the output
+pull), usually after the row set has been filtered and compacted. Each
+gather is one `multi_gather` (K6 on CUDA) per shared RowIds.
+
+Unlike the reference, gather chains have no depth cap (the reference's
+module-global cap works around the TPU compiler), and `restrict_valid` never
+mutates a RowIds that another chunk may hold.
 """
 
 from __future__ import annotations
@@ -17,10 +27,109 @@ from quickstep_tpu_torch.optimizer.logical import OutAttr
 from quickstep_tpu_torch.expressions.scalar import EvalContext
 
 
+class RowIds:
+    """Shared gather map: `idx[capacity]` row indices plus an optional `ok`
+    mask (rows with ok False materialize as NULL). All LazyCols made from
+    one source chunk by one operator share one RowIds, so composing the map
+    costs one gather for the whole column group.
+
+    `parent`: lazy composition chain. A chained map means
+    effective_idx[i] = parent.effective_idx[idx[i]]; composition happens
+    only at materialization (resolve), from the outermost map inward, so
+    every gather's output has the final (usually post-compaction) size."""
+
+    __slots__ = ("idx", "ok", "parent", "depth")
+
+    def __init__(self, idx, ok=None, parent: "RowIds" = None):
+        self.idx = idx
+        self.ok = ok
+        self.parent = parent
+        self.depth = 1 + (parent.depth if parent is not None else 0)
+
+    def chain_ok_none(self) -> bool:
+        """True when no level of the chain carries a NULLing mask."""
+        r = self
+        while r is not None:
+            if r.ok is not None:
+                return False
+            r = r.parent
+        return True
+
+    def resolve(self):
+        """Flatten the chain in place: one gather per level, each with output
+        size len(self.idx). Idempotent, and it keeps the map's meaning, so a
+        shared instance may resolve for all its holders."""
+        if self.parent is None:
+            return
+        from quickstep_tpu_torch.ops import kernels as K
+        acc, ok = self.idx, self.ok
+        p = self.parent
+        while p is not None:
+            safe = torch.clamp(acc, 0, max(int(p.idx.shape[0]) - 1, 0))
+            if p.ok is not None:
+                g = K.multi_gather([p.idx, p.ok], safe)
+                ok = g[1] if ok is None else (ok & g[1])
+                acc = g[0]
+            else:
+                acc = K.multi_gather([p.idx], safe)[0]
+            p = p.parent
+        self.idx, self.ok, self.parent = acc, ok, None
+        self.depth = 1
+
+
+class LazyCol:
+    """A deferred column: base[rid.idx] with validity
+    (base_valid[rid.idx] AND rid.ok)."""
+
+    __slots__ = ("base", "base_valid", "rid")
+    lazy = True
+
+    def __init__(self, base, base_valid, rid: RowIds):
+        self.base = base
+        self.base_valid = base_valid
+        self.rid = rid
+
+
+def _is_lazy(v) -> bool:
+    return isinstance(v, LazyCol)
+
+
+def _full(d: torch.Tensor, capacity: int) -> torch.Tensor:
+    if d.dim() == 0:
+        d = torch.broadcast_to(d, (capacity,))
+    return d
+
+
+def compose_slots(src: "Chunk", take_idx, take_ok) -> Dict[int, LazyCol]:
+    """New slots referencing src rows at `take_idx` (with optional validity
+    mask `take_ok`). Existing lazy cols chain their gather maps (composition
+    deferred to RowIds.resolve); materialized cols become lazy against one
+    shared fresh RowIds. No payload bytes and no row-id bytes move here. A
+    chain resolves when a column is materialized."""
+    base_rid = RowIds(take_idx, take_ok)
+    comp: Dict[int, RowIds] = {}
+    out: Dict[int, LazyCol] = {}
+    for eid, v in src.slots.items():
+        if _is_lazy(v):
+            r = comp.get(id(v.rid))
+            if r is None:
+                r = RowIds(take_idx, take_ok, parent=v.rid)
+                comp[id(v.rid)] = r
+            out[eid] = LazyCol(v.base, v.base_valid, r)
+        else:
+            d, val = v
+            out[eid] = LazyCol(_full(d, src.capacity),
+                               None if val is None else _full(val,
+                                                              src.capacity),
+                               base_rid)
+    return out
+
+
 @dataclasses.dataclass
 class Chunk:
     attrs: List[OutAttr]
-    # expr_id -> (data, valid) pair of tensors (valid None = all valid)
+    # expr_id -> (data, valid) pair of tensors (valid None = all valid), or
+    # a LazyCol
     slots: Dict[int, object]
     alive: torch.Tensor                                # bool[capacity]
     capacity: int
@@ -43,20 +152,76 @@ class Chunk:
     def ctx(self) -> EvalContext:
         return EvalContext(self.slots, fetch=self.get, device=self.device)
 
+    # ------------------------------------------------------------------
+    # lazy materialization
+    # ------------------------------------------------------------------
     def get(self, expr_id: int):
-        return self.slots[expr_id]
+        v = self.slots[expr_id]
+        if _is_lazy(v):
+            self.ensure([expr_id])
+            v = self.slots[expr_id]
+        return v
 
     def ensure(self, eids: Iterable[int]):
-        """Materialize the given columns. Every slot of this chunk already is
-        (no lazy gather maps before joins), so there is nothing to do."""
+        """Materialize the given columns: one multi_gather per shared
+        RowIds for every LazyCol that shares it."""
+        from quickstep_tpu_torch.ops import kernels as K
+        groups: Dict[int, List[int]] = {}
+        for eid in eids:
+            v = self.slots.get(eid)
+            if _is_lazy(v):
+                groups.setdefault(id(v.rid), []).append(eid)
+        for ids in groups.values():
+            first: LazyCol = self.slots[ids[0]]
+            rid = first.rid
+            rid.resolve()   # flatten any composition chain (outside-in)
+            n_base = int(first.base.shape[0])
+            safe = torch.clamp(rid.idx, 0, max(n_base - 1, 0))
+            cols = []
+            for eid in ids:
+                lc: LazyCol = self.slots[eid]
+                cols.append(lc.base)
+                cols.append(lc.base_valid)
+            g = K.multi_gather(cols, safe)
+            for j, eid in enumerate(ids):
+                d, v = g[2 * j], g[2 * j + 1]
+                if rid.ok is not None:
+                    v = rid.ok if v is None else (v & rid.ok)
+                self.slots[eid] = (d, v)
+
+    def restrict_valid(self, eids: Iterable[int], keep):
+        """AND `keep` into the valid mask of the given columns. Lazy columns
+        get a new RowIds per shared map, with the same indices and parent and
+        the restricted mask: a RowIds that another chunk or chain holds is
+        never changed."""
+        fresh: Dict[int, RowIds] = {}
+        for eid in eids:
+            v = self.slots[eid]
+            if _is_lazy(v):
+                r = fresh.get(id(v.rid))
+                if r is None:
+                    old = v.rid
+                    r = RowIds(old.idx,
+                               keep if old.ok is None else (old.ok & keep),
+                               parent=old.parent)
+                    fresh[id(old)] = r
+                self.slots[eid] = LazyCol(v.base, v.base_valid, r)
+            else:
+                d, val = v
+                self.slots[eid] = (d, keep if val is None else (keep & val))
 
     def take_columns(self, order: torch.Tensor, eids) -> Tuple[list, list]:
-        """The given columns at positions `order`."""
+        """The given columns at positions `order`, composing the permutation
+        with pending gather maps (payload bytes are gathered once, at the
+        final size)."""
+        tmp = Chunk(attrs=[], slots=compose_slots(self, order, None),
+                    alive=self.alive, capacity=int(order.shape[0]))
+        tmp.ensure(eids)
         datas, valids = [], []
         for eid in eids:
-            d, v = self.slots[eid]
-            datas.append(_full(d, self.capacity)[order])
-            valids.append(None if v is None else _full(v, self.capacity)[order])
+            d, v = tmp.slots[eid]
+            datas.append(d)
+            valids.append(v)
         return datas, valids
 
     def broadcast(self, data, valid):
@@ -66,6 +231,10 @@ class Chunk:
         if valid is not None:
             valid = torch.broadcast_to(valid, (self.capacity,))
         return data, valid
+
+    def is_unique(self, ids: List[int]) -> bool:
+        s = frozenset(ids)
+        return any(u <= s for u in self.unique_sets)
 
     def fd_closure(self, ids: set) -> set:
         out = set(ids)
@@ -77,9 +246,3 @@ class Chunk:
                     out |= dep
                     changed = True
         return out
-
-
-def _full(d: torch.Tensor, capacity: int) -> torch.Tensor:
-    if d.dim() == 0:
-        d = torch.broadcast_to(d, (capacity,))
-    return d

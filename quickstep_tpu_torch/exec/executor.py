@@ -1,16 +1,20 @@
 """The Executor: statement dispatch, eager plan execution, materialization.
 
 The counterpart of quickstep_tpu/exec/executor.py for the scan / filter /
-project / aggregate slice. A SELECT is resolved and optimized by the same
-host layers as the reference, run operator by operator on torch tensors by
-PlanRunner, and pulled to the host with one synchronisation for the live
-count and the result. There is no compile cache: torch runs eagerly. CREATE
-TABLE runs on the host against the catalog; every other statement raises a
-"not yet ported" ExecutionError.
+project / aggregate / join slice. A SELECT is resolved and optimized by the
+same host layers as the reference, run operator by operator on torch tensors
+by PlanRunner, and pulled to the host with one synchronisation for the live
+count, the runner's flags and the result. A set flag (a duplicate build key,
+a compaction under-estimate) re-runs the plan with an override, which is
+remembered per plan shape and table versions (the kOutOfSpace retry of the
+reference). There is no compile cache: torch runs eagerly. CREATE TABLE
+runs on the host against the catalog; every other statement raises a "not
+yet ported" ExecutionError.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -28,9 +32,15 @@ from quickstep_tpu_torch.storage.column import _decode_scalar
 from quickstep_tpu_torch.optimizer import logical as L
 from quickstep_tpu_torch.optimizer.resolver import Resolver
 from quickstep_tpu_torch.optimizer.rules import optimize_plan
-from quickstep_tpu_torch.exec.runner import PlanRunner, not_ported
+from quickstep_tpu_torch.exec.runner import JoinOverride, PlanRunner, not_ported
 from quickstep_tpu_torch.exec.result import QueryResult
 from quickstep_tpu_torch.ops import kernels as K
+
+# Plan runs per statement before the retry gives up (each run installs at
+# least one override, and there are few of them per plan).
+MAX_ATTEMPTS = 8
+# Plan shapes whose learned overrides are kept (oldest dropped first).
+LEARNED_LIMIT = 256
 
 
 class Executor:
@@ -42,6 +52,10 @@ class Executor:
         self._device_cache: Dict[Tuple[str, int], Tuple[dict, dict]] = {}
         # device->host synchronisations of the last statement
         self.host_syncs = 0
+        # plan re-runs of the last statement, after a runtime flag fired
+        self.retries = 0
+        # (plan fingerprint, table versions) -> {node index: JoinOverride}
+        self._learned_overrides: Dict[tuple, Dict[int, JoinOverride]] = {}
 
     def preload(self) -> None:
         """Upload every relation to the device (PreloaderThread analog,
@@ -59,6 +73,7 @@ class Executor:
     def execute_statement(self, stmt: A.Statement) -> QueryResult:
         t0 = time.perf_counter()
         self.host_syncs = 0
+        self.retries = 0
         if isinstance(stmt, A.SelectStmt):
             res = self._run_select(stmt)
         elif isinstance(stmt, A.CreateTableStmt):
@@ -79,10 +94,11 @@ class Executor:
 
     def run_plan(self, plan: L.LogicalNode):
         """Execute a logical plan; returns (rows, names, types)."""
-        # Peel a root-level presentation Sort off the device plan: the result
-        # is materialized to the host anyway, and encoded column values (dict
-        # codes, packed dates) are order-preserving, so a stable numpy lexsort
-        # on the host is exact.
+        # Peel a root-level presentation Sort off the device plan: encoded
+        # column values (dict codes, packed dates) are order-preserving, so a
+        # stable sort of the codes is exact. Under ORDER BY ... LIMIT it runs
+        # on the device and only the kept rows are pulled; otherwise the
+        # result is pulled whole and sorted by a numpy lexsort on the host.
         from quickstep_tpu_torch.expressions.scalar import Attr
         host_sort: Optional[L.Sort] = None
         device_plan = plan
@@ -101,17 +117,68 @@ class Executor:
             device_plan = device_plan.input
 
         inputs, meta = self._collect_inputs(device_plan)
-        runner = PlanRunner(inputs, meta, self.config, self.device)
-        chunk = runner.exec(device_plan)
+        # Runtime corrections (duplicate build keys, compaction
+        # under-estimates) are remembered per plan shape and table versions,
+        # so a warm re-run takes the corrected plan in one pass.
+        learn_key = (_fingerprint(device_plan),
+                     tuple(sorted((k, m["version"]) for k, m in meta.items())))
+        overrides = {k: dataclasses.replace(v) for k, v in
+                     self._learned_overrides.get(learn_key, {}).items()}
         out_attrs = device_plan.output
-        datas, valids, n = self._pull_outputs(device_plan, chunk, out_attrs)
+        for attempt in range(MAX_ATTEMPTS):
+            self.retries = attempt
+            runner = PlanRunner(device_plan, inputs, meta, self.config,
+                                self.device, overrides)
+            chunk = runner.exec(device_plan)
+            fired, pulled = self._pull_outputs(device_plan, chunk, out_attrs,
+                                               runner.flags, host_sort)
+            if not fired:
+                break
+            self._install_overrides(fired, overrides)
+            while len(self._learned_overrides) >= LEARNED_LIMIT:
+                self._learned_overrides.pop(next(iter(self._learned_overrides)))
+            self._learned_overrides[learn_key] = {
+                k: dataclasses.replace(v) for k, v in overrides.items()}
+        else:
+            raise ExecutionError("join fallback did not converge")
+        datas, valids, n, sorted_on_device = pulled
         by_id = {a.expr_id: (a, d, v)
                  for a, d, v in zip(out_attrs, datas, valids)}
         if host_sort is None:
             return self._trim_rows(by_id, np.arange(n), out_attrs,
                                    [a.expr_id for a in out_attrs])
+        if sorted_on_device:
+            return self._trim_rows(by_id, np.arange(n), final_attrs, trim_ids)
         order = _host_sort_order(host_sort, by_id, n)
         return self._trim_rows(by_id, order, final_attrs, trim_ids)
+
+    @staticmethod
+    def _install_overrides(fired: List[str], overrides) -> None:
+        """Answer the flags that fired with overrides for the re-run (the
+        reference's _check_flags)."""
+        for key in fired:
+            kind, node_id = key.rsplit("_", 1)
+            node_id = int(node_id)
+            prev = overrides.get(node_id) or JoinOverride()
+            if kind == "join_dup":
+                # duplicate build keys: the expansion join, which raises
+                # "not yet ported" rather than return wrong rows
+                prev.strategy = "expand"
+            elif kind in ("compact_probe", "compact_build"):
+                # the estimate was short: re-run this node uncompacted; a
+                # second such node disables compaction for the whole plan
+                already = any(v.no_compact_probe or v.no_compact_build
+                              for v in overrides.values())
+                if kind == "compact_probe":
+                    prev.no_compact_probe = True
+                else:
+                    prev.no_compact_build = True
+                if already:
+                    overrides[-1] = JoinOverride(no_compact_probe=True,
+                                                 no_compact_build=True)
+            else:
+                raise ExecutionError(f"unknown runtime flag {key}")
+            overrides[node_id] = prev
 
     def _result_prefix(self, plan, capacity: int) -> int:
         """Rows of the compacted result pulled together with the live count,
@@ -128,25 +195,74 @@ class Executor:
         want = K.next_pow2(int(min(max(8 * est, 4096), 1 << 17)))
         return min(capacity, want)
 
-    def _pull_outputs(self, plan, chunk, out_attrs):
-        """Compact the live rows to the front (stable) and pull the count and
-        a result prefix to the host in one synchronisation; pull the rest
-        only when the prefix was too short."""
+    def _pull_outputs(self, plan, chunk, out_attrs, flags, host_sort):
+        """Pull the live count, the runner's flags and a result prefix to the
+        host in one synchronisation. Under a root ORDER BY ... LIMIT the
+        prefix is the kept rows, sorted on the device; otherwise the live
+        rows are compacted to the front (stable) and the prefix is their
+        head, and a longer result costs a second pull. Returns (names of the
+        flags that fired, and when none did (datas, valids, n,
+        sorted_on_device))."""
         eids = [a.expr_id for a in out_attrs]
         count = chunk.alive.sum(dtype=torch.int64)
-        order = K.compact_order(chunk.alive)
-        prefix = self._result_prefix(plan, chunk.capacity)
+        names = list(flags)
+        flag_t = torch.stack([flags[k] for k in names]) if names else None
+        on_device = host_sort is not None and host_sort.limit is not None
+        if on_device:
+            order = self._device_sort_order(host_sort, chunk)
+            prefix = min(chunk.capacity, host_sort.limit)
+        else:
+            order = K.compact_order(chunk.alive)
+            prefix = self._result_prefix(plan, chunk.capacity)
         ds, vs = chunk.take_columns(order[:prefix], eids)
-        host = self._to_host([count] + ds + vs)
+        host = self._to_host([count, flag_t] + ds + vs)
+        if flag_t is not None:
+            fired = [k for k, f in zip(names, host[1]) if f]
+            if fired:
+                return fired, None
         n = int(host[0])
         k = len(eids)
-        host_d, host_v = host[1:1 + k], host[1 + k:]
-        if n > prefix:
+        host_d, host_v = host[2:2 + k], host[2 + k:]
+        if on_device:
+            n = min(n, prefix)
+        elif n > prefix:
             ds, vs = chunk.take_columns(order[:n], eids)
             host = self._to_host(ds + vs)
             host_d, host_v = host[:k], host[k:]
-        return ([d[:n] for d in host_d],
-                [None if v is None else v[:n] for v in host_v], n)
+        return [], ([d[:n] for d in host_d],
+                    [None if v is None else v[:n] for v in host_v], n,
+                    on_device)
+
+    @staticmethod
+    def _device_sort_order(sort_node: L.Sort, chunk) -> torch.Tensor:
+        """The chunk's live rows in ORDER BY order, then its dead rows: one
+        stable sort per key, last key first, then the live mask; ties keep
+        row order. Keys are encoded as in _host_sort_order."""
+        chunk.ensure([key.expr_id for key in sort_node.keys])
+        cols = []
+        for key, asc, nf in zip(sort_node.keys, sort_node.ascending,
+                                sort_node.nulls_first):
+            d, v = chunk.broadcast(*chunk.slots[key.expr_id])
+            col = d
+            if not asc:
+                col = -col if col.dtype.is_floating_point else ~col
+            if v is not None:
+                first = nf if nf is not None else (not asc)
+                if col.dtype.is_floating_point:
+                    sentinel = float("-inf") if first else float("inf")
+                else:
+                    info = torch.iinfo(col.dtype)
+                    sentinel = info.min if first else info.max
+                col = torch.where(v, col, torch.full((), sentinel,
+                                                     dtype=col.dtype,
+                                                     device=col.device))
+            cols.append(col.to(torch.uint8) if col.dtype == torch.bool
+                        else col)
+        perm = torch.arange(chunk.capacity, device=chunk.device)
+        for col in reversed([(~chunk.alive).to(torch.uint8)] + cols):
+            _, p = torch.sort(col.index_select(0, perm), stable=True)
+            perm = perm.index_select(0, p)
+        return perm
 
     def _to_host(self, tensors: List[Optional[torch.Tensor]]):
         """numpy copies of the given tensors, with one synchronisation."""

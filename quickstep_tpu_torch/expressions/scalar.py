@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from quickstep_tpu_torch.types import Type, TypeID, INT
-from quickstep_tpu_torch.ops.kernels import torch_dtype
+from quickstep_tpu_torch.ops.kernels import to_device, torch_dtype
 
 Array = object  # torch tensor
 ValuePair = Tuple[Array, Optional[Array]]
@@ -502,7 +502,7 @@ class DictBitmapProbe(Expr):
 
     def eval(self, ctx: EvalContext) -> ValuePair:
         d, v = self.operand.eval(ctx)
-        bm = torch.as_tensor(np.asarray(self.bitmap), device=d.device)
+        bm = to_device(np.asarray(self.bitmap), d.device)
         codes = torch.clamp(d, 0, bm.shape[0] - 1).to(torch.int64)
         res = bm[codes]
         if self.negated:
@@ -540,8 +540,8 @@ def _civil_from_days(z):
 
 
 def _device_days_in_month(y, m):
-    lengths = torch.tensor([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31],
-                           dtype=torch.int32, device=m.device)
+    lengths = to_device(np.array([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30,
+                                  31], dtype=np.int32), m.device)
     base = lengths[torch.clamp(m - 1, 0, 11).to(torch.int64)]
     leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
     return torch.where((m == 2) & leap, _scalar_like(base, 29), base)
@@ -603,7 +603,7 @@ class DictMatrixProbe(Expr):
         rd, rv = self.rhs.eval(ctx)
         mat = np.asarray(self.matrix)
         nrows, ncols = mat.shape
-        m = torch.as_tensor(mat.reshape(-1), device=ld.device)
+        m = to_device(mat.reshape(-1), ld.device)
         li = torch.clamp(ld, 0, nrows - 1).to(torch.int64)
         ri = torch.clamp(rd, 0, ncols - 1).to(torch.int64)
         res = m[li * ncols + ri]
@@ -629,7 +629,7 @@ class Substr(Expr):
 
     def eval(self, ctx: EvalContext) -> ValuePair:
         d, v = self.operand.eval(ctx)
-        rm = torch.as_tensor(np.asarray(self.remap), device=d.device)
+        rm = to_device(np.asarray(self.remap), d.device)
         codes = torch.clamp(d, 0, rm.shape[0] - 1).to(torch.int64)
         return rm[codes], v
 

@@ -1,15 +1,16 @@
 """Build, load and call the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled at first use with nvcc for sm_90a into one shared
-library with a plain C interface (build/kernels/libqstorch_kernels.so at the
-root of the checkout) and loaded with ctypes. The library is rebuilt whenever
-a hash of the sources and flags changes. Nothing is compiled or loaded when
+The sources are compiled at first use with nvcc for sm_90a, one nvcc process
+per source, all started together, and linked into one shared library with a
+plain C interface (build/kernels/libqstorch_kernels.so at the root of the
+checkout), which is loaded with ctypes. The library is rebuilt whenever a
+hash of the sources and flags changes. Nothing is compiled or loaded when
 this module is imported.
 
 Every wrapper checks device, dtype, shape and contiguity, allocates the
 kernel's outputs and scratch with torch, launches on torch's current CUDA
 stream, raises when the launch reports an error, and adds one to its entry in
-LAUNCHES.
+LAUNCHES for each kernel launch it makes.
 """
 
 from __future__ import annotations
@@ -22,25 +23,31 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libqstorch_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-# Kernel launches by wrapper, counted where each wrapper launches its kernel.
-LAUNCHES = {"scalar_agg": 0, "dense_groupby": 0}
+# Kernel launches by kernel, counted where each wrapper launches its kernel:
+# K1 scalar_agg, K2 dense_groupby, K3 direct_join (the direct-address build
+# and probe, and their presence mode for the exact filter), K4
+# merge_unique_probe, K5 sort_groupby, K6 multi_gather.
+LAUNCHES = {"scalar_agg": 0, "dense_groupby": 0, "direct_join": 0,
+            "merge_unique_probe": 0, "sort_groupby": 0, "multi_gather": 0}
 # Seconds the last build took in this process (None: the library was loaded
 # from an earlier build with the same source hash).
 BUILD_SECONDS: Optional[float] = None
 
 _FN = {"sum": 0, "count": 1, "min": 2, "max": 3}
 _DTYPE = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3}
+_KEY = {torch.int32: 0, torch.int64: 1}
 MAX_DOMAIN = 128
+MAX_GATHER_COLS = 16          # kMaxCols in csrc/gather_kernels.cu
 _THREADS = 256
 _BLOCKS_PER_SM = 8
 
@@ -70,6 +77,38 @@ def _source_hash(sources) -> str:
     return h.hexdigest()
 
 
+def _compile(sources, lib_path: Path) -> None:
+    """One nvcc per source, all running at once, then one link."""
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in sources]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                         for s, o in zip(sources, objs))]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if not failed:
+        tmp = BUILD_DIR / (LIB_NAME + f".{tag}")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *[str(o) for o in objs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        else:
+            os.replace(tmp, lib_path)
+    for o in objs:
+        if o.exists():
+            o.unlink()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> ctypes.CDLL:
     """Compile (when the sources changed) and load the kernel library."""
     global _lib, BUILD_SECONDS
@@ -83,26 +122,27 @@ def build() -> ctypes.CDLL:
         if not (lib_path.exists() and stamp.exists()
                 and stamp.read_text() == digest):
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = BUILD_DIR / (LIB_NAME + f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in sources]]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, lib_path)
+            _compile(sources, lib_path)
             stamp.write_text(digest)
             BUILD_SECONDS = time.perf_counter() - t0
         lib = ctypes.CDLL(str(lib_path))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.qs_masked_reduce.argtypes = [i32, i32, p, p, p, i64, p, p, i32, p,
-                                         p, p]
-        lib.qs_masked_reduce.restype = i32
-        lib.qs_dense_group_reduce.argtypes = [i32, i32, p, p, p, p, i64, i32,
-                                              p, p, p, i32, p, p, p, p]
-        lib.qs_dense_group_reduce.restype = i32
+        signatures = {
+            "qs_masked_reduce": [i32, i32, p, p, p, i64, p, p, i32, p, p, p],
+            "qs_dense_group_reduce": [i32, i32, p, p, p, p, i64, i32, p, p, p,
+                                      i32, p, p, p, p],
+            "qs_segment_reduce": [i32, i32, p, p, p, i64, p, p, p, p, i32, p],
+            "qs_direct_build": [i32, i32, p, p, i64, i64, i64, p, p, i32, p],
+            "qs_direct_probe": [i32, i32, p, p, i64, i64, i64, p, p, p, i32,
+                                p],
+            "qs_sorted_probe": [p, p, i64, p, p, i64, p, p, p, i32, p],
+            "qs_multi_gather": [i32, p, p, p, i64, p, i32, i64, i32, p],
+        }
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = i32
         lib.qs_error_string.argtypes = [i32]
         lib.qs_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -228,3 +268,178 @@ def dense_group_reduce(fn: str, idx: torch.Tensor,
     if fn == "count":
         return out_nn, out_nn, out_occ
     return out_val, out_nn, out_occ
+
+
+def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}: the kernel needs CUDA")
+    return t.device
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _rows(n: int, what: str) -> None:
+    if n >= 2 ** 31:
+        raise ValueError(f"{what}: {n} rows overflow the kernel's int32 row ids")
+
+
+def segment_reduce(fn: str, change: torch.Tensor, s_alive: torch.Tensor,
+                   perm: torch.Tensor, vals: Optional[torch.Tensor],
+                   valid: Optional[torch.Tensor]):
+    """K5: fn in {sum, count, min, max} over each group of key-sorted rows.
+    Sorted row i is input row perm[i]; s_alive marks the live prefix and
+    change the first row of each group. Returns (result [n], live non-null
+    count int32 [n]), set at each group's last sorted row and 0 elsewhere;
+    for fn == count the result is the count itself."""
+    if fn not in _FN:
+        raise ValueError(f"unknown aggregate {fn!r}")
+    device = _cuda_device(s_alive, "s_alive")
+    n = int(s_alive.shape[0]) if s_alive.dim() == 1 else -1
+    _require(s_alive, "s_alive", device, n, (torch.bool,))
+    _require(change, "change", device, n, (torch.bool,))
+    _require(perm, "perm", device, n, (torch.int64,))
+    _require(valid, "valid", device, n, (torch.bool,))
+    if fn != "count":
+        if vals is None:
+            raise ValueError(f"{fn} needs values")
+        _require(vals, "vals", device, n, tuple(_DTYPE))
+    _rows(n, "segment_reduce")
+    lib = build()
+    dtype = vals.dtype if fn != "count" else torch.int64
+    _acc, out_dt = _acc_out_dtypes(fn, dtype)
+    out_val = None if fn == "count" else torch.empty(n, dtype=out_dt,
+                                                     device=device)
+    out_nn = torch.empty(n, dtype=torch.int32, device=device)
+    if n == 0:
+        return (out_nn if fn == "count" else out_val), out_nn
+    err = lib.qs_segment_reduce(
+        _FN[fn], _DTYPE[dtype], _ptr(change), _ptr(s_alive), _ptr(perm), n,
+        _ptr(vals if fn != "count" else None), _ptr(valid), _ptr(out_val),
+        _ptr(out_nn), _blocks(n, device), _stream(device))
+    _check(lib, err, "segment_reduce")
+    LAUNCHES["sort_groupby"] += 1
+    return (out_nn if fn == "count" else out_val), out_nn
+
+
+def direct_build(key: torch.Tensor, alive: torch.Tensor, lo: int, domain: int,
+                 presence: bool = False):
+    """K3 build over the live rows with key - lo in [0, domain). Table mode:
+    (int32 table [domain] of build row or -1, 0-d bool dup flag). Presence
+    mode (the exact filter): (bool table [domain], None)."""
+    device = _cuda_device(alive, "alive")
+    n = int(alive.shape[0]) if alive.dim() == 1 else -1
+    _require(alive, "alive", device, n, (torch.bool,))
+    _require(key, "key", device, n, tuple(_KEY))
+    _rows(n, "direct_build")
+    if not 1 <= domain < 2 ** 40:
+        raise ValueError(f"direct-address domain {domain} is out of range")
+    lib = build()
+    if presence:
+        table = torch.zeros(domain, dtype=torch.bool, device=device)
+    else:
+        table = torch.full((domain,), -1, dtype=torch.int32, device=device)
+    dup = torch.zeros((), dtype=torch.int32, device=device)
+    if n == 0:
+        return table, (None if presence else dup != 0)
+    err = lib.qs_direct_build(
+        _KEY[key.dtype], int(presence), _ptr(key), _ptr(alive), n, int(lo),
+        int(domain), _ptr(table), _ptr(dup), _blocks(n, device),
+        _stream(device))
+    _check(lib, err, "direct_build")
+    LAUNCHES["direct_join"] += 1
+    return table, (None if presence else dup != 0)
+
+
+def direct_probe(table: torch.Tensor, key: torch.Tensor, alive: torch.Tensor,
+                 lo: int):
+    """K3 probe. Table mode (int32 table): (int32 build row or -1, bool
+    matched). Presence mode (bool table): bool matched."""
+    device = _cuda_device(alive, "alive")
+    n = int(alive.shape[0]) if alive.dim() == 1 else -1
+    _require(alive, "alive", device, n, (torch.bool,))
+    _require(key, "key", device, n, tuple(_KEY))
+    domain = int(table.shape[0]) if table.dim() == 1 else -1
+    _require(table, "table", device, domain, (torch.int32, torch.bool))
+    presence = table.dtype == torch.bool
+    lib = build()
+    matched = torch.empty(n, dtype=torch.bool, device=device)
+    bidx = None if presence else torch.empty(n, dtype=torch.int32,
+                                             device=device)
+    if n == 0:
+        return matched if presence else (bidx, matched)
+    err = lib.qs_direct_probe(
+        _KEY[key.dtype], int(presence), _ptr(key), _ptr(alive), n, int(lo),
+        domain, _ptr(table), _ptr(bidx), _ptr(matched), _blocks(n, device),
+        _stream(device))
+    _check(lib, err, "direct_probe")
+    LAUNCHES["direct_join"] += 1
+    return matched if presence else (bidx, matched)
+
+
+def sorted_probe(sorted_key: torch.Tensor, order: torch.Tensor,
+                 probe: torch.Tensor, pmask: torch.Tensor):
+    """K4: for each live probe row, the first build row (in the stable sort
+    order) with an equal key. sorted_key holds the build keys sorted, dead
+    rows as INT64_MAX; order is the sort permutation. Returns (int32 build
+    row or -1, bool matched, 0-d bool dup flag: two equal live build keys)."""
+    device = _cuda_device(pmask, "pmask")
+    n_build = int(sorted_key.shape[0]) if sorted_key.dim() == 1 else -1
+    n_probe = int(pmask.shape[0]) if pmask.dim() == 1 else -1
+    _require(sorted_key, "sorted_key", device, n_build, (torch.int64,))
+    _require(order, "order", device, n_build, (torch.int64,))
+    _require(probe, "probe", device, n_probe, (torch.int64,))
+    _require(pmask, "pmask", device, n_probe, (torch.bool,))
+    _rows(n_build, "sorted_probe")
+    lib = build()
+    bidx = torch.empty(n_probe, dtype=torch.int32, device=device)
+    matched = torch.empty(n_probe, dtype=torch.bool, device=device)
+    dup = torch.zeros((), dtype=torch.int32, device=device)
+    if n_build == 0 and n_probe == 0:
+        return bidx, matched, dup != 0
+    err = lib.qs_sorted_probe(
+        _ptr(sorted_key), _ptr(order), n_build, _ptr(probe), _ptr(pmask),
+        n_probe, _ptr(bidx), _ptr(matched), _ptr(dup),
+        _blocks(max(n_probe, n_build), device), _stream(device))
+    _check(lib, err, "sorted_probe")
+    LAUNCHES["merge_unique_probe"] += 1
+    return bidx, matched, dup != 0
+
+
+def multi_gather(cols: List[torch.Tensor], idx: torch.Tensor):
+    """K6: every column at rows idx (int32 or int64), MAX_GATHER_COLS
+    columns per launch. Columns are 1-D, contiguous, of one length, with
+    1-, 2-, 4- or 8-byte elements; an index outside the columns is
+    clamped."""
+    device = _cuda_device(idx, "idx")
+    m = int(idx.shape[0]) if idx.dim() == 1 else -1
+    _require(idx, "idx", device, m, (torch.int32, torch.int64))
+    if not cols:
+        return []
+    n_src = int(cols[0].shape[0]) if cols[0].dim() == 1 else -1
+    for i, c in enumerate(cols):
+        _require(c, f"cols[{i}]", device, n_src, (c.dtype,))
+        if c.element_size() not in (1, 2, 4, 8):
+            raise TypeError(f"cols[{i}] has {c.element_size()}-byte elements")
+    if m > 0 and n_src < 1:
+        raise ValueError("multi_gather from empty columns")
+    lib = build()
+    outs = [torch.empty(m, dtype=c.dtype, device=device) for c in cols]
+    if m == 0:
+        return outs
+    for s in range(0, len(cols), MAX_GATHER_COLS):
+        part = range(s, min(s + MAX_GATHER_COLS, len(cols)))
+        k = len(part)
+        srcs = (ctypes.c_void_p * k)(*[cols[i].data_ptr() for i in part])
+        dsts = (ctypes.c_void_p * k)(*[outs[i].data_ptr() for i in part])
+        widths = (ctypes.c_int * k)(*[cols[i].element_size() for i in part])
+        err = lib.qs_multi_gather(
+            k, ctypes.cast(srcs, ctypes.c_void_p),
+            ctypes.cast(dsts, ctypes.c_void_p),
+            ctypes.cast(widths, ctypes.c_void_p), n_src, _ptr(idx),
+            int(idx.dtype == torch.int64), m, _blocks(m, device),
+            _stream(device))
+        _check(lib, err, "multi_gather")
+        LAUNCHES["multi_gather"] += 1
+    return outs

@@ -1,11 +1,12 @@
-"""Aggregation: the scalar (no GROUP BY) reduce and the dense group-by.
+"""Aggregation: the scalar (no GROUP BY) reduce, the dense group-by and the
+sort group-by.
 
 Counterparts of quickstep_tpu/ops/groupby.py `scalar_agg` (:435),
-`pack_dense_index` (:39) and `dense_groupby` (:56). Each aggregate has a plain
-torch version (`*_plain`) and a hand-written CUDA kernel (ops/cuda.py,
-csrc/agg_kernels.cu). The public function takes the plain version for tensors
-that lie on the CPU and launches the kernel for CUDA tensors; a CUDA tensor
-never reaches the plain version here.
+`pack_dense_index` (:39), `dense_groupby` (:56) and `sort_groupby` (:204).
+Each aggregate has a plain torch version (`*_plain`) and a hand-written CUDA
+kernel (ops/cuda.py, csrc/agg_kernels.cu). The public function takes the
+plain version for tensors that lie on the CPU and launches the kernel for
+CUDA tensors; a CUDA tensor never reaches the plain version here.
 
 All inputs are (values, valid, live-mask); aggregates skip dead rows and NULLs.
 Every aggregate returns (data, non_null_count): count 0 means the SQL result is
@@ -20,7 +21,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from quickstep_tpu_torch.ops.kernels import max_sentinel, min_sentinel
+from quickstep_tpu_torch.ops.kernels import (
+    max_sentinel, min_sentinel, multi_gather, multi_gather_plain)
 
 AggIn = Tuple[str, Optional[torch.Tensor], Optional[torch.Tensor]]  # (fn, vals, valid)
 
@@ -118,6 +120,152 @@ def dense_groupby_plain(idx: torch.Tensor, domain: int,
     occupied = torch.zeros(domain + 1, dtype=torch.int32, device=dev).index_add_(
         0, slot, (alive & in_dom).to(torch.int32))[:domain] > 0
     return occupied, results
+
+
+# ---------------------------------------------------------------------
+# sort-based path
+# ---------------------------------------------------------------------
+
+def sort_groupby(key_cols: List[torch.Tensor],
+                 key_valids: List[Optional[torch.Tensor]],
+                 agg_specs: List[AggIn], alive: torch.Tensor,
+                 packed_key: Optional[torch.Tensor] = None,
+                 sort_subset: Optional[List[int]] = None,
+                 want_rows: bool = False):
+    """Sort-based group-by: one stable torch.sort of the packed key (or one
+    stable sort per key, last key first, when the key is not packed), then
+    per-group reductions over the sorted rows.
+
+    Returns (out_key_cols, out_key_valids, occupied, n_groups,
+    [(data, nn_count)...]) and, with want_rows, the sort permutation: each
+    output row's input row, the representative row of its group at the
+    occupied rows. Outputs have input capacity and key-sorted order; a
+    group's results sit at its last sorted row, which `occupied` marks.
+    Other rows hold 0. Rows whose group key is NULL group together (the
+    dtype's max stands for NULL in the sort). On CUDA the reductions are K5
+    and the key gathers K6; on the CPU their plain versions run.
+    """
+    return _sort_groupby(key_cols, key_valids, agg_specs, alive, packed_key,
+                         sort_subset, want_rows, plain=_on_cpu(alive))
+
+
+def sort_groupby_plain(key_cols, key_valids, agg_specs, alive,
+                       packed_key=None, sort_subset=None, want_rows=False):
+    """Plain torch version of sort_groupby: the same sort, then cumsum,
+    index_add_ and scatter_reduce_ per aggregate."""
+    return _sort_groupby(key_cols, key_valids, agg_specs, alive, packed_key,
+                         sort_subset, want_rows, plain=True)
+
+
+def _sortable(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.uint8) if t.dtype == torch.bool else t
+
+
+def _sort_groupby(key_cols, key_valids, agg_specs, alive, packed_key,
+                  sort_subset, want_rows, plain):
+    gather = multi_gather_plain if plain else multi_gather
+    n = alive.shape[0]
+    dev = alive.device
+    pos = torch.arange(n, device=dev)
+    if packed_key is not None:
+        sent = max_sentinel(packed_key.dtype)
+        k = torch.where(alive, packed_key,
+                        torch.full((), sent, dtype=packed_key.dtype,
+                                   device=dev))
+        s_key, perm = torch.sort(k, stable=True)
+        s_alive = s_key != sent
+        change = pos == 0
+        change = change | (s_key != torch.roll(s_key, 1))
+        sorted_keys = gather(list(key_cols) + list(key_valids), perm)
+    else:
+        subset = list(sort_subset) if sort_subset is not None \
+            else list(range(len(key_cols)))
+        sort_keys = []
+        for i in subset:
+            col, valid = _sortable(key_cols[i]), key_valids[i]
+            if valid is not None:
+                top = float("inf") if col.dtype.is_floating_point else \
+                    torch.iinfo(col.dtype).max
+                col = torch.where(valid, col, torch.full(
+                    (), top, dtype=col.dtype, device=dev))
+            sort_keys.append(col)
+        # least significant key first; the live mask last, so dead rows
+        # sort after every live row
+        perm = pos
+        for k in reversed([(~alive).to(torch.uint8)] + sort_keys):
+            _, p = torch.sort(k.index_select(0, perm), stable=True)
+            perm = perm.index_select(0, p)
+        g = gather([alive] + sort_keys + list(key_cols) + list(key_valids),
+                   perm)
+        s_alive = g[0]
+        change = pos == 0
+        for sk in g[1:1 + len(sort_keys)]:
+            change = change | (sk != torch.roll(sk, 1))
+        sorted_keys = g[1 + len(sort_keys):]
+    change = change & s_alive
+    n_groups = torch.sum(change, dtype=torch.int64)
+    last = s_alive & ((pos == n - 1) | torch.roll(change, -1) |
+                      ~torch.roll(s_alive, -1))
+    out_keys = sorted_keys[:len(key_cols)]
+    out_valids = sorted_keys[len(key_cols):]
+
+    results = []
+    cache = {}
+    for fn, vals, valid in agg_specs:
+        kfn = "sum" if fn == "avg" else fn
+        key = (kfn, id(vals) if kfn != "count" else None, id(valid))
+        if key not in cache:
+            if plain:
+                cache[key] = _segment_reduce_plain(kfn, change, s_alive, last,
+                                                   perm, vals, valid)
+            else:
+                from quickstep_tpu_torch.ops import cuda
+                cache[key] = cuda.segment_reduce(
+                    kfn, change, s_alive, perm,
+                    None if vals is None else vals.contiguous(),
+                    None if valid is None else valid.contiguous())
+        data, nn = cache[key]
+        if fn == "avg":
+            data = data.to(torch.float64) / torch.clamp(nn, min=1)
+        results.append((data, nn))
+    if want_rows:
+        return out_keys, out_valids, last, n_groups, results, perm
+    return out_keys, out_valids, last, n_groups, results
+
+
+def _segment_reduce_plain(fn, change, s_alive, last, perm, vals, valid):
+    """Per-group fn over key-sorted rows, at each group's last row; 0
+    elsewhere (K5's layout)."""
+    n = s_alive.shape[0]
+    dev = s_alive.device
+    sid = torch.clamp(torch.cumsum(change.to(torch.int64), 0) - 1, 0,
+                      max(n - 1, 0))
+    live = s_alive if valid is None else (s_alive & valid.index_select(0, perm))
+    nn = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+        0, sid, live.to(torch.int32))
+    nn = torch.where(last, nn.index_select(0, sid),
+                     torch.zeros((), dtype=torch.int32, device=dev))
+    if fn == "count":
+        return nn, nn
+    sv = vals.index_select(0, perm)
+    if fn == "sum":
+        adt = _acc_dtype(sv.dtype)
+        contrib = torch.where(live, sv.to(adt), torch.zeros((), dtype=adt,
+                                                            device=dev))
+        acc = torch.zeros(n, dtype=adt, device=dev).index_add_(0, sid, contrib)
+        acc = acc.to(_sum_dtype(sv.dtype))
+    elif fn in ("min", "max"):
+        fill = max_sentinel(sv.dtype) if fn == "min" else \
+            min_sentinel(sv.dtype)
+        fill_t = torch.full((), fill, dtype=sv.dtype, device=dev)
+        acc = torch.full((n,), fill, dtype=sv.dtype, device=dev).scatter_reduce_(
+            0, sid, torch.where(live, sv, fill_t),
+            reduce="amin" if fn == "min" else "amax")
+    else:
+        raise ValueError(fn)
+    data = torch.where(last, acc.index_select(0, sid),
+                       torch.zeros((), dtype=acc.dtype, device=dev))
+    return data, nn
 
 
 # ---------------------------------------------------------------------

@@ -1,11 +1,18 @@
-"""Core vectorized building blocks: row masks, compaction order, sentinels.
+"""Core vectorized building blocks: row masks, compaction order, sentinels,
+and the many-column gather.
 
-The subset of quickstep_tpu/ops/kernels.py that the scan/filter/aggregate
-slice needs. Each function is a single torch op on whatever device its input
-lies on; the gather packing and hashing helpers come with joins.
+The subset of quickstep_tpu/ops/kernels.py that the scan / filter / aggregate
+/ join slice needs. `multi_gather` launches the hand-written K6 kernel on CUDA
+tensors and takes its plain version on CPU tensors; the other functions are
+single torch ops on whatever device their input lies on. The reference's
+TPU lane packing (`_lane_dtype`, `PACK_PAD_LIMIT`) is not carried over: a
+Hopper gather reads each column at its own width. The hashing helpers come
+with the hashed joins.
 """
 
 from __future__ import annotations
+
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -39,6 +46,48 @@ def alive_mask(capacity: int, count: int, device) -> torch.Tensor:
 def compact_order(alive: torch.Tensor) -> torch.Tensor:
     """Stable permutation putting live rows first."""
     return torch.argsort((~alive).to(torch.int8), stable=True)
+
+
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`. A CUDA copy goes through pinned memory
+    without blocking, so a query's literal tables (LIKE bitmaps, remaps)
+    cost no host synchronisation."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    device = torch.device(device)
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def multi_gather(cols: List[Optional[torch.Tensor]], idx: torch.Tensor):
+    """Gather many equal-length columns by one index vector (int32 or int64,
+    in range: callers clip). None entries pass through. On CUDA one K6
+    launch gathers every column (ops/cuda.py multi_gather); on the CPU the
+    plain version runs."""
+    if idx.device.type == "cpu":
+        return multi_gather_plain(cols, idx)
+    from quickstep_tpu_torch.ops import cuda
+    out = list(cols)
+    todo = []
+    for i, c in enumerate(cols):
+        if c is None:
+            continue
+        if c.dim() == 1 and c.shape[0] > 0 and c.stride(0) == 0:
+            # a broadcast literal gathers to itself
+            out[i] = c[:1].expand(idx.shape[0])
+        else:
+            todo.append(i)
+    if todo:
+        got = cuda.multi_gather([cols[i].contiguous() for i in todo],
+                                idx.contiguous())
+        for i, g in zip(todo, got):
+            out[i] = g
+    return out
+
+
+def multi_gather_plain(cols: List[Optional[torch.Tensor]], idx: torch.Tensor):
+    """Plain torch version of multi_gather: one index_select per column."""
+    return [None if c is None else c.index_select(0, idx) for c in cols]
 
 
 def next_pow2(n: int) -> int:

@@ -162,3 +162,117 @@ def test_nan_wins_min_max_like_reference(dtype, kind):
         assert g.numpy().dtype == w.dtype
         np.testing.assert_allclose(g.numpy(), w, rtol=max(_tol(dtype), 1e-12),
                                    atol=0, equal_nan=True)
+
+
+# ---------------------------------------------------------------------
+# sort group-by
+# ---------------------------------------------------------------------
+
+def _sort_tols(fn, dtype, vals, live):
+    """(rtol, atol) of the port against the reference. The reference takes a
+    float group's SUM as a difference of two prefix sums in the value's own
+    dtype, the port sums each group directly in float64: they may differ by
+    a few ulps of the largest prefix sum, so float sums and averages are
+    held to atol 8 eps(dtype) x sum(|live values|). Counts, integer sums and
+    MIN/MAX are exact; an integer AVG divides once, rel 1e-12."""
+    if fn not in ("sum", "avg"):
+        return 0.0, 0.0
+    if not np.issubdtype(dtype, np.floating):
+        return (1e-12 if fn == "avg" else 0.0), 0.0
+    scale = float(np.abs(vals[live].astype(np.float64)).sum())
+    return 0.0, 8 * float(np.finfo(dtype).eps) * scale
+
+
+def _group_keys(n, seed=17):
+    rng = np.random.default_rng(seed)
+    k1 = rng.integers(0, 40, n).astype(np.int32)
+    k2 = rng.integers(-3, 4, n).astype(np.int64)
+    k2_valid = rng.random(n) < 0.85
+    return k1, k2, k2_valid
+
+
+@pytest.mark.parametrize("layout", ("packed", "multikey", "subset"))
+@pytest.mark.parametrize("mode", ("no_nulls", "nulls", "all_dead", "empty"))
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+def test_sort_groupby_matches_reference(dtype, mode, layout):
+    """Every fn over packed keys (as runner._pack_sort_key makes them),
+    unpacked multi-keys with a nullable key, and a sort subset (a key
+    functionally determined by the others rides along unsorted); the
+    representative rows (want_rows) too. Compared at the occupied rows."""
+    vals, valid, alive = _inputs(dtype, mode)
+    n = len(vals)
+    k1, k2, k2_valid = _group_keys(n)
+    keys = [k1, k2]
+    kvalids = [None, k2_valid]
+    packed, subset = None, None
+    if layout == "packed":
+        enc = np.where(k2_valid, k2 + 3, 7)
+        packed = k1.astype(np.int64) * 8 + enc
+    elif layout == "subset":
+        keys = [k1, k2, (k1 * 3).astype(np.int32)]
+        kvalids = [None, k2_valid, None]
+        subset = [0, 1]
+    specs = [(fn, vals, valid) for fn in FNS]
+    j_specs = [s for s in specs if not (mode == "empty" and
+                                        s[0] in ("min", "max"))]
+    got = TG.sort_groupby([_t(k) for k in keys], [_t(v) for v in kvalids],
+                          [(f, _t(v), _t(vv)) for f, v, vv in specs],
+                          _t(alive), _t(packed), subset, want_rows=True)
+    want = JG.sort_groupby([_j(k) for k in keys], [_j(v) for v in kvalids],
+                           [(f, _j(v), _j(vv)) for f, v, vv in j_specs],
+                           _j(alive), _j(packed), subset, want_rows=True)
+    occ = np.asarray(want[2])
+    _check(got[2], occ, 0.0)
+    assert int(got[3]) == int(want[3])
+    if mode in ("no_nulls", "nulls"):
+        assert occ.sum() > 20
+    np.testing.assert_array_equal(got[5].numpy()[occ], np.asarray(want[5])[occ])
+    for g, w in zip(got[0], want[0]):
+        np.testing.assert_array_equal(g.numpy()[occ], np.asarray(w)[occ])
+    for g, w in zip(got[1], want[1]):
+        assert (g is None) == (w is None)
+        if w is not None:
+            np.testing.assert_array_equal(g.numpy()[occ], np.asarray(w)[occ])
+    j_by_fn = dict(zip([s[0] for s in j_specs], want[4]))
+    for (fn, _v, _vv), (data, nn) in zip(specs, got[4]):
+        if fn not in j_by_fn:
+            continue
+        want_d, want_nn = (np.asarray(a)[occ] for a in j_by_fn[fn])
+        got_d = data.numpy()[occ]
+        if fn == "sum" and dtype == np.int32:
+            # the reference's segment sums keep int32 (the runner widens
+            # integer sums to int64 before either sees them); the port's
+            # are int64, as its scalar and dense sums are
+            assert got_d.dtype == np.int64
+        else:
+            assert got_d.dtype == want_d.dtype, (fn, got_d.dtype,
+                                                 want_d.dtype)
+        rtol, atol = _sort_tols(fn, dtype, vals,
+                                alive & (True if valid is None else valid))
+        if rtol or atol:
+            np.testing.assert_allclose(got_d, want_d, rtol=rtol, atol=atol)
+        else:
+            np.testing.assert_array_equal(got_d, want_d)
+        np.testing.assert_array_equal(nn.numpy()[occ], want_nn)
+        # outside the occupied rows the port writes 0
+        assert not data.numpy()[~occ].any() and not nn.numpy()[~occ].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+def test_sort_groupby_plain_matches_exact_group_sums(dtype):
+    """The port's per-group sums against exact float64/int64 sums computed
+    with numpy per group: the port sums each group directly, so here the
+    tolerance is the float32 output rounding (rel 1e-6) or rel 1e-12."""
+    vals, valid, alive = _inputs(dtype, "nulls")
+    k1, _k2, _ = _group_keys(len(vals))
+    (keys,), _, occ, _, [(data, nn)] = TG.sort_groupby(
+        [_t(k1)], [None], [("sum", _t(vals), _t(valid))], _t(alive),
+        packed_key=_t(k1))
+    occ = occ.numpy()
+    live = alive & valid
+    acc = np.float64 if np.issubdtype(dtype, np.floating) else np.int64
+    for g, s, c in zip(keys.numpy()[occ], data.numpy()[occ], nn.numpy()[occ]):
+        m = live & (k1 == g)
+        assert c == m.sum()
+        np.testing.assert_allclose(s, vals[m].astype(acc).sum(),
+                                   rtol=1e-6 if dtype == np.float32 else 1e-12)

@@ -1,7 +1,8 @@
 """quickstep_tpu_torch stands alone: it runs without JAX and without
 quickstep_tpu, chip_smoke.py refuses to run without a card, and the copied
-TPC-H generator makes the same data as the reference's."""
+TPC-H generators make the same data (and oracle) as the reference's."""
 
+import json
 import os
 import shutil
 import subprocess
@@ -33,6 +34,41 @@ Q6_WITHOUT_JAX = textwrap.dedent("""
 """)
 
 
+JOINS_WITHOUT_JAX = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None          # any `import jax` now fails
+    from quickstep_tpu_torch import Database
+    from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES, load_tpch
+    db = Database(device="cpu")
+    load_tpch(db, 0.002, 0)
+    for q in (3, 4, 5, 10):
+        rows = db.execute(TPCH_QUERIES[q]).rows
+        assert rows and db.executor.host_syncs == 1, (q, rows)
+    db.close()
+    bad = [m for m, mod in sys.modules.items() if mod is not None and (
+           m == "jax" or m.startswith("jax.")
+           or m == "quickstep_tpu" or m.startswith("quickstep_tpu."))]
+    assert not bad, bad
+    print("JOINS OK")
+""")
+
+# Runs tools/sf100_fullgen.py as its own __main__, with the copy of the
+# oracle it writes to a fixed path under /tmp sent into its output directory.
+RUN_FULLGEN_TOOL = textwrap.dedent("""
+    import builtins, os, runpy, sys
+    tool, outdir = sys.argv[1], sys.argv[4]
+    real_open = builtins.open
+    def redirected_open(path, *args, **kwargs):
+        if path == "/tmp/sf100_full_oracle.json":
+            path = os.path.join(outdir, "oracle_copy.json")
+        return real_open(path, *args, **kwargs)
+    builtins.open = redirected_open
+    sys.argv = sys.argv[1:]
+    runpy.run_path(tool, run_name="__main__")
+""")
+FULLGEN_SCALE = 0.002
+
+
 def _run(args, cwd, **env):
     full_env = dict(os.environ, **{"PYTHONPATH": REPO, **env})
     return subprocess.run([sys.executable, *args], cwd=cwd, env=full_env,
@@ -43,6 +79,12 @@ def test_port_runs_q6_without_jax():
     proc = _run(["-c", Q6_WITHOUT_JAX], REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "Q6 OK" in proc.stdout
+
+
+def test_port_runs_join_queries_without_jax():
+    proc = _run(["-c", JOINS_WITHOUT_JAX], REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "JOINS OK" in proc.stdout
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
@@ -76,3 +118,57 @@ def test_copied_generator_matches_reference():
             assert (rc.dictionary is None) == (pc.dictionary is None)
             if rc.dictionary is not None:
                 assert pc.dictionary.values == rc.dictionary.values
+
+
+@pytest.fixture(scope="module")
+def fullgen_pair(tmp_path_factory):
+    """(the tool's store directory, the port's (tables, stats, oracle)) at
+    FULLGEN_SCALE: the tool runs in a subprocess while the port generates."""
+    from quickstep_tpu_torch.bench.tpch_fullgen import generate
+    outdir = tmp_path_factory.mktemp("sf_fullgen")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    tool = subprocess.Popen(
+        [sys.executable, "-c", RUN_FULLGEN_TOOL,
+         os.path.join(REPO, "tools", "sf100_fullgen.py"), str(FULLGEN_SCALE),
+         "10000000", str(outdir)],
+        cwd=str(outdir), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    port = generate(FULLGEN_SCALE, log=lambda msg: None)
+    out, _ = tool.communicate(timeout=300)
+    assert tool.returncode == 0, out
+    return outdir, port
+
+
+def test_copied_full_generator_matches_reference_columns(fullgen_pair):
+    outdir, (tables, _stats, _oracle) = fullgen_pair
+    with open(outdir / "catalog.json") as f:
+        catalog = json.load(f)["databases"]["default"]["relations"]
+    assert sorted(catalog) == sorted(tables)
+    for name, rel in catalog.items():
+        t = tables[name]
+        assert [a["name"] for a in rel["attributes"]] == list(t.arrays)
+        for a in rel["attributes"]:
+            cname = a["name"]
+            ref = np.load(outdir / "default" / name / f"{cname}.npy")
+            np.testing.assert_array_equal(t.arrays[cname], ref,
+                                          err_msg=f"{name}.{cname}")
+            dict_path = outdir / "default" / name / f"{cname}.dict.json"
+            if dict_path.exists():
+                with open(dict_path) as f:
+                    assert t.dicts[cname] == json.load(f), (name, cname)
+            else:
+                assert cname not in t.dicts, (name, cname)
+
+
+def test_copied_full_generator_matches_reference_oracle_and_stats(
+        fullgen_pair):
+    outdir, (_tables, stats, oracle) = fullgen_pair
+    with open(outdir / "oracle.json") as f:
+        want = json.load(f)
+    assert json.loads(json.dumps(oracle)) == want
+    assert set(want) >= {"q1", "q3", "q4", "q5", "q6", "q10"}
+    assert all(want[q] for q in ("q1", "q3", "q4", "q5", "q6", "q10"))
+    with open(outdir / "catalog.json") as f:
+        catalog = json.load(f)["databases"]["default"]["relations"]
+    for name, rel in catalog.items():
+        assert json.loads(json.dumps(stats[name])) == rel["stats"], name

@@ -119,7 +119,8 @@ def test_launches_are_counted(card):
     TG.dense_groupby(idx, 6, [("sum", vals, None), ("count", None, None)],
                      alive)
     TG.scalar_agg_plain("sum", vals, valid, alive)
-    assert TC.LAUNCHES == {"scalar_agg": 1, "dense_groupby": 2}
+    assert TC.LAUNCHES == dict(dict.fromkeys(TC.LAUNCHES, 0), scalar_agg=1,
+                               dense_groupby=2)
 
 
 @pytest.mark.cuda
@@ -163,4 +164,207 @@ def test_public_functions_take_plain_versions_on_cpu():
             _same(g, w, 0.0)
     idx = TG.pack_dense_index([keys], [0], [1], 6, alive)
     TG.dense_groupby(idx, 6, [("sum", vals, valid)], alive)
-    assert TC.LAUNCHES == {"scalar_agg": 0, "dense_groupby": 0}
+    assert set(TC.LAUNCHES) >= {"scalar_agg", "dense_groupby"}
+    assert not any(TC.LAUNCHES.values()), TC.LAUNCHES
+
+
+# ---------------------------------------------------------------------
+# K3 direct table, K4 sorted probe, K5 segmented reduce, K6 gather
+# ---------------------------------------------------------------------
+
+from quickstep_tpu_torch.ops import bloom as TB  # noqa: E402
+from quickstep_tpu_torch.ops import join as TJ  # noqa: E402
+from quickstep_tpu_torch.ops import kernels as TK  # noqa: E402
+
+
+def _join_inputs(key_dtype, dups, device, n_build=20_011, n_probe=100_003,
+                 seed=9):
+    """Build keys in [lo, lo + domain) plus some outside it, one duplicated
+    key when `dups`; probe keys over a wider range; ~20% dead rows."""
+    rng = np.random.default_rng(seed)
+    lo, domain = 50, 3 * n_build
+    bkey = rng.permutation(domain + 40)[:n_build] + lo - 20
+    if dups:
+        bkey[7] = bkey[3]
+    pkey = rng.integers(lo - 100, lo + domain + 100, n_probe)
+    balive = rng.random(n_build) < 0.8
+    if dups:
+        balive[[3, 7]] = True
+    palive = rng.random(n_probe) < 0.8
+    t = [torch.from_numpy(a) for a in (bkey, balive, pkey, palive)]
+    t[0], t[2] = t[0].to(key_dtype), t[2].to(key_dtype)
+    return [x.to(device) for x in t] + [lo, domain]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dups", (False, True), ids=("unique", "dups"))
+@pytest.mark.parametrize("key_dtype", (torch.int32, torch.int64), ids=str)
+def test_direct_join_kernel_matches_plain(card, key_dtype, dups):
+    bkey, balive, pkey, palive, lo, domain = _join_inputs(key_dtype, dups,
+                                                          card)
+    table, dup = TJ.direct_build(bkey, balive, lo, domain)
+    want_table, want_dup = TJ.direct_build_plain(bkey, balive, lo, domain)
+    _same(dup, want_dup, 0.0)
+    assert bool(dup) == dups
+    if not dups:
+        _same(table, want_table, 0.0)
+    else:
+        # which duplicate wins may differ; every other slot agrees
+        differ = (table != want_table).nonzero().flatten().tolist()
+        assert len(differ) <= 1
+    got = TJ.direct_probe(table, pkey, palive, lo, domain)
+    want = TJ.direct_probe_plain(table, pkey, palive, lo, domain)
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+    assert int(got[1].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", (torch.int32, torch.int64), ids=str)
+def test_exact_filter_kernel_matches_plain(card, key_dtype):
+    bkey, balive, pkey, palive, lo, domain = _join_inputs(key_dtype, True,
+                                                          card)
+    # the filter's build side repeats keys by design
+    bkey = torch.cat([bkey, bkey[:500]])
+    balive = torch.cat([balive, balive[:500]])
+    bits = TB.exact_filter_build(bkey, balive, lo, domain)
+    _same(bits, TB.exact_filter_build_plain(bkey, balive, lo, domain), 0.0)
+    _same(TB.exact_filter_probe(bits, pkey, palive, lo),
+          TB.exact_filter_probe_plain(bits, pkey, palive, lo), 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dups", (False, True), ids=("unique", "dups"))
+def test_sorted_probe_kernel_matches_plain(card, dups):
+    bkey, balive, pkey, palive, _lo, _domain = _join_inputs(torch.int64, dups,
+                                                            card)
+    # packed composite keys are wide: spread them over 2^40
+    bkey, pkey = bkey * 1_000_003, pkey * 1_000_003
+    got = TJ.merge_unique_probe(bkey, balive, pkey, palive)
+    want = TJ.merge_unique_probe_plain(bkey, balive, pkey, palive)
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+    assert bool(got[2]) == dups and int(got[1].sum()) > 0
+
+
+def _group_inputs(device, n=100_003, seed=21):
+    rng = np.random.default_rng(seed)
+    k1 = torch.from_numpy(rng.integers(0, 3000, n).astype(np.int32))
+    k2 = torch.from_numpy(rng.integers(-3, 4, n))
+    k2_valid = torch.from_numpy(rng.random(n) < 0.9)
+    alive = torch.from_numpy(rng.random(n) < 0.7)
+    return [t.to(device) for t in (k1, k2, k2_valid, alive)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", (True, False), ids=("packed", "multikey"))
+@pytest.mark.parametrize("mode", ("no_nulls", "nulls", "all_dead", "empty"))
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_sort_groupby_kernel_matches_plain(card, dtype, mode, packed):
+    vals, valid, alive, _ = _inputs(dtype, mode, card)
+    n = len(alive)
+    k1, k2, k2_valid, _ = (t[:n] for t in _group_inputs(card))
+    keys, key_valids = [k1, k2], [None, k2_valid]
+    packed_key = None
+    if packed:
+        enc = torch.where(k2_valid, k2 + 3, torch.full_like(k2, 7))
+        packed_key = k1.to(torch.int64) * 8 + enc
+    specs = [(fn, vals, valid) for fn in FNS]
+    got = TG.sort_groupby(keys, key_valids, specs, alive, packed_key,
+                          want_rows=True)
+    want = TG.sort_groupby_plain(keys, key_valids, specs, alive, packed_key,
+                                 want_rows=True)
+    occ = want[2]
+    _same(got[2], occ, 0.0)
+    _same(got[3], want[3], 0.0)
+    _same(got[5], want[5], 0.0)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        if w is None:
+            assert g is None
+        else:
+            _same(g, w, 0.0)
+    for fn, (gd, gn), (wd, wn) in zip(FNS, got[4], want[4]):
+        _same(gn, wn, 0.0)
+        _same(gd, wd, RTOL.get(dtype, 0.0) if fn in ("sum", "avg") else 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", (torch.int32, torch.int64), ids=str)
+def test_multi_gather_kernel_matches_plain(card, idx_dtype):
+    rng = np.random.default_rng(31)
+    n, m = 50_021, 120_007
+    cols = [torch.from_numpy(rng.random(n) < 0.5),
+            torch.from_numpy(rng.integers(-9, 9, n).astype(np.int16)),
+            torch.from_numpy(rng.integers(-10**9, 10**9, n).astype(np.int32)),
+            torch.from_numpy(rng.integers(-10**15, 10**15, n)),
+            torch.from_numpy(rng.random(n).astype(np.float32)),
+            torch.from_numpy(rng.random(n))]
+    cols = [c.to(card) for c in cols] * 3 + [None]     # 18 columns + None
+    idx = torch.from_numpy(rng.integers(0, n, m)).to(idx_dtype).to(card)
+    TC.reset_launches()
+    got = TK.multi_gather(cols, idx)
+    assert TC.LAUNCHES["multi_gather"] == 2       # 16 columns per launch
+    want = TK.multi_gather_plain(cols, idx)
+    assert got[-1] is None
+    for g, w in zip(got[:-1], want[:-1]):
+        _same(g, w, 0.0)
+
+
+@pytest.mark.cuda
+def test_multi_gather_kernel_clamps_indices(card):
+    col = torch.arange(10, dtype=torch.int64, device=card)
+    idx = torch.tensor([-5, 0, 9, 10, 1 << 40], device=card)
+    (got,) = TC.multi_gather([col], idx)
+    assert got.cpu().tolist() == [0, 0, 9, 9, 9]
+
+
+@pytest.mark.cuda
+def test_join_kernel_launches_are_counted(card):
+    bkey, balive, pkey, palive, lo, domain = _join_inputs(torch.int32, False,
+                                                          card)
+    k1, k2, _k2_valid, alive = _group_inputs(card)
+    TC.reset_launches()
+    table, _ = TJ.direct_build(bkey, balive, lo, domain)
+    TJ.direct_probe(table, pkey, palive, lo, domain)
+    bits = TB.exact_filter_build(bkey, balive, lo, domain)
+    TB.exact_filter_probe(bits, pkey, palive, lo)
+    TJ.merge_unique_probe(bkey.long(), balive, pkey.long(), palive)
+    TG.sort_groupby([k1, k2], [None, None],
+                    [("sum", k2, None), ("count", None, None)], alive)
+    TJ.direct_build_plain(bkey, balive, lo, domain)
+    TJ.merge_unique_probe_plain(bkey.long(), balive, pkey.long(), palive)
+    assert TC.LAUNCHES == dict(dict.fromkeys(TC.LAUNCHES, 0), direct_join=4,
+                               merge_unique_probe=1, sort_groupby=2,
+                               multi_gather=1)
+
+
+def test_join_wrappers_reject_cpu_tensors():
+    key = torch.arange(4, dtype=torch.int32)
+    alive = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.direct_build(key, alive, 0, 4)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.direct_probe(torch.full((4,), -1, dtype=torch.int32), key, alive,
+                        0)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.sorted_probe(key.long(), key.long(), key.long(), alive)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.segment_reduce("sum", alive, alive, key.long(), key.long(), None)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.multi_gather([key], key)
+
+
+def test_join_public_functions_take_plain_versions_on_cpu():
+    bkey, balive, pkey, palive, lo, domain = _join_inputs(torch.int64, False,
+                                                          "cpu")
+    k1, k2, k2_valid, alive = _group_inputs("cpu")
+    TC.reset_launches()
+    table, dup = TJ.direct_build(bkey, balive, lo, domain)
+    _same(table, TJ.direct_build_plain(bkey, balive, lo, domain)[0], 0.0)
+    TJ.direct_probe(table, pkey, palive, lo, domain)
+    bits = TB.exact_filter_build(bkey, balive, lo, domain)
+    TB.exact_filter_probe(bits, pkey, palive, lo)
+    TJ.merge_unique_probe(bkey, balive, pkey, palive)
+    TG.sort_groupby([k1, k2], [None, k2_valid], [("max", k2, None)], alive)
+    TK.multi_gather([k1, None, k2], pkey.clamp(0, len(k1) - 1))
+    assert not any(TC.LAUNCHES.values()), TC.LAUNCHES
