@@ -1,6 +1,7 @@
-# Copied from tools/sf100_fullgen.py; imports renamed, tables built in host memory instead of an on-disk store.
+# Copied from tools/sf100_fullgen.py; imports renamed, tables built in host memory instead of an on-disk store, oracles of Q9, Q16 and Q21 added.
 """All 8 TPC-H tables at a given scale, in host memory, with an exact
-integer oracle for Q1, Q3, Q4, Q5, Q6, Q7, Q10, Q12, Q14, Q18 and Q19.
+integer oracle for Q1, Q3, Q4, Q5, Q6, Q7, Q10, Q12, Q14, Q18 and Q19, and
+for Q9, Q16 and Q21 (`extra_oracles`, computed from the generated columns).
 
 The same distributions, formulas, seeds and text-pool policy as
 tools/sf100_fullgen.py: per-row-identity strings (c_name, s_name, o_clerk)
@@ -11,7 +12,8 @@ orders, each from its own `default_rng(41000 + chunk)` stream, so the oracle
 accumulates chunk by chunk while the columns fill preallocated int32 arrays.
 
 Instead of writing a store, `load_tpch_full` loads the tables into a
-Database with exact statistics (the tool's catalog.json statistics).
+Database with exact statistics (the tool's catalog.json statistics) and
+returns the tool's oracle together with `extra_oracles`.
 
     python -m quickstep_tpu_torch.bench.tpch_fullgen [scale]
 """
@@ -650,11 +652,121 @@ def load_tables(db, tables, stats):
         rel.statistics = _stats_from_json(stats[name])
 
 
+def extra_oracles(tables):
+    """Exact oracles of Q9, Q16 and Q21 (the tool's oracle has none), from
+    the columns of `generate`'s tables with numpy integer arithmetic, in
+    the form of `generate`'s oracle."""
+    nat = tables["nation"]
+    nation_of_key = [nat.dicts["n_name"][c] for c in nat.arrays["n_name"]]
+    return {"q9": _oracle_q9(tables, nation_of_key),
+            "q16": _oracle_q16(tables),
+            "q21": _oracle_q21(tables, nation_of_key)}
+
+
+def _oracle_q9(tables, nation_of_key):
+    """Profit per (supplier nation, order year) of the lines of parts whose
+    name holds 'green', in scale-4 units: l_extendedprice * (1 - l_discount)
+    - ps_supplycost * l_quantity, summed over every partsupp row of the
+    line's (partkey, suppkey)."""
+    li, ps, part = tables["lineitem"], tables["partsupp"], tables["part"]
+    green = np.array(["green" in v for v in part.dicts["p_name"]])
+    # p_partkey is 1..P in row order
+    m = green[part.arrays["p_name"]][li.arrays["l_partkey"] - 1]
+    pk = li.arrays["l_partkey"][m].astype(np.int64)
+    sk = li.arrays["l_suppkey"][m]
+    rev4 = li.arrays["l_extendedprice"][m].astype(np.int64) * (
+        100 - li.arrays["l_discount"][m].astype(np.int64))
+    qty = li.arrays["l_quantity"][m].astype(np.int64)
+    year = (tables["orders"].arrays["o_orderdate"][
+        li.arrays["l_orderkey"][m] // 4 - 1] >> 9).astype(np.int64)
+    nation = tables["supplier"].arrays["s_nationkey"][sk - 1].astype(np.int64)
+    group = nation * 10_000 + year
+    totals = {}
+    # partsupp holds 4 rows per part, rows 4 (partkey - 1) + j
+    for j in range(4):
+        row = (pk - 1) * 4 + j
+        hit = ps.arrays["ps_suppkey"][row] == sk
+        amount = rev4[hit] - ps.arrays["ps_supplycost"][row][hit].astype(
+            np.int64) * qty[hit]
+        g, inv = np.unique(group[hit], return_inverse=True)
+        sums = np.zeros(len(g), np.int64)
+        np.add.at(sums, inv, amount)
+        for gi, v in zip(g.tolist(), sums.tolist()):
+            totals[gi] = totals.get(gi, 0) + v
+    rows = [[nation_of_key[g // 10_000], g % 10_000, v / 10000]
+            for g, v in totals.items()]
+    rows.sort(key=lambda r: (r[0], -r[1]))
+    return rows
+
+
+def _oracle_q16(tables):
+    """Distinct suppliers per (brand, type, size) of the parts not of
+    Brand#45, not of a MEDIUM POLISHED type and of one of 8 sizes, over the
+    suppliers without a Customer...Complaints comment."""
+    ps, part, supp = tables["partsupp"], tables["part"], tables["supplier"]
+    brands, types = part.dicts["p_brand"], part.dicts["p_type"]
+    brand = part.arrays["p_brand"].astype(np.int64)
+    ptype = part.arrays["p_type"].astype(np.int64)
+    size = part.arrays["p_size"].astype(np.int64)
+    part_ok = ((brand != brands.index("Brand#45")) &
+               ~np.array([t.startswith("MEDIUM POLISHED")
+                          for t in types])[ptype] &
+               np.isin(size, [49, 14, 23, 45, 19, 3, 36, 9]))
+    complaint = np.array(["Customer" in c and
+                          "Complaints" in c[c.index("Customer") + 8:]
+                          for c in supp.dicts["s_comment"]])
+    bad_supp = complaint[supp.arrays["s_comment"]]    # by suppkey - 1
+    pk = ps.arrays["ps_partkey"] - 1
+    sk = ps.arrays["ps_suppkey"].astype(np.int64)
+    ok = part_ok[pk] & ~bad_supp[sk - 1]
+    group = (brand[pk[ok]] * len(types) + ptype[pk[ok]]) * 51 + size[pk[ok]]
+    n_supp = len(supp.arrays["s_suppkey"]) + 1
+    pairs = np.unique(group * n_supp + sk[ok])
+    g, cnt = np.unique(pairs // n_supp, return_counts=True)
+    b, t, sz = g // 51 // len(types), g // 51 % len(types), g % 51
+    order = np.lexsort((sz, t, b, -cnt))
+    return [[brands[b[i]], types[t[i]], int(sz[i]), int(cnt[i])]
+            for i in order]
+
+
+def _oracle_q21(tables, nation_of_key):
+    """Suppliers of SAUDI ARABIA with the number of their late lines in
+    finished orders where another supplier shipped a line and no other
+    supplier was late; the first 100 by count descending, then name."""
+    li, ords, supp = tables["lineitem"], tables["orders"], tables["supplier"]
+    okey = li.arrays["l_orderkey"]
+    sk = li.arrays["l_suppkey"]
+    late = li.arrays["l_receiptdate"] > li.arrays["l_commitdate"]
+    # lines of one order are contiguous
+    start = np.flatnonzero(np.r_[True, okey[1:] != okey[:-1]])
+    runs = np.diff(np.r_[start, len(okey)])
+    smin = np.repeat(np.minimum.reduceat(sk, start), runs)
+    smax = np.repeat(np.maximum.reduceat(sk, start), runs)
+    other = (smin != sk) | (smax != sk)
+    lmin = np.repeat(np.minimum.reduceat(
+        np.where(late, sk, INT32_MAX), start), runs)
+    lmax = np.repeat(np.maximum.reduceat(np.where(late, sk, -1), start), runs)
+    late_other = (lmax >= 0) & ((lmin != sk) | (lmax != sk))
+    finished = ords.arrays["o_orderstatus"][okey // 4 - 1] == \
+        ords.dicts["o_orderstatus"].index("F")
+    saudi = np.array([nation_of_key[n] == "SAUDI ARABIA"
+                      for n in range(len(nation_of_key))])
+    m = late & finished & other & ~late_other & \
+        saudi[supp.arrays["s_nationkey"][sk - 1]]
+    counts = np.bincount(sk[m], minlength=len(supp.arrays["s_suppkey"]) + 1)
+    names = supp.dicts["s_name"]
+    keys = np.flatnonzero(counts)
+    name_codes = supp.arrays["s_name"][keys - 1]
+    order = np.lexsort((name_codes, -counts[keys]))[:100]
+    return [[str(names[name_codes[i]]), int(counts[keys[i]])] for i in order]
+
+
 def load_tpch_full(db, scale, log=None):
     """Create the 8 TPC-H tables in `db` and load them at `scale` with exact
-    statistics; returns the oracle (see `generate`)."""
+    statistics; returns the oracle (see `generate`) with `extra_oracles`."""
     tables, stats, oracle = generate(scale, log)
     load_tables(db, tables, stats)
+    oracle.update(extra_oracles(tables))
     return oracle
 
 

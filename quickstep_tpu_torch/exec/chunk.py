@@ -125,6 +125,36 @@ def compose_slots(src: "Chunk", take_idx, take_ok) -> Dict[int, LazyCol]:
     return out
 
 
+def repeat_slots(src: "Chunk", k: int) -> Dict[int, LazyCol]:
+    """Slots for the k-fold row-repeated view of src (expansion joins): only
+    the outer level of each gather map is repeated (its parent chain
+    resolves later, at the final row count); materialized columns share one
+    repeated row-id map. No payload bytes move here."""
+    base_rid: Optional[RowIds] = None
+    comp: Dict[int, RowIds] = {}
+    out: Dict[int, LazyCol] = {}
+    for eid, v in src.slots.items():
+        if _is_lazy(v):
+            r = comp.get(id(v.rid))
+            if r is None:
+                r = RowIds(torch.repeat_interleave(v.rid.idx, k),
+                           None if v.rid.ok is None
+                           else torch.repeat_interleave(v.rid.ok, k),
+                           parent=v.rid.parent)
+                comp[id(v.rid)] = r
+            out[eid] = LazyCol(v.base, v.base_valid, r)
+        else:
+            if base_rid is None:
+                base_rid = RowIds(torch.repeat_interleave(torch.arange(
+                    src.capacity, dtype=torch.int32, device=src.device), k))
+            d, val = v
+            out[eid] = LazyCol(_full(d, src.capacity),
+                               None if val is None else _full(val,
+                                                              src.capacity),
+                               base_rid)
+    return out
+
+
 @dataclasses.dataclass
 class Chunk:
     attrs: List[OutAttr]
@@ -149,8 +179,11 @@ class Chunk:
     def device(self) -> torch.device:
         return self.alive.device
 
-    def ctx(self) -> EvalContext:
-        return EvalContext(self.slots, fetch=self.get, device=self.device)
+    def ctx(self, extra: Optional[dict] = None) -> EvalContext:
+        """The evaluation context; `extra` adds bound values (scalar
+        subqueries) beside the columns."""
+        slots = self.slots if not extra else {**self.slots, **extra}
+        return EvalContext(slots, fetch=self.get, device=self.device)
 
     # ------------------------------------------------------------------
     # lazy materialization
@@ -188,6 +221,12 @@ class Chunk:
                 if rid.ok is not None:
                     v = rid.ok if v is None else (v & rid.ok)
                 self.slots[eid] = (d, v)
+
+    def materialize_all(self) -> "Chunk":
+        """Materialize every slot (a shared subplan's chunk, so that its
+        consumers share the gathered columns)."""
+        self.ensure(list(self.slots))
+        return self
 
     def restrict_valid(self, eids: Iterable[int], keep):
         """AND `keep` into the valid mask of the given columns. Lazy columns

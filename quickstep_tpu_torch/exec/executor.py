@@ -1,13 +1,14 @@
 """The Executor: statement dispatch, eager plan execution, materialization.
 
-The counterpart of quickstep_tpu/exec/executor.py for the scan / filter /
-project / aggregate / join slice. A SELECT is resolved and optimized by the
-same host layers as the reference, run operator by operator on torch tensors
-by PlanRunner, and pulled to the host with one synchronisation for the live
-count, the runner's flags and the result. A set flag (a duplicate build key,
-a compaction under-estimate) re-runs the plan with an override, which is
+The counterpart of quickstep_tpu/exec/executor.py for SELECT. A SELECT is
+resolved and optimized by the same host layers as the reference, run
+operator by operator on torch tensors by PlanRunner, and pulled to the host
+with one synchronisation for the live count, the runner's flags and the
+result. A set flag (a duplicate build key, an expansion overflow, a
+compaction under-estimate) re-runs the plan with an override, which is
 remembered per plan shape and table versions (the kOutOfSpace retry of the
-reference). There is no compile cache: torch runs eagerly. CREATE TABLE
+reference). Scalar subqueries run inside the plan, not as programs of their
+own as the reference's XLA split has them. There is no compile cache: torch runs eagerly. CREATE TABLE
 runs on the host against the catalog; every other statement raises a "not
 yet ported" ExecutionError.
 """
@@ -117,8 +118,8 @@ class Executor:
             device_plan = device_plan.input
 
         inputs, meta = self._collect_inputs(device_plan)
-        # Runtime corrections (duplicate build keys, compaction
-        # under-estimates) are remembered per plan shape and table versions,
+        # Runtime corrections (duplicate build keys, expansion overflows,
+        # compaction under-estimates) are remembered per plan shape and table versions,
         # so a warm re-run takes the corrected plan in one pass.
         learn_key = (_fingerprint(device_plan),
                      tuple(sorted((k, m["version"]) for k, m in meta.items())))
@@ -161,9 +162,13 @@ class Executor:
             node_id = int(node_id)
             prev = overrides.get(node_id) or JoinOverride()
             if kind == "join_dup":
-                # duplicate build keys: the expansion join, which raises
-                # "not yet ported" rather than return wrong rows
+                # duplicate build keys: the expansion join
                 prev.strategy = "expand"
+            elif kind == "join_overflow":
+                # a run of equal build keys is longer than the expansion
+                # width: re-run with four times the width
+                prev.strategy = "expand"
+                prev.max_matches = (prev.max_matches or 8) * 4
             elif kind in ("compact_probe", "compact_build"):
                 # the estimate was short: re-run this node uncompacted; a
                 # second such node disables compaction for the whole plan

@@ -1,14 +1,18 @@
 """PlanRunner: runs a logical plan eagerly, operator by operator, on torch.
 
-The counterpart of quickstep_tpu/exec/runner.py for the scan / filter /
-project / aggregate / join slice: TableScan, Filter, Project, Aggregate down
-the scalar, dense and sort branches, and equi-joins down the FilterJoin
-(exact filter), direct-address and sorted-probe unique paths. Physical
-choices are made on the host from plan-time ranges, as in the reference.
-Runtime fallbacks (duplicate build keys, compaction under-estimates) surface
-as 0-d device flags in `self.flags` that the executor reads with the result
-and answers with a retry. Every other operator, the expansion join, hashed
-composite keys, DISTINCT aggregates and scalar subqueries raise an
+The counterpart of quickstep_tpu/exec/runner.py: TableScan, Filter,
+Project, Aggregate down the scalar, dense, sort and DISTINCT branches,
+equi-joins down the FilterJoin (exact filter), direct-address,
+sorted-probe unique, run-statistics semi and expansion paths, shared
+subplans (WITH) and uncorrelated scalar subqueries. Physical choices are
+made on the host from plan-time ranges, as in the reference. Runtime
+fallbacks (duplicate build keys, expansion overflow, compaction
+under-estimates) surface as 0-d device flags in `self.flags` that the
+executor reads with the result and answers with a retry. A scalar subquery
+is evaluated inside the plan, its value and presence kept as 0-d device
+tensors, so the query keeps its one host sync. Every other operator (full
+outer, nested-loops and cross joins, window functions, Sort and Limit below
+the root), hashed join keys and scalar DISTINCT aggregates raise an
 ExecutionError that says they are not yet ported.
 """
 
@@ -21,10 +25,10 @@ import torch
 
 from quickstep_tpu_torch.config import Config
 from quickstep_tpu_torch.errors import ExecutionError
-from quickstep_tpu_torch.expressions.scalar import Expr, Attr
+from quickstep_tpu_torch.expressions.scalar import Expr, Attr, Cmp
 from quickstep_tpu_torch.optimizer import logical as L
 from quickstep_tpu_torch.optimizer.stats import infer_range
-from quickstep_tpu_torch.exec.chunk import Chunk, compose_slots
+from quickstep_tpu_torch.exec.chunk import Chunk, compose_slots, repeat_slots
 from quickstep_tpu_torch.ops import kernels as K
 from quickstep_tpu_torch.ops import groupby as G
 from quickstep_tpu_torch.ops import join as J
@@ -34,10 +38,16 @@ def not_ported(what: str) -> ExecutionError:
     return ExecutionError(f"{what} not yet ported to quickstep_tpu_torch")
 
 
+def _flip_cmp(op: str) -> str:
+    return {"<": ">", "<=": ">=", ">": "<", ">=": "<=",
+            "=": "=", "<>": "<>"}[op]
+
+
 @dataclasses.dataclass
 class JoinOverride:
     """Executor-supplied retry directives keyed by plan-node index."""
     strategy: Optional[str] = None    # 'expand' after a duplicate build key
+    max_matches: Optional[int] = None  # expansion width after an overflow
     no_compact_probe: bool = False    # estimate-driven compaction overflowed
     no_compact_build: bool = False
 
@@ -58,6 +68,10 @@ class PlanRunner:
         self.device = device
         self.overrides = overrides or {}
         self.flags: Dict[str, torch.Tensor] = {}   # runtime check flags
+        # shared subplans and scalar subqueries, run once per plan object
+        self._memo: Dict[int, Chunk] = {}
+        # ("subquery", id(plan)) -> (value, present): 0-d device tensors
+        self._subquery_slots: Dict[tuple, tuple] = {}
         self.node_index: Dict[int, int] = {}
         self._assign_indices(plan, [0])
 
@@ -83,8 +97,14 @@ class PlanRunner:
             raise not_ported(f"operator {type(node).__name__}")
         return m(node)
 
+    def _exec_memo(self, plan: L.LogicalNode) -> Chunk:
+        key = id(plan)
+        if key not in self._memo:
+            self._memo[key] = self.exec(plan)
+        return self._memo[key]
+
     # ----------------------------------------------------------------
-    # scan
+    # scan, shared subplans
     # ----------------------------------------------------------------
     def _exec_TableScan(self, node: L.TableScan) -> Chunk:
         if node.sample_kind:
@@ -115,14 +135,55 @@ class PlanRunner:
                      capacity=capacity, ranges=ranges, unique_sets=unique_sets,
                      fds=fds, max_counts=max_counts, bound=meta.get("rows"))
 
+    def _exec_SharedSubplan(self, node: L.SharedSubplan) -> Chunk:
+        # materialized once, in the memoized chunk, so that every consumer
+        # shares the gathered columns instead of gathering its own
+        inner = self._exec_memo(node.plan).materialize_all()
+        slots = {}
+        ranges = {}
+        for fresh, orig in zip(node.attrs, inner.attrs):
+            slots[fresh.expr_id] = inner.slots[orig.expr_id]
+            ranges[fresh.expr_id] = inner.ranges.get(orig.expr_id)
+        remap = {o.expr_id: f.expr_id for f, o in zip(node.attrs, inner.attrs)}
+        uniq = [frozenset(remap[i] for i in s) for s in inner.unique_sets
+                if all(i in remap for i in s)]
+        fds = [(frozenset(remap[i] for i in det),
+                frozenset(remap[i] for i in dep if i in remap))
+               for det, dep in inner.fds if all(i in remap for i in det)]
+        return Chunk(attrs=list(node.attrs), slots=slots, alive=inner.alive,
+                     capacity=inner.capacity, ranges=ranges, unique_sets=uniq,
+                     fds=fds, max_counts={remap[i]: v for i, v in
+                                          inner.max_counts.items()
+                                          if i in remap})
+
     # ----------------------------------------------------------------
     # filter / project
     # ----------------------------------------------------------------
     def _eval(self, chunk: Chunk, e: Expr):
-        _reject_subqueries(e)
+        self._bind_subqueries(e)
         # one gather per shared RowIds for every lazy column e reads
         chunk.ensure(e.referenced_attrs() & set(chunk.slots))
-        return e.eval(chunk.ctx())
+        return e.eval(chunk.ctx(extra=self._subquery_slots))
+
+    def _bind_subqueries(self, e: Expr):
+        """Run the uncorrelated scalar subqueries e reads (once per plan
+        object) and bind (value, present) for SubqueryScalar.eval: the
+        value of the first live row and whether any row is live, both 0-d
+        device tensors that nothing reads on the host."""
+        from quickstep_tpu_torch.expressions.subquery import SubqueryScalar
+        stack = [e]
+        while stack:
+            x = stack.pop()
+            if isinstance(x, SubqueryScalar):
+                key = ("subquery", id(x.plan))
+                if key not in self._subquery_slots:
+                    sub = self._exec_memo(x.plan)
+                    data, valid = sub.broadcast(*sub.get(sub.attrs[0].expr_id))
+                    first = torch.argmax(sub.alive.to(torch.uint8))
+                    present = torch.any(sub.alive)
+                    ok = present if valid is None else (present & valid[first])
+                    self._subquery_slots[key] = (data[first], ok)
+            stack.extend(x.children())
 
     def _eval_pred(self, chunk: Chunk, e: Expr):
         d, v = self._eval(chunk, e)
@@ -185,9 +246,10 @@ class PlanRunner:
 
     def _exec_Aggregate(self, node: L.Aggregate) -> Chunk:
         chunk = self.exec(node.input)
-        if any(s.distinct for s in node.aggregates):
-            raise not_ported("DISTINCT aggregate")
+        distinct_flags = [s.distinct for s in node.aggregates]
         if not node.group_by:
+            if any(distinct_flags):
+                raise not_ported("scalar DISTINCT aggregate (distinct_count)")
             return self._scalar_aggregate(node, chunk)
 
         # Estimate-driven compaction of the aggregate input (same protocol
@@ -211,7 +273,7 @@ class PlanRunner:
         keep = self._reduce_group_keys(node.group_by, chunk)
         defer = set()
         for i, ge in enumerate(node.group_by):
-            if i in keep or not isinstance(ge, Attr):
+            if any(distinct_flags) or i in keep or not isinstance(ge, Attr):
                 continue
             src = chunk.slots.get(ge.expr_id)
             if src is None:
@@ -267,6 +329,9 @@ class PlanRunner:
             chunk = dataclasses.replace(chunk, alive=alive)
 
         agg_inputs = [self._agg_input(chunk, spec) for spec in node.aggregates]
+        if any(distinct_flags):
+            return self._distinct_aggregate(node, chunk, key_data, key_valid,
+                                            agg_inputs, distinct_flags)
         if use_dense:
             return self._dense_aggregate(node, chunk, key_data, key_ranges,
                                          agg_inputs)
@@ -428,6 +493,51 @@ class PlanRunner:
         return Chunk(attrs=list(node.output), slots=slots, alive=alive,
                      capacity=capacity, ranges={})
 
+    def _distinct_aggregate(self, node, chunk, key_data, key_valid,
+                            agg_inputs, distinct_flags):
+        """DISTINCT aggregates: each distinct argument is deduplicated with
+        its group keys by one sort group-by (no aggregates), then aggregated
+        per group; the other aggregates run on the raw input. Every result
+        comes from sort_groupby_compact, whose groups sit at rows
+        [0, n_groups) in key order, so the results line up row for row (the
+        reference's distinctify tables,
+        storage/AggregationOperationState.cpp)."""
+        results = [None] * len(agg_inputs)
+        base = None                  # (keys, key valids, n_groups)
+        plain = [ai for ai, f in zip(agg_inputs, distinct_flags) if not f]
+        if plain:
+            keys, valids, n_groups, res = G.sort_groupby_compact(
+                key_data, key_valid, plain, chunk.alive)
+            base = (keys, valids, n_groups)
+            it = iter(res)
+            for i, f in enumerate(distinct_flags):
+                if not f:
+                    results[i] = next(it)
+        for i, ((fn, vals, valid), f) in enumerate(zip(agg_inputs,
+                                                       distinct_flags)):
+            if not f:
+                continue
+            dk, dv, d_alive, _n, _ = G.sort_groupby(
+                key_data + [vals], key_valid + [valid], [], chunk.alive)
+            keys, valids, n_groups, res = G.sort_groupby_compact(
+                dk[:-1], dv[:-1], [(fn, dk[-1], dv[-1])], d_alive)
+            results[i] = res[0]
+            if base is None:
+                base = (keys, valids, n_groups)
+        keys, valids, n_groups = base
+        slots = {}
+        ranges = {}
+        for a, kd, kv, ge in zip(node.group_attrs, keys, valids,
+                                 node.group_by):
+            slots[a.expr_id] = (kd.to(K.torch_dtype(a.type.device_dtype)), kv)
+            ranges[a.expr_id] = infer_range(ge, chunk.ranges)
+        self._fill_agg_slots(node, results, slots)
+        alive = torch.arange(chunk.capacity, device=chunk.device) < n_groups
+        return Chunk(attrs=list(node.output), slots=slots, alive=alive,
+                     capacity=chunk.capacity, ranges=ranges,
+                     unique_sets=[frozenset(a.expr_id
+                                            for a in node.group_attrs)])
+
     # ----------------------------------------------------------------
     # joins
     # ----------------------------------------------------------------
@@ -531,8 +641,12 @@ class PlanRunner:
             strategy = "expand"
         if node.kind in ("semi", "anti") and strategy == "expand" and \
                 (ov is None or ov.strategy is None):
-            raise not_ported("semi/anti join with a residual "
-                             "(_semi_stats_join)")
+            # a compaction override (no_compact_*) keeps the join on the
+            # run-statistics path; only a strategy override leaves it
+            out = self._semi_stats_join(node, probe, build, pk_data, bk_data,
+                                        pmask, bmask)
+            if out is not None:
+                return na_correct(out)
         return na_correct(self._join_local(
             node, probe, build, pk_data, bk_data, strategy, build_unique,
             pmask, bmask))
@@ -544,7 +658,8 @@ class PlanRunner:
             return self._unique_join(node, probe, build, pk_data, bk_data,
                                      check_dups=not build_unique,
                                      pmask=pmask, bmask=bmask)
-        raise not_ported("expansion join (_expand_join)")
+        return self._expand_join(node, probe, build, pk_data, bk_data,
+                                 pmask, bmask)
 
     def _key_ranges(self, keys, chunk):
         return [infer_range(e, chunk.ranges) for e in keys]
@@ -623,6 +738,167 @@ class PlanRunner:
                 out.alive = out.alive & passed
         return out
 
+    def _semi_stats_join(self, node, probe, build, pk_data, bk_data, pmask,
+                         bmask) -> Optional[Chunk]:
+        """Semi/anti join whose residual is one comparison between a build
+        and a probe expression, without expansion: EXISTS (x in run(k) with
+        v OP x) is decided by the run's min and max of x (Q21's correlated
+        <> EXISTS). Returns None when the residual has another shape; the
+        caller then takes the expansion join."""
+        res = node.residual
+        if not (isinstance(res, Cmp) and res.op in ("<>", "<", ">", "<=",
+                                                    ">=")):
+            return None
+        build_ids = {a.expr_id for a in build.attrs}
+        probe_ids = {a.expr_id for a in probe.attrs}
+        lref = res.lhs.referenced_attrs()
+        rref = res.rhs.referenced_attrs()
+        if lref and lref <= build_ids and rref and rref <= probe_ids:
+            build_expr, probe_expr, op = res.lhs, res.rhs, _flip_cmp(res.op)
+        elif rref and rref <= build_ids and lref and lref <= probe_ids:
+            build_expr, probe_expr, op = res.rhs, res.lhs, res.op
+        else:
+            return None
+        bx, bxv = build.broadcast(*self._eval(build, build_expr))
+        if bxv is not None:
+            return None   # NULLs in the min/max statistics: expand instead
+        # the packing must be injective over BOTH sides: pack over the union
+        # of the build and probe key ranges
+        key_ranges = self._key_ranges(node.right_keys, build)
+        pranges = self._key_ranges(node.left_keys, probe)
+        merged = None
+        if all(r is not None for r in key_ranges + pranges):
+            merged = [(min(a[0], b[0]), max(a[1], b[1]))
+                      for a, b in zip(key_ranges, pranges)]
+        packed_b = packed_p = None
+        if merged is not None:
+            packed_b = self._pack_sort_key(bk_data, [None] * len(bk_data),
+                                           merged)
+            packed_p = self._pack_sort_key(pk_data, [None] * len(pk_data),
+                                           merged)
+        px, pxv = probe.broadcast(*self._eval(probe, probe_expr))
+
+        def int32_safe(t):
+            return not t.dtype.is_floating_point and t.dtype != torch.bool \
+                and t.element_size() <= 4
+        if packed_b is not None and packed_p is not None and \
+                int32_safe(bx) and int32_safe(px):
+            # fused: one K8 call decides the comparison per probe row
+            matched = J.merge_cmp_probe(packed_b, bmask, bx, packed_p, pmask,
+                                        px, op)
+        else:
+            if packed_b is None or packed_p is None:
+                raise not_ported("hashed semi join keys (oa_build)")
+            # wide values: per-group min/max by the sort group-by, a unique
+            # probe into the groups, a gather of the group's stats
+            out_keys, _, galive, _n, results = G.sort_groupby(
+                bk_data, [None] * len(bk_data),
+                [("min", bx, None), ("max", bx, None)], bmask,
+                packed_key=packed_b)
+            packed_g = self._pack_sort_key(out_keys, [None] * len(out_keys),
+                                           merged)
+            gidx, matched, _dup = J.merge_unique_probe(
+                packed_g.to(torch.int64), galive, packed_p.to(torch.int64),
+                pmask)
+            safe = torch.clamp(gidx, 0, max(build.capacity - 1, 0))
+            gmin, gmax = K.multi_gather([results[0][0], results[1][0]], safe)
+            cmp_t = torch.promote_types(px.dtype, gmin.dtype)
+            matched = matched & J.CMP_HIT[op](px.to(cmp_t), gmin.to(cmp_t),
+                                              gmax.to(cmp_t))
+        if pxv is not None:
+            matched = matched & pxv
+        if node.kind == "anti":
+            matched = ~matched
+        return dataclasses.replace(probe, alive=probe.alive & matched)
+
+    def _expand_join(self, node, probe, build, pk_data, bk_data, pmask,
+                     bmask) -> Chunk:
+        """Sort-based expansion join: duplicate build keys, semi/anti joins
+        with a residual, many-to-many inner and left joins. Each probe row
+        gets K candidate slots (K7); a longer run raises join_overflow_<idx>
+        and the executor re-runs with 4 K."""
+        ov = self.overrides.get(self.node_index[id(node)])
+        packed_b, packed_p = self._pack_keys(node, build, probe, bk_data,
+                                             pk_data)
+        sorted_key, order = J.sorted_build(packed_b, bmask)
+        k = ov.max_matches if ov and ov.max_matches else \
+            self._default_k(build, node.right_keys)
+        rows, counts, overflow = J.expand_probe(sorted_key, order, packed_p,
+                                                pmask, k)
+        self.flags[f"join_overflow_{self.node_index[id(node)]}"] = overflow
+
+        if node.kind in ("semi", "anti"):
+            if node.residual is None:
+                matched = counts > 0
+            else:
+                # the probe columns the residual reads, gathered once
+                probe.ensure(node.residual.referenced_attrs() &
+                             set(probe.slots))
+                matched = torch.zeros_like(probe.alive)
+                for j in range(k):
+                    bidx = rows[j::k]          # row-major [n * K]
+                    ok = bidx >= 0
+                    pair = self._pair_chunk(node, probe, build, bidx, ok)
+                    matched = matched | (ok & self._eval_pred(pair,
+                                                              node.residual))
+            if node.kind == "anti":
+                matched = ~matched
+            return dataclasses.replace(probe, alive=probe.alive & matched)
+
+        # inner/left: capacity probe.capacity * K. Probe rows repeat K times
+        # as repeated row-id maps only; the build columns share one map of
+        # candidate rows. No payload column moves at expansion width.
+        cap = probe.capacity * k
+        safe_b = torch.clamp(rows, 0, max(build.capacity - 1, 0))
+        slots = repeat_slots(probe, k)
+        build_lazy = compose_slots(build, safe_b, None)
+        for a in build.attrs:
+            slots[a.expr_id] = build_lazy[a.expr_id]
+        alive = torch.repeat_interleave(probe.alive, k) & (rows >= 0)
+        pb = probe.bound if probe.bound is not None else probe.capacity
+        out = Chunk(attrs=list(node.output), slots=slots, alive=alive,
+                    capacity=cap, bound=min(pb * k, cap),
+                    ranges={**{a.expr_id: probe.ranges.get(a.expr_id)
+                               for a in probe.attrs},
+                            **{a.expr_id: build.ranges.get(a.expr_id)
+                               for a in build.attrs}},
+                    fds=list(probe.fds) + list(build.fds))
+        if node.residual is not None:
+            out.alive = out.alive & self._eval_pred(out, node.residual)
+        if node.kind == "left":
+            # ON-clause semantics: a probe row none of whose candidates
+            # passes keeps one row, in slot 0, with a NULL build side
+            has_match = out.alive.view(probe.capacity, k).any(dim=1)
+            first_slot = (torch.arange(cap, device=out.device) % k) == 0
+            unmatched = torch.repeat_interleave(probe.alive & ~has_match,
+                                                k) & first_slot
+            out.alive = out.alive | unmatched
+            out.restrict_valid([a.expr_id for a in build.attrs], ~unmatched)
+        return out
+
+    def _pair_chunk(self, node, probe, build, bidx, ok) -> Chunk:
+        """Probe-aligned chunk with one candidate build row per probe row,
+        for a semi/anti join's residual. The build columns stay lazy: only
+        those the residual reads are gathered."""
+        safe = torch.clamp(bidx, 0, max(build.capacity - 1, 0))
+        slots = dict(probe.slots)
+        build_lazy = compose_slots(build, safe, None)
+        for a in build.attrs:
+            slots[a.expr_id] = build_lazy[a.expr_id]
+        return Chunk(attrs=list(probe.attrs) + list(build.attrs), slots=slots,
+                     alive=probe.alive & ok, capacity=probe.capacity)
+
+    def _default_k(self, build: Chunk, keys) -> int:
+        """Expansion width K: the heaviest build key's count from exact
+        statistics (a composite key's runs are no longer than its tightest
+        column's), capped at 256; without statistics 8, and the overflow
+        retry widens it."""
+        bounds = [build.max_counts[e.expr_id] for e in keys
+                  if isinstance(e, Attr) and e.expr_id in build.max_counts]
+        if bounds:
+            return max(1, min(min(bounds), 256))
+        return 8
+
     def _pack_keys(self, node, build, probe, bk_data, pk_data):
         """(packed_build, packed_probe): one int64 key per row, range-packed
         and so injective. Keys that would need hashing (no range, or a span
@@ -696,12 +972,3 @@ class PlanRunner:
             return self._compact_chunk(chunk, chunk.bound)
         return chunk
 
-
-def _reject_subqueries(e: Expr) -> None:
-    from quickstep_tpu_torch.expressions.subquery import SubqueryScalar
-    stack = [e]
-    while stack:
-        x = stack.pop()
-        if isinstance(x, SubqueryScalar):
-            raise not_ported("scalar subquery")
-        stack.extend(x.children())

@@ -36,9 +36,13 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # Kernel launches by kernel, counted where each wrapper launches its kernel:
 # K1 scalar_agg, K2 dense_groupby, K3 direct_join (the direct-address build
 # and probe, and their presence mode for the exact filter), K4
-# merge_unique_probe, K5 sort_groupby, K6 multi_gather.
+# merge_unique_probe, K5 sort_groupby, K6 multi_gather, K7 expand_probe, K8
+# merge_cmp_probe (its compare and stats modes), K9 sort_groupby_compact (the
+# stable live-first partition).
 LAUNCHES = {"scalar_agg": 0, "dense_groupby": 0, "direct_join": 0,
-            "merge_unique_probe": 0, "sort_groupby": 0, "multi_gather": 0}
+            "merge_unique_probe": 0, "sort_groupby": 0, "multi_gather": 0,
+            "expand_probe": 0, "merge_cmp_probe": 0,
+            "sort_groupby_compact": 0}
 # Seconds the last build took in this process (None: the library was loaded
 # from an earlier build with the same source hash).
 BUILD_SECONDS: Optional[float] = None
@@ -138,6 +142,10 @@ def build() -> ctypes.CDLL:
                                 p],
             "qs_sorted_probe": [p, p, i64, p, p, i64, p, p, p, i32, p],
             "qs_multi_gather": [i32, p, p, p, i64, p, i32, i64, i32, p],
+            "qs_expand_probe": [p, p, i64, p, p, i64, i32, p, p, p, i32, p],
+            "qs_run_stats_probe": [p, p, i64, p, p, p, p, p, p, i64, i32, p,
+                                   p, p, i32, i32, p],
+            "qs_stable_partition": [p, i64, p, p, p, p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
@@ -443,3 +451,113 @@ def multi_gather(cols: List[torch.Tensor], idx: torch.Tensor):
         _check(lib, err, "multi_gather")
         LAUNCHES["multi_gather"] += 1
     return outs
+
+
+def expand_probe(sorted_key: torch.Tensor, order: torch.Tensor,
+                 probe: torch.Tensor, alive: torch.Tensor, k: int):
+    """K7: for each live probe row, the first k build rows (in the stable
+    sort order) whose key equals the probe key. sorted_key holds the build
+    keys sorted, dead rows as INT64_MAX; order is the sort permutation.
+    Returns (int32 rows [n * k], row-major, -1 pads; int32 run length [n],
+    0 on dead rows; 0-d bool overflow flag: some live run is longer than
+    k)."""
+    device = _cuda_device(alive, "alive")
+    n_build = int(sorted_key.shape[0]) if sorted_key.dim() == 1 else -1
+    n_probe = int(alive.shape[0]) if alive.dim() == 1 else -1
+    _require(sorted_key, "sorted_key", device, n_build, (torch.int64,))
+    _require(order, "order", device, n_build, (torch.int64,))
+    _require(probe, "probe", device, n_probe, (torch.int64,))
+    _require(alive, "alive", device, n_probe, (torch.bool,))
+    _rows(n_build, "expand_probe")
+    if not 1 <= k < 2 ** 16:
+        raise ValueError(f"expansion width {k} is out of range")
+    lib = build()
+    rows = torch.empty(n_probe * k, dtype=torch.int32, device=device)
+    counts = torch.empty(n_probe, dtype=torch.int32, device=device)
+    overflow = torch.zeros((), dtype=torch.int32, device=device)
+    if n_probe == 0:
+        return rows, counts, overflow != 0
+    err = lib.qs_expand_probe(
+        _ptr(sorted_key), _ptr(order), n_build, _ptr(probe), _ptr(alive),
+        n_probe, k, _ptr(rows), _ptr(counts), _ptr(overflow),
+        _blocks(n_probe, device), _stream(device))
+    _check(lib, err, "expand_probe")
+    LAUNCHES["expand_probe"] += 1
+    return rows, counts, overflow != 0
+
+
+CMP_OPS = {"<>": 0, "<": 1, "<=": 2, ">": 3, ">=": 4}
+
+
+def run_stats_probe(sorted_key: torch.Tensor, order: torch.Tensor,
+                    bval: torch.Tensor, probe: torch.Tensor,
+                    pmask: torch.Tensor, pval: Optional[torch.Tensor] = None,
+                    op: Optional[str] = None):
+    """K8: the min and max of the int32 build values bval over each run of
+    equal live build keys (sorted_key and order as for expand_probe; bval in
+    the build's own row order), read by every probe row at its key. With op
+    (one of <>, <, <=, >, >=) and the probe's int32 pval: the bool matched
+    = pmask & (a live build row has the key) & (pval OP the run's min or
+    max, as ops/join.py merge_cmp_probe decides). Without op: (matched,
+    int32 min, int32 max), with (INT32_MAX, INT32_MIN) where the key has no
+    live build row."""
+    device = _cuda_device(pmask, "pmask")
+    n_build = int(sorted_key.shape[0]) if sorted_key.dim() == 1 else -1
+    n_probe = int(pmask.shape[0]) if pmask.dim() == 1 else -1
+    _require(sorted_key, "sorted_key", device, n_build, (torch.int64,))
+    _require(order, "order", device, n_build, (torch.int64,))
+    _require(bval, "bval", device, n_build, (torch.int32,))
+    _require(probe, "probe", device, n_probe, (torch.int64,))
+    _require(pmask, "pmask", device, n_probe, (torch.bool,))
+    if op is not None:
+        if op not in CMP_OPS:
+            raise ValueError(f"unknown comparison {op!r}")
+        if pval is None:
+            raise ValueError(f"comparison {op} needs probe values")
+        _require(pval, "pval", device, n_probe, (torch.int32,))
+    _rows(n_build, "run_stats_probe")
+    lib = build()
+    run_min = torch.empty(n_build, dtype=torch.int32, device=device)
+    run_max = torch.empty(n_build, dtype=torch.int32, device=device)
+    matched = torch.empty(n_probe, dtype=torch.bool, device=device)
+    out_min = out_max = None
+    if op is None:
+        out_min = torch.empty(n_probe, dtype=torch.int32, device=device)
+        out_max = torch.empty(n_probe, dtype=torch.int32, device=device)
+    if n_build or n_probe:
+        err = lib.qs_run_stats_probe(
+            _ptr(sorted_key), _ptr(order), n_build, _ptr(bval), _ptr(run_min),
+            _ptr(run_max), _ptr(probe), _ptr(pmask), _ptr(pval), n_probe,
+            -1 if op is None else CMP_OPS[op], _ptr(matched), _ptr(out_min),
+            _ptr(out_max), _blocks(n_build, device), _blocks(n_probe, device),
+            _stream(device))
+        _check(lib, err, "run_stats_probe")
+        LAUNCHES["merge_cmp_probe"] += 1
+    if op is None:
+        return matched, out_min, out_max
+    return matched
+
+
+_TILE = 256 * 16                # kTile in csrc/compact_kernels.cu
+
+
+def stable_partition(mask: torch.Tensor) -> torch.Tensor:
+    """K9: the int64 permutation that puts the positions of the live rows
+    first and the dead rows after them, each in order; equal to
+    torch.argsort(~mask, stable=True)."""
+    device = _cuda_device(mask, "mask")
+    n = int(mask.shape[0]) if mask.dim() == 1 else -1
+    _require(mask, "mask", device, n, (torch.bool,))
+    lib = build()
+    out = torch.empty(n, dtype=torch.int64, device=device)
+    if n == 0:
+        return out
+    ntiles = (n + _TILE - 1) // _TILE
+    tile_counts = torch.empty(ntiles, dtype=torch.int32, device=device)
+    tile_offsets = torch.empty(ntiles + 1, dtype=torch.int64, device=device)
+    err = lib.qs_stable_partition(_ptr(mask), n, _ptr(tile_counts),
+                                  _ptr(tile_offsets), _ptr(out),
+                                  _stream(device))
+    _check(lib, err, "stable_partition")
+    LAUNCHES["sort_groupby_compact"] += 1
+    return out

@@ -1,8 +1,9 @@
-"""Aggregation: the scalar (no GROUP BY) reduce, the dense group-by and the
-sort group-by.
+"""Aggregation: the scalar (no GROUP BY) reduce, the dense group-by, the
+sort group-by and its compacted form.
 
 Counterparts of quickstep_tpu/ops/groupby.py `scalar_agg` (:435),
-`pack_dense_index` (:39), `dense_groupby` (:56) and `sort_groupby` (:204).
+`pack_dense_index` (:39), `dense_groupby` (:56), `sort_groupby` (:204) and
+`sort_groupby_compact` (:405).
 Each aggregate has a plain torch version (`*_plain`) and a hand-written CUDA
 kernel (ops/cuda.py, csrc/agg_kernels.cu). The public function takes the
 plain version for tensors that lie on the CPU and launches the kernel for
@@ -22,7 +23,8 @@ from typing import List, Optional, Tuple
 import torch
 
 from quickstep_tpu_torch.ops.kernels import (
-    max_sentinel, min_sentinel, multi_gather, multi_gather_plain)
+    compact_order, max_sentinel, min_sentinel, multi_gather,
+    multi_gather_plain, stable_partition)
 
 AggIn = Tuple[str, Optional[torch.Tensor], Optional[torch.Tensor]]  # (fn, vals, valid)
 
@@ -231,6 +233,41 @@ def _sort_groupby(key_cols, key_valids, agg_specs, alive, packed_key,
     if want_rows:
         return out_keys, out_valids, last, n_groups, results, perm
     return out_keys, out_valids, last, n_groups, results
+
+
+def sort_groupby_compact(key_cols, key_valids, agg_specs, alive,
+                         packed_key=None, sort_subset=None):
+    """sort_groupby, then the group rows compacted to the front in key-sorted
+    order: rows [0, n_groups) are the groups. Key-sorted placement makes the
+    outputs of different calls over the same key set line up row for row
+    (the DISTINCT aggregate's merge relies on it). Returns (out_key_cols,
+    out_key_valids, n_groups, [(data, nn_count)...]). On CUDA the compaction
+    is K9 and the gather K6; on the CPU their plain versions run."""
+    return _sort_groupby_compact(key_cols, key_valids, agg_specs, alive,
+                                 packed_key, sort_subset,
+                                 plain=_on_cpu(alive))
+
+
+def sort_groupby_compact_plain(key_cols, key_valids, agg_specs, alive,
+                               packed_key=None, sort_subset=None):
+    """Plain torch version of sort_groupby_compact (plain group-by, stable
+    argsort, index_select)."""
+    return _sort_groupby_compact(key_cols, key_valids, agg_specs, alive,
+                                 packed_key, sort_subset, plain=True)
+
+
+def _sort_groupby_compact(key_cols, key_valids, agg_specs, alive, packed_key,
+                          sort_subset, plain):
+    out_keys, out_valids, mask, n_groups, results = _sort_groupby(
+        key_cols, key_valids, agg_specs, alive, packed_key, sort_subset,
+        False, plain=plain)
+    order = (compact_order if plain else stable_partition)(mask)
+    flat = list(out_keys) + list(out_valids) + \
+        [d for d, _ in results] + [nn for _, nn in results]
+    g = (multi_gather_plain if plain else multi_gather)(flat, order)
+    k, r = len(out_keys), len(results)
+    return g[:k], g[k:2 * k], n_groups, \
+        list(zip(g[2 * k:2 * k + r], g[2 * k + r:]))
 
 
 def _segment_reduce_plain(fn, change, s_alive, last, perm, vals, valid):

@@ -1,16 +1,20 @@
-"""Join kernels: the direct-address table and the sorted-build unique probe.
+"""Join kernels: the direct-address table, the sorted-build unique probe,
+the expansion probe and the run-statistics probes.
 
 Counterparts of quickstep_tpu/ops/join.py `direct_build` (:43),
-`direct_probe` (:63), `sorted_build` (:181) and `merge_unique_probe` (:382).
-Each has a plain torch version (`*_plain`) and a hand-written CUDA kernel
-(ops/cuda.py, csrc/join_kernels.cu: K3 for the direct table, K4 for the
-sorted probe). The public function takes the plain version for tensors that
-lie on the CPU and launches the kernel for CUDA tensors.
+`direct_probe` (:63), `sorted_build` (:181), `expand_probe` (:228, with
+:189 `merge_starts`), `merge_stats_probe` (:247), `merge_cmp_probe` (:317)
+and `merge_unique_probe` (:382). Each has a plain torch version (`*_plain`)
+and a hand-written CUDA kernel (ops/cuda.py, csrc/join_kernels.cu: K3 for
+the direct table, K4 for the sorted probe, K7 for the expansion probe, K8 for
+the run statistics). The public function takes the plain version for
+tensors that lie on the CPU and launches the kernel for CUDA tensors.
 
-Uniqueness violations are detected on the device (a 0-d bool dup flag) so
-the executor can retry on the expansion path, the analog of the reference's
-HashTablePutResult::kOutOfSpace resize. The expansion join, open addressing
-and the run-statistics probes wait for later slices.
+Uniqueness violations and expansion overflows are detected on the device
+(0-d bool flags) so the executor can retry on the expansion path or with a
+wider expansion, the analog of the reference's
+HashTablePutResult::kOutOfSpace resize. Open addressing waits for the
+hashed joins.
 """
 
 from __future__ import annotations
@@ -82,6 +86,133 @@ def sorted_build(key: torch.Tensor, alive: torch.Tensor):
     sent = max_sentinel(key.dtype)
     k = torch.where(alive, key, torch.full_like(key, sent))
     return torch.sort(k, stable=True)
+
+
+def expand_probe(sorted_key: torch.Tensor, order: torch.Tensor,
+                 probe_key: torch.Tensor, alive: torch.Tensor,
+                 max_matches: int):
+    """For each probe row, the run of equal keys in sorted_key (from
+    sorted_build, int64). Returns (int32 build rows [n * K], row-major, the
+    run's first K rows in stable sort order and -1 pads; int32 run lengths
+    [n], 0 on dead rows; 0-d bool overflow flag: a run is longer than K)."""
+    if _on_cpu(probe_key):
+        return expand_probe_plain(sorted_key, order, probe_key, alive,
+                                  max_matches)
+    from quickstep_tpu_torch.ops import cuda
+    return cuda.expand_probe(sorted_key.contiguous(), order.contiguous(),
+                             probe_key.to(torch.int64).contiguous(),
+                             alive.contiguous(), max_matches)
+
+
+def expand_probe_plain(sorted_key: torch.Tensor, order: torch.Tensor,
+                       probe_key: torch.Tensor, alive: torch.Tensor,
+                       max_matches: int):
+    """Plain torch version of expand_probe: the run's (start, count) from a
+    left and a right searchsorted, then an [n, K] gather of the order."""
+    probe = probe_key.to(torch.int64)
+    n, nb, k = probe.shape[0], sorted_key.shape[0], max_matches
+    dev = probe.device
+    left = torch.searchsorted(sorted_key, probe)
+    right = torch.searchsorted(sorted_key, probe, right=True)
+    live = alive & (probe != max_sentinel(torch.int64))
+    count = torch.where(live, right - left,
+                        torch.zeros((), dtype=left.dtype, device=dev))
+    slot = torch.arange(k, device=dev)
+    ok = slot[None, :] < count[:, None]
+    if nb == 0:
+        rows = torch.full((n, k), -1, dtype=torch.int32, device=dev)
+    else:
+        pos = torch.clamp(left[:, None] + slot[None, :], 0, nb - 1)
+        rows = torch.where(ok, order[pos].to(torch.int32),
+                           torch.full((), -1, dtype=torch.int32, device=dev))
+    count = count.to(torch.int32)
+    return rows.reshape(-1), count, torch.any(count > k)
+
+
+def merge_stats_probe(packed_build: torch.Tensor, bmask: torch.Tensor,
+                      bval: torch.Tensor, packed_probe: torch.Tensor,
+                      pmask: torch.Tensor):
+    """For every probe row: (matched, min, max) of the live build rows'
+    int32 `bval` within its equal-key run; (INT32_MAX, INT32_MIN) where no
+    live build row has the key. `bval` must be int32-safe (the caller
+    checks)."""
+    if _on_cpu(packed_probe):
+        return merge_stats_probe_plain(packed_build, bmask, bval,
+                                       packed_probe, pmask)
+    from quickstep_tpu_torch.ops import cuda
+    sorted_key, order = sorted_build(packed_build.to(torch.int64), bmask)
+    return cuda.run_stats_probe(sorted_key, order,
+                                bval.to(torch.int32).contiguous(),
+                                packed_probe.to(torch.int64).contiguous(),
+                                pmask.contiguous())
+
+
+def merge_stats_probe_plain(packed_build: torch.Tensor, bmask: torch.Tensor,
+                            bval: torch.Tensor, packed_probe: torch.Tensor,
+                            pmask: torch.Tensor):
+    """Plain torch version of merge_stats_probe: scatter_reduce_ of the
+    sorted values by run, then a lower-bound searchsorted per probe row."""
+    i32 = torch.iinfo(torch.int32)
+    sorted_key, order = sorted_build(packed_build.to(torch.int64), bmask)
+    probe = packed_probe.to(torch.int64)
+    dev = probe.device
+    nb = sorted_key.shape[0]
+    lo_t = torch.full(probe.shape, i32.max, dtype=torch.int32, device=dev)
+    hi_t = torch.full(probe.shape, i32.min, dtype=torch.int32, device=dev)
+    if nb == 0:
+        return torch.zeros_like(pmask), lo_t, hi_t
+    sv = bval.to(torch.int32)[order]
+    change = torch.ones(nb, dtype=torch.bool, device=dev)
+    change[1:] = sorted_key[1:] != sorted_key[:-1]
+    run = torch.cumsum(change.to(torch.int64), 0) - 1
+    run_min = torch.full((nb,), i32.max, dtype=torch.int32,
+                         device=dev).scatter_reduce_(0, run, sv, "amin")
+    run_max = torch.full((nb,), i32.min, dtype=torch.int32,
+                         device=dev).scatter_reduce_(0, run, sv, "amax")
+    pos = torch.clamp(torch.searchsorted(sorted_key, probe), 0, nb - 1)
+    has = (sorted_key[pos] == probe) & (probe != max_sentinel(torch.int64))
+    r = run[pos]
+    return (pmask & has, torch.where(has, run_min[r], lo_t),
+            torch.where(has, run_max[r], hi_t))
+
+
+def merge_cmp_probe(packed_build: torch.Tensor, bmask: torch.Tensor,
+                    bval: torch.Tensor, packed_probe: torch.Tensor,
+                    pmask: torch.Tensor, pval: torch.Tensor, op: str):
+    """The EXISTS-with-comparison semi join: for every probe row, does its
+    equal-key run hold a live build row x with (pval OP x)? Decided from the
+    run's min and max of the int32 values. Returns bool in probe order."""
+    if op not in CMP_HIT:
+        raise ValueError(op)
+    if _on_cpu(packed_probe):
+        return merge_cmp_probe_plain(packed_build, bmask, bval, packed_probe,
+                                     pmask, pval, op)
+    from quickstep_tpu_torch.ops import cuda
+    sorted_key, order = sorted_build(packed_build.to(torch.int64), bmask)
+    return cuda.run_stats_probe(sorted_key, order,
+                                bval.to(torch.int32).contiguous(),
+                                packed_probe.to(torch.int64).contiguous(),
+                                pmask.contiguous(),
+                                pval.to(torch.int32).contiguous(), op)
+
+
+# (v OP x for some x of a run) from the run's min and max of x
+CMP_HIT = {
+    "<>": lambda v, mn, mx: (mn != v) | (mx != v),
+    "<": lambda v, mn, mx: v < mx,
+    "<=": lambda v, mn, mx: v <= mx,
+    ">": lambda v, mn, mx: v > mn,
+    ">=": lambda v, mn, mx: v >= mn,
+}
+
+
+def merge_cmp_probe_plain(packed_build: torch.Tensor, bmask: torch.Tensor,
+                          bval: torch.Tensor, packed_probe: torch.Tensor,
+                          pmask: torch.Tensor, pval: torch.Tensor, op: str):
+    """Plain torch version of merge_cmp_probe, over merge_stats_probe_plain."""
+    matched, mn, mx = merge_stats_probe_plain(packed_build, bmask, bval,
+                                              packed_probe, pmask)
+    return matched & CMP_HIT[op](pval.to(torch.int32), mn, mx)
 
 
 def merge_unique_probe(packed_build: torch.Tensor, bmask: torch.Tensor,

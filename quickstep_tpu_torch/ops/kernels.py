@@ -1,10 +1,11 @@
 """Core vectorized building blocks: row masks, compaction order, sentinels,
-and the many-column gather.
+the stable partition and the many-column gather.
 
-The subset of quickstep_tpu/ops/kernels.py that the scan / filter / aggregate
-/ join slice needs. `multi_gather` launches the hand-written K6 kernel on CUDA
-tensors and takes its plain version on CPU tensors; the other functions are
-single torch ops on whatever device their input lies on. The reference's
+The subset of quickstep_tpu/ops/kernels.py that the port's slices need.
+`multi_gather` launches the hand-written K6 kernel and `stable_partition`
+the K9 kernel on CUDA tensors, and each takes its plain version on CPU
+tensors; the other functions are single torch ops on whatever device their
+input lies on. The reference's
 TPU lane packing (`_lane_dtype`, `PACK_PAD_LIMIT`) is not carried over: a
 Hopper gather reads each column at its own width. The hashing helpers come
 with the hashed joins.
@@ -46,6 +47,18 @@ def alive_mask(capacity: int, count: int, device) -> torch.Tensor:
 def compact_order(alive: torch.Tensor) -> torch.Tensor:
     """Stable permutation putting live rows first."""
     return torch.argsort((~alive).to(torch.int8), stable=True)
+
+
+def stable_partition(mask: torch.Tensor) -> torch.Tensor:
+    """compact_order's function (quickstep_tpu/ops/kernels.py:132, with the
+    destinations of :35 compact_indices): the int64 positions of the rows
+    where mask holds, in order, then the others, in order. On CUDA one K9
+    call (ops/cuda.py stable_partition); compact_order, a stable sort, is
+    its plain version and runs on the CPU."""
+    if mask.device.type == "cpu":
+        return compact_order(mask)
+    from quickstep_tpu_torch.ops import cuda
+    return cuda.stable_partition(mask.contiguous())
 
 
 def to_device(arr: np.ndarray, device) -> torch.Tensor:

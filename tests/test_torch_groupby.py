@@ -1,6 +1,7 @@
 """The port's aggregates against quickstep_tpu.ops.groupby.
 
-The plain torch versions (the CPU path of scalar_agg and dense_groupby) are
+The plain torch versions (the CPU path of scalar_agg, dense_groupby,
+sort_groupby, sort_groupby_compact and the stable partition) are
 held against the JAX functions on the same seeded inputs: integers exactly,
 float64 within rel 1e-12, float32 within rel 1e-5. MIN/MAX over no rows have
 no JAX value (a reduction with no identity raises there); the port returns
@@ -276,3 +277,63 @@ def test_sort_groupby_plain_matches_exact_group_sums(dtype):
         assert c == m.sum()
         np.testing.assert_allclose(s, vals[m].astype(acc).sum(),
                                    rtol=1e-6 if dtype == np.float32 else 1e-12)
+
+
+# ---------------------------------------------------------------------
+# compacted sort group-by (the DISTINCT aggregate's building block)
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("live", (0.0, 0.01, 0.5, 1.0))
+def test_stable_partition_matches_reference_compact_order(live):
+    from quickstep_tpu.ops import kernels as JK
+    from quickstep_tpu_torch.ops import kernels as TK
+    mask = np.random.default_rng(19).random(3001) < live
+    got = TK.stable_partition(_t(mask))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(JK.compact_order(_j(mask))))
+    _check(got, TK.compact_order(_t(mask)), 0.0)
+
+
+@pytest.mark.parametrize("layout", ("packed", "multikey"))
+@pytest.mark.parametrize("mode", ("no_nulls", "nulls", "all_dead", "empty"))
+@pytest.mark.parametrize("dtype", (np.int64, np.float64),
+                         ids=lambda d: np.dtype(d).name)
+def test_sort_groupby_compact_matches_reference(dtype, mode, layout):
+    """Rows [0, n_groups) hold the groups in key order: keys, key validity
+    and every aggregate against the reference's, with _sort_tols'
+    tolerances."""
+    vals, valid, alive = _inputs(dtype, mode)
+    k1, k2, k2_valid = _group_keys(len(vals))
+    packed = None
+    if layout == "packed":
+        packed = k1.astype(np.int64) * 8 + np.where(k2_valid, k2 + 3, 7)
+    specs = [(fn, vals, valid) for fn in FNS
+             if not (mode == "empty" and fn in ("min", "max"))]
+    got = TG.sort_groupby_compact(
+        [_t(k1), _t(k2)], [None, _t(k2_valid)],
+        [(f, _t(v), _t(vv)) for f, v, vv in specs], _t(alive), _t(packed))
+    want = JG.sort_groupby_compact(
+        [_j(k1), _j(k2)], [None, _j(k2_valid)],
+        [(f, _j(v), _j(vv)) for f, v, vv in specs], _j(alive), _j(packed))
+    n = int(want[2])
+    assert int(got[2]) == n
+    if mode in ("no_nulls", "nulls"):
+        assert n > 20
+    for g, w in zip(got[0], want[0]):
+        np.testing.assert_array_equal(g.numpy()[:n], np.asarray(w)[:n])
+    assert got[1][0] is None and want[1][0] is None
+    np.testing.assert_array_equal(got[1][1].numpy()[:n],
+                                  np.asarray(want[1][1])[:n])
+    live = alive & (True if valid is None else valid)
+    for (fn, _v, _vv), (gd, gn), (wd, wn) in zip(specs, got[3], want[3]):
+        np.testing.assert_array_equal(gn.numpy()[:n], np.asarray(wn)[:n])
+        rtol, atol = _sort_tols(fn, dtype, vals, live)
+        np.testing.assert_allclose(gd.numpy()[:n], np.asarray(wd)[:n],
+                                   rtol=rtol, atol=atol)
+    plain = TG.sort_groupby_compact_plain(
+        [_t(k1), _t(k2)], [None, _t(k2_valid)],
+        [(f, _t(v), _t(vv)) for f, v, vv in specs], _t(alive), _t(packed))
+    for g, p in zip(got[0] + [got[2]] + [t for r in got[3] for t in r],
+                    plain[0] + [plain[2]] + [t for r in plain[3] for t in r]):
+        _check(g, p.numpy(), 0.0)

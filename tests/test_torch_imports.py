@@ -44,6 +44,11 @@ JOINS_WITHOUT_JAX = textwrap.dedent("""
     for q in (3, 4, 5, 10):
         rows = db.execute(TPCH_QUERIES[q]).rows
         assert rows and db.executor.host_syncs == 1, (q, rows)
+    # the expansion join, run statistics, DISTINCT, WITH and subqueries
+    for q in (9, 11, 15, 16, 18, 20, 21, 22):
+        db.execute(TPCH_QUERIES[q])
+        db.execute(TPCH_QUERIES[q])
+        assert db.executor.host_syncs == 1, q
     db.close()
     bad = [m for m, mod in sys.modules.items() if mod is not None and (
            m == "jax" or m.startswith("jax.")

@@ -1,10 +1,11 @@
 """The port's join building blocks against quickstep_tpu's.
 
 The plain torch versions (the CPU path of the direct-address table, the
-exact filter, the sorted-build unique probe and the many-column gather) are
-held against the JAX functions on the same seeded numpy inputs, and the
-lazy gather maps (RowIds chains) against direct gathers and the reference's
-chains. Everything compared here is integer or bool, or a gathered copy of
+exact filter, the sorted-build unique probe, the expansion probe, the
+run-statistics probes and the many-column gather) are held against the JAX
+functions on the same seeded numpy inputs, and the lazy gather maps
+(RowIds chains, the expansion's repeated maps) against direct gathers and
+the reference's chains. Everything compared here is integer or bool, or a gathered copy of
 a value, so every comparison is exact. The CUDA kernels are held against
 these plain versions in test_torch_kernels_cuda.py.
 """
@@ -267,3 +268,132 @@ def test_take_columns_composes_with_pending_maps():
     np.testing.assert_array_equal(db.numpy(), b[eff])
     np.testing.assert_array_equal(va.numpy(), ok)
     np.testing.assert_array_equal(vb.numpy(), ok & b_valid[eff])
+
+
+def _runs_build(seed=31, n_keys=300, case="runs"):
+    """Packed build keys in runs of 1-6 equal keys (one run of 11), shuffled,
+    ~15% dead; int32 values. case == "all_dead" kills every row."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 7, n_keys)
+    lens[17] = 11
+    key = np.repeat(np.arange(n_keys, dtype=np.int64) * 1_000_003 + 5, lens)
+    perm = rng.permutation(len(key))
+    key = key[perm]
+    alive = rng.random(len(key)) < (0.0 if case == "all_dead" else 0.85)
+    val = rng.integers(-8, 8, len(key)).astype(np.int32)
+    return key, alive, val
+
+
+def _runs_probe(seed=32, n=3000, n_keys=300):
+    """Probe keys over the build's keys and 20% more (empty runs), ~20%
+    dead; int32 values."""
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, n_keys * 6 // 5, n).astype(np.int64) * 1_000_003 + 5
+    alive = rng.random(n) < 0.8
+    val = rng.integers(-9, 9, n).astype(np.int32)
+    return key, alive, val
+
+
+@pytest.mark.parametrize("k", (1, 4, 11, 16))
+@pytest.mark.parametrize("case", ("runs", "all_dead"))
+def test_expand_probe_matches_reference(case, k):
+    """Rows (row-major, -1 pads) and run lengths exactly; the overflow flag
+    is the runner's `any(counts > K)`. Dead probe rows count 0; probe keys
+    with no build row (empty runs) count 0."""
+    bkey, bmask, _ = _runs_build(case=case)
+    pkey, pmask, _ = _runs_probe()
+    t_sorted, t_order = TJ.sorted_build(_t(bkey), _t(bmask))
+    j_sorted, j_order = JJ.sorted_build(_j(bkey), _j(bmask))
+    rows, counts, overflow = TJ.expand_probe(t_sorted, t_order, _t(pkey),
+                                             _t(pmask), k)
+    j_rows, j_counts = JJ.expand_probe(j_sorted, j_order, _j(pkey),
+                                       _j(pmask), k)
+    _eq(rows, j_rows)
+    _eq(counts, j_counts)
+    assert bool(overflow) == bool(np.any(np.asarray(j_counts) > k))
+    if case == "runs":
+        assert bool(overflow) == (k < 11)
+        c = counts.numpy()
+        assert (c[~pmask] == 0).all() and (c == 0).sum() > 100
+        assert 0 < int((c > 0).sum()) < len(pkey)
+    else:
+        assert not counts.any() and (rows == -1).all()
+
+
+def test_expand_probe_empty_build():
+    pkey, pmask, _ = _runs_probe()
+    sorted_key, order = TJ.sorted_build(_t(np.zeros(0, np.int64)),
+                                        _t(np.zeros(0, bool)))
+    rows, counts, overflow = TJ.expand_probe(sorted_key, order, _t(pkey),
+                                             _t(pmask), 3)
+    assert rows.shape == (3 * len(pkey),) and (rows == -1).all()
+    assert not counts.any() and not bool(overflow)
+
+
+@pytest.mark.parametrize("case", ("runs", "all_dead"))
+def test_merge_stats_probe_matches_reference(case):
+    bkey, bmask, bval = _runs_build(case=case)
+    pkey, pmask, _ = _runs_probe()
+    got = TJ.merge_stats_probe(_t(bkey), _t(bmask), _t(bval), _t(pkey),
+                               _t(pmask))
+    want = JJ.merge_stats_probe(_j(bkey), _j(bmask), _j(bval), _j(pkey),
+                                _j(pmask))
+    for g, w in zip(got, want):
+        _eq(g, w)
+    if case == "runs":
+        assert 100 < int(got[0].sum()) < len(pkey)
+
+
+@pytest.mark.parametrize("op", ("<>", "<", "<=", ">", ">="))
+@pytest.mark.parametrize("case", ("runs", "all_dead"))
+def test_merge_cmp_probe_matches_reference(case, op):
+    bkey, bmask, bval = _runs_build(case=case)
+    pkey, pmask, pval = _runs_probe()
+    got = TJ.merge_cmp_probe(_t(bkey), _t(bmask), _t(bval), _t(pkey),
+                             _t(pmask), _t(pval), op)
+    want = JJ.merge_cmp_probe(_j(bkey), _j(bmask), _j(bval), _j(pkey),
+                              _j(pmask), _j(pval), op)
+    _eq(got, want)
+    if case == "runs":
+        assert 50 < int(got.sum()) < len(pkey)
+    else:
+        assert not got.any()
+
+
+def test_repeat_slots_matches_reference():
+    """The expansion's k-fold repeat of a chunk: a materialized column and a
+    chained lazy one, against the reference's repeat and direct gathers."""
+    rng = np.random.default_rng(25)
+    (a, b, b_valid, c), (idx1, ok1), idx2 = _two_level_chain(rng)
+    base = TC.Chunk(attrs=[], slots={1: (_t(a), None),
+                                     2: (_t(b), _t(b_valid))},
+                    alive=torch.ones(len(a), dtype=torch.bool),
+                    capacity=len(a))
+    level1 = TC.Chunk(attrs=[], slots=TC.compose_slots(base, _t(idx1),
+                                                       _t(ok1)),
+                      alive=torch.ones(len(idx1), dtype=torch.bool),
+                      capacity=len(idx1))
+    level2 = TC.Chunk(attrs=[], slots={**TC.compose_slots(level1, _t(idx2),
+                                                          None),
+                                       3: (_t(c[:len(idx2)]), None)},
+                      alive=torch.ones(len(idx2), dtype=torch.bool),
+                      capacity=len(idx2))
+    k = 3
+    rep = TC.Chunk(attrs=[], slots=TC.repeat_slots(level2, k),
+                   alive=torch.ones(k * len(idx2), dtype=torch.bool),
+                   capacity=k * len(idx2))
+    j_chunk = JC.Chunk(attrs=[], slots={3: (_j(c[:len(idx2)]), None)},
+                       alive=_j(np.ones(len(idx2), bool)),
+                       capacity=len(idx2))
+    j_rep = JC.repeat_slots(j_chunk, k)
+    np.testing.assert_array_equal(rep.slots[3].rid.idx.numpy(),
+                                  np.asarray(j_rep[3].rid.idx))
+    rep.ensure([1, 2, 3])
+    eff = np.repeat(idx1[idx2], k)
+    ok = np.repeat(ok1[idx2], k)
+    np.testing.assert_array_equal(rep.slots[1][0].numpy(), a[eff])
+    np.testing.assert_array_equal(rep.slots[1][1].numpy(), ok)
+    np.testing.assert_array_equal(rep.slots[2][0].numpy(), b[eff])
+    np.testing.assert_array_equal(rep.slots[2][1].numpy(), ok & b_valid[eff])
+    np.testing.assert_array_equal(rep.slots[3][0].numpy(),
+                                  np.repeat(c[:len(idx2)], k))

@@ -368,3 +368,126 @@ def test_join_public_functions_take_plain_versions_on_cpu():
     TG.sort_groupby([k1, k2], [None, k2_valid], [("max", k2, None)], alive)
     TK.multi_gather([k1, None, k2], pkey.clamp(0, len(k1) - 1))
     assert not any(TC.LAUNCHES.values()), TC.LAUNCHES
+
+
+# ---------------------------------------------------------------------
+# K7 expansion probe, K8 run statistics, K9 stable partition
+# ---------------------------------------------------------------------
+
+def _expand_inputs(device, n_keys=5_003, per_key=4, n_probe=100_003, seed=41):
+    """A partsupp-like build: per_key rows of each key (one key repeated
+    more often), shuffled, ~10% dead; probe keys over a wider range, ~20%
+    dead."""
+    rng = np.random.default_rng(seed)
+    bkey = np.repeat(np.arange(1, n_keys + 1), per_key)
+    bkey = np.concatenate([bkey, np.full(9, 17)])
+    bkey = rng.permutation(bkey) * 1_000_003
+    balive = rng.random(len(bkey)) < 0.9
+    pkey = rng.integers(0, n_keys + 200, n_probe) * 1_000_003
+    palive = rng.random(n_probe) < 0.8
+    return [torch.from_numpy(a).to(device)
+            for a in (bkey, balive, pkey, palive)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", (1, 4, 16))
+def test_expand_probe_kernel_matches_plain(card, k):
+    bkey, balive, pkey, palive = _expand_inputs(card)
+    sorted_key, order = TJ.sorted_build(bkey, balive)
+    got = TJ.expand_probe(sorted_key, order, pkey, palive, k)
+    want = TJ.expand_probe_plain(sorted_key, order, pkey, palive, k)
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+    # key 17 has 13 rows, so every width below 13 overflows
+    assert bool(got[2]) == (k < 13) and int((got[1] > 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ("<>", "<", "<=", ">", ">=", "stats"))
+def test_run_stats_probe_kernel_matches_plain(card, op):
+    bkey, balive, pkey, palive = _expand_inputs(card, per_key=7)
+    rng = np.random.default_rng(43)
+    bval = torch.from_numpy(rng.integers(-5, 5, len(bkey)).astype(np.int32))
+    pval = torch.from_numpy(rng.integers(-6, 6, len(pkey)).astype(np.int32))
+    bval, pval = bval.to(card), pval.to(card)
+    if op == "stats":
+        got = TJ.merge_stats_probe(bkey, balive, bval, pkey, palive)
+        want = TJ.merge_stats_probe_plain(bkey, balive, bval, pkey, palive)
+    else:
+        got = (TJ.merge_cmp_probe(bkey, balive, bval, pkey, palive, pval,
+                                  op),)
+        want = (TJ.merge_cmp_probe_plain(bkey, balive, bval, pkey, palive,
+                                         pval, op),)
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+    assert 0 < int(got[0].sum()) < len(pkey)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (0, 1, 4095, 4096, 100_003))
+@pytest.mark.parametrize("live", (0.0, 0.01, 0.5, 1.0))
+def test_stable_partition_kernel_matches_plain(card, n, live):
+    rng = np.random.default_rng(47)
+    mask = torch.from_numpy(rng.random(n) < live).to(card)
+    _same(TK.stable_partition(mask), TK.compact_order(mask), 0.0)
+
+
+@pytest.mark.cuda
+def test_sort_groupby_compact_kernel_matches_plain(card):
+    vals, valid, alive, _ = _inputs(torch.int64, "nulls", card)
+    k1, k2, k2_valid, _ = _group_inputs(card)
+    specs = [(fn, vals, valid) for fn in FNS]
+    got = TG.sort_groupby_compact([k1, k2], [None, k2_valid], specs, alive)
+    want = TG.sort_groupby_compact_plain([k1, k2], [None, k2_valid], specs,
+                                         alive)
+    _same(got[2], want[2], 0.0)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert (g is None) == (w is None)
+        if w is not None:
+            _same(g, w, 0.0)
+    for (gd, gn), (wd, wn) in zip(got[3], want[3]):
+        _same(gd, wd, 0.0)
+        _same(gn, wn, 0.0)
+
+
+@pytest.mark.cuda
+def test_new_kernel_launches_are_counted(card):
+    bkey, balive, pkey, palive = _expand_inputs(card)
+    val = (bkey % 7).to(torch.int32)
+    pval = (pkey % 5).to(torch.int32)
+    sorted_key, order = TJ.sorted_build(bkey, balive)
+    TC.reset_launches()
+    TJ.expand_probe(sorted_key, order, pkey, palive, 4)
+    TJ.merge_cmp_probe(bkey, balive, val, pkey, palive, pval, "<>")
+    TJ.merge_stats_probe(bkey, balive, val, pkey, palive)
+    TK.stable_partition(palive)
+    TJ.expand_probe_plain(sorted_key, order, pkey, palive, 4)
+    TK.compact_order(palive)
+    assert TC.LAUNCHES == dict(dict.fromkeys(TC.LAUNCHES, 0), expand_probe=1,
+                               merge_cmp_probe=2, sort_groupby_compact=1)
+
+
+def test_new_wrappers_reject_cpu_tensors():
+    key = torch.arange(4, dtype=torch.int64)
+    alive = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.expand_probe(key, key, key, alive, 2)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.run_stats_probe(key, key, key.int(), key, alive, key.int(), "<>")
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.stable_partition(alive)
+
+
+def test_new_public_functions_take_plain_versions_on_cpu():
+    bkey, balive, pkey, palive = _expand_inputs("cpu", n_probe=1000)
+    val = (bkey % 7).to(torch.int32)
+    pval = (pkey % 5).to(torch.int32)
+    k1, k2, k2_valid, alive = _group_inputs("cpu", n=1000)
+    sorted_key, order = TJ.sorted_build(bkey, balive)
+    TC.reset_launches()
+    TJ.expand_probe(sorted_key, order, pkey, palive, 4)
+    TJ.merge_cmp_probe(bkey, balive, val, pkey, palive, pval, "<")
+    TJ.merge_stats_probe(bkey, balive, val, pkey, palive)
+    TK.stable_partition(palive)
+    TG.sort_groupby_compact([k1], [None], [("sum", k2, k2_valid)], alive)
+    assert not any(TC.LAUNCHES.values()), TC.LAUNCHES

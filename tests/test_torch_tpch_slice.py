@@ -1,12 +1,14 @@
-"""The scan / filter / aggregate / join slices of the port, end to end on
-the CPU: the TPC-H queries the port runs (Q1, Q6, the join queries Q3, Q4,
-Q5, Q10 and Q2, Q7, Q8, Q12, Q13, Q14, Q17, Q19), single-table lineitem
-queries and join shapes through quickstep_tpu_torch.Database against
-quickstep_tpu.Database and sqlite on the same SF0.01 data, the retry after a
-compaction under-estimate, the catalog-store carrier, and the errors of what
-is not ported yet."""
+"""The port end to end on the CPU: all 22 TPC-H queries (and a Q20 whose
+p_name prefix has rows at this scale), single-table lineitem queries and
+join and aggregate shapes through quickstep_tpu_torch.Database against
+quickstep_tpu.Database and sqlite on the same SF0.01 data, with the path
+each new shape must take; the retries after a compaction under-estimate and
+a duplicate build key; the full generator's Q9, Q16 and Q21 oracles against
+sqlite; the catalog-store carrier; and the errors of what is not ported
+yet."""
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -19,6 +21,8 @@ from quickstep_tpu.bench.tpch import (
 from quickstep_tpu_torch import Database, from_store
 from quickstep_tpu_torch.bench.tpch import load_tpch as port_load_tpch
 from quickstep_tpu_torch.errors import ExecutionError
+from quickstep_tpu_torch.ops import groupby as TG
+from quickstep_tpu_torch.ops import join as TJ
 from test_tpch import _row_eq
 
 SCALE = 0.01
@@ -81,7 +85,79 @@ JOIN_SHAPES = {
           and l_suppkey = s_suppkey and c_nationkey = s_nationkey
           and s_nationkey = n_nationkey and o_orderdate < date '1994-01-01'
         group by n_name order by n_name""",
+    "inner_expand_many_to_many": """
+        select l_returnflag, count(*), sum(ps_supplycost * l_quantity)
+        from lineitem, partsupp
+        where ps_partkey = l_partkey and l_shipdate < date '1993-01-01'
+        group by l_returnflag order by l_returnflag""",
+    "left_expand_residual": """
+        select c_mktsegment, count(o_orderkey), count(*), sum(o_totalprice)
+        from customer left join orders
+            on c_custkey = o_custkey and o_totalprice > 200000
+        group by c_mktsegment order by c_mktsegment""",
+    "semi_residual_run_stats": """
+        select count(*), sum(l_quantity) from lineitem l1 where exists (
+            select * from lineitem l2 where l2.l_orderkey = l1.l_orderkey
+              and l2.l_suppkey <> l1.l_suppkey)""",
+    "anti_residual_run_stats": """
+        select count(*) from lineitem l1 where not exists (
+            select * from lineitem l2 where l2.l_orderkey = l1.l_orderkey
+              and l2.l_linenumber < l1.l_linenumber)""",
+    "semi_residual_run_stats_wide": """
+        select count(*) from lineitem l1 where exists (
+            select * from lineitem l2 where l2.l_orderkey = l1.l_orderkey
+              and l2.l_extendedprice * 1.5 < l1.l_extendedprice)""",
+    "semi_residual_expand": """
+        select count(*) from lineitem l1 where exists (
+            select * from lineitem l2 where l2.l_orderkey = l1.l_orderkey
+              and l2.l_suppkey + l1.l_suppkey > 150)""",
+    "anti_residual_expand": """
+        select count(*) from orders where not exists (
+            select * from lineitem where l_orderkey = o_orderkey
+              and (l_quantity > 45 or l_discount * 100 > o_totalprice / 1000))""",
+    "distinct_with_plain_aggregates": """
+        select l_returnflag, count(distinct l_suppkey), sum(l_quantity),
+               count(distinct l_partkey), max(l_tax)
+        from lineitem group by l_returnflag order by l_returnflag""",
+    "distinct_sum_and_count": """
+        select o_orderpriority, sum(distinct o_shippriority),
+               count(distinct o_custkey)
+        from orders group by o_orderpriority order by o_orderpriority""",
+    "scalar_subquery_in_select_list": """
+        select n_name, (select count(*) from region) from nation
+        where n_regionkey = 1 order by n_name""",
+    "with_clause_read_twice": """
+        with big as (select o_custkey, sum(o_totalprice) as t
+                     from orders group by o_custkey)
+        select count(*), max(t) from big where t > (select avg(t) from big)""",
 }
+
+# The join or aggregate function each new shape must reach (through the
+# ops module, so on the card its kernel), and those it must not.
+SHAPE_PATHS = {
+    "inner_expand_many_to_many": ((TJ, "expand_probe"), ()),
+    "left_expand_residual": ((TJ, "expand_probe"), ()),
+    "semi_residual_run_stats": ((TJ, "merge_cmp_probe"),
+                                ((TJ, "expand_probe"),)),
+    "anti_residual_run_stats": ((TJ, "merge_cmp_probe"),
+                                ((TJ, "expand_probe"),)),
+    # float values: per-group min/max by the sort group-by and a unique probe
+    "semi_residual_run_stats_wide": ((TJ, "merge_unique_probe"),
+                                     ((TJ, "merge_cmp_probe"),
+                                      (TJ, "expand_probe"))),
+    # residuals that are not one comparison: the expansion join
+    "semi_residual_expand": ((TJ, "expand_probe"),
+                             ((TJ, "merge_cmp_probe"),)),
+    "anti_residual_expand": ((TJ, "expand_probe"),
+                             ((TJ, "merge_cmp_probe"),)),
+    "distinct_with_plain_aggregates": ((TG, "sort_groupby_compact"), ()),
+    "distinct_sum_and_count": ((TG, "sort_groupby_compact"), ()),
+}
+
+# Queries whose cold run retries once: Q9's composite-key expansion starts
+# at K = 8 without statistics for the pair and overflows (the reference
+# does the same); the warm run takes the learned width in one pass.
+COLD_RETRY = {9}
 
 
 @pytest.fixture(scope="module")
@@ -107,12 +183,17 @@ def _assert_rows(ours, want, what):
 
 
 @pytest.mark.parametrize("qnum", [1, 6, 3, 4, 5, 10, 2, 7, 8, 12, 13, 14, 17,
-                                  19])
+                                  19, 9, 11, 15, 16, 18, 20, 21, 22])
 def test_tpch_query_matches_reference_and_sqlite(engines, qnum):
     jdb, tdb, conn = engines
     sql = with_tiebreak(qnum, TPCH_QUERIES[qnum])
+    tdb.executor._learned_overrides.clear()
     ours = tdb.execute(sql).rows
-    assert ours, f"Q{qnum} returned no rows"
+    if qnum in COLD_RETRY:
+        assert tdb.executor.retries == 1 and tdb.executor.host_syncs == 2
+        assert tdb.execute(sql).rows == ours
+    # the spec's Q20 has no rows at SF0.01; test_q20_with_rows has
+    assert ours or qnum == 20, f"Q{qnum} returned no rows"
     _assert_rows(ours, jdb.execute(sql).rows, f"Q{qnum} vs quickstep_tpu")
     oracle_sql = with_tiebreak(qnum, ORACLE_OVERRIDES.get(qnum,
                                                           TPCH_QUERIES[qnum]))
@@ -120,6 +201,20 @@ def test_tpch_query_matches_reference_and_sqlite(engines, qnum):
                  f"Q{qnum} vs sqlite")
     assert tdb.executor.host_syncs == 1
     assert tdb.executor.retries == 0
+
+
+@pytest.mark.parametrize("prefix", ["green", "lime"])
+def test_q20_with_rows_matches_reference_and_sqlite(engines, prefix):
+    """Q20 with a p_name prefix that selects parts whose suppliers qualify
+    at SF0.01 (the spec's 'forest' selects none there)."""
+    jdb, tdb, conn = engines
+    sql = TPCH_QUERIES[20].replace("'forest%'", f"'{prefix}%'")
+    ours = tdb.execute(sql).rows
+    assert ours, f"Q20 ({prefix}%) returned no rows"
+    assert tdb.executor.host_syncs == 1 and tdb.executor.retries == 0
+    _assert_rows(ours, jdb.execute(sql).rows, "Q20 vs quickstep_tpu")
+    _assert_rows(ours, conn.execute(to_sqlite_sql(sql)).fetchall(),
+                 "Q20 vs sqlite")
 
 
 @pytest.mark.parametrize("name", sorted(JOIN_SHAPES))
@@ -132,6 +227,23 @@ def test_join_shape_matches_reference_and_sqlite(engines, name):
     _assert_rows(ours, conn.execute(to_sqlite_sql(sql)).fetchall(),
                  f"{name} vs sqlite")
     assert tdb.executor.host_syncs == 1
+
+
+@pytest.mark.parametrize("name", sorted(SHAPE_PATHS))
+def test_join_shape_takes_its_path(engines, name, monkeypatch):
+    _jdb, tdb, _conn = engines
+    (mod, must), never = SHAPE_PATHS[name]
+    calls = []
+    for m, fn in ((mod, must),) + never:
+        real = getattr(m, fn)
+
+        def spy(*args, _fn=fn, _real=real, **kwargs):
+            calls.append(_fn)
+            return _real(*args, **kwargs)
+        monkeypatch.setattr(m, fn, spy)
+    tdb.execute(JOIN_SHAPES[name])
+    assert must in calls, (name, calls)
+    assert not any(fn in calls for _m, fn in never), (name, calls)
 
 
 def test_compaction_under_estimate_retries_once(engines):
@@ -161,15 +273,23 @@ def test_compaction_under_estimate_retries_once(engines):
 def test_duplicate_build_keys_ask_for_the_expansion_join(engines,
                                                          monkeypatch):
     """Without the exact filter, Q4's EXISTS is a semi join on lineitem's
-    repeating l_orderkey through the unique path: its dup flag fires, and
-    the retry asks for the expansion join, which raises rather than return
-    wrong rows."""
-    _jdb, tdb, _conn = engines
+    repeating l_orderkey through the unique path: its dup flag fires, the
+    retry takes the expansion join and returns the right rows, and the next
+    run takes it in one pass."""
+    _jdb, tdb, conn = engines
     monkeypatch.setattr(tdb.config, "use_filter_joins", False)
     monkeypatch.setattr(tdb.executor, "_learned_overrides", {})
-    with pytest.raises(ExecutionError, match="expansion join"):
-        tdb.execute(TPCH_QUERIES[4])
-    assert tdb.executor.retries == 1
+    calls = []
+    real = TJ.expand_probe
+    monkeypatch.setattr(TJ, "expand_probe",
+                        lambda *a: calls.append(1) or real(*a))
+    want = conn.execute(to_sqlite_sql(TPCH_QUERIES[4])).fetchall()
+    _assert_rows(tdb.execute(TPCH_QUERIES[4]).rows, want, "Q4 retried")
+    assert tdb.executor.retries == 1 and tdb.executor.host_syncs == 2
+    assert calls == [1]
+    _assert_rows(tdb.execute(TPCH_QUERIES[4]).rows, want, "Q4 again")
+    assert tdb.executor.retries == 0 and tdb.executor.host_syncs == 1
+    assert calls == [1, 1]
 
 
 @pytest.mark.parametrize("direction", ["asc", "desc"])
@@ -214,16 +334,58 @@ def test_from_store_reads_reference_store(engines, tmp_path):
         db.close()
 
 
-@pytest.mark.parametrize("qnum, what", [
-    (9, "expansion join"),
-    (21, "_semi_stats_join"),
-    (18, "SharedSubplan"),
-])
-def test_join_query_is_not_ported(engines, qnum, what):
+@pytest.mark.parametrize("sql, what", [
+    ("select count(*) from nation full outer join region"
+     " on n_regionkey = r_regionkey", "full outer join"),
+    ("select count(*) from nation, region", "cross join"),
+    ("select n_name, sum(n_regionkey) over (partition by n_regionkey)"
+     " from nation", "operator"),
+    ("select count(distinct l_suppkey) from lineitem",
+     "scalar DISTINCT aggregate"),
+], ids=["full_outer_join", "cross_join", "window_function",
+        "scalar_count_distinct"])
+def test_join_query_is_not_ported(engines, sql, what):
     _jdb, tdb, _conn = engines
     with pytest.raises(ExecutionError, match="not yet ported") as err:
-        tdb.execute(TPCH_QUERIES[qnum])
+        tdb.execute(sql)
     assert what in str(err.value)
+
+
+@pytest.fixture(scope="module")
+def fullgen_small():
+    """The full generator's tables at SF0.01 in the port and in sqlite, with
+    its oracle."""
+    from quickstep_tpu_torch.bench.tpch import load_sqlite as port_sqlite
+    from quickstep_tpu_torch.bench.tpch_fullgen import (
+        extra_oracles, generate, load_tables)
+    tables, stats, oracle = generate(SCALE, log=lambda msg: None)
+    conn = port_sqlite({n: t.table_data() for n, t in tables.items()})
+    conn.execute("create index l_orderkey_idx on lineitem(l_orderkey)")
+    db = Database(device="cpu")
+    load_tables(db, tables, stats)
+    oracle.update(extra_oracles(tables))
+    yield db, conn, oracle
+    db.close()
+
+
+@pytest.mark.parametrize("qnum", [9, 16, 21])
+def test_full_generator_oracle_matches_sqlite_and_port(fullgen_small, qnum):
+    """The exact Q9, Q16 and Q21 oracles against sqlite on the same tables
+    (sqlite sums DECIMALs as doubles: rel 1e-9) and the port's rows against
+    the oracle at its own tolerance (check_rows)."""
+    from quickstep_tpu_torch.bench.tpch_fullgen import check_rows
+    db, conn, oracle = fullgen_small
+    want = oracle[f"q{qnum}"]
+    assert want, f"Q{qnum}'s oracle is empty"
+    sql = with_tiebreak(qnum, TPCH_QUERIES[qnum])
+    got = conn.execute(to_sqlite_sql(sql)).fetchall()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for x, y in zip(g, w):
+            assert (math.isclose(x, y, rel_tol=1e-9, abs_tol=0.0)
+                    if isinstance(y, float) else x == y), (g, w)
+    check_rows(qnum, db.execute(sql).rows, oracle)
 
 
 @pytest.mark.parametrize("kwargs, error", [
