@@ -3,8 +3,10 @@ holds each against its plain torch version at SF10 shapes, checks all 22
 TPC-H queries (and a Q20 variant that returns rows) at SF0.01 against
 sqlite, and runs Q1, Q6, Q3, Q4, Q5, Q10, Q7, Q12, Q14, Q19, Q9, Q16, Q18
 and Q21 at SF10 with all 8 tables generated in the process and resident on
-the card, against the generator's exact oracle, and then Q9 once more after
-partsupp is reloaded without statistics, which takes the expansion join.
+the card, against the generator's exact oracle, then Q9 once more after
+partsupp is reloaded without statistics, which takes the expansion join,
+and the six window queries of bench/tpch_fullgen.py (W-Q1 to W-Q6) on the
+same resident tables against their exact oracles.
 
     python3 chip_smoke.py
 
@@ -64,6 +66,18 @@ LARGE_QUERIES = {
 # longer be proven unique, and the join expands
 STALE_PARTSUPP_Q9 = ("direct_join", "expand_probe", "sort_groupby",
                      "multi_gather")
+# SF10 window queries (bench/tpch_fullgen.py WINDOW_QUERIES) and the window
+# kernels each must launch
+WINDOW_RUNS = {
+    "w1": ("window_prefix",),
+    "w2": ("window_prefix",),
+    "w3": ("window_prefix",),
+    "w4": ("frame_bounds", "sliding_sum"),
+    "w5": ("frame_bounds", "frame_minmax"),
+    "w6": ("frame_bounds", "frame_minmax"),
+}
+N_SUPPLIERS = 100_000           # W-Q1's and W-Q5's partitions at SF10
+N_WINDOW_ONE_SEGMENT = 15_000_000   # W-Q3's single segment (orders)
 KERNELS = {   # name: (source, the reference function it replaces)
     "scalar_agg": ("quickstep_tpu_torch/csrc/agg_kernels.cu",
                    "quickstep_tpu/ops/groupby.py:435"),
@@ -83,6 +97,14 @@ KERNELS = {   # name: (source, the reference function it replaces)
                         "quickstep_tpu/ops/join.py:317"),
     "sort_groupby_compact": ("quickstep_tpu_torch/csrc/compact_kernels.cu",
                              "quickstep_tpu/ops/groupby.py:405"),
+    "window_prefix": ("quickstep_tpu_torch/csrc/window_kernels.cu",
+                      "quickstep_tpu/ops/window.py:75"),
+    "frame_minmax": ("quickstep_tpu_torch/csrc/window_kernels.cu",
+                     "quickstep_tpu/ops/window.py:50"),
+    "frame_bounds": ("quickstep_tpu_torch/csrc/window_kernels.cu",
+                     "quickstep_tpu/ops/window.py:30"),
+    "sliding_sum": ("quickstep_tpu_torch/csrc/window_kernels.cu",
+                    "quickstep_tpu/ops/window.py:273"),
 }
 
 
@@ -98,12 +120,12 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn) -> float:
-    """Median device time of fn over REPS runs, by CUDA events."""
+def cuda_ms(fn, reps=REPS) -> float:
+    """Median device time of fn over reps runs, by CUDA events."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -114,19 +136,26 @@ def cuda_ms(fn) -> float:
     return statistics.median(times)
 
 
-def compare(name, got, want):
-    """Max abs error of got vs want; raises beyond the dtype's tolerance
-    (integers and bools exactly)."""
+def compare(name, got, want, atol=None):
+    """Max abs error of got vs want; raises beyond the tolerance: integers
+    and bools exactly, floats within the dtype's relative tolerance, or
+    within atol where given (atol 0: bit for bit)."""
     worst = 0.0
     for g, w in zip(got, want):
-        if g.dtype != w.dtype or g.shape != w.shape:
+        if g is None and w is None:
+            continue
+        if g is None or w is None or g.dtype != w.dtype or g.shape != w.shape:
             raise AssertionError(f"{name}: {g.dtype}{tuple(g.shape)} vs "
                                  f"{w.dtype}{tuple(w.shape)}")
         g64 = g.double().cpu()
         w64 = w.double().cpu()
         err = (g64 - w64).abs()
         worst = max(worst, float(err.max()) if err.numel() else 0.0)
-        if g.dtype in REL_TOL:
+        if atol == 0:
+            ok = torch.equal(g.cpu(), w.cpu())
+        elif atol is not None and g.dtype.is_floating_point:
+            ok = torch.all(err <= atol)
+        elif g.dtype in REL_TOL:
             ok = torch.all(err <= REL_TOL[g.dtype] * w64.abs())
         else:
             ok = torch.equal(g.cpu(), w.cpu())
@@ -162,10 +191,10 @@ def phase_kernels(G):
     rows = []
 
     def case(kernel, label, k_fn, p_fn, main=False, inputs=(),
-             library=None):
+             library=None, atol=None):
         got, want = k_fn(), p_fn()
         torch.cuda.synchronize()
-        err = compare(f"{kernel} {label}", got, want)
+        err = compare(f"{kernel} {label}", got, want, atol)
         ms, plain_ms = cuda_ms(k_fn), cuda_ms(p_fn)
         row = {"kernel": kernel, "case": label, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "main": main}
@@ -401,6 +430,140 @@ def phase_new_kernels(case, rng, dev):
                                                    alive, packed_key=gkey)))
     del gkey, alive, specs
     torch.cuda.empty_cache()
+    phase_window_kernels(case, dev)
+
+
+def _sorted_segments(n, n_segments, dev, gen):
+    """Flags of n sorted rows in ~n_segments random segments: (segment
+    start, the segment id of each row)."""
+    seg_id, _ = torch.sort(torch.randint(0, n_segments, (n,), device=dev,
+                                         generator=gen))
+    start = torch.ones(n, dtype=torch.bool, device=dev)
+    start[1:] = seg_id[1:] != seg_id[:-1]
+    return start, seg_id
+
+
+def phase_window_kernels(case, dev):
+    """W1-W4 against their plain versions at the SF10 window queries'
+    shapes: N_KERNEL_ROWS lineitem-like rows in N_SUPPLIERS partitions
+    (W-Q1, W-Q5), in N_PARTS partitions of ~30 rows (W-Q4) and in
+    N_SEGMENTS orders of 1-7 lines (W-Q2, W-Q6), and W-Q3's single segment
+    of N_WINDOW_ONE_SEGMENT orders. Float sums of W1 are held within 32 eps
+    x the sum of the values' magnitudes (the plain version takes
+    differences of a whole-array torch.cumsum, which on the card is not
+    deterministic and has measured up to 7 eps x that sum from the exact
+    prefix); W2, W3 and W4 bit for bit."""
+    from quickstep_tpu_torch.ops import window as W
+    n = N_KERNEL_ROWS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    price = torch.randint(90_000, 10_500_000, (n,), device=dev,
+                          generator=gen).double() / 100
+    live = torch.rand(n, device=dev, generator=gen) < 0.9
+
+    def contrib(v, fn="sum", lv=None):
+        lv = live[:len(v)] if lv is None else lv
+        return W._sentinel_fill(fn, v, lv) if fn in ("min", "max") else \
+            torch.where(lv, v, torch.zeros((), dtype=v.dtype, device=dev))
+
+    def w1_atol(v, lv=None):
+        return 32 * torch.finfo(v.dtype).eps * float(
+            contrib(v, lv=lv).abs().sum())
+
+    # W-Q1: whole-partition sums over the suppliers' partitions
+    seg, seg_id = _sorted_segments(n, N_SUPPLIERS, dev, gen)
+    c = contrib(price)
+    case("window_prefix", "sum f64, 60M rows, 100K partitions",
+         lambda: W.segmented_prefix("sum", c, live, seg, seg),
+         lambda: W.segmented_prefix_plain("sum", c, live, seg, seg),
+         main=True, inputs=(c, live, seg), atol=w1_atol(price))
+    qty = torch.randint(100, 5_001, (n,), device=dev, generator=gen)
+    cq = contrib(qty, "max")
+    peer = seg | (torch.rand(n, device=dev, generator=gen) < 0.2)
+    case("window_prefix", "running max i64, 100K partitions",
+         lambda: W.segmented_prefix("max", cq, live, seg, peer),
+         lambda: W.segmented_prefix_plain("max", cq, live, seg, peer))
+    # W-Q5: RANGE +-30 over int32 date codes sorted inside each partition
+    codes = torch.randint(0, 3_600, (n,), device=dev, generator=gen)
+    key = (torch.sort(seg_id * 4_096 + codes)[0] - seg_id * 4_096).to(
+        torch.int32)
+    del codes
+    case("frame_bounds", "RANGE +-30, int32 keys, 100K partitions",
+         lambda: W.frame_bounds(seg, "range", 30, 30, key),
+         lambda: W.frame_bounds_plain(seg, "range", 30, 30, key),
+         main=True, inputs=(seg, key))
+    lo, hi = W.frame_bounds(seg, "range", 30, 30, key)
+    case("frame_minmax", "MAX i64 over RANGE +-30 frames",
+         lambda: (W.frame_minmax("max", cq, lo, hi),),
+         lambda: (W.frame_minmax_plain("max", cq, lo, hi),),
+         main=True, inputs=(cq, lo, hi), atol=0)
+    del seg, seg_id, cq, peer, key, lo, hi, qty
+    torch.cuda.empty_cache()
+
+    # W-Q4: ROWS 3 PRECEDING .. CURRENT ROW over ~30-row partitions
+    seg, _ = _sorted_segments(n, N_PARTS, dev, gen)
+    case("frame_bounds", "ROWS 3 preceding, 2M partitions",
+         lambda: W.frame_bounds(seg, "rows", 3, 0),
+         lambda: W.frame_bounds_plain(seg, "rows", 3, 0))
+    lo, hi = W.frame_bounds(seg, "rows", 3, 0)
+    case("sliding_sum", "f64, ROWS 3 preceding, 2M partitions",
+         lambda: (W.sliding_sums(c, lo, hi, seg),),
+         lambda: (W.sliding_sums_plain(c, lo, hi, seg),), main=True,
+         inputs=(c, lo, hi, seg), atol=0)
+    c32 = contrib(price.float())
+    case("sliding_sum", "f32, ROWS 3 preceding, 2M partitions",
+         lambda: (W.sliding_sums(c32, lo, hi, seg),),
+         lambda: (W.sliding_sums_plain(c32, lo, hi, seg),), atol=0)
+    del c32, lo, hi, seg
+    torch.cuda.empty_cache()
+
+    # W-Q2 and W-Q6: orders of 1-7 lines
+    lines = torch.randint(1, 8, (N_SEGMENTS,), device=dev, generator=gen)
+    seg = torch.zeros(int(lines.sum()), dtype=torch.bool, device=dev)
+    seg[torch.cumsum(lines, 0)[:-1]] = True
+    seg[0] = True
+    m = len(seg)
+    every = torch.ones(m, dtype=torch.bool, device=dev)
+    lm = torch.rand(m, device=dev, generator=gen) < 0.9
+    case("window_prefix", "running count, 15M orders of 1-7 lines",
+         lambda: W.segmented_prefix("count", None, lm, seg, every),
+         lambda: W.segmented_prefix_plain("count", None, lm, seg, every))
+    lo, hi = W.frame_bounds(seg, "rows", 1, 1)
+    cmin = contrib(torch.randint(90_000, 10_500_000, (m,), device=dev,
+                                 generator=gen).double() / 100, "min", lm)
+    case("frame_minmax", "MIN f64, ROWS 1/1, 15M orders",
+         lambda: (W.frame_minmax("min", cmin, lo, hi),),
+         lambda: (W.frame_minmax_plain("min", cmin, lo, hi),), atol=0)
+    del lines, seg, every, lm, lo, hi, cmin
+    torch.cuda.empty_cache()
+
+    # W-Q3: one segment of N_WINDOW_ONE_SEGMENT rows, ~2,400 peer groups
+    m = N_WINDOW_ONE_SEGMENT
+    seg = torch.zeros(m, dtype=torch.bool, device=dev)
+    seg[0] = True
+    peer = seg | (torch.rand(m, device=dev, generator=gen) < 1 / 6_000)
+    c1 = price[:m].contiguous()
+    every = torch.ones(m, dtype=torch.bool, device=dev)
+    case("window_prefix", "running sum f64, one 15M-row segment",
+         lambda: W.segmented_prefix("sum", c1, every, seg, peer),
+         lambda: W.segmented_prefix_plain("sum", c1, every, seg, peer),
+         atol=w1_atol(c1, every))
+    # W4's known limit: one thread walks a whole unpartitioned frame (its
+    # bit-equality at this size is a card test)
+    lo, hi = W.frame_bounds(seg, "rows", 3, 0)
+    ms = cuda_ms(lambda: W.sliding_sums(c1, lo, hi, seg), reps=2)
+    log(f"  sliding_sum   f64, ROWS 3 preceding, one 15M-row segment: "
+        f"kernel {ms:8.3f} ms")
+    # frames longer than two of W2's 1,024-row tiles
+    m = 6_000_000
+    seg, _ = _sorted_segments(m, 300, dev, gen)
+    lo, hi = W.frame_bounds(seg, "rows", 5_000, 3_000)
+    cmax = contrib(price[:m], "max")
+    case("frame_minmax", "MAX f64, ROWS 5000/3000, 6M rows",
+         lambda: (W.frame_minmax("max", cmax, lo, hi),),
+         lambda: (W.frame_minmax_plain("max", cmax, lo, hi),), atol=0)
+    del seg, peer, c1, every, lo, hi, cmax, price, live, c
+    torch.cuda.empty_cache()
 
 
 def row_eq(a, b):
@@ -469,24 +632,28 @@ def phase_small(cuda):
 
 def phase_large(cuda):
     """All 8 tables at SF_LARGE, each query cold and WARM_RUNS warm against
-    the exact oracle. Each query's launches are counted from 0 and must
-    include the kernels LARGE_QUERIES names; returns their sum."""
+    the exact oracle: the TPC-H queries, then the window queries. Each
+    query's launches are counted from 0 and must include the kernels
+    LARGE_QUERIES, STALE_PARTSUPP_Q9 or WINDOW_RUNS names; returns their
+    sum."""
     from quickstep_tpu_torch import Database
     from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES, with_tiebreak
     from quickstep_tpu_torch.bench.tpch_fullgen import (
-        check_rows, load_tpch_full)
+        ORACLE_REL_TOL, WINDOW_QUERIES, WINDOW_REL_TOL, check_rows,
+        load_tpch_full)
     log(f"phase 3: all 8 TPC-H tables at SF{SF_LARGE:g} on the card")
     db = Database(device="cuda")
     try:
         t0 = time.perf_counter()
-        oracle = load_tpch_full(db, SF_LARGE, log=lambda msg: None)
+        oracle = load_tpch_full(db, SF_LARGE, log=lambda msg: None,
+                                windows=True)
         rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
         log(f"  generated {oracle['rows']} in {time.perf_counter() - t0:.1f}"
             f" s; peak host RSS {rss:.2f} GiB")
         total = dict.fromkeys(cuda.LAUNCHES, 0)
 
-        def run(label, q, must):
-            sql = with_tiebreak(q, TPCH_QUERIES[q])
+        def run(label, q, must, sql=None, rel_tol=ORACLE_REL_TOL):
+            sql = sql or with_tiebreak(q, TPCH_QUERIES[q])
             times, syncs, retries = [], [], []
             torch.cuda.reset_peak_memory_stats()
             cuda.reset_launches()
@@ -496,7 +663,7 @@ def phase_large(cuda):
                 times.append((time.perf_counter() - t0) * 1000)
                 syncs.append(db.executor.host_syncs)
                 retries.append(db.executor.retries)
-                check_rows(q, rows, oracle)
+                check_rows(q, rows, oracle, rel_tol)
             launches = dict(cuda.LAUNCHES)
             missing = [k for k in must if not launches[k]]
             if missing:
@@ -532,6 +699,10 @@ def phase_large(cuda):
         rel = db.catalog.default_database.get_relation("partsupp")
         rel.set_data(rel.data)
         run("Q9, partsupp without statistics", 9, STALE_PARTSUPP_Q9)
+        log(f"phase 4: window queries at SF{SF_LARGE:g} on the same tables")
+        for name, must in WINDOW_RUNS.items():
+            run(f"W-Q{name[1:]}", name, must, sql=WINDOW_QUERIES[name],
+                rel_tol=WINDOW_REL_TOL)
         return total
     finally:
         db.close()

@@ -1,11 +1,13 @@
-"""Where the time of TPC-H queries goes on one CUDA card, with their tables
-resident in device memory.
+"""Where the time of TPC-H queries and of the window queries goes on one
+CUDA card, with their tables resident in device memory.
 
     python -m quickstep_tpu_torch.bench.profile_slice [--scale 10] [--runs 5]
         [--queries 6,1] [--trace-dir DIR]
 
-Q1 and Q6 alone run on lineitem's 7 columns from bench/lineitem_gen.py; any
-other query in the list loads all 8 tables from bench/tpch_fullgen.py.
+--queries takes TPC-H query numbers and the names of bench/tpch_fullgen.py's
+WINDOW_QUERIES (w1 to w6). Q1 and Q6 alone run on lineitem's 7 columns from
+bench/lineitem_gen.py; any other query in the list loads all 8 tables from
+bench/tpch_fullgen.py.
 
 For each query it prints, on the host clock, the median time of planning
 (parse, resolve, optimize), of `Executor.run_plan` and of `Database.execute`
@@ -30,7 +32,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from quickstep_tpu_torch import Database
 from quickstep_tpu_torch.bench.lineitem_gen import load_lineitem
-from quickstep_tpu_torch.bench.tpch_fullgen import load_tpch_full
+from quickstep_tpu_torch.bench.tpch_fullgen import (
+    WINDOW_QUERIES, load_tpch_full)
 from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES
 from quickstep_tpu_torch.optimizer.resolver import Resolver
 from quickstep_tpu_torch.optimizer.rules import optimize_plan
@@ -55,14 +58,15 @@ def _plan(db, sql):
 
 
 def profile_query(db, q, runs, trace_dir=None):
-    sql = TPCH_QUERIES[q]
+    sql = WINDOW_QUERIES[q] if isinstance(q, str) else TPCH_QUERIES[q]
+    label = q.upper() if isinstance(q, str) else f"Q{q}"
     ex = db.executor
     db.execute(sql)                     # cold run: uploads the columns
     plan = _plan(db, sql)
     plan_ms = _ms(lambda: _plan(db, sql), 2 * runs)
     run_ms = _ms(lambda: ex.run_plan(plan), 2 * runs)
     exec_ms = _ms(lambda: db.execute(sql), 2 * runs)
-    print(f"Q{q}: parse+resolve+optimize median {plan_ms:.3f} ms; run_plan "
+    print(f"{label}: parse+resolve+optimize median {plan_ms:.3f} ms; run_plan "
           f"(enqueue+device+pull) {run_ms:.3f} ms; Database.execute "
           f"{exec_ms:.3f} ms", flush=True)
 
@@ -76,9 +80,9 @@ def profile_query(db, q, runs, trace_dir=None):
         wall_ms = (time.perf_counter() - t0) * 1000 / runs
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not device:
-        raise RuntimeError(f"Q{q}: the profiler saw no device activity")
+        raise RuntimeError(f"{label}: the profiler saw no device activity")
     device_ms = sum(e.time_range.elapsed_us() for e in device) / 1000 / runs
-    print(f"Q{q}: run_plan wall {wall_ms:.3f} ms per run; device time "
+    print(f"{label}: run_plan wall {wall_ms:.3f} ms per run; device time "
           f"{device_ms:.3f} ms per run; device busy share "
           f"{device_ms / wall_ms:.3f}; {len(device) / runs:.0f} device ops "
           f"per run", flush=True)
@@ -86,7 +90,8 @@ def profile_query(db, q, runs, trace_dir=None):
                                     row_limit=25), flush=True)
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir, f"trace_q{q}.json"))
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f"trace_{label.lower()}.json"))
 
 
 def main(argv=None):
@@ -94,10 +99,12 @@ def main(argv=None):
     ap.add_argument("--scale", type=float, default=10.0)
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--queries", default="6,1",
-                    help="comma-separated TPC-H query numbers")
+                    help="comma-separated TPC-H query numbers and "
+                         "window query names (w1 to w6)")
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args(argv)
-    queries = [int(q) for q in args.queries.split(",")]
+    queries = [q if q in WINDOW_QUERIES else int(q)
+               for q in args.queries.split(",")]
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")
     db = Database(device="cuda")

@@ -761,13 +761,141 @@ def _oracle_q21(tables, nation_of_key):
     return [[str(names[name_codes[i]]), int(counts[keys[i]])] for i in order]
 
 
-def load_tpch_full(db, scale, log=None):
+def load_tpch_full(db, scale, log=None, windows=False):
     """Create the 8 TPC-H tables in `db` and load them at `scale` with exact
-    statistics; returns the oracle (see `generate`) with `extra_oracles`."""
+    statistics; returns the oracle (see `generate`) with `extra_oracles`,
+    and with `window_oracles` when `windows`."""
     tables, stats, oracle = generate(scale, log)
     load_tables(db, tables, stats)
     oracle.update(extra_oracles(tables))
+    if windows:
+        oracle.update(window_oracles(tables))
     return oracle
+
+
+# Window queries over lineitem and orders in the shapes of TPC-DS's window
+# queries (partition totals, running totals and counts, moving averages,
+# RANGE frames over dates, ROWS minima). Each is wrapped in a scalar
+# aggregate, so that one row comes back.
+WINDOW_QUERIES = {
+    # share of partition: 100 K partitions of ~600 rows at SF10
+    "w1": """select count(*), sum(s), min(s) from (
+               select l_suppkey, sum(l_quantity) over (partition by l_suppkey)
+                 as s from lineitem) t""",
+    # running count with peers: 15 M partitions of 1-7 rows
+    "w2": """select count(*), sum(c), max(c) from (
+               select count(*) over (partition by l_orderkey
+                                     order by l_linenumber) as c
+               from lineitem) t""",
+    # running total, no partition: one segment of 15 M rows
+    "w3": """select count(*), max(r), min(r) from (
+               select sum(o_totalprice) over (order by o_orderdate) as r
+               from orders) t""",
+    # moving average, ROWS: 2 M partitions of ~30 rows
+    "w4": """select count(*), sum(a), max(a) from (
+               select avg(l_extendedprice) over (
+                 partition by l_partkey
+                 order by l_shipdate, l_orderkey, l_linenumber
+                 rows between 3 preceding and current row) as a
+               from lineitem) t""",
+    # RANGE over the date's code, MAX and COUNT: 100 K partitions
+    "w5": """select count(*), sum(m), sum(c) from (
+               select max(l_quantity) over (
+                        partition by l_suppkey order by l_shipdate
+                        range between 30 preceding and 30 following) as m,
+                      count(*) over (
+                        partition by l_suppkey order by l_shipdate
+                        range between 30 preceding and 30 following) as c
+               from lineitem) t""",
+    # ROWS MIN: 15 M partitions
+    "w6": """select count(*), sum(m) from (
+               select min(l_extendedprice) over (
+                 partition by l_orderkey order by l_linenumber
+                 rows between 1 preceding and 1 following) as m
+               from lineitem) t""",
+}
+# The window queries' float results: sums of many float64 terms in another
+# order than the oracle's exact integer arithmetic.
+WINDOW_REL_TOL = 1e-9
+
+
+def _range_max(vals, lo, hi):
+    """max(vals[lo[i]:hi[i] + 1]) for every i with hi >= lo: a sparse table
+    with the levels the longest range needs."""
+    length = hi - lo + 1
+    levels = [vals]
+    while 2 ** len(levels) <= length.max():
+        prev, k = levels[-1], 2 ** (len(levels) - 1)
+        levels.append(np.maximum(prev, np.concatenate([prev[k:], prev[-k:]])))
+    j = np.floor(np.log2(length)).astype(np.int64)
+    out = np.empty(len(vals), vals.dtype)
+    for k, level in enumerate(levels):
+        m = j == k
+        out[m] = np.maximum(level[lo[m]], level[hi[m] - 2 ** k + 1])
+    return out
+
+
+def window_oracles(tables):
+    """Exact oracles of WINDOW_QUERIES from the generator's columns, with
+    numpy integer arithmetic (DECIMALs in their scaled integers, DATEs in
+    their codes): one sort of a packed int64 key where a query needs one.
+    The lines of an order are contiguous and in line-number order."""
+    li, ords = tables["lineitem"], tables["orders"]
+    okey = li.arrays["l_orderkey"]
+    lineno = li.arrays["l_linenumber"].astype(np.int64)
+    n = len(okey)
+    first = np.r_[True, okey[1:] != okey[:-1]]
+    last = np.r_[okey[1:] != okey[:-1], True]
+    qty = li.arrays["l_quantity"].astype(np.int64)
+    price = li.arrays["l_extendedprice"].astype(np.int64)
+    supp = li.arrays["l_suppkey"].astype(np.int64)
+    out = {}
+    # w1: each line reads its supplier's quantity total
+    cnt = np.bincount(supp)
+    qsum = np.rint(np.bincount(supp, weights=qty)).astype(np.int64)
+    has = cnt > 0
+    out["w1"] = [[n, int((cnt[has] * qsum[has]).sum()) / 100,
+                  int(qsum[has].min()) / 100]]
+    # w2: line numbers are distinct within an order, so the running count
+    # with peers is the line number
+    out["w2"] = [[n, int(lineno.sum()), int(lineno.max())]]
+    # w3: each order reads the total of the orders on or before its date
+    odate = ords.arrays["o_orderdate"].astype(np.int64)
+    total = ords.arrays["o_totalprice"].astype(np.int64)
+    dates, inv = np.unique(odate, return_inverse=True)
+    upto = np.cumsum(np.rint(np.bincount(inv, weights=total)).astype(
+        np.int64))
+    out["w3"] = [[len(odate), int(upto[-1]) / 100, int(upto[0]) / 100]]
+    # w4: rows sorted by (partkey, shipdate code, row): the row order is
+    # (orderkey, linenumber) order
+    ship = li.arrays["l_shipdate"].astype(np.int64)
+    d0, span = int(ship.min()), int(ship.max() - ship.min()) + 1
+    part = li.arrays["l_partkey"].astype(np.int64)
+    rows = np.sort((part * span + (ship - d0)) * n + np.arange(n)) % n
+    seg_first = np.maximum.accumulate(np.where(
+        np.r_[True, part[rows][1:] != part[rows][:-1]], np.arange(n), 0))
+    lo = np.maximum(seg_first, np.arange(n) - 3)
+    csum = np.r_[0, np.cumsum(price[rows])]
+    avg = (csum[np.arange(n) + 1] - csum[lo]) / (
+        100.0 * (np.arange(n) - lo + 1))
+    out["w4"] = [[n, float(np.sum(avg)), float(avg.max())]]
+    del rows, seg_first, lo, csum, avg
+    # w5: rows sorted by (suppkey, shipdate code); frames of +-30 codes
+    span5 = span + 64
+    key = supp * span5 + (ship - d0)
+    order = np.argsort(key)
+    skey = key[order]
+    lo = np.searchsorted(skey, skey - 30, "left")
+    hi = np.searchsorted(skey, skey + 30, "right") - 1
+    m = _range_max(qty[order], lo, hi)
+    out["w5"] = [[n, int(m.sum()) / 100, int((hi - lo + 1).sum())]]
+    del key, order, skey, lo, hi, m
+    # w6: ROWS 1 PRECEDING .. 1 FOLLOWING inside each order
+    prev = np.where(first, price, np.r_[price[:1], price[:-1]])
+    nxt = np.where(last, price, np.r_[price[1:], price[-1:]])
+    out["w6"] = [[n, int(np.minimum(np.minimum(prev, price), nxt).sum())
+                  / 100]]
+    return out
 
 
 # Relative tolerance of a float result against the oracle, which divides
@@ -775,22 +903,24 @@ def load_tpch_full(db, scale, log=None):
 ORACLE_REL_TOL = 1e-12
 
 
-def check_rows(q: int, rows, oracle) -> None:
+def check_rows(q, rows, oracle, rel_tol=ORACLE_REL_TOL) -> None:
     """Raise AssertionError unless `rows`, the result of TPC-H query `q`
-    (with bench/tpch.py's tiebreaks), are the oracle's rows."""
-    want = oracle[f"q{q}"]
+    (with bench/tpch.py's tiebreaks) or of WINDOW_QUERIES[q] (a name), are
+    the oracle's rows, floats within rel_tol."""
+    name = q if isinstance(q, str) else f"q{q}"
+    want = oracle[name]
     if len(rows) != len(want):
-        raise AssertionError(f"Q{q}: {len(rows)} rows, oracle {len(want)}")
+        raise AssertionError(f"{name}: {len(rows)} rows, oracle {len(want)}")
     for i, (got_row, want_row) in enumerate(zip(rows, want)):
         ok = len(got_row) == len(want_row)
         for g, w in zip(got_row, want_row):
             if isinstance(w, float):
                 ok = ok and isinstance(g, (int, float)) and math.isclose(
-                    g, w, rel_tol=ORACLE_REL_TOL, abs_tol=0.0)
+                    g, w, rel_tol=rel_tol, abs_tol=0.0)
             else:
                 ok = ok and g == w
         if not ok:
-            raise AssertionError(f"Q{q} row {i}: {tuple(got_row)} != "
+            raise AssertionError(f"{name} row {i}: {tuple(got_row)} != "
                                  f"oracle {tuple(want_row)}")
 
 

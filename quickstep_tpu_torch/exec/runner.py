@@ -4,15 +4,17 @@ The counterpart of quickstep_tpu/exec/runner.py: TableScan, Filter,
 Project, Aggregate down the scalar, dense, sort and DISTINCT branches,
 equi-joins down the FilterJoin (exact filter), direct-address,
 sorted-probe unique, run-statistics semi and expansion paths, shared
-subplans (WITH) and uncorrelated scalar subqueries. Physical choices are
+subplans (WITH), uncorrelated scalar subqueries and window aggregates
+(ops/window.py). Physical choices are
 made on the host from plan-time ranges, as in the reference. Runtime
 fallbacks (duplicate build keys, expansion overflow, compaction
 under-estimates) surface as 0-d device flags in `self.flags` that the
 executor reads with the result and answers with a retry. A scalar subquery
 is evaluated inside the plan, its value and presence kept as 0-d device
 tensors, so the query keeps its one host sync. Every other operator (full
-outer, nested-loops and cross joins, window functions, Sort and Limit below
-the root), hashed join keys and scalar DISTINCT aggregates raise an
+outer, nested-loops and cross joins, RowNumber, Sort and Limit below the
+root, Distinct, set operations), hashed join keys and scalar DISTINCT
+aggregates raise an
 ExecutionError that says they are not yet ported.
 """
 
@@ -965,6 +967,47 @@ class PlanRunner:
         return dataclasses.replace(chunk, slots=slots,
                                    alive=chunk.alive[order],
                                    capacity=target, bound=target)
+
+    # ----------------------------------------------------------------
+    # window aggregates
+    # ----------------------------------------------------------------
+    def _exec_WindowAggregate(self, node: L.WindowAggregate) -> Chunk:
+        """One window function over the input (reference runner.py:2074).
+        Keys and the argument are evaluated at input capacity; a key's
+        range reaches the sort (a packed key) only when the key has no
+        NULLs, since the sort reads the data of NULL rows as it is."""
+        from quickstep_tpu_torch.ops.window import window_aggregate
+        chunk = self.exec(node.input)
+        spec = node.spec
+        exprs = list(node.partition_by) + list(node.order_by) + (
+            [spec.arg] if spec.arg is not None else [])
+        need = set()
+        for e in exprs:
+            need |= e.referenced_attrs()
+        # one gather per shared RowIds for every lazy column read
+        chunk.ensure([e for e in need if e in chunk.slots])
+        keys, ranges = [], []
+        for e in list(node.partition_by) + list(node.order_by):
+            d, v = chunk.broadcast(*self._eval(chunk, e))
+            keys.append(d)
+            ranges.append(infer_range(e, chunk.ranges) if v is None else None)
+        n_part = len(node.partition_by)
+        vals, valid = None, None
+        if spec.arg is not None:
+            vals, valid = chunk.broadcast(*self._eval(chunk, spec.arg))
+            if spec.fn in ("sum", "avg") and (spec.arg.type.is_integral or
+                                              spec.arg.type.is_decimal):
+                vals = vals.to(torch.int64)
+        res, rvalid = window_aggregate(
+            keys[:n_part], keys[n_part:], [not a for a in
+                                           node.order_ascending],
+            spec.fn, vals, valid, chunk.alive, node.frame, key_ranges=ranges)
+        slots = dict(chunk.slots)
+        slots[node.out_attr.expr_id] = (
+            res.to(K.torch_dtype(node.out_attr.type.device_dtype)), rvalid)
+        return Chunk(attrs=list(node.output), slots=slots, alive=chunk.alive,
+                     capacity=chunk.capacity, ranges=dict(chunk.ranges),
+                     unique_sets=list(chunk.unique_sets), fds=list(chunk.fds))
 
     def _squeeze(self, chunk: Chunk) -> Chunk:
         """Compact when the static bound is much smaller than capacity."""

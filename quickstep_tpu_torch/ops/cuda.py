@@ -38,11 +38,13 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # and probe, and their presence mode for the exact filter), K4
 # merge_unique_probe, K5 sort_groupby, K6 multi_gather, K7 expand_probe, K8
 # merge_cmp_probe (its compare and stats modes), K9 sort_groupby_compact (the
-# stable live-first partition).
+# stable live-first partition), and the window kernels: W1 window_prefix, W2
+# frame_minmax, W3 frame_bounds, W4 sliding_sum.
 LAUNCHES = {"scalar_agg": 0, "dense_groupby": 0, "direct_join": 0,
             "merge_unique_probe": 0, "sort_groupby": 0, "multi_gather": 0,
             "expand_probe": 0, "merge_cmp_probe": 0,
-            "sort_groupby_compact": 0}
+            "sort_groupby_compact": 0, "window_prefix": 0,
+            "frame_minmax": 0, "frame_bounds": 0, "sliding_sum": 0}
 # Seconds the last build took in this process (None: the library was loaded
 # from an earlier build with the same source hash).
 BUILD_SECONDS: Optional[float] = None
@@ -146,6 +148,11 @@ def build() -> ctypes.CDLL:
             "qs_run_stats_probe": [p, p, i64, p, p, p, p, p, p, i64, i32, p,
                                    p, p, i32, i32, p],
             "qs_stable_partition": [p, i64, p, p, p, p],
+            "qs_window_prefix": [i32, i32, p, p, p, p, i64, *[p] * 11],
+            "qs_frame_bounds": [i32, i32, p, p, i64, i64, i64, i32, i32,
+                                *[p] * 7],
+            "qs_frame_minmax": [i32, i32, p, p, p, i64, p, i64, i32, p, p],
+            "qs_sliding_sum": [i32, p, p, p, p, i64, p, p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
@@ -560,4 +567,150 @@ def stable_partition(mask: torch.Tensor) -> torch.Tensor:
                                   _stream(device))
     _check(lib, err, "stable_partition")
     LAUNCHES["sort_groupby_compact"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------
+# W1-W4: the window kernels (csrc/window_kernels.cu)
+# ---------------------------------------------------------------------
+_WIN_TILE = 256 * 16            # kTile in csrc/window_kernels.cu
+_WIN_SPAN = 1024                # kSpan in csrc/window_kernels.cu
+
+
+def _flags(device, n: int, **flags) -> None:
+    for name, t in flags.items():
+        _require(t, name, device, n, (torch.bool,))
+
+
+def window_prefix(fn: str, vals: Optional[torch.Tensor], live: torch.Tensor,
+                  seg_start: torch.Tensor, peer_start: torch.Tensor):
+    """W1: over rows sorted by (segment, order keys), each row's inclusive
+    fn in {sum, min, max} of vals and count of live rows within its segment,
+    read at the last row of its peer group (peer_start marks the first row
+    of each; peer groups never cross a segment start). vals holds each row's
+    contribution (0, or the MIN/MAX sentinel, at dead and NULL rows) and may
+    be None for fn == count. Returns (values in vals' dtype or None, int64
+    counts)."""
+    if fn not in _FN:
+        raise ValueError(f"unknown aggregate {fn!r}")
+    device = _cuda_device(live, "live")
+    n = int(live.shape[0]) if live.dim() == 1 else -1
+    _flags(device, n, live=live, seg_start=seg_start, peer_start=peer_start)
+    if fn != "count":
+        if vals is None:
+            raise ValueError(f"{fn} needs values")
+        _require(vals, "vals", device, n, tuple(_DTYPE))
+    _rows(n, "window_prefix")
+    lib = build()
+    ntiles = -(-n // _WIN_TILE)
+    out_val = None if fn == "count" else torch.empty(n, dtype=vals.dtype,
+                                                     device=device)
+    out_cnt = torch.empty(n, dtype=torch.int64, device=device)
+    if n == 0:
+        return out_val, out_cnt
+
+    # tile_f, tile_v, tile_c, tile_peer, carry_v, carry_c, next_peer (the
+    # 8-byte ones hold any value type), then peer_last
+    scratch = [torch.empty(m, dtype=dt, device=device) for dt, m in (
+        (torch.int32, ntiles), (torch.int64, ntiles), (torch.int64, ntiles),
+        (torch.int32, ntiles), (torch.int64, ntiles), (torch.int64, ntiles),
+        (torch.int32, ntiles), (torch.int32, n))]
+    err = lib.qs_window_prefix(
+        _FN[fn], _DTYPE[vals.dtype] if fn != "count" else 0,
+        _ptr(vals if fn != "count" else None), _ptr(live), _ptr(seg_start),
+        _ptr(peer_start), n, *[_ptr(t) for t in scratch], _ptr(out_val),
+        _ptr(out_cnt), _stream(device))
+    _check(lib, err, "window_prefix")
+    LAUNCHES["window_prefix"] += 1
+    return out_val, out_cnt
+
+
+_FRAME_MODE = {"rows": 0, "range": 1}
+
+
+def frame_bounds(seg_start: torch.Tensor, mode: str, start: Optional[int],
+                 end: Optional[int], keys: Optional[torch.Tensor] = None):
+    """W3: each sorted row's frame [lo, hi] (int32 row indices) inside its
+    segment (seg_start marks each segment's first row). ROWS: lo = max(first
+    row, i - start), hi = min(last row, i + end). RANGE: lo is the first row
+    of the segment whose key is >= key[i] - start, hi the last whose key is
+    <= key[i] + end (keys sorted within each segment). start / end None is
+    UNBOUNDED; hi = lo - 1 where the frame is empty."""
+    if mode not in _FRAME_MODE:
+        raise ValueError(f"unknown frame mode {mode!r}")
+    device = _cuda_device(seg_start, "seg_start")
+    n = int(seg_start.shape[0]) if seg_start.dim() == 1 else -1
+    _flags(device, n, seg_start=seg_start)
+    if mode == "range":
+        if keys is None:
+            raise ValueError("a RANGE frame needs its order key")
+        _require(keys, "keys", device, n, tuple(_DTYPE))
+    _rows(n, "frame_bounds")
+    lib = build()
+    lo = torch.empty(n, dtype=torch.int32, device=device)
+    hi = torch.empty(n, dtype=torch.int32, device=device)
+    if n == 0:
+        return lo, hi
+    ntiles = max(1, -(-n // _WIN_TILE))
+    scratch = [torch.empty(ntiles, dtype=torch.int32, device=device)
+               for _ in range(4)]
+    err = lib.qs_frame_bounds(
+        _FRAME_MODE[mode], _DTYPE[keys.dtype] if mode == "range" else 0,
+        _ptr(seg_start), _ptr(keys if mode == "range" else None), n,
+        0 if start is None else int(start), 0 if end is None else int(end),
+        int(start is None), int(end is None), *[_ptr(t) for t in scratch],
+        _ptr(lo), _ptr(hi), _stream(device))
+    _check(lib, err, "frame_bounds")
+    LAUNCHES["frame_bounds"] += 1
+    return lo, hi
+
+
+def frame_minmax(fn: str, c: torch.Tensor, lo: torch.Tensor,
+                 hi: torch.Tensor) -> torch.Tensor:
+    """W2: for each row i the MIN (fn == min) or MAX of c over rows
+    [lo[i], hi[i]], and the sentinel (the dtype's max for MIN, its min for
+    MAX) where hi < lo. c holds the sentinel at dead and NULL rows."""
+    if fn not in ("min", "max"):
+        raise ValueError(f"frame_minmax takes min or max, not {fn!r}")
+    device = _cuda_device(c, "c")
+    n = int(c.shape[0]) if c.dim() == 1 else -1
+    _require(c, "c", device, n, tuple(_DTYPE))
+    _require(lo, "lo", device, n, (torch.int32,))
+    _require(hi, "hi", device, n, (torch.int32,))
+    _rows(n, "frame_minmax")
+    lib = build()
+    out = torch.empty(n, dtype=c.dtype, device=device)
+    if n == 0:
+        return out
+    ntiles = -(-n // _WIN_SPAN)
+    levels = ntiles.bit_length()
+    table = torch.empty(levels * ntiles, dtype=c.dtype, device=device)
+    err = lib.qs_frame_minmax(_FN[fn], _DTYPE[c.dtype], _ptr(c), _ptr(lo),
+                              _ptr(hi), n, _ptr(table), ntiles, levels,
+                              _ptr(out), _stream(device))
+    _check(lib, err, "frame_minmax")
+    LAUNCHES["frame_minmax"] += 1
+    return out
+
+
+def sliding_sum(c: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                is_start: torch.Tensor) -> torch.Tensor:
+    """W4: each row's float sum of c over [lo, hi], in c's own dtype, slid
+    over each segment (is_start marks its first row) in the reference's
+    order: equal bit for bit to quickstep_tpu/ops/window.py:273."""
+    device = _cuda_device(c, "c")
+    n = int(c.shape[0]) if c.dim() == 1 else -1
+    _require(c, "c", device, n, (torch.float32, torch.float64))
+    _require(lo, "lo", device, n, (torch.int32,))
+    _require(hi, "hi", device, n, (torch.int32,))
+    _flags(device, n, is_start=is_start)
+    _rows(n, "sliding_sum")
+    lib = build()
+    out = torch.empty(n, dtype=c.dtype, device=device)
+    if n == 0:
+        return out
+    err = lib.qs_sliding_sum(_DTYPE[c.dtype], _ptr(c), _ptr(lo), _ptr(hi),
+                             _ptr(is_start), n, _ptr(out), _stream(device))
+    _check(lib, err, "sliding_sum")
+    LAUNCHES["sliding_sum"] += 1
     return out

@@ -5,7 +5,9 @@ runs on a machine that has a card and no JAX:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
 The `cuda`-marked tests skip where torch finds no card. Tolerances: integers
-and bools exactly, float64 within rel 1e-12, float32 within rel 1e-5.
+and bools exactly, float64 within rel 1e-12, float32 within rel 1e-5; the
+window kernels' float prefix sums within 32 eps x the sum of the live
+magnitudes (_prefix_atol), their sliding sums bit for bit.
 """
 
 import numpy as np
@@ -490,4 +492,237 @@ def test_new_public_functions_take_plain_versions_on_cpu():
     TJ.merge_stats_probe(bkey, balive, val, pkey, palive)
     TK.stable_partition(palive)
     TG.sort_groupby_compact([k1], [None], [("sum", k2, k2_valid)], alive)
+    assert not any(TC.LAUNCHES.values()), TC.LAUNCHES
+
+
+# ---------------------------------------------------------------------
+# W1 segmented prefix, W2 frame MIN/MAX, W3 frame bounds, W4 sliding sums
+# ---------------------------------------------------------------------
+
+from quickstep_tpu_torch.ops import window as TW  # noqa: E402
+
+WIN_FNS = ("sum", "count", "min", "max")
+
+
+def _window_rows(device, n=100_003, seg_len=30, peers=0.5, seed=51):
+    """Sorted-row flags: segments of ~seg_len rows (seg_len None: one
+    segment), peer groups inside them, ~80% live rows, a sorted int32 key
+    per segment (RANGE frames) and values of every dtype."""
+    rng = np.random.default_rng(seed)
+    seg = rng.random(n) < (0.0 if seg_len is None else 1.0 / seg_len)
+    seg[0] = True
+    peer = seg | (rng.random(n) < peers)
+    live = rng.random(n) < 0.8
+    seg_id = np.cumsum(seg) - 1
+    key = np.sort(seg_id * 10**6 + rng.integers(0, 100 * (seg_len or n), n))
+    key = (key - seg_id * 10**6).astype(np.int32)
+    vals = {torch.int32: rng.integers(-10**6, 10**6, n).astype(np.int32),
+            torch.int64: rng.integers(-10**12, 10**12, n),
+            torch.float32: rng.normal(3000, 1000, n).astype(np.float32),
+            torch.float64: rng.normal(3000, 1000, n)}
+    t = {k: torch.from_numpy(v).to(device) for k, v in vals.items()}
+    return ([torch.from_numpy(a).to(device) for a in (seg, peer, live, key)],
+            t)
+
+
+def _contrib(fn, v, live):
+    if fn in ("min", "max"):
+        return TW._sentinel_fill(fn, v, live)
+    return torch.where(live, v, torch.zeros((), dtype=v.dtype,
+                                            device=v.device))
+
+
+def _prefix_atol(fn, v, live):
+    """Float sums: a few ulps of the largest prefix sum, 32 eps x the sum of
+    the live magnitudes; everything else exactly. The plain version takes
+    differences of a whole-array torch.cumsum, which on the card is not
+    deterministic: over one 15 M-row float64 segment six runs put it
+    3.9e-3 to 5.9e-3 from the exact prefix (up to 7 eps x the sum), W1
+    (each segment summed in float64) 1.95e-3 every time."""
+    if fn != "sum" or not v.dtype.is_floating_point:
+        return 0.0
+    scale = float(torch.where(live, v, 0).abs().double().sum())
+    return 32 * torch.finfo(v.dtype).eps * scale
+
+
+def _close(got, want, atol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if atol:
+        torch.testing.assert_close(got.cpu(), want.cpu(), rtol=0, atol=atol)
+    else:
+        assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ("segments", "whole_partition",
+                                    "one_segment"))
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("fn", WIN_FNS)
+def test_window_prefix_kernel_matches_plain(card, fn, dtype, layout):
+    (seg, peer, live, _key), vals = _window_rows(
+        card, seg_len=None if layout == "one_segment" else 30)
+    if layout == "whole_partition":
+        peer = seg
+    v = None if fn == "count" else _contrib(fn, vals[dtype], live)
+    got = TW.segmented_prefix(fn, v, live, seg, peer)
+    want = TW.segmented_prefix_plain(fn, v, live, seg, peer)
+    _close(got[1], want[1], 0.0)
+    if fn == "count":
+        assert got[0] is None and want[0] is None
+    else:
+        _close(got[0], want[0], _prefix_atol(fn, vals[dtype], live))
+
+
+@pytest.mark.cuda
+def test_window_prefix_kernel_one_15m_row_segment(card):
+    """W-Q3's shape: one segment of 15 M rows in ~2,400 peer groups."""
+    n = 15_000_000
+    rng = np.random.default_rng(53)
+    seg = torch.zeros(n, dtype=torch.bool, device=card)
+    seg[0] = True
+    peer = torch.from_numpy(rng.random(n) < 1 / 6000).to(card) | seg
+    live = torch.ones(n, dtype=torch.bool, device=card)
+    price = torch.from_numpy(rng.integers(100_000, 50_000_000, n) / 100).to(
+        card)
+    for fn, v in (("sum", price), ("max", price), ("count", None)):
+        got = TW.segmented_prefix(fn, v, live, seg, peer)
+        want = TW.segmented_prefix_plain(fn, v, live, seg, peer)
+        _close(got[1], want[1], 0.0)
+        if v is not None:
+            _close(got[0], want[0], _prefix_atol(fn, v, live))
+
+
+FRAMES = (("rows", 3, 0), ("rows", 1, 1), ("rows", None, 2), ("rows", 5, None),
+          ("range", 30, 30), ("range", 0, 40), ("range", None, 7),
+          ("range", 25, None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("frame", FRAMES, ids=str)
+def test_frame_bounds_kernel_matches_plain(card, frame, key_dtype):
+    (seg, _peer, _live, key), _ = _window_rows(card)
+    mode, start, end = frame
+    key = key.to(key_dtype)
+    got = TW.frame_bounds(seg, mode, start, end, key)
+    want = TW.frame_bounds_plain(seg, mode, start, end, key)
+    for g, w in zip(got, want):
+        _close(g, w, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", (("rows", 3, 0), ("range", 30, 30),
+                                   ("rows", 5000, 3000), ("rows", None, None)),
+                         ids=("short", "range", "longer_than_tiles", "whole"))
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("fn", ("min", "max"))
+def test_frame_minmax_kernel_matches_plain(card, fn, dtype, frame):
+    """Frames of up to 8,001 rows span more than two of W2's 1,024-row
+    tiles and go through its tile table."""
+    (seg, _peer, live, key), vals = _window_rows(
+        card, seg_len=None if frame[1] in (None, 5000) else 30)
+    lo, hi = TW.frame_bounds_plain(seg, *frame, key)
+    c = _contrib(fn, vals[dtype], live)
+    _close(TW.frame_minmax(fn, c, lo, hi), TW.frame_minmax_plain(fn, c, lo, hi),
+           0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", (("rows", 3, 0), ("rows", 2, 5),
+                                   ("range", 30, 30), ("rows", None, 1)),
+                         ids=str)
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64), ids=str)
+def test_sliding_sum_kernel_is_bit_equal_to_plain(card, dtype, frame):
+    (seg, _peer, live, key), vals = _window_rows(card)
+    lo, hi = TW.frame_bounds_plain(seg, *frame, key)
+    c = _contrib("sum", vals[dtype], live)
+    got = TW.sliding_sums(c, lo, hi, seg)
+    assert got.dtype == dtype
+    _close(got, TW.sliding_sums_plain(c, lo, hi, seg), 0.0)
+
+
+@pytest.mark.cuda
+def test_sliding_sum_kernel_one_15m_row_segment(card):
+    """One thread walks a single 15 M-row segment; the plain version slides
+    it in a scalar loop. Bit-equal."""
+    n = 15_000_000
+    rng = np.random.default_rng(57)
+    seg = torch.zeros(n, dtype=torch.bool, device=card)
+    seg[0] = True
+    lo, hi = TW.frame_bounds_plain(seg, "rows", 3, 0)
+    c = torch.from_numpy(rng.integers(100_000, 50_000_000, n) / 100).to(card)
+    _close(TW.sliding_sums(c, lo, hi, seg), TW.sliding_sums_plain(c, lo, hi,
+                                                                  seg), 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", (None, ("rows", 3, 0), ("range", 2, 2),
+                                   ("range", None, 0)), ids=str)
+@pytest.mark.parametrize("fn", FNS)
+def test_window_aggregate_kernels_match_plain(card, fn, frame):
+    """The whole window_aggregate (sort, gathers, W1-W4, scatter back) on
+    the card against its plain version, over live rows."""
+    rng = np.random.default_rng(59)
+    n = 50_021
+    part = torch.from_numpy(rng.integers(0, 300, n).astype(np.int32))
+    okey = torch.from_numpy(rng.integers(0, 1000, n).astype(np.int32))
+    vals = torch.from_numpy(rng.normal(100, 30, n))
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    alive = torch.from_numpy(rng.random(n) < 0.8)
+    args = [t.to(card) for t in (part, okey, vals, valid, alive)]
+    for ranges in (None, [(0, 299), (0, 999)]):
+        got = TW.window_aggregate([args[0]], [args[1]], [False], fn, args[2],
+                                  args[3], args[4], frame, ranges)
+        want = TW.window_aggregate_plain([args[0]], [args[1]], [False], fn,
+                                         args[2], args[3], args[4], frame,
+                                         ranges)
+        keep = args[4]
+        atol = _prefix_atol("sum", args[2], args[4]) if fn in (
+            "sum", "avg") and frame in (None, ("range", None, 0)) else 0.0
+        _close(got[0][keep], want[0][keep], atol)
+        assert (got[1] is None) == (want[1] is None)
+        if want[1] is not None:
+            _close(got[1][keep], want[1][keep], 0.0)
+
+
+@pytest.mark.cuda
+def test_window_kernel_launches_are_counted(card):
+    (seg, peer, live, key), vals = _window_rows(card)
+    c = vals[torch.float64]
+    TC.reset_launches()
+    TW.segmented_prefix("sum", c, live, seg, peer)
+    lo, hi = TW.frame_bounds(seg, "range", 30, 30, key)
+    TW.frame_minmax("max", c, lo, hi)
+    TW.sliding_sums(c, lo, hi, seg)
+    TW.segmented_prefix_plain("sum", c, live, seg, peer)
+    TW.frame_bounds_plain(seg, "range", 30, 30, key)
+    TW.sliding_sums_plain(c, lo, hi, seg)
+    assert TC.LAUNCHES == dict(dict.fromkeys(TC.LAUNCHES, 0), window_prefix=1,
+                               frame_bounds=1, frame_minmax=1, sliding_sum=1)
+
+
+def test_window_wrappers_reject_cpu_tensors():
+    flags = torch.ones(4, dtype=torch.bool)
+    c = torch.arange(4, dtype=torch.float64)
+    idx = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.window_prefix("sum", c, flags, flags, flags)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.frame_bounds(flags, "rows", 1, 1)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.frame_minmax("min", c, idx, idx)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.sliding_sum(c, idx, idx, flags)
+
+
+def test_window_public_functions_take_plain_versions_on_cpu():
+    (seg, peer, live, key), vals = _window_rows("cpu", n=2000)
+    c = vals[torch.float32]
+    TC.reset_launches()
+    TW.segmented_prefix("min", c, live, seg, peer)
+    lo, hi = TW.frame_bounds(seg, "range", 30, 30, key)
+    TW.frame_minmax("max", c, lo, hi)
+    TW.sliding_sums(c, lo, hi, seg)
+    TW.window_aggregate([key], [key], [True], "avg", c, None, live,
+                        ("rows", 2, 2))
     assert not any(TC.LAUNCHES.values()), TC.LAUNCHES

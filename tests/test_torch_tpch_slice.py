@@ -4,8 +4,8 @@ join and aggregate shapes through quickstep_tpu_torch.Database against
 quickstep_tpu.Database and sqlite on the same SF0.01 data, with the path
 each new shape must take; the retries after a compaction under-estimate and
 a duplicate build key; the full generator's Q9, Q16 and Q21 oracles against
-sqlite; the catalog-store carrier; and the errors of what is not ported
-yet."""
+sqlite; the exact window oracles against sqlite and the port; the
+catalog-store carrier; and the errors of what is not ported yet."""
 
 import dataclasses
 import math
@@ -338,11 +338,11 @@ def test_from_store_reads_reference_store(engines, tmp_path):
     ("select count(*) from nation full outer join region"
      " on n_regionkey = r_regionkey", "full outer join"),
     ("select count(*) from nation, region", "cross join"),
-    ("select n_name, sum(n_regionkey) over (partition by n_regionkey)"
-     " from nation", "operator"),
+    ("select n_nationkey from nation intersect"
+     " select r_regionkey from region", "operator"),
     ("select count(distinct l_suppkey) from lineitem",
      "scalar DISTINCT aggregate"),
-], ids=["full_outer_join", "cross_join", "window_function",
+], ids=["full_outer_join", "cross_join", "set_operation",
         "scalar_count_distinct"])
 def test_join_query_is_not_ported(engines, sql, what):
     _jdb, tdb, _conn = engines
@@ -357,13 +357,14 @@ def fullgen_small():
     its oracle."""
     from quickstep_tpu_torch.bench.tpch import load_sqlite as port_sqlite
     from quickstep_tpu_torch.bench.tpch_fullgen import (
-        extra_oracles, generate, load_tables)
+        extra_oracles, generate, load_tables, window_oracles)
     tables, stats, oracle = generate(SCALE, log=lambda msg: None)
     conn = port_sqlite({n: t.table_data() for n, t in tables.items()})
     conn.execute("create index l_orderkey_idx on lineitem(l_orderkey)")
     db = Database(device="cpu")
     load_tables(db, tables, stats)
     oracle.update(extra_oracles(tables))
+    oracle.update(window_oracles(tables))
     yield db, conn, oracle
     db.close()
 
@@ -386,6 +387,27 @@ def test_full_generator_oracle_matches_sqlite_and_port(fullgen_small, qnum):
             assert (math.isclose(x, y, rel_tol=1e-9, abs_tol=0.0)
                     if isinstance(y, float) else x == y), (g, w)
     check_rows(qnum, db.execute(sql).rows, oracle)
+
+
+@pytest.mark.parametrize("name", ["w1", "w2", "w3", "w4", "w5", "w6"])
+def test_window_oracle_matches_sqlite_and_port(fullgen_small, name):
+    """bench/tpch_fullgen.py's exact window oracles against sqlite on the
+    same tables (sqlite sums DECIMALs as doubles: rel 1e-9; W-Q5's RANGE
+    over the date's code) and the port's rows against the oracle
+    (check_rows at WINDOW_REL_TOL)."""
+    from quickstep_tpu_torch.bench.tpch_fullgen import (
+        WINDOW_QUERIES, WINDOW_REL_TOL, check_rows)
+    from test_torch_window import SQLITE_SQL
+    db, conn, oracle = fullgen_small
+    want = oracle[name]
+    sql = SQLITE_SQL.get(name, WINDOW_QUERIES[name])
+    got = conn.execute(to_sqlite_sql(sql)).fetchall()
+    assert len(got) == len(want) == 1
+    for x, y in zip(got[0], want[0]):
+        assert (math.isclose(x, y, rel_tol=1e-9, abs_tol=0.0)
+                if isinstance(y, float) else x == y), (got, want)
+    check_rows(name, db.execute(WINDOW_QUERIES[name]).rows, oracle,
+               WINDOW_REL_TOL)
 
 
 @pytest.mark.parametrize("kwargs, error", [
