@@ -1,12 +1,17 @@
 """Smoke run of quickstep_tpu_torch on one CUDA card: builds the kernels,
-holds each against its plain torch version at SF10 shapes, checks all 22
-TPC-H queries (and a Q20 variant that returns rows) at SF0.01 against
-sqlite, and runs Q1, Q6, Q3, Q4, Q5, Q10, Q7, Q12, Q14, Q19, Q9, Q16, Q18
-and Q21 at SF10 with all 8 tables generated in the process and resident on
-the card, against the generator's exact oracle, then Q9 once more after
-partsupp is reloaded without statistics, which takes the expansion join,
-and the six window queries of bench/tpch_fullgen.py (W-Q1 to W-Q6) on the
-same resident tables against their exact oracles.
+holds each against its plain torch version at SF10 shapes and at zero rows,
+checks all 22 TPC-H queries (and a Q20 variant that returns rows) at SF0.01
+against sqlite, runs the reference's golden corpus (16 reference and 3
+execute files) on the card, and runs Q1, Q6, Q3, Q4, Q5, Q10, Q7, Q12, Q14,
+Q19, Q9, Q16, Q18 and Q21 at SF10 with all 8 tables generated in the
+process and resident on the card, against the generator's exact oracle,
+then Q9 once more after partsupp is reloaded without statistics, which
+takes the expansion join, the six window queries of bench/tpch_fullgen.py
+(W-Q1 to W-Q6) and its five operator queries (O-Q1 to O-Q5: scalar
+DISTINCT, EXCEPT, INTERSECT, a join on hashed keys, ORDER BY ... LIMIT
+below the root) on the same resident tables against their exact oracles,
+and a DML sequence (O-DML: INSERT ... SELECT, DELETE, UPDATE) whose totals
+are checked against the oracle.
 
     python3 chip_smoke.py
 
@@ -78,6 +83,20 @@ WINDOW_RUNS = {
 }
 N_SUPPLIERS = 100_000           # W-Q1's and W-Q5's partitions at SF10
 N_WINDOW_ONE_SEGMENT = 15_000_000   # W-Q3's single segment (orders)
+N_PARTSUPP = 8_000_000          # partsupp rows at SF10
+SECTOR_BYTES = 32               # one random DRAM access on an H100
+# SF10 operator queries (bench/tpch_fullgen.py OPERATOR_QUERIES) and the
+# kernels each must launch
+OPERATOR_RUNS = {
+    "o1": ("distinct_count",),
+    # EXCEPT and INTERSECT: K11 (which runs K10's hash in its own kernels)
+    # and the DISTINCT after it, which has no aggregate and so is the sort
+    # group-by's torch.sort and K6 gathers, with no K5 reduction
+    "o2": ("open_addressing", "multi_gather"),
+    "o3": ("open_addressing", "multi_gather"),
+    "o4": ("hash_keys", "merge_unique_probe", "multi_gather"),
+    "o5": ("order_permutation",),
+}
 KERNELS = {   # name: (source, the reference function it replaces)
     "scalar_agg": ("quickstep_tpu_torch/csrc/agg_kernels.cu",
                    "quickstep_tpu/ops/groupby.py:435"),
@@ -105,6 +124,14 @@ KERNELS = {   # name: (source, the reference function it replaces)
                      "quickstep_tpu/ops/window.py:30"),
     "sliding_sum": ("quickstep_tpu_torch/csrc/window_kernels.cu",
                     "quickstep_tpu/ops/window.py:273"),
+    "hash_keys": ("quickstep_tpu_torch/csrc/hash_kernels.cu",
+                  "quickstep_tpu/ops/kernels.py:143"),
+    "open_addressing": ("quickstep_tpu_torch/csrc/hash_kernels.cu",
+                        "quickstep_tpu/ops/join.py:83"),
+    "distinct_count": ("quickstep_tpu_torch/csrc/sort_kernels.cu",
+                       "quickstep_tpu/ops/groupby.py:455"),
+    "order_permutation": ("quickstep_tpu_torch/csrc/sort_kernels.cu",
+                          "quickstep_tpu/ops/sort.py:21"),
 }
 
 
@@ -191,17 +218,18 @@ def phase_kernels(G):
     rows = []
 
     def case(kernel, label, k_fn, p_fn, main=False, inputs=(),
-             library=None, atol=None):
+             library=None, atol=None, plain_reps=REPS, bound_bytes=None):
         got, want = k_fn(), p_fn()
         torch.cuda.synchronize()
         err = compare(f"{kernel} {label}", got, want, atol)
-        ms, plain_ms = cuda_ms(k_fn), cuda_ms(p_fn)
+        ms, plain_ms = cuda_ms(k_fn), cuda_ms(p_fn, plain_reps)
         row = {"kernel": kernel, "case": label, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "main": main}
         extra = ""
         if main:
-            row["bound_ms"] = (nbytes(inputs) + nbytes(got)) / \
-                HBM_BYTES_PER_S * 1e3
+            if bound_bytes is None:
+                bound_bytes = nbytes(inputs) + nbytes(got)
+            row["bound_ms"] = bound_bytes / HBM_BYTES_PER_S * 1e3
             row["library_ms"] = None if library is None else cuda_ms(library)
             extra = f"  bound {row['bound_ms']:.3f} ms" + (
                 "" if library is None else
@@ -259,6 +287,7 @@ def phase_kernels(G):
     del vals, alive, valid, keys
     torch.cuda.empty_cache()
     phase_join_kernels(case, rng, dev)
+    phase_zero_rows()
     return rows
 
 
@@ -564,6 +593,135 @@ def phase_window_kernels(case, dev):
          lambda: (W.frame_minmax_plain("max", cmax, lo, hi),), atol=0)
     del seg, peer, c1, every, lo, hi, cmax, price, live, c
     torch.cuda.empty_cache()
+    phase_operator_kernels(case, dev)
+
+
+def phase_operator_kernels(case, dev):
+    """K10-K13 against their plain versions at SF10 shapes: three 60 M
+    int32 key columns hashed; open addressing built over 60 M lineitem-like
+    (part, supplier) pairs, full of duplicates, and probed by partsupp's
+    8 M pairs; COUNT(DISTINCT) over 60 M int32 values; and ORDER BY over
+    60 M rows by a DOUBLE DESC key, a nullable int key and an int
+    tiebreak. K11's bound counts its bytes (its key columns and masks read
+    once, its table and outputs written once: it hashes in the kernel and
+    reads no hash array); its random-sector limit (one
+    32-byte sector per slot touched and per occupant key compared) is
+    logged beside it."""
+    from quickstep_tpu_torch.ops import cuda, groupby as G
+    from quickstep_tpu_torch.ops import join as J, kernels as K
+    from quickstep_tpu_torch.ops import sort as S
+    n = N_KERNEL_ROWS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    cols = [torch.randint(1, hi, (n,), device=dev, generator=gen,
+                          dtype=torch.int32)
+            for hi in (60_000_000, 2_000_000, 100_000)]
+    case("hash_keys", "3 int32 columns, 60M rows",
+         lambda: (K.hash_keys(cols),), lambda: (K.hash_keys_plain(cols),),
+         main=True, inputs=cols, atol=0)
+    del cols
+
+    # lineitem's (partkey, suppkey): each part's 4 suppliers, TPC-H's rule
+    s = N_SUPPLIERS
+    part = torch.randint(1, N_PARTS + 1, (n,), device=dev, generator=gen)
+    i = torch.randint(0, 4, (n,), device=dev, generator=gen)
+    supp = (part + i * (s // 4 + (part - 1) // s)) % s + 1
+    build = [part.to(torch.int32), supp.to(torch.int32)]
+    balive = torch.rand(n, device=dev, generator=gen) < 0.95
+    ps_part = torch.arange(1, N_PARTS + 1, device=dev).repeat_interleave(4)
+    ps_i = torch.arange(4, device=dev).repeat(N_PARTS)
+    probe = [ps_part.to(torch.int32),
+             ((ps_part + ps_i * (s // 4 + (ps_part - 1) // s)) % s + 1
+              ).to(torch.int32)]
+    palive = torch.ones(N_PARTSUPP, dtype=torch.bool, device=dev)
+    del part, i, supp, ps_part, ps_i
+    size = K.next_pow2(2 * n)
+
+    def checked(table, dup, idx, matched):
+        held = torch.ones((), dtype=torch.bool, device=dev)
+        for b, p in zip(build, probe):
+            held = held & torch.all(b[idx.long()[matched]] == p[matched])
+        return dup, matched, held
+
+    def oa_kernel():
+        table, dup = cuda.oa_build(build, balive, size)
+        return checked(table, dup, *cuda.oa_probe(table, build, probe,
+                                                   palive))
+
+    def oa_plain():
+        table, dup = J.oa_build_plain(build, balive, size)
+        return checked(table, dup, *J.oa_probe_plain(table, build, probe,
+                                                     palive))
+    out_bytes = size * 4 + N_PARTSUPP * 5
+    case("open_addressing", "build 60M pairs, probe 8M", oa_kernel, oa_plain,
+         main=True, plain_reps=2,
+         bound_bytes=nbytes(build + probe + [balive, palive]) + out_bytes)
+    live_rows = int(balive.sum())
+    sectors = live_rows * (1 + 2) + N_PARTSUPP * (1 + 2)
+    log(f"  open_addressing random-sector limit: {sectors} sectors, "
+        f"{sectors * SECTOR_BYTES / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    del build, probe, balive, palive
+    torch.cuda.empty_cache()
+
+    vals = torch.randint(1, 2_000_001, (n,), device=dev, generator=gen,
+                         dtype=torch.int32)
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    case("distinct_count", "COUNT(DISTINCT) 60M int32",
+         lambda: (G.distinct_count(vals, None, every),),
+         lambda: (G.distinct_count_plain(vals, None, every),), main=True,
+         inputs=(vals, every), atol=0,
+         library=lambda: torch.unique(vals).numel())
+    half = torch.rand(n, device=dev, generator=gen) < 0.5
+    case("distinct_count", "SUM(DISTINCT) mask, 60M, half live",
+         lambda: G.dedup_values(vals, None, half),
+         lambda: G.dedup_values_plain(vals, None, half), atol=0)
+    s_vals, n_live = G._sorted_live(vals, None, half)
+    case("distinct_count", "run starts alone, 60M sorted",
+         lambda: (cuda.run_starts(s_vals, n_live, count=True),),
+         lambda: (G.run_starts_plain(s_vals, n_live).sum(
+             dtype=torch.int64),), atol=0)
+    del vals, every, half, s_vals, n_live
+    torch.cuda.empty_cache()
+
+    price = torch.randint(90_000, 10_500_000, (n,), device=dev,
+                          generator=gen).double() / 100
+    qty = torch.randint(1, 51, (n,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    qvalid = torch.rand(n, device=dev, generator=gen) < 0.9
+    tie = torch.randperm(n, device=dev, generator=gen)
+    alive = torch.rand(n, device=dev, generator=gen) < 0.95
+    args = ([price, qty, tie], [None, qvalid, None], [False, True, True],
+            [None, None, None], alive)
+    case("order_permutation", "3 keys, 60M rows",
+         lambda: (S.order_permutation(*args),),
+         lambda: (S.order_permutation_plain(*args),), main=True,
+         inputs=(price, qty, qvalid, tie, alive), atol=0)
+    ident = torch.arange(n, device=dev)
+    case("order_permutation", "encode DOUBLE DESC alone, 60M",
+         lambda: (cuda.sort_key_encode(price, None, False, None, ident),),
+         lambda: (S.encode_key(price, None, False, None),), atol=0)
+    del price, qty, qvalid, tie, alive, args, ident
+    torch.cuda.empty_cache()
+
+
+def phase_zero_rows():
+    """Every kernel's public function on an empty input (an empty build
+    side under a few probe rows for the join kernels): no launch, and the
+    plain version's result."""
+    from quickstep_tpu_torch.bench.zero_rows import zero_row_cases
+    from quickstep_tpu_torch.ops import cuda
+    cases = zero_row_cases(torch.device("cuda"))
+    if set(cases) != set(KERNELS):
+        raise AssertionError(f"zero-row cases {sorted(cases)}")
+    for name, (k_fn, p_fn) in cases.items():
+        cuda.reset_launches()
+        got = k_fn()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        if launched:
+            raise AssertionError(f"{name} at zero rows launched {launched}")
+        compare(f"{name} n = 0", got, p_fn(), atol=0)
+    log(f"  n = 0: all {len(cases)} kernels launch nothing and agree")
 
 
 def row_eq(a, b):
@@ -630,6 +788,28 @@ def phase_small(cuda):
         db.close()
 
 
+def phase_golden():
+    """The reference's golden corpus through the port's harness on the card:
+    tiny tables and empty relations on the real kernels."""
+    import pathlib
+    from quickstep_tpu_torch.bench.golden_corpus import (
+        corpus_files, count_cases, run_file)
+    root = pathlib.Path(__file__).resolve().parent
+    files = corpus_files(str(root))
+    if len(files) != 19:
+        raise AssertionError(f"golden corpus: {len(files)} files, not 19")
+    log(f"phase 2b: the golden corpus on the card, {len(files)} files")
+    t0 = time.perf_counter()
+    failures = []
+    for path in files:
+        failures += run_file(path, "cuda")
+    if failures:
+        raise AssertionError(f"{len(failures)} golden mismatches\n"
+                             + "\n\n".join(failures[:5]))
+    log(f"  {sum(count_cases(p) for p in files)} cases match in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def phase_large(cuda):
     """All 8 tables at SF_LARGE, each query cold and WARM_RUNS warm against
     the exact oracle: the TPC-H queries, then the window queries. Each
@@ -639,25 +819,26 @@ def phase_large(cuda):
     from quickstep_tpu_torch import Database
     from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES, with_tiebreak
     from quickstep_tpu_torch.bench.tpch_fullgen import (
-        ORACLE_REL_TOL, WINDOW_QUERIES, WINDOW_REL_TOL, check_rows,
-        load_tpch_full)
+        OPERATOR_QUERIES, ORACLE_REL_TOL, WINDOW_QUERIES, WINDOW_REL_TOL,
+        check_rows, load_tpch_full)
     log(f"phase 3: all 8 TPC-H tables at SF{SF_LARGE:g} on the card")
     db = Database(device="cuda")
     try:
         t0 = time.perf_counter()
         oracle = load_tpch_full(db, SF_LARGE, log=lambda msg: None,
-                                windows=True)
+                                windows=True, operators=True)
         rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
         log(f"  generated {oracle['rows']} in {time.perf_counter() - t0:.1f}"
             f" s; peak host RSS {rss:.2f} GiB")
         total = dict.fromkeys(cuda.LAUNCHES, 0)
 
-        def run(label, q, must, sql=None, rel_tol=ORACLE_REL_TOL):
+        def run(label, q, must, sql=None, rel_tol=ORACLE_REL_TOL,
+                warm=WARM_RUNS):
             sql = sql or with_tiebreak(q, TPCH_QUERIES[q])
             times, syncs, retries = [], [], []
             torch.cuda.reset_peak_memory_stats()
             cuda.reset_launches()
-            for _ in range(1 + WARM_RUNS):
+            for _ in range(1 + warm):
                 t0 = time.perf_counter()
                 rows = db.execute(sql).rows
                 times.append((time.perf_counter() - t0) * 1000)
@@ -703,9 +884,80 @@ def phase_large(cuda):
         for name, must in WINDOW_RUNS.items():
             run(f"W-Q{name[1:]}", name, must, sql=WINDOW_QUERIES[name],
                 rel_tol=WINDOW_REL_TOL)
+        log(f"phase 5: operator queries at SF{SF_LARGE:g} on the same "
+            "tables")
+        for name, must in OPERATOR_RUNS.items():
+            run(f"O-Q{name[1:]}", name, must, sql=OPERATOR_QUERIES[name],
+                rel_tol=WINDOW_REL_TOL)
+        launches = phase_dml(db, oracle, cuda)
+        for k, v in launches.items():
+            total[k] += v
         return total
     finally:
         db.close()
+
+
+def phase_dml(db, oracle, cuda):
+    """O-DML once on the resident tables: CREATE TABLE, INSERT ... SELECT of
+    lineitem's 'R' lines, DELETE, UPDATE, then the totals against the
+    oracle. Each statement leaves no device copy of the table (the copy of
+    the version it changed is dropped, not kept beside the new one); a
+    query that reads the table then leaves exactly one, of its newest
+    version, and counts the host's rows. The peak device memory of the
+    whole sequence
+    exceeds what was allocated before it, with every lineitem column
+    resident (the SELECT * reads them all), by no more than the new
+    table's bytes."""
+    from quickstep_tpu_torch.bench.tpch_fullgen import (
+        OPERATOR_DML, OPERATOR_DML_QUERY, check_rows, operator_dml_ddl)
+    db.executor._device_table(
+        db.catalog.default_database.get_relation("lineitem"), None)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    db.execute(operator_dml_ddl())
+    rel = db.catalog.default_database.get_relation("li_r")
+    table_bytes = 0
+    for stmt, want in zip(OPERATOR_DML, oracle["odml_rows"]):
+        t0 = time.perf_counter()
+        n = db.execute(stmt).rows_affected
+        ms = (time.perf_counter() - t0) * 1000
+        if n != want:
+            raise AssertionError(f"O-DML {stmt!r}: {n} rows, oracle {want}")
+        copies = [k for k in db.executor._device_cache if k[0] == "li_r"]
+        if copies:
+            raise AssertionError(f"O-DML {stmt!r} kept device copies "
+                                 f"{copies}")
+        counted = db.execute("select count(*), sum(l_quantity) "
+                             "from li_r").rows[0][0]
+        copies = [k for k in db.executor._device_cache if k[0] == "li_r"]
+        if copies != [("li_r", rel.version)] or \
+                counted != rel.data.num_rows:
+            raise AssertionError(f"O-DML {stmt!r}: device copies {copies}, "
+                                 f"{counted} rows counted of "
+                                 f"{rel.data.num_rows}")
+        table_bytes = max(table_bytes, sum(
+            c.data.nbytes + (0 if c.valid is None else c.valid.nbytes)
+            for c in rel.data.columns.values()))
+        log(f"  O-DML {stmt.split()[0]}: {n} rows in {ms:.1f} ms; then "
+            f"{counted} rows read from device copies {copies}")
+    t0 = time.perf_counter()
+    rows = db.execute(OPERATOR_DML_QUERY).rows
+    ms = (time.perf_counter() - t0) * 1000
+    check_rows("odml", rows, oracle)
+    copies = [k for k in db.executor._device_cache if k[0] == "li_r"]
+    if copies != [("li_r", rel.version)]:
+        raise AssertionError(f"O-DML: device copies {copies}")
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"  O-DML totals {rows[0]} match the oracle in {ms:.1f} ms, host "
+        f"syncs {db.executor.host_syncs}; peak device memory {peak / 2**30:.3f}"
+        f" GiB above the {base / 2**30:.2f} GiB before, table "
+        f"{table_bytes / 2**30:.3f} GiB")
+    if peak > table_bytes:
+        raise AssertionError(f"O-DML peak device memory grew by {peak} "
+                             f"bytes, more than the table's {table_bytes}")
+    return dict(cuda.LAUNCHES)
 
 
 def main():
@@ -723,6 +975,7 @@ def main():
     rows = phase_kernels(G)
     torch.cuda.empty_cache()
     phase_small(cuda)
+    phase_golden()
     launches = phase_large(cuda)
 
     bad = [m for m in sys.modules

@@ -1,11 +1,12 @@
-"""Where the time of TPC-H queries and of the window queries goes on one
-CUDA card, with their tables resident in device memory.
+"""Where the time of TPC-H queries, of the window queries and of the
+operator queries goes on one CUDA card, with their tables resident in
+device memory.
 
     python -m quickstep_tpu_torch.bench.profile_slice [--scale 10] [--runs 5]
         [--queries 6,1] [--trace-dir DIR]
 
 --queries takes TPC-H query numbers and the names of bench/tpch_fullgen.py's
-WINDOW_QUERIES (w1 to w6). Q1 and Q6 alone run on lineitem's 7 columns from
+WINDOW_QUERIES (w1 to w6) and OPERATOR_QUERIES (o1 to o5). Q1 and Q6 alone run on lineitem's 7 columns from
 bench/lineitem_gen.py; any other query in the list loads all 8 tables from
 bench/tpch_fullgen.py.
 
@@ -33,11 +34,13 @@ from torch.profiler import ProfilerActivity, profile
 from quickstep_tpu_torch import Database
 from quickstep_tpu_torch.bench.lineitem_gen import load_lineitem
 from quickstep_tpu_torch.bench.tpch_fullgen import (
-    WINDOW_QUERIES, load_tpch_full)
+    OPERATOR_QUERIES, WINDOW_QUERIES, load_tpch_full)
 from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES
 from quickstep_tpu_torch.optimizer.resolver import Resolver
 from quickstep_tpu_torch.optimizer.rules import optimize_plan
 from quickstep_tpu_torch.parser import parse_statements
+
+NAMED_QUERIES = {**WINDOW_QUERIES, **OPERATOR_QUERIES}
 
 
 def _ms(fn, reps):
@@ -58,7 +61,7 @@ def _plan(db, sql):
 
 
 def profile_query(db, q, runs, trace_dir=None):
-    sql = WINDOW_QUERIES[q] if isinstance(q, str) else TPCH_QUERIES[q]
+    sql = NAMED_QUERIES[q] if isinstance(q, str) else TPCH_QUERIES[q]
     label = q.upper() if isinstance(q, str) else f"Q{q}"
     ex = db.executor
     db.execute(sql)                     # cold run: uploads the columns
@@ -100,10 +103,11 @@ def main(argv=None):
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--queries", default="6,1",
                     help="comma-separated TPC-H query numbers and "
-                         "window query names (w1 to w6)")
+                         "window and operator query names (w1 to w6, o1 "
+                         "to o5)")
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args(argv)
-    queries = [q if q in WINDOW_QUERIES else int(q)
+    queries = [q if q in NAMED_QUERIES else int(q)
                for q in args.queries.split(",")]
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")

@@ -761,15 +761,18 @@ def _oracle_q21(tables, nation_of_key):
     return [[str(names[name_codes[i]]), int(counts[keys[i]])] for i in order]
 
 
-def load_tpch_full(db, scale, log=None, windows=False):
+def load_tpch_full(db, scale, log=None, windows=False, operators=False):
     """Create the 8 TPC-H tables in `db` and load them at `scale` with exact
     statistics; returns the oracle (see `generate`) with `extra_oracles`,
-    and with `window_oracles` when `windows`."""
+    with `window_oracles` when `windows` and with `operator_oracles` when
+    `operators`."""
     tables, stats, oracle = generate(scale, log)
     load_tables(db, tables, stats)
     oracle.update(extra_oracles(tables))
     if windows:
         oracle.update(window_oracles(tables))
+    if operators:
+        oracle.update(operator_oracles(tables))
     return oracle
 
 
@@ -898,6 +901,121 @@ def window_oracles(tables):
     return out
 
 
+# Operator queries over the SF10 tables: scalar DISTINCT aggregates, set
+# operations over composite keys, a join on keys that must be hashed, ORDER
+# BY ... LIMIT below the root, and a DML sequence (OPERATOR_DML). Each is
+# wrapped in a scalar aggregate, so that one row comes back.
+OPERATOR_QUERIES = {
+    # two scalar DISTINCT aggregates over 60 M rows at SF10: K12 twice
+    "o1": """select count(distinct l_partkey), sum(distinct l_quantity)
+             from lineitem""",
+    # partsupp's (part, supplier) pairs that no line uses: EXCEPT by open
+    # addressing over lineitem's 60 M pairs, probed by partsupp's 8 M
+    "o2": """select count(*) from (
+               select ps_partkey, ps_suppkey from partsupp
+               except
+               select l_partkey, l_suppkey from lineitem) t""",
+    # the distinct (part, supplier) pairs of the lines: INTERSECT, built
+    # over partsupp and probed by lineitem
+    "o3": """select count(*) from (
+               select l_partkey, l_suppkey from lineitem
+               intersect
+               select ps_partkey, ps_suppkey from partsupp) t""",
+    # a join on three keys whose spans multiply past 2^62 at SF10
+    # (60 M x 2 M x 100 K): the keys are hashed and every candidate verified
+    "o4": """select count(*), sum(m.c) from lineitem l join (
+               select l_orderkey as mo, l_partkey as mp, l_suppkey as ms,
+                      count(*) as c
+               from lineitem where l_shipmode = 'MAIL'
+               group by l_orderkey, l_partkey, l_suppkey) m
+             on l.l_orderkey = m.mo and l.l_partkey = m.mp
+                and l.l_suppkey = m.ms""",
+    # ORDER BY ... LIMIT below the root on a DOUBLE key, which the packed
+    # sort key cannot take: the chained sort of ops/sort.py
+    "o5": """select count(*), sum(v), sum(l_orderkey) from (
+               select cast(l_extendedprice as double) as v, l_orderkey,
+                      l_linenumber
+               from lineitem
+               order by v desc, l_orderkey, l_linenumber
+               limit 100000) t""",
+}
+O5_LIMIT = 100_000
+# O-DML's statements, in order, and the query that reads the result
+OPERATOR_DML = [
+    "insert into li_r select * from lineitem where l_returnflag = 'R'",
+    "delete from li_r where l_quantity > 40",
+    "update li_r set l_quantity = l_quantity + 1 where l_linenumber = 1",
+]
+OPERATOR_DML_QUERY = """select count(*), sum(l_quantity), sum(l_extendedprice)
+                        from li_r"""
+
+
+def operator_dml_ddl():
+    """CREATE TABLE of O-DML's target: lineitem's columns and types."""
+    from quickstep_tpu_torch.bench.tpch import _ddl_type
+    cols = ", ".join(f"{cname} {_ddl_type(t)} NOT NULL"
+                     for cname, t in TPCH_SCHEMAS["lineitem"])
+    return f"create table li_r ({cols})"
+
+
+def operator_oracles(tables):
+    """Exact oracles of OPERATOR_QUERIES ("o1" to "o5") and of O-DML
+    ("odml") from the generator's columns, with numpy integer arithmetic
+    (DECIMALs in their scaled integers). The lines of an order are
+    contiguous."""
+    li, ps = tables["lineitem"], tables["partsupp"]
+    okey = li.arrays["l_orderkey"].astype(np.int64)
+    part = li.arrays["l_partkey"].astype(np.int64)
+    supp = li.arrays["l_suppkey"].astype(np.int64)
+    qty = li.arrays["l_quantity"].astype(np.int64)
+    price = li.arrays["l_extendedprice"].astype(np.int64)
+    lineno = li.arrays["l_linenumber"].astype(np.int64)
+    out = {}
+    qvals = np.flatnonzero(np.bincount(qty))
+    out["o1"] = [[int(np.count_nonzero(np.bincount(part))),
+                  int(qvals.sum()) / 100]]
+    # (part, supplier) pairs as one int64
+    span = int(max(supp.max(), ps.arrays["ps_suppkey"].max())) + 1
+    li_pairs = np.unique(part * span + supp)
+    ps_pairs = np.unique(ps.arrays["ps_partkey"].astype(np.int64) * span
+                         + ps.arrays["ps_suppkey"].astype(np.int64))
+    out["o2"] = [[int(np.setdiff1d(ps_pairs, li_pairs,
+                                   assume_unique=True).size)]]
+    out["o3"] = [[int(np.intersect1d(li_pairs, ps_pairs,
+                                     assume_unique=True).size)]]
+    del li_pairs, ps_pairs
+    # o4: groups of equal (order, part, supplier) lie inside one order; key
+    # each line by (order rank, part, supplier), with MAIL in the low bit
+    mail_code = li.dicts["l_shipmode"].index("MAIL")
+    mail = (li.arrays["l_shipmode"] == mail_code).astype(np.int64)
+    rank = np.cumsum(np.r_[True, okey[1:] != okey[:-1]]) - 1
+    key = np.sort((((rank << 21) | part) << 17 | supp) << 1 | mail)
+    grp = key >> 1
+    start = np.r_[True, grp[1:] != grp[:-1]]
+    gid = np.cumsum(start) - 1
+    size = np.bincount(gid)
+    mails = np.bincount(gid, weights=key & 1).astype(np.int64)
+    out["o4"] = [[int(size[mails > 0].sum()), int((size * mails).sum())]]
+    del key, grp, start, gid, size, mails, rank, mail
+    # o5: the first O5_LIMIT lines by price descending, then order key and
+    # line number (a DOUBLE of a DECIMAL keeps the DECIMAL's order)
+    k = min(O5_LIMIT, len(price))
+    thresh = np.partition(price, len(price) - k)[len(price) - k] if k else 0
+    cand = np.flatnonzero(price >= thresh)
+    top = cand[np.lexsort((lineno[cand], okey[cand], -price[cand]))][:k]
+    out["o5"] = [[len(top), int(price[top].sum()) / 100,
+                  int(okey[top].sum())]]
+    # O-DML: the 'R' lines, those over 40 deleted, line 1 given one more
+    r = li.arrays["l_returnflag"] == li.dicts["l_returnflag"].index("R")
+    keep = r & (qty <= 4000)
+    q = qty[keep] + 100 * (lineno[keep] == 1)
+    out["odml"] = [[int(keep.sum()), int(q.sum()) / 100,
+                    int(price[keep].sum()) / 100]]
+    out["odml_rows"] = [int(r.sum()), int((r & (qty > 4000)).sum()),
+                        int((keep & (lineno == 1)).sum())]
+    return out
+
+
 # Relative tolerance of a float result against the oracle, which divides
 # exact integer sums once; integers, strings and dates must be equal.
 ORACLE_REL_TOL = 1e-12
@@ -905,8 +1023,9 @@ ORACLE_REL_TOL = 1e-12
 
 def check_rows(q, rows, oracle, rel_tol=ORACLE_REL_TOL) -> None:
     """Raise AssertionError unless `rows`, the result of TPC-H query `q`
-    (with bench/tpch.py's tiebreaks) or of WINDOW_QUERIES[q] (a name), are
-    the oracle's rows, floats within rel_tol."""
+    (with bench/tpch.py's tiebreaks) or of WINDOW_QUERIES[q] or
+    OPERATOR_QUERIES[q] (a name), are the oracle's rows, floats within
+    rel_tol."""
     name = q if isinstance(q, str) else f"q{q}"
     want = oracle[name]
     if len(rows) != len(want):

@@ -66,7 +66,12 @@ class RowIds:
         p = self.parent
         while p is not None:
             safe = torch.clamp(acc, 0, max(int(p.idx.shape[0]) - 1, 0))
-            if p.ok is not None:
+            if p.idx.shape[0] == 0:
+                # a map of zero rows: every row it yields is invalid
+                acc = torch.zeros_like(safe)
+                ok = torch.zeros(safe.shape, dtype=torch.bool,
+                                 device=safe.device)
+            elif p.ok is not None:
                 g = K.multi_gather([p.idx, p.ok], safe)
                 ok = g[1] if ok is None else (ok & g[1])
                 acc = g[0]
@@ -216,10 +221,15 @@ class Chunk:
                 cols.append(lc.base)
                 cols.append(lc.base_valid)
             g = K.multi_gather(cols, safe)
+            ok = rid.ok
+            if n_base == 0:
+                # a source of zero rows: the gathered rows are invalid
+                ok = torch.zeros(safe.shape, dtype=torch.bool,
+                                 device=safe.device)
             for j, eid in enumerate(ids):
                 d, v = g[2 * j], g[2 * j + 1]
-                if rid.ok is not None:
-                    v = rid.ok if v is None else (v & rid.ok)
+                if ok is not None:
+                    v = ok if v is None else (v & ok)
                 self.slots[eid] = (d, v)
 
     def materialize_all(self) -> "Chunk":

@@ -1,16 +1,22 @@
 """The Executor: statement dispatch, eager plan execution, materialization.
 
-The counterpart of quickstep_tpu/exec/executor.py for SELECT. A SELECT is
-resolved and optimized by the same host layers as the reference, run
-operator by operator on torch tensors by PlanRunner, and pulled to the host
-with one synchronisation for the live count, the runner's flags and the
-result. A set flag (a duplicate build key, an expansion overflow, a
-compaction under-estimate) re-runs the plan with an override, which is
-remembered per plan shape and table versions (the kOutOfSpace retry of the
-reference). Scalar subqueries run inside the plan, not as programs of their
-own as the reference's XLA split has them. There is no compile cache: torch runs eagerly. CREATE TABLE
-runs on the host against the catalog; every other statement raises a "not
-yet ported" ExecutionError.
+The counterpart of quickstep_tpu/exec/executor.py. A SELECT is resolved and
+optimized by the same host layers as the reference, run operator by
+operator on torch tensors by PlanRunner, and pulled to the host with one
+synchronisation for the live count, the runner's flags and the result. A
+set flag (a duplicate build key, an expansion overflow, a compaction
+under-estimate) re-runs the plan with an override, which is remembered per
+plan shape and table versions (the kOutOfSpace retry of the reference).
+Scalar subqueries run inside the plan, not as programs of their own as the
+reference's XLA split has them. There is no compile cache and no logical
+plan cache: torch runs eagerly, and every SELECT is planned anew.
+
+DDL, DML and commands run against the catalog on the host, as in the
+reference. INSERT ... SELECT runs its SELECT through run_plan and appends
+its columns without decoding them where the types match; the predicates and
+SET expressions of DELETE and UPDATE are evaluated on the device over the
+relation's resident columns. A mutation bumps the relation's version and
+drops its device copy, so the next query uploads the new data once.
 """
 
 from __future__ import annotations
@@ -28,13 +34,16 @@ from quickstep_tpu_torch.catalog import (
     Catalog, CatalogAttribute, CatalogRelation, PartitionScheme,
 )
 from quickstep_tpu_torch.parser import ast_nodes as A
-from quickstep_tpu_torch.types import TypeID, TypeFactory
-from quickstep_tpu_torch.storage.column import _decode_scalar
+from quickstep_tpu_torch.types import Type, TypeID, TypeFactory
+from quickstep_tpu_torch.storage import csv_io
+from quickstep_tpu_torch.storage.column import Column, _decode_scalar
+from quickstep_tpu_torch.storage.table import TableData
 from quickstep_tpu_torch.optimizer import logical as L
-from quickstep_tpu_torch.optimizer.resolver import Resolver
+from quickstep_tpu_torch.optimizer.resolver import Resolver, Scope
 from quickstep_tpu_torch.optimizer.rules import optimize_plan
-from quickstep_tpu_torch.exec.runner import JoinOverride, PlanRunner, not_ported
+from quickstep_tpu_torch.exec.runner import JoinOverride, PlanRunner
 from quickstep_tpu_torch.exec.result import QueryResult
+from quickstep_tpu_torch.expressions.scalar import EvalContext, Lit
 from quickstep_tpu_torch.ops import kernels as K
 
 # Plan runs per statement before the retry gives up (each run installs at
@@ -79,8 +88,26 @@ class Executor:
             res = self._run_select(stmt)
         elif isinstance(stmt, A.CreateTableStmt):
             res = self._create_table(stmt)
+        elif isinstance(stmt, A.CreateIndexStmt):
+            res = self._create_index(stmt)
+        elif isinstance(stmt, A.DropTableStmt):
+            rel = self.db.get_relation(stmt.name)
+            self.db.drop_relation(stmt.name)
+            if rel is not None:
+                self._drop_device_copy(rel.name)
+            res = QueryResult([], [], [], message=f"Table {stmt.name} dropped.")
+        elif isinstance(stmt, A.InsertStmt):
+            res = self._insert(stmt)
+        elif isinstance(stmt, A.UpdateStmt):
+            res = self._update(stmt)
+        elif isinstance(stmt, A.DeleteStmt):
+            res = self._delete(stmt)
+        elif isinstance(stmt, A.CopyStmt):
+            res = self._copy(stmt)
+        elif isinstance(stmt, A.CommandStmt):
+            res = self._command(stmt)
         else:
-            raise not_ported(f"statement {type(stmt).__name__}")
+            raise ExecutionError(f"unsupported statement {type(stmt).__name__}")
         res.execution_time = time.perf_counter() - t0
         return res
 
@@ -93,8 +120,10 @@ class Executor:
         rows, names, types = self.run_plan(plan)
         return QueryResult(names, types, rows)
 
-    def run_plan(self, plan: L.LogicalNode):
-        """Execute a logical plan; returns (rows, names, types)."""
+    def run_plan(self, plan: L.LogicalNode, columns: bool = False):
+        """Execute a logical plan; returns (rows, names, types), or with
+        columns=True (host columns, names, types): one (attr, data, valid)
+        numpy triple per output column, in output order, undecoded."""
         # Peel a root-level presentation Sort off the device plan: encoded
         # column values (dict codes, packed dates) are order-preserving, so a
         # stable sort of the codes is exact. Under ORDER BY ... LIMIT it runs
@@ -146,11 +175,19 @@ class Executor:
         by_id = {a.expr_id: (a, d, v)
                  for a, d, v in zip(out_attrs, datas, valids)}
         if host_sort is None:
-            return self._trim_rows(by_id, np.arange(n), out_attrs,
-                                   [a.expr_id for a in out_attrs])
-        if sorted_on_device:
-            return self._trim_rows(by_id, np.arange(n), final_attrs, trim_ids)
-        order = _host_sort_order(host_sort, by_id, n)
+            order, final_attrs = np.arange(n), out_attrs
+            trim_ids = [a.expr_id for a in out_attrs]
+        elif sorted_on_device:
+            order = np.arange(n)
+        else:
+            order = _host_sort_order(host_sort, by_id, n)
+        if columns:
+            cols = []
+            for fa, tid in zip(final_attrs, trim_ids):
+                _a, d, v = by_id[tid]
+                cols.append((fa, d[order], None if v is None else v[order]))
+            return cols, [a.name for a in final_attrs], \
+                [a.type for a in final_attrs]
         return self._trim_rows(by_id, order, final_attrs, trim_ids)
 
     @staticmethod
@@ -217,7 +254,9 @@ class Executor:
             order = self._device_sort_order(host_sort, chunk)
             prefix = min(chunk.capacity, host_sort.limit)
         else:
-            order = K.compact_order(chunk.alive)
+            # K9 on the card: its int64 output is the only full-capacity
+            # buffer it needs, which bounds the pull of a large result
+            order = K.stable_partition(chunk.alive)
             prefix = self._result_prefix(plan, chunk.capacity)
         ds, vs = chunk.take_columns(order[:prefix], eids)
         host = self._to_host([count, flag_t] + ds + vs)
@@ -231,9 +270,18 @@ class Executor:
         if on_device:
             n = min(n, prefix)
         elif n > prefix:
-            ds, vs = chunk.take_columns(order[:n], eids)
-            host = self._to_host(ds + vs)
-            host_d, host_v = host[:k], host[k:]
+            # one column at a time: each gathered column is released once
+            # its copy is queued, so the pull holds one column on the device
+            self.host_syncs += 1
+            pulls = []
+            for eid in eids:
+                (d,), (v,) = chunk.take_columns(order[:n], [eid])
+                pulls.append((self._queue_copy(d), self._queue_copy(v)))
+                del d, v
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            host_d = [d.numpy() for d, _ in pulls]
+            host_v = [None if v is None else v.numpy() for _, v in pulls]
         return [], ([d[:n] for d in host_d],
                     [None if v is None else v[:n] for v in host_v], n,
                     on_device)
@@ -269,20 +317,21 @@ class Executor:
             perm = perm.index_select(0, p)
         return perm
 
+    def _queue_copy(self, t: Optional[torch.Tensor]):
+        """A host copy of t, queued on the current stream (CPU tensors are
+        returned as they are); valid once the stream is synchronised."""
+        if t is None or self.device.type == "cpu":
+            return t
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        return h
+
     def _to_host(self, tensors: List[Optional[torch.Tensor]]):
         """numpy copies of the given tensors, with one synchronisation."""
         self.host_syncs += 1
-        if self.device.type == "cpu":
-            return [None if t is None else t.numpy() for t in tensors]
-        hosts = []
-        for t in tensors:
-            if t is None:
-                hosts.append(None)
-                continue
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            hosts.append(h)
-        torch.cuda.current_stream(self.device).synchronize()
+        hosts = [self._queue_copy(t) for t in tensors]
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
         return [None if h is None else h.numpy() for h in hosts]
 
     def _trim_rows(self, by_id, order, final_attrs, trim_ids):
@@ -291,15 +340,8 @@ class Executor:
         cols = []
         for fa, tid in zip(final_attrs, trim_ids):
             a, d, v = by_id[tid]
-            arr = d[order]
-            va = None if v is None else v[order]
-            if fa.dictionary is not None:
-                vals = fa.dictionary.decode(arr)
-            else:
-                vals = [_decode_scalar(fa.type, x) for x in arr]
-            if va is not None:
-                vals = [x if ok else None for x, ok in zip(vals, va)]
-            cols.append(vals)
+            cols.append(_decode_column(fa, d[order],
+                                       None if v is None else v[order]))
         rows = list(zip(*cols)) if cols else []
         return rows, names, types
 
@@ -400,6 +442,12 @@ class Executor:
         m["unique_cols"] = unique_cols
         return cols, m
 
+    def _drop_device_copy(self, name: str) -> None:
+        """Forget every device copy of a relation (after a mutation, its
+        version moved on and the next query uploads the new data)."""
+        for k in [k for k in self._device_cache if k[0] == name]:
+            del self._device_cache[k]
+
     # ================================================================
     # DDL
     # ================================================================
@@ -446,6 +494,274 @@ class Executor:
                 raise ExecutionError("BLOCKPROPERTIES is invalid.")
         self.db.add_relation(rel)
         return QueryResult([], [], [], message=f"Table {stmt.name} created.")
+
+    def _create_index(self, stmt: A.CreateIndexStmt) -> QueryResult:
+        rel = self._rel(stmt.table_name)
+        for idx in rel.indices:
+            if idx["attrs"] == stmt.attrs and idx["type"] == stmt.index_type:
+                raise ExecutionError(
+                    f"The relation {rel.name} already defines this index on "
+                    f"the given attribute(s).")
+        for aname in stmt.attrs:
+            if rel.attribute_by_name(aname) is None:
+                raise ExecutionError(
+                    f"no attribute {aname} in relation {rel.name}")
+        rel.indices.append({"name": stmt.index_name, "attrs": stmt.attrs,
+                            "type": stmt.index_type})
+        # the block min/max summary (SMAIndexSubBlock analog), built eagerly
+        # and refreshed on use after DML bumps rel.version
+        from quickstep_tpu_torch.catalog.catalog import build_sma_blocks
+        for aname in stmt.attrs:
+            build_sma_blocks(rel, rel.attribute_by_name(aname).name)
+        return QueryResult([], [], [],
+                           message=f"Index {stmt.index_name} created.")
+
+    def _rel(self, name: str) -> CatalogRelation:
+        rel = self.db.get_relation(name)
+        if rel is None:
+            raise ExecutionError(f"Unrecognized relation {name}")
+        return rel
+
+    # ================================================================
+    # DML
+    # ================================================================
+    def _insert(self, stmt: A.InsertStmt) -> QueryResult:
+        rel = self._rel(stmt.table_name)
+        schema = [(a.name, a.type) for a in rel.attributes]
+        if stmt.select is not None:
+            plan = Resolver(self.db).resolve_select(stmt.select)
+            plan = optimize_plan(plan, self.config, self.db)
+            cols, _names, _types = self.run_plan(plan, columns=True)
+            data = TableData({
+                name: _column_for(typ, attr, d, v)
+                for (name, typ), (attr, d, v) in zip(schema, cols)})
+            n = data.num_rows
+        else:
+            resolver = Resolver(self.db)
+            rows = []
+            for row_exprs in stmt.rows:
+                vals = []
+                for ast_e, attr in zip(row_exprs, rel.attributes):
+                    e = resolver._resolve_expr(ast_e, Scope(), _EMPTY_STATE)
+                    if not isinstance(e, Lit):
+                        raise ExecutionError("INSERT VALUES must be literals")
+                    vals.append(self._literal_for(attr.type, e))
+                rows.append(tuple(vals))
+            data = TableData.from_rows(schema, rows)
+            n = len(rows)
+        rel.append_data(data)
+        self._drop_device_copy(rel.name)
+        return QueryResult([], [], [], rows_affected=n)
+
+    def _literal_for(self, t: Type, e: Lit):
+        if e.value is None:
+            return None
+        if t.is_string:
+            return str(e.value)
+        if t.type_id in (TypeID.DATE, TypeID.DATETIME):
+            # bare strings are parsed here; typed literals arrive encoded
+            if isinstance(e.value, str):
+                from quickstep_tpu_torch.types.datetime_util import (
+                    parse_date_literal, parse_datetime_literal)
+                return (parse_date_literal(e.value)
+                        if t.type_id == TypeID.DATE
+                        else parse_datetime_literal(e.value))
+            return int(e.value)
+        if t.is_floating or t.is_decimal:
+            # decimal values encode to scaled units in Column.from_values
+            return float(e.value)
+        return int(e.value)
+
+    def _eval_on_relation(self, rel: CatalogRelation, expr_ast: A.Expr):
+        """An expression over a whole relation (the UpdateOperator /
+        DeleteOperator per-block predicate path): evaluated on the device
+        over the relation's resident columns, pulled to the host with one
+        synchronisation. Returns (resolved expr, data, valid or None)."""
+        from quickstep_tpu_torch.optimizer.logical import OutAttr, next_expr_id
+        scope = Scope()
+        attrs = []
+        for a in rel.attributes:
+            col = rel.data.columns[a.name]
+            oa = OutAttr(next_expr_id(), a.name, a.type, col.dictionary)
+            scope.add(rel.name, oa)
+            attrs.append(oa)
+        e = Resolver(self.db)._resolve_expr(expr_ast, scope, _EMPTY_STATE)
+        used = e.referenced_attrs()
+        cols, _m = self._device_table(
+            rel, {oa.name for oa in attrs if oa.expr_id in used})
+        slots = {oa.expr_id: cols[oa.name] for oa in attrs
+                 if oa.expr_id in used}
+        d, v = e.eval(EvalContext(slots, device=self.device))
+        n = rel.data.num_rows
+        d = torch.broadcast_to(d, (n,))
+        v = None if v is None else torch.broadcast_to(v, (n,))
+        d, v = self._to_host([d, v])
+        return e, d, v
+
+    def _where_mask(self, rel: CatalogRelation, where) -> np.ndarray:
+        if where is None:
+            return np.ones(rel.data.num_rows, dtype=bool)
+        _, d, v = self._eval_on_relation(rel, where)
+        mask = d.astype(bool)
+        if v is not None:
+            mask &= v
+        return mask
+
+    def _delete(self, stmt: A.DeleteStmt) -> QueryResult:
+        rel = self._rel(stmt.table_name)
+        n = rel.data.num_rows
+        if stmt.where is None:
+            rel.set_data(TableData.empty(
+                [(a.name, a.type) for a in rel.attributes]))
+            self._drop_device_copy(rel.name)
+            return QueryResult([], [], [], rows_affected=n)
+        mask = self._where_mask(rel, stmt.where)
+        rel.set_data(rel.data.select_rows(np.nonzero(~mask)[0]))
+        self._drop_device_copy(rel.name)
+        return QueryResult([], [], [], rows_affected=int(mask.sum()))
+
+    def _update(self, stmt: A.UpdateStmt) -> QueryResult:
+        rel = self._rel(stmt.table_name)
+        n = rel.data.num_rows
+        mask = self._where_mask(rel, stmt.where)
+        new_cols = dict(rel.data.columns)
+        for col_name, expr_ast in stmt.assignments:
+            attr = rel.attribute_by_name(col_name)
+            if attr is None:
+                raise ExecutionError(f"unknown column {col_name}")
+            e, d, v = self._eval_on_relation(rel, expr_ast)
+            old = rel.data.columns[attr.name]
+            if attr.type.is_string:
+                # decode the new values through the expression's dictionary,
+                # then rebuild the column's dictionary over the updated data
+                from quickstep_tpu_torch.optimizer.resolver import (
+                    _expr_dictionary)
+                ed = _expr_dictionary(e)
+                vals = old.to_pylist()
+                new_vals = ed.decode(d) if ed is not None else \
+                    [str(x) for x in d]
+                for i in np.nonzero(mask)[0]:
+                    vals[int(i)] = new_vals[int(i)]
+                new_cols[attr.name] = Column.from_values(attr.type, vals)
+            else:
+                data = np.asarray(old.data).copy()
+                data[mask] = d[mask].astype(data.dtype)
+                valid = old.valid
+                if v is not None:
+                    valid = (np.ones(n, bool) if valid is None
+                             else np.asarray(valid).copy())
+                    valid[mask] = v[mask]
+                new_cols[attr.name] = Column(attr.type, data, valid, None)
+        rel.set_data(TableData(new_cols))
+        self._drop_device_copy(rel.name)
+        return QueryResult([], [], [], rows_affected=int(mask.sum()))
+
+    def _copy(self, stmt: A.CopyStmt) -> QueryResult:
+        if stmt.direction == "from":
+            rel = self._rel(stmt.table_name)
+            delim = str(stmt.options.get("delimiter", "\t"))
+            header = bool(stmt.options.get("header", False))
+            schema = [(a.name, a.type) for a in rel.attributes]
+            data = csv_io.load_csv(stmt.path, schema, delimiter=delim,
+                                   header=header)
+            rel.append_data(data)
+            rel.analyze()
+            self._drop_device_copy(rel.name)
+            return QueryResult([], [], [], rows_affected=data.num_rows)
+        # COPY {table | <query>} TO {path | stdout | stderr} WITH (...)
+        # (relational_operators/TableExportOperator.hpp:61)
+        if stmt.select is not None:
+            sel = self._run_select(stmt.select)
+            names, types, rows = sel.column_names, sel.types, sel.rows
+        else:
+            rel = self._rel(stmt.table_name)
+            names = [a.name for a in rel.attributes]
+            types = [a.type for a in rel.attributes]
+            rows = rel.data.to_rows()
+        text = csv_io.export_csv(stmt.path, names, types, rows, stmt.options)
+        return QueryResult([], [], [], rows_affected=len(rows),
+                           message=text.rstrip("\n") if text else None)
+
+    # ================================================================
+    # CLI commands (reference cli/CommandExecutor.cpp)
+    # ================================================================
+    def _command(self, stmt: A.CommandStmt) -> QueryResult:
+        from quickstep_tpu_torch.types import VarChar
+        cmd = stmt.command
+        if cmd == "\\dt":
+            rows = [(r.name,) for r in self.db.relations.values()]
+            return QueryResult(["Table"], [VarChar(64)], rows)
+        if cmd == "\\d":
+            if not stmt.args:
+                return self._command(A.CommandStmt(command="\\dt"))
+            rel = self._rel(stmt.args[0])
+            rows = [(a.name, a.type.name()) for a in rel.attributes]
+            return QueryResult(["Column", "Type"], [VarChar(64), VarChar(64)],
+                               rows)
+        if cmd == "\\analyze":
+            # one "Analyzing <rel> ... done" line per relation
+            # (cli/CommandExecutor.cpp:218-310)
+            targets = stmt.args or list(self.db.relations.keys())
+            lines = []
+            for t in targets:
+                rel = self._rel(t)
+                rel.analyze()
+                self._drop_device_copy(rel.name)
+                lines.append(f"Analyzing {rel.name} ... done")
+            return QueryResult([], [], [], message="\n".join(lines))
+        if cmd in ("\\explain", "\\viz", "\\explain_analyze"):
+            # plan tree and DOT, with per-operator times for
+            # \explain_analyze (visualize_plan / visualize_execution_dag)
+            from quickstep_tpu_torch.utils.visualize import explain
+            from quickstep_tpu_torch.database import Database
+            sql = " ".join(stmt.args).rstrip(";")
+            shim = Database.__new__(Database)
+            shim.catalog = self.catalog
+            shim.config = self.config
+            shim._executor = self
+            text = explain(shim, sql, analyze=cmd == "\\explain_analyze")
+            return QueryResult([], [], [], message=text)
+        raise ExecutionError(f"unknown command {cmd}")
+
+
+class _EmptyState:
+    def __init__(self):
+        self.pending_joins = []
+        self.uncorrelated_scalar_subplans = []
+
+
+_EMPTY_STATE = _EmptyState()
+
+
+def _decode_column(attr, data: np.ndarray, valid: Optional[np.ndarray]):
+    """Python values of one pulled column (dictionary strings, decoded
+    dates and decimals, None for NULL)."""
+    if attr.dictionary is not None:
+        vals = attr.dictionary.decode(data)
+    else:
+        vals = [_decode_scalar(attr.type, x) for x in data]
+    if valid is not None:
+        vals = [x if ok else None for x, ok in zip(vals, valid)]
+    return vals
+
+
+def _column_for(typ: Type, attr, data: np.ndarray,
+                valid: Optional[np.ndarray]) -> Column:
+    """A pulled SELECT column as a column of type typ (INSERT ... SELECT).
+    Where the encodings agree (same type id and scale; strings with their
+    dictionary) the arrays are kept as they are; otherwise the values are
+    decoded and encoded again, as the reference's row path does."""
+    same = attr.type.type_id == typ.type_id and \
+        getattr(attr.type, "scale", None) == getattr(typ, "scale", None)
+    if same and typ.is_string and attr.dictionary is not None and \
+            (valid is None or valid.all()):
+        # (a NULL row's code is arbitrary: such columns are decoded)
+        return Column(typ, data.astype(typ.device_dtype, copy=False), None,
+                      attr.dictionary)
+    if same and not typ.is_string:
+        return Column(typ, data.astype(typ.device_dtype, copy=False),
+                      None if valid is None or valid.all() else valid, None)
+    return Column.from_values(typ, _decode_column(attr, data, valid))
 
 
 # =====================================================================

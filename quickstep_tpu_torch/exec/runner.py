@@ -1,21 +1,25 @@
 """PlanRunner: runs a logical plan eagerly, operator by operator, on torch.
 
-The counterpart of quickstep_tpu/exec/runner.py: TableScan, Filter,
-Project, Aggregate down the scalar, dense, sort and DISTINCT branches,
-equi-joins down the FilterJoin (exact filter), direct-address,
-sorted-probe unique, run-statistics semi and expansion paths, shared
-subplans (WITH), uncorrelated scalar subqueries and window aggregates
-(ops/window.py). Physical choices are
-made on the host from plan-time ranges, as in the reference. Runtime
-fallbacks (duplicate build keys, expansion overflow, compaction
-under-estimates) surface as 0-d device flags in `self.flags` that the
-executor reads with the result and answers with a retry. A scalar subquery
-is evaluated inside the plan, its value and presence kept as 0-d device
-tensors, so the query keeps its one host sync. Every other operator (full
-outer, nested-loops and cross joins, RowNumber, Sort and Limit below the
-root, Distinct, set operations), hashed join keys and scalar DISTINCT
-aggregates raise an
-ExecutionError that says they are not yet ported.
+The counterpart of quickstep_tpu/exec/runner.py: TableScan (with
+TABLESAMPLE), Generator, Filter, Project, Aggregate down the scalar
+(DISTINCT included), dense, sort and DISTINCT branches, equi-joins down the
+FilterJoin (exact filter), direct-address, sorted-probe unique,
+run-statistics semi, expansion and full outer paths, with hashed composite
+keys verified on every candidate, nested-loops and cross joins, Sort and
+Limit, Distinct, set operations, RowNumber, shared subplans (WITH),
+uncorrelated scalar subqueries and window aggregates (ops/window.py).
+Physical choices are made on the host from plan-time ranges, as in the
+reference. Runtime fallbacks (duplicate build keys, expansion overflow,
+compaction under-estimates) surface as 0-d device flags in `self.flags`
+that the executor reads with the result and answers with a retry. A scalar
+subquery is evaluated inside the plan, its value and presence kept as 0-d
+device tensors, so the query keeps its one host sync. The mesh-only paths
+of the reference (the shuffle join, the distributed sort group-by) are not
+ported.
+
+Capacities are row counts, not padded buckets, so any operator may meet an
+input of zero rows: a gather into a source of zero rows yields invalid rows
+of the index's length (exec/chunk.py, ops/kernels.py multi_gather).
 """
 
 from __future__ import annotations
@@ -29,15 +33,18 @@ from quickstep_tpu_torch.config import Config
 from quickstep_tpu_torch.errors import ExecutionError
 from quickstep_tpu_torch.expressions.scalar import Expr, Attr, Cmp
 from quickstep_tpu_torch.optimizer import logical as L
+from quickstep_tpu_torch.optimizer.logical import OutAttr
 from quickstep_tpu_torch.optimizer.stats import infer_range
-from quickstep_tpu_torch.exec.chunk import Chunk, compose_slots, repeat_slots
+from quickstep_tpu_torch.exec.chunk import (
+    Chunk, _full, compose_slots, repeat_slots)
 from quickstep_tpu_torch.ops import kernels as K
 from quickstep_tpu_torch.ops import groupby as G
 from quickstep_tpu_torch.ops import join as J
+from quickstep_tpu_torch.ops import sort as S
 
-
-def not_ported(what: str) -> ExecutionError:
-    return ExecutionError(f"{what} not yet ported to quickstep_tpu_torch")
+# cross products above this many rows are refused (reference runner.py:1887)
+CROSS_JOIN_LIMIT = 1 << 26
+_SIGN = -(1 << 63)          # the int64 with only its sign bit set
 
 
 def _flip_cmp(op: str) -> str:
@@ -96,7 +103,7 @@ class PlanRunner:
     def exec(self, node: L.LogicalNode) -> Chunk:
         m = getattr(self, f"_exec_{type(node).__name__}", None)
         if m is None:
-            raise not_ported(f"operator {type(node).__name__}")
+            raise ExecutionError(f"no executor for {type(node).__name__}")
         return m(node)
 
     def _exec_memo(self, plan: L.LogicalNode) -> Chunk:
@@ -109,8 +116,6 @@ class PlanRunner:
     # scan, shared subplans
     # ----------------------------------------------------------------
     def _exec_TableScan(self, node: L.TableScan) -> Chunk:
-        if node.sample_kind:
-            raise not_ported("TABLESAMPLE")
         cols = self.inputs[node.relation_name]
         meta = self.input_meta[node.relation_name]
         capacity = meta["capacity"]
@@ -131,11 +136,43 @@ class PlanRunner:
             if all(p in by_name for p in pair):
                 unique_sets.append(frozenset(by_name[p] for p in pair))
         alive = K.alive_mask(capacity, cols["__num_rows__"], self.device)
+        if node.sample_kind:
+            # TUPLESAMPLE / BLOCKSAMPLE n PERCENT (SampleOperator.hpp:60): a
+            # Bernoulli sample by the hash of the row index. The compare is
+            # unsigned: both sides get their sign bit flipped.
+            r = K.hash_keys([torch.arange(capacity, dtype=torch.int64,
+                                          device=self.device)])
+            thresh = min(int((node.sample_percent / 100.0) * (2 ** 64 - 1)),
+                         2 ** 64 - 1)
+            alive = alive & ((r ^ _SIGN) < thresh - 2 ** 63)
         all_ids = frozenset(a.expr_id for a in node.attrs)
         fds = [(u, all_ids) for u in unique_sets]
         return Chunk(attrs=list(node.attrs), slots=slots, alive=alive,
                      capacity=capacity, ranges=ranges, unique_sets=unique_sets,
                      fds=fds, max_counts=max_counts, bound=meta.get("rows"))
+
+    def _exec_Generator(self, node: L.Generator) -> Chunk:
+        """generate_series(start, end[, step]), integer or DOUBLE."""
+        a = node.attrs[0]
+        if a.type.is_floating or isinstance(node.step, float) or \
+                isinstance(node.start, float) or isinstance(node.end, float):
+            # DOUBLE series (generate_series(1, 3, 0.5)): the count takes a
+            # small epsilon so that end lands inside despite rounding
+            import math
+            n = max(0, int(math.floor((node.end - node.start) / node.step
+                                      + 1e-9)) + 1) if node.step else 0
+            data = torch.arange(n, dtype=torch.float64,
+                                device=self.device) * node.step + node.start
+        else:
+            n = max(0, (node.end - node.start) // node.step + 1) \
+                if node.step != 0 else 0
+            data = torch.arange(n, dtype=torch.int64,
+                                device=self.device) * node.step + node.start
+        return Chunk(attrs=list(node.attrs),
+                     slots={a.expr_id: (data, None)},
+                     alive=K.alive_mask(n, n, self.device), capacity=n,
+                     ranges={a.expr_id: (min(node.start, node.end),
+                                         max(node.start, node.end))})
 
     def _exec_SharedSubplan(self, node: L.SharedSubplan) -> Chunk:
         # materialized once, in the memoized chunk, so that every consumer
@@ -180,6 +217,15 @@ class PlanRunner:
                 key = ("subquery", id(x.plan))
                 if key not in self._subquery_slots:
                     sub = self._exec_memo(x.plan)
+                    if sub.capacity == 0:
+                        # no row: a NULL of the column's dtype
+                        dt = K.torch_dtype(sub.attrs[0].type.device_dtype)
+                        self._subquery_slots[key] = (
+                            torch.zeros((), dtype=dt, device=self.device),
+                            torch.zeros((), dtype=torch.bool,
+                                        device=self.device))
+                        stack.extend(x.children())
+                        continue
                     data, valid = sub.broadcast(*sub.get(sub.attrs[0].expr_id))
                     first = torch.argmax(sub.alive.to(torch.uint8))
                     present = torch.any(sub.alive)
@@ -250,8 +296,6 @@ class PlanRunner:
         chunk = self.exec(node.input)
         distinct_flags = [s.distinct for s in node.aggregates]
         if not node.group_by:
-            if any(distinct_flags):
-                raise not_ported("scalar DISTINCT aggregate (distinct_count)")
             return self._scalar_aggregate(node, chunk)
 
         # Estimate-driven compaction of the aggregate input (same protocol
@@ -388,10 +432,14 @@ class PlanRunner:
         return Chunk(attrs=list(node.output), slots=slots, alive=occupied,
                      capacity=domain, ranges=ranges, unique_sets=uniq, fds=fds)
 
-    def _pack_sort_key(self, key_data, key_valid, key_ranges):
-        """Pack integer composite group keys into one int32/int64 sort key
-        when their ranges fit; NULLs take the last slot of their key's span.
-        Returns None when not packable (unknown range, float keys)."""
+    def _pack_sort_key(self, key_data, key_valid, key_ranges,
+                       descending=None, nulls_first=None):
+        """Pack integer composite keys into one int32/int64 sort key when
+        their ranges fit. For a group-by (descending None) NULLs take the
+        last slot of their key's span; for ORDER BY a DESC key counts down
+        and NULLs take the first or last slot (SQL default: last for ASC,
+        first for DESC). Returns None when not packable (unknown range,
+        float keys)."""
         spans = []
         for d, r in zip(key_data, key_ranges):
             if r is None or d.dtype.is_floating_point:
@@ -404,10 +452,21 @@ class PlanRunner:
             return None
         packed = torch.zeros(key_data[0].shape, dtype=torch.int64,
                              device=self.device)
-        for d, v, r, span in zip(key_data, key_valid, key_ranges, spans):
-            enc = d.to(torch.int64) - r[0]
+        for i, (d, v, r, span) in enumerate(zip(key_data, key_valid,
+                                                key_ranges, spans)):
+            lo, hi = r
+            enc = d.to(torch.int64) - lo
+            if descending is not None and descending[i]:
+                enc = (hi - lo) - enc
             if v is not None:
-                enc = torch.where(v, enc, torch.full_like(enc, span - 1))
+                first = False     # group-by: the NULL group last
+                if descending is not None:
+                    nf = nulls_first[i] if nulls_first is not None else None
+                    first = nf if nf is not None else descending[i]
+                if first:
+                    enc = torch.where(v, enc + 1, torch.zeros_like(enc))
+                else:
+                    enc = torch.where(v, enc, torch.full_like(enc, span - 1))
             packed = packed * span + enc
         if total < 2 ** 31:
             packed = packed.to(torch.int32)
@@ -485,7 +544,15 @@ class PlanRunner:
         slots = {}
         for spec, a in zip(node.aggregates, node.agg_attrs):
             fn, vals, valid = self._agg_input(chunk, spec)
-            val, nn = G.scalar_agg(fn, vals, valid, chunk.alive)
+            if spec.distinct and fn == "count":
+                val = G.distinct_count(vals, valid, chunk.alive)
+                nn = torch.ones((), dtype=torch.int64, device=chunk.device)
+            elif spec.distinct:
+                # SUM/AVG/MIN/MAX DISTINCT: each distinct live value once
+                s, starts = G.dedup_values(vals, valid, chunk.alive)
+                val, nn = G.scalar_agg(fn, s, None, starts)
+            else:
+                val, nn = G.scalar_agg(fn, vals, valid, chunk.alive)
             data = torch.broadcast_to(
                 val.to(K.torch_dtype(a.type.device_dtype)), (capacity,))
             if spec.fn == "count":
@@ -550,9 +617,9 @@ class PlanRunner:
 
     def _exec_Join(self, node: L.Join) -> Chunk:
         if node.kind == "cross":
-            raise not_ported("cross join")
+            return self._cross_join(node)
         if not node.left_keys:
-            raise not_ported("nested-loops join")
+            return self._nested_loops_join(node)
         probe = self._squeeze(self.exec(node.left))
         build = self._squeeze(self.exec(node.right))
         # Estimate-driven dynamic compaction: compact each side to ~4x its
@@ -631,7 +698,8 @@ class PlanRunner:
             build.is_unique(build_key_ids)
         ov = self.overrides.get(idx0)
         if node.kind == "full":
-            raise not_ported("full outer join (_full_join)")
+            return self._full_join(node, probe, build, pk_data, bk_data, ov,
+                                   build_unique, pmask, bmask)
         if ov and ov.strategy:
             strategy = ov.strategy
         elif build_unique or node.kind in ("semi", "anti"):
@@ -688,10 +756,18 @@ class PlanRunner:
             bidx, matched = J.direct_probe(table, pk_data[0], pmask, lo,
                                            domain)
         else:
-            packed_b, packed_p = self._pack_keys(node, build, probe, bk_data,
-                                                 pk_data)
+            packed_b, packed_p, hashed = self._pack_keys(node, build, probe,
+                                                         bk_data, pk_data)
             bidx, matched, dup = J.merge_unique_probe(packed_b, bmask,
                                                       packed_p, pmask)
+            if hashed:
+                # hashed keys can collide: verify the real key columns. Two
+                # real keys may share a hash run and hide a true match
+                # behind the run's first row, so the dup flag counts even
+                # for a build side declared unique.
+                matched = self._verify_keys(bidx, matched, pk_data, bk_data)
+                bidx = torch.where(matched, bidx, torch.full_like(bidx, -1))
+                check_dups = True
         if check_dups:
             self.flags[f"join_dup_{self.node_index[id(node)]}"] = dup
 
@@ -789,19 +865,23 @@ class PlanRunner:
             matched = J.merge_cmp_probe(packed_b, bmask, bx, packed_p, pmask,
                                         px, op)
         else:
-            if packed_b is None or packed_p is None:
-                raise not_ported("hashed semi join keys (oa_build)")
-            # wide values: per-group min/max by the sort group-by, a unique
-            # probe into the groups, a gather of the group's stats
+            # wide values or unpackable keys: per-group min/max by the sort
+            # group-by, a unique probe into the groups (by the packed key,
+            # else by open addressing), a gather of the group's stats
             out_keys, _, galive, _n, results = G.sort_groupby(
                 bk_data, [None] * len(bk_data),
                 [("min", bx, None), ("max", bx, None)], bmask,
                 packed_key=packed_b)
-            packed_g = self._pack_sort_key(out_keys, [None] * len(out_keys),
-                                           merged)
-            gidx, matched, _dup = J.merge_unique_probe(
-                packed_g.to(torch.int64), galive, packed_p.to(torch.int64),
-                pmask)
+            if packed_b is not None and packed_p is not None:
+                packed_g = self._pack_sort_key(
+                    out_keys, [None] * len(out_keys), merged)
+                gidx, matched, _dup = J.merge_unique_probe(
+                    packed_g.to(torch.int64), galive,
+                    packed_p.to(torch.int64), pmask)
+            else:
+                table, _ = J.oa_build(out_keys, galive,
+                                      K.next_pow2(2 * build.capacity))
+                gidx, matched = J.oa_probe(table, out_keys, pk_data, pmask)
             safe = torch.clamp(gidx, 0, max(build.capacity - 1, 0))
             gmin, gmax = K.multi_gather([results[0][0], results[1][0]], safe)
             cmp_t = torch.promote_types(px.dtype, gmin.dtype)
@@ -820,8 +900,8 @@ class PlanRunner:
         gets K candidate slots (K7); a longer run raises join_overflow_<idx>
         and the executor re-runs with 4 K."""
         ov = self.overrides.get(self.node_index[id(node)])
-        packed_b, packed_p = self._pack_keys(node, build, probe, bk_data,
-                                             pk_data)
+        packed_b, packed_p, hashed = self._pack_keys(node, build, probe,
+                                                     bk_data, pk_data)
         sorted_key, order = J.sorted_build(packed_b, bmask)
         k = ov.max_matches if ov and ov.max_matches else \
             self._default_k(build, node.right_keys)
@@ -830,19 +910,23 @@ class PlanRunner:
         self.flags[f"join_overflow_{self.node_index[id(node)]}"] = overflow
 
         if node.kind in ("semi", "anti"):
-            if node.residual is None:
+            if node.residual is None and not hashed:
                 matched = counts > 0
             else:
-                # the probe columns the residual reads, gathered once
-                probe.ensure(node.residual.referenced_attrs() &
-                             set(probe.slots))
+                if node.residual is not None:
+                    # the probe columns the residual reads, gathered once
+                    probe.ensure(node.residual.referenced_attrs() &
+                                 set(probe.slots))
                 matched = torch.zeros_like(probe.alive)
                 for j in range(k):
                     bidx = rows[j::k]          # row-major [n * K]
                     ok = bidx >= 0
-                    pair = self._pair_chunk(node, probe, build, bidx, ok)
-                    matched = matched | (ok & self._eval_pred(pair,
-                                                              node.residual))
+                    if hashed:
+                        ok = self._verify_keys(bidx, ok, pk_data, bk_data)
+                    if node.residual is not None:
+                        pair = self._pair_chunk(node, probe, build, bidx, ok)
+                        ok = ok & self._eval_pred(pair, node.residual)
+                    matched = matched | ok
             if node.kind == "anti":
                 matched = ~matched
             return dataclasses.replace(probe, alive=probe.alive & matched)
@@ -851,12 +935,15 @@ class PlanRunner:
         # as repeated row-id maps only; the build columns share one map of
         # candidate rows. No payload column moves at expansion width.
         cap = probe.capacity * k
+        ok = rows >= 0
+        if hashed:
+            ok = self._verify_keys(rows, ok, pk_data, bk_data, repeat=k)
         safe_b = torch.clamp(rows, 0, max(build.capacity - 1, 0))
         slots = repeat_slots(probe, k)
         build_lazy = compose_slots(build, safe_b, None)
         for a in build.attrs:
             slots[a.expr_id] = build_lazy[a.expr_id]
-        alive = torch.repeat_interleave(probe.alive, k) & (rows >= 0)
+        alive = torch.repeat_interleave(probe.alive, k) & ok
         pb = probe.bound if probe.bound is not None else probe.capacity
         out = Chunk(attrs=list(node.output), slots=slots, alive=alive,
                     capacity=cap, bound=min(pb * k, cap),
@@ -902,33 +989,61 @@ class PlanRunner:
         return 8
 
     def _pack_keys(self, node, build, probe, bk_data, pk_data):
-        """(packed_build, packed_probe): one int64 key per row, range-packed
-        and so injective. Keys that would need hashing (no range, or a span
-        product of 2^62 or more) are not ported."""
+        """(packed_build, packed_probe, hashed): one int64 key per row.
+        Range-packed keys are injective; where the ranges are unknown or
+        their span product reaches 2^62 the keys are hashed (K10), and
+        hashed is True: every consumer then verifies the real key columns
+        of each candidate pair (_verify_keys), as the reference's hash
+        tables compare keys on every probe."""
         if self.config.test_weak_hash_join:
-            raise not_ported("hashed join keys (_pack_keys)")
+            # test hook: a deliberately colliding "hash" (mod 3), so that
+            # adversarial tests exercise the verification
+            hb = torch.zeros(bk_data[0].shape, dtype=torch.int64,
+                             device=self.device)
+            hp = torch.zeros(pk_data[0].shape, dtype=torch.int64,
+                             device=self.device)
+            for b, p in zip(bk_data, pk_data):
+                hb = hb + b.to(torch.int64)
+                hp = hp + p.to(torch.int64)
+            return hb % 3, hp % 3, True
         if len(bk_data) == 1:
-            return bk_data[0].to(torch.int64), pk_data[0].to(torch.int64)
+            return bk_data[0].to(torch.int64), pk_data[0].to(torch.int64), \
+                False
         ranges = self._key_ranges(node.right_keys, build)
         pranges = self._key_ranges(node.left_keys, probe)
         merged = []
         for rb, rp in zip(ranges, pranges):
             if rb is None or rp is None:
-                raise not_ported("hashed composite join keys (_pack_keys)")
+                merged = None
+                break
             merged.append((min(rb[0], rp[0]), max(rb[1], rp[1])))
-        total = 1
-        for lo, hi in merged:
-            total *= (hi - lo + 1)
-        if total >= 2 ** 62:
-            raise not_ported("hashed composite join keys (_pack_keys)")
+        if merged is not None:
+            total = 1
+            for lo, hi in merged:
+                total *= (hi - lo + 1)
+            if total < 2 ** 62:
+                def pack(cols):
+                    acc = torch.zeros(cols[0].shape, dtype=torch.int64,
+                                      device=self.device)
+                    for c, (lo, hi) in zip(cols, merged):
+                        acc = acc * (hi - lo + 1) + (c.to(torch.int64) - lo)
+                    return acc
+                return pack(bk_data), pack(pk_data), False
+        return K.hash_keys(bk_data), K.hash_keys(pk_data), True
 
-        def pack(cols):
-            acc = torch.zeros(cols[0].shape, dtype=torch.int64,
-                              device=self.device)
-            for c, (lo, hi) in zip(cols, merged):
-                acc = acc * (hi - lo + 1) + (c.to(torch.int64) - lo)
-            return acc
-        return pack(bk_data), pack(pk_data)
+    def _verify_keys(self, idx, ok, src_keys, dst_keys, repeat=1):
+        """Collision guard for hashed keys: ok & (the dst side's key
+        columns at rows idx equal the src side's, src repeated `repeat`
+        times for the expansion layout)."""
+        n_dst = int(dst_keys[0].shape[0])
+        safe = torch.clamp(idx, 0, max(n_dst - 1, 0))
+        gathered = K.multi_gather(list(dst_keys), safe)
+        good = ok
+        for g, s in zip(gathered, src_keys):
+            if repeat > 1:
+                s = torch.repeat_interleave(s, repeat)
+            good = good & (g == s.to(g.dtype))
+        return good
 
     def _est_compact(self, chunk: Chunk, est, disabled: bool,
                      flag_key: str) -> Chunk:
@@ -967,6 +1082,328 @@ class PlanRunner:
         return dataclasses.replace(chunk, slots=slots,
                                    alive=chunk.alive[order],
                                    capacity=target, bound=target)
+
+    # ----------------------------------------------------------------
+    # full outer, nested-loops and cross joins
+    # ----------------------------------------------------------------
+    def _full_join(self, node, probe, build, pk_data, bk_data, ov,
+                   build_unique, pmask, bmask) -> Chunk:
+        """FULL OUTER JOIN: the left outer join, then the build rows that
+        no probe row matched with a NULL probe side, concatenated (the
+        reference's kLeftOuterJoin plus existence-bitmap pattern; the
+        existence mask comes from a reverse probe)."""
+        left_node = dataclasses.replace(node, kind="left")
+        idx = self.node_index[id(node)]
+        self.node_index[id(left_node)] = idx
+        if build_unique and not (ov and ov.strategy == "expand"):
+            out = self._unique_join(left_node, probe, build, pk_data, bk_data,
+                                    check_dups=False, pmask=pmask,
+                                    bmask=bmask)
+        else:
+            out = self._expand_join(left_node, probe, build, pk_data, bk_data,
+                                    pmask, bmask)
+        okey = f"join_overflow_{idx}"
+        packed_b, packed_p, hashed = self._pack_keys(node, build, probe,
+                                                     bk_data, pk_data)
+        if node.residual is None and not hashed:
+            # which build rows have a partner: the reverse merge probe
+            _pidx, bmatched, _dup = J.merge_unique_probe(packed_p, pmask,
+                                                         packed_b, bmask)
+        else:
+            # expand from the build side into the sorted probe keys; hashed
+            # candidates are verified, a residual is tested per pair, and a
+            # run longer than K raises the overflow retry
+            sorted_p, order_p = J.sorted_build(packed_p, pmask)
+            if node.residual is None:
+                kmax = ov.max_matches if ov and ov.max_matches else 8
+            else:
+                kmax = ov.max_matches if ov and ov.max_matches else \
+                    self._default_k(probe, node.left_keys)
+            rows, _counts, over = J.expand_probe(sorted_p, order_p, packed_b,
+                                                 bmask, kmax)
+            self.flags[okey] = (self.flags[okey] | over) \
+                if okey in self.flags else over
+            bmatched = torch.zeros_like(build.alive)
+            for j in range(kmax):
+                pidx = rows[j::kmax]       # row-major [n * K]
+                okj = pidx >= 0
+                if hashed:
+                    okj = self._verify_keys(pidx, okj, bk_data, pk_data)
+                if node.residual is not None:
+                    pair = self._pair_chunk(node, build, probe, pidx, okj)
+                    okj = okj & self._eval_pred(pair, node.residual)
+                bmatched = bmatched | okj
+        tail_alive = build.alive & ~bmatched
+
+        # the left join's rows on top, the unmatched build rows below
+        out.materialize_all()
+        build.materialize_all()
+        build_ids = {a.expr_id for a in build.attrs}
+        slots = {}
+        for a in node.output:
+            d, v = out.slots[a.expr_id]
+            d = _full(d, out.capacity)
+            if a.expr_id in build_ids:
+                td, tail_v = build.slots[a.expr_id]
+                td = _full(td, build.capacity).to(d.dtype)
+                if tail_v is not None:
+                    tail_v = _full(tail_v, build.capacity)
+            else:
+                td = torch.zeros(build.capacity, dtype=d.dtype,
+                                 device=self.device)
+                tail_v = torch.zeros(build.capacity, dtype=torch.bool,
+                                     device=self.device)
+            data = torch.cat([d, td])
+            valid = None
+            if v is not None or tail_v is not None:
+                valid = torch.cat([
+                    _full(v, out.capacity) if v is not None else
+                    torch.ones(out.capacity, dtype=torch.bool,
+                               device=self.device),
+                    tail_v if tail_v is not None else
+                    torch.ones(build.capacity, dtype=torch.bool,
+                               device=self.device)])
+            slots[a.expr_id] = (data, valid)
+        ranges = {a.expr_id: (build.ranges.get(a.expr_id)
+                              if a.expr_id in build_ids
+                              else out.ranges.get(a.expr_id))
+                  for a in node.output}
+        return Chunk(attrs=list(node.output), slots=slots,
+                     alive=torch.cat([out.alive, tail_alive]),
+                     capacity=out.capacity + build.capacity, ranges=ranges)
+
+    def _nested_loops_join(self, node: L.Join) -> Chunk:
+        """Block nested-loops theta join (NestedLoopsJoinOperator.hpp:65):
+        the cross product, then the ON predicate; inner, left, semi and
+        anti kinds."""
+        left = self._squeeze(self.exec(node.left))
+        right = self._squeeze(self.exec(node.right))
+        if node.kind == "left" and right.capacity == 0:
+            # a left row needs one slot to surface with a NULL right side
+            right = _one_dead_row(right)
+        cross = self._cross_pair(node, left, right)
+        passed = cross.alive
+        if node.residual is not None:
+            passed = passed & self._eval_pred(cross, node.residual)
+        if node.kind == "inner":
+            return dataclasses.replace(cross, alive=passed)
+        matched = passed.view(left.capacity, right.capacity).any(dim=1)
+        if node.kind == "semi":
+            return dataclasses.replace(left, alive=left.alive & matched)
+        if node.kind == "anti":
+            return dataclasses.replace(left, alive=left.alive & ~matched)
+        # left outer: the matched pairs, and one NULL-extended row per
+        # unmatched left row
+        first_slot = (torch.arange(cross.capacity, device=self.device)
+                      % right.capacity) == 0
+        unmatched = torch.repeat_interleave(left.alive & ~matched,
+                                            right.capacity) & first_slot
+        cross.restrict_valid([a.expr_id for a in right.attrs], ~unmatched)
+        return dataclasses.replace(cross, alive=passed | unmatched)
+
+    def _cross_join(self, node: L.Join) -> Chunk:
+        left = self._squeeze(self.exec(node.left))
+        right = self._squeeze(self.exec(node.right))
+        return self._cross_pair(node, left, right)
+
+    def _cross_pair(self, node: L.Join, left: Chunk, right: Chunk) -> Chunk:
+        """Every (left, right) row pair, left-major."""
+        cap = left.capacity * right.capacity
+        if cap > CROSS_JOIN_LIMIT:
+            raise ExecutionError(
+                f"cross join too large ({left.capacity} x {right.capacity})")
+        left.materialize_all()
+        right.materialize_all()
+        lidx = torch.repeat_interleave(
+            torch.arange(left.capacity, device=self.device), right.capacity)
+        ridx = torch.arange(right.capacity,
+                            device=self.device).repeat(left.capacity)
+        slots = {}
+        for side, idx in ((left, lidx), (right, ridx)):
+            cols = []
+            for a in side.attrs:
+                d, v = side.slots[a.expr_id]
+                cols += [_full(d, side.capacity),
+                         None if v is None else _full(v, side.capacity)]
+            g = K.multi_gather(cols, idx)
+            for i, a in enumerate(side.attrs):
+                slots[a.expr_id] = (g[2 * i], g[2 * i + 1])
+        alive = K.multi_gather([left.alive], lidx)[0] & \
+            K.multi_gather([right.alive], ridx)[0]
+        lb = left.bound if left.bound is not None else left.capacity
+        rb = right.bound if right.bound is not None else right.capacity
+        return Chunk(attrs=list(node.output), slots=slots, alive=alive,
+                     capacity=cap, bound=min(lb * rb, cap),
+                     ranges={**left.ranges, **right.ranges})
+
+    # ----------------------------------------------------------------
+    # sort / limit / distinct / set operations / row numbers
+    # ----------------------------------------------------------------
+    def _exec_Sort(self, node: L.Sort) -> Chunk:
+        """ORDER BY below the root: one stable sort of the packed key where
+        the keys' ranges fit, else the chained sort of ops/sort.py (K13).
+        LIMIT keeps the first rows of the sorted order."""
+        chunk = self.exec(node.input)
+        need = set()
+        for e in node.keys:
+            need |= e.referenced_attrs()
+        chunk.ensure([e for e in need if e in chunk.slots])
+        keys, valids = [], []
+        for e in node.keys:
+            d, v = chunk.broadcast(*self._eval(chunk, e))
+            keys.append(d)
+            valids.append(v)
+        key_ranges = [infer_range(e, chunk.ranges) for e in node.keys]
+        packed = self._pack_sort_key(keys, valids, key_ranges,
+                                     descending=[not a for a in
+                                                 node.ascending],
+                                     nulls_first=node.nulls_first)
+        if packed is not None:
+            # dead rows last: the dtype's max is above every packed key
+            top = torch.full((), K.max_sentinel(packed.dtype),
+                             dtype=packed.dtype, device=self.device)
+            _, order = torch.sort(torch.where(chunk.alive, packed, top),
+                                  stable=True)
+        else:
+            order = S.order_permutation(keys, valids, node.ascending,
+                                        node.nulls_first, chunk.alive)
+        out = Chunk(attrs=list(chunk.attrs),
+                    slots=compose_slots(chunk, order, None),
+                    alive=chunk.alive.index_select(0, order),
+                    capacity=chunk.capacity, ranges=dict(chunk.ranges),
+                    unique_sets=list(chunk.unique_sets))
+        if node.limit is not None:
+            out.alive = out.alive & (torch.arange(
+                out.capacity, device=self.device) < node.limit)
+        return out
+
+    def _exec_Limit(self, node: L.Limit) -> Chunk:
+        chunk = self.exec(node.input)
+        pos = torch.cumsum(chunk.alive, 0)
+        return dataclasses.replace(chunk,
+                                   alive=chunk.alive & (pos <= node.limit))
+
+    def _exec_Distinct(self, node: L.Distinct) -> Chunk:
+        """SELECT DISTINCT: the sort group-by over every column with no
+        aggregates, so its sort and K6 gathers and no K5 reduction."""
+        chunk = self.exec(node.input)
+        chunk.ensure([a.expr_id for a in chunk.attrs])
+        key_data, key_valid = [], []
+        for a in chunk.attrs:
+            d, v = chunk.broadcast(*chunk.slots[a.expr_id])
+            key_data.append(d)
+            key_valid.append(v)
+        key_ranges = [chunk.ranges.get(a.expr_id) for a in chunk.attrs]
+        packed = self._pack_sort_key(key_data, key_valid, key_ranges)
+        out_keys, out_valids, occupied, _n, _ = G.sort_groupby(
+            key_data, key_valid, [], chunk.alive, packed_key=packed)
+        slots = {}
+        for a, kd, kv in zip(chunk.attrs, out_keys, out_valids):
+            slots[a.expr_id] = (kd.to(K.torch_dtype(a.type.device_dtype)), kv)
+        return Chunk(attrs=list(chunk.attrs), slots=slots, alive=occupied,
+                     capacity=chunk.capacity, ranges=dict(chunk.ranges),
+                     unique_sets=[frozenset(a.expr_id for a in chunk.attrs)])
+
+    def _exec_SetOperation(self, node: L.SetOperation) -> Chunk:
+        """UNION [ALL] by concatenation (dictionary codes moved into the
+        output's merged dictionary); INTERSECT and EXCEPT as a semi or anti
+        join of the left input against the right on every column by open
+        addressing (K11), then DISTINCT. NULLs are equal here, so each
+        nullable column's validity joins the key."""
+        chunks = [self.exec(c).materialize_all() for c in node.inputs]
+        if node.kind in ("union", "union_all"):
+            slots = {}
+            for i, a in enumerate(node.attrs):
+                parts_d, parts_v = [], []
+                for c in chunks:
+                    ca = c.attrs[i]
+                    d, v = c.slots[ca.expr_id]
+                    d, v = self._remap_for_union(a, ca, _full(d, c.capacity),
+                                                 v)
+                    parts_d.append(d.to(K.torch_dtype(a.type.device_dtype)))
+                    parts_v.append(v)
+                valid = None
+                if any(v is not None for v in parts_v):
+                    valid = torch.cat([
+                        torch.ones(c.capacity, dtype=torch.bool,
+                                   device=self.device) if v is None
+                        else _full(v, c.capacity)
+                        for v, c in zip(parts_v, chunks)])
+                slots[a.expr_id] = (torch.cat(parts_d), valid)
+            return Chunk(attrs=list(node.attrs), slots=slots,
+                         alive=torch.cat([c.alive for c in chunks]),
+                         capacity=sum(c.capacity for c in chunks), ranges={})
+        if node.kind in ("intersect", "except"):
+            left, right = chunks
+            nullable = [left.slots[la.expr_id][1] is not None or
+                        right.slots[ra.expr_id][1] is not None
+                        for la, ra in zip(left.attrs, right.attrs)]
+
+            def keys_of(c):
+                ks = []
+                for a, oa, null in zip(c.attrs, node.attrs, nullable):
+                    d, v = c.broadcast(*c.slots[a.expr_id])
+                    # codes of different inputs compare in the merged
+                    # output dictionary
+                    d, v = self._remap_for_union(oa, a, d, v)
+                    if null:
+                        if v is None:
+                            v = torch.ones(c.capacity, dtype=torch.bool,
+                                           device=self.device)
+                        d = torch.where(v, d, torch.zeros((), dtype=d.dtype,
+                                                          device=d.device))
+                        ks.append(v.to(torch.int32))
+                    ks.append(d.contiguous())
+                return ks
+
+            lk, rk = keys_of(left), keys_of(right)
+            table, _ = J.oa_build(rk, right.alive,
+                                  K.next_pow2(2 * right.capacity))
+            _, matched = J.oa_probe(table, rk, lk, left.alive)
+            if node.kind == "except":
+                matched = ~matched
+            slots = {a.expr_id: left.slots[la.expr_id]
+                     for a, la in zip(node.attrs, left.attrs)}
+            renamed = Chunk(attrs=list(node.attrs), slots=slots,
+                            alive=left.alive & matched,
+                            capacity=left.capacity)
+            return self._exec_Distinct(L.Distinct(input=_Const(renamed)))
+        raise ExecutionError(f"unknown set op {node.kind}")
+
+    def _remap_for_union(self, out_attr: OutAttr, in_attr: OutAttr, d, v):
+        """An input's dictionary codes moved into the output attribute's
+        dictionary (which the planner makes the union of the inputs')."""
+        if out_attr.dictionary is not None and in_attr.dictionary is not None \
+                and out_attr.dictionary is not in_attr.dictionary:
+            from quickstep_tpu_torch.storage.dictionary import Dictionary
+            _merged, _ra, rb = Dictionary.merge(out_attr.dictionary,
+                                                in_attr.dictionary)
+            rm = K.to_device(rb, self.device)
+            safe = torch.clamp(d, 0, max(rm.shape[0] - 1, 0))
+            d = K.multi_gather([rm], safe.contiguous())[0]
+        return d, v
+
+    def _exec_RowNumber(self, node: L.RowNumber) -> Chunk:
+        """A unique id per row position: the outer row's identity in
+        general decorrelation. Dead rows get ids too and stay dead."""
+        chunk = self.exec(node.input)
+        a = node.out_attr
+        slots = dict(chunk.slots)
+        slots[a.expr_id] = (torch.arange(chunk.capacity, dtype=torch.int64,
+                                         device=self.device), None)
+        rid_set = frozenset([a.expr_id])
+        return Chunk(
+            attrs=list(node.output), slots=slots, alive=chunk.alive,
+            capacity=chunk.capacity, bound=chunk.bound,
+            ranges={**chunk.ranges,
+                    a.expr_id: (0, max(chunk.capacity - 1, 0))},
+            unique_sets=list(chunk.unique_sets) + [rid_set],
+            fds=list(chunk.fds) + [
+                (rid_set, frozenset(x.expr_id for x in chunk.attrs))],
+            max_counts={**chunk.max_counts, a.expr_id: 1})
+
+    def _exec__Const(self, node: "_Const") -> Chunk:
+        return node.chunk
 
     # ----------------------------------------------------------------
     # window aggregates
@@ -1015,3 +1452,26 @@ class PlanRunner:
             return self._compact_chunk(chunk, chunk.bound)
         return chunk
 
+
+
+class _Const(L.LogicalNode):
+    """An already computed chunk as a plan node (runner-internal)."""
+
+    def __init__(self, chunk: Chunk):
+        self.chunk = chunk
+
+    @property
+    def output(self):
+        return self.chunk.attrs
+
+
+def _one_dead_row(chunk: Chunk) -> Chunk:
+    """A chunk of one dead row with the attributes of an empty chunk."""
+    dev = chunk.device
+    slots = {a.expr_id: (torch.zeros(1, dtype=K.torch_dtype(
+        a.type.device_dtype), device=dev), torch.zeros(1, dtype=torch.bool,
+                                                       device=dev))
+        for a in chunk.attrs}
+    return Chunk(attrs=list(chunk.attrs), slots=slots,
+                 alive=torch.zeros(1, dtype=torch.bool, device=dev),
+                 capacity=1, ranges=dict(chunk.ranges))

@@ -38,13 +38,19 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # and probe, and their presence mode for the exact filter), K4
 # merge_unique_probe, K5 sort_groupby, K6 multi_gather, K7 expand_probe, K8
 # merge_cmp_probe (its compare and stats modes), K9 sort_groupby_compact (the
-# stable live-first partition), and the window kernels: W1 window_prefix, W2
-# frame_minmax, W3 frame_bounds, W4 sliding_sum.
+# stable live-first partition), the window kernels (W1 window_prefix, W2
+# frame_minmax, W3 frame_bounds, W4 sliding_sum), K10 hash_keys, K11
+# open_addressing (its build and probe), K12 distinct_count (the run starts,
+# counted or flagged) and K13 order_permutation (the sort key encoding).
+# A wrapper given an empty input launches nothing and returns the empty or
+# neutral result of its plain version.
 LAUNCHES = {"scalar_agg": 0, "dense_groupby": 0, "direct_join": 0,
             "merge_unique_probe": 0, "sort_groupby": 0, "multi_gather": 0,
             "expand_probe": 0, "merge_cmp_probe": 0,
             "sort_groupby_compact": 0, "window_prefix": 0,
-            "frame_minmax": 0, "frame_bounds": 0, "sliding_sum": 0}
+            "frame_minmax": 0, "frame_bounds": 0, "sliding_sum": 0,
+            "hash_keys": 0, "open_addressing": 0, "distinct_count": 0,
+            "order_permutation": 0}
 # Seconds the last build took in this process (None: the library was loaded
 # from an earlier build with the same source hash).
 BUILD_SECONDS: Optional[float] = None
@@ -153,6 +159,11 @@ def build() -> ctypes.CDLL:
                                 *[p] * 7],
             "qs_frame_minmax": [i32, i32, p, p, p, i64, p, i64, i32, p, p],
             "qs_sliding_sum": [i32, p, p, p, p, i64, p, p],
+            "qs_hash_keys": [i32, p, p, i64, p, i32, p],
+            "qs_oa_build": [i32, p, p, p, i64, p, i64, p, i32, p],
+            "qs_oa_probe": [p, i64, i32, p, p, p, p, i64, p, p, i32, p],
+            "qs_run_starts": [i32, p, i64, p, p, p, i32, p],
+            "qs_sort_key_encode": [i32, p, p, p, i64, i32, i32, p, i32, p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
@@ -206,6 +217,16 @@ def _acc_out_dtypes(fn: str, dtype: torch.dtype):
     return dtype, dtype
 
 
+def _neutral(fn: str, dtype: torch.dtype):
+    """fn's result over no rows, as the plain versions give it."""
+    from quickstep_tpu_torch.ops.kernels import max_sentinel, min_sentinel
+    if fn == "min":
+        return max_sentinel(dtype)
+    if fn == "max":
+        return min_sentinel(dtype)
+    return 0
+
+
 def _check_inputs(fn: str, vals, valid, alive) -> torch.device:
     if fn not in _FN:
         raise ValueError(f"unknown aggregate {fn!r}")
@@ -230,6 +251,12 @@ def masked_reduce(fn: str, vals: Optional[torch.Tensor],
     n = int(alive.shape[0])
     dtype = vals.dtype if fn != "count" else torch.int64
     acc_dt, out_dt = _acc_out_dtypes(fn, dtype)
+    if n == 0:
+        out_cnt = torch.zeros((), dtype=torch.int64, device=device)
+        if fn == "count":
+            return out_cnt, out_cnt
+        return torch.full((), _neutral(fn, dtype), dtype=out_dt,
+                          device=device), out_cnt
     blocks = _blocks(n, device)
     part_val = torch.empty(blocks, dtype=acc_dt, device=device)
     part_cnt = torch.empty(blocks, dtype=torch.int64, device=device)
@@ -265,6 +292,13 @@ def dense_group_reduce(fn: str, idx: torch.Tensor,
     lib = build()
     dtype = vals.dtype if fn != "count" else torch.int64
     acc_dt, out_dt = _acc_out_dtypes(fn, dtype)
+    if n == 0:
+        out_nn = torch.zeros(domain, dtype=torch.int32, device=device)
+        out_occ = torch.zeros(domain, dtype=torch.bool, device=device)
+        if fn == "count":
+            return out_nn, out_nn, out_occ
+        return torch.full((domain,), _neutral(fn, dtype), dtype=out_dt,
+                          device=device), out_nn, out_occ
     blocks = _blocks(n, device)
     part_val = torch.empty((blocks, domain), dtype=acc_dt, device=device)
     part_nn = torch.empty((blocks, domain), dtype=torch.int32, device=device)
@@ -411,8 +445,8 @@ def sorted_probe(sorted_key: torch.Tensor, order: torch.Tensor,
     bidx = torch.empty(n_probe, dtype=torch.int32, device=device)
     matched = torch.empty(n_probe, dtype=torch.bool, device=device)
     dup = torch.zeros((), dtype=torch.int32, device=device)
-    if n_build == 0 and n_probe == 0:
-        return bidx, matched, dup != 0
+    if n_build == 0:
+        return bidx.fill_(-1), matched.fill_(False), dup != 0
     err = lib.qs_sorted_probe(
         _ptr(sorted_key), _ptr(order), n_build, _ptr(probe), _ptr(pmask),
         n_probe, _ptr(bidx), _ptr(matched), _ptr(dup),
@@ -437,9 +471,10 @@ def multi_gather(cols: List[torch.Tensor], idx: torch.Tensor):
         _require(c, f"cols[{i}]", device, n_src, (c.dtype,))
         if c.element_size() not in (1, 2, 4, 8):
             raise TypeError(f"cols[{i}] has {c.element_size()}-byte elements")
-    if m > 0 and n_src < 1:
-        raise ValueError("multi_gather from empty columns")
     lib = build()
+    if n_src == 0:
+        # nothing to read: zeros, which the caller marks invalid
+        return [torch.zeros(m, dtype=c.dtype, device=device) for c in cols]
     outs = [torch.empty(m, dtype=c.dtype, device=device) for c in cols]
     if m == 0:
         return outs
@@ -482,8 +517,8 @@ def expand_probe(sorted_key: torch.Tensor, order: torch.Tensor,
     rows = torch.empty(n_probe * k, dtype=torch.int32, device=device)
     counts = torch.empty(n_probe, dtype=torch.int32, device=device)
     overflow = torch.zeros((), dtype=torch.int32, device=device)
-    if n_probe == 0:
-        return rows, counts, overflow != 0
+    if n_probe == 0 or n_build == 0:
+        return rows.fill_(-1), counts.zero_(), overflow != 0
     err = lib.qs_expand_probe(
         _ptr(sorted_key), _ptr(order), n_build, _ptr(probe), _ptr(alive),
         n_probe, k, _ptr(rows), _ptr(counts), _ptr(overflow),
@@ -531,7 +566,12 @@ def run_stats_probe(sorted_key: torch.Tensor, order: torch.Tensor,
     if op is None:
         out_min = torch.empty(n_probe, dtype=torch.int32, device=device)
         out_max = torch.empty(n_probe, dtype=torch.int32, device=device)
-    if n_build or n_probe:
+    if n_build == 0:
+        matched.fill_(False)
+        if op is None:
+            out_min.fill_(torch.iinfo(torch.int32).max)
+            out_max.fill_(torch.iinfo(torch.int32).min)
+    elif n_probe:
         err = lib.qs_run_stats_probe(
             _ptr(sorted_key), _ptr(order), n_build, _ptr(bval), _ptr(run_min),
             _ptr(run_max), _ptr(probe), _ptr(pmask), _ptr(pval), n_probe,
@@ -713,4 +753,159 @@ def sliding_sum(c: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                              _ptr(is_start), n, _ptr(out), _stream(device))
     _check(lib, err, "sliding_sum")
     LAUNCHES["sliding_sum"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------
+# K10-K13: hashing, open addressing, run starts, sort keys
+# (csrc/hash_kernels.cu, csrc/sort_kernels.cu)
+# ---------------------------------------------------------------------
+_KEY_DTYPE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
+              torch.float64: 3, torch.bool: 4, torch.uint8: 4}
+MAX_HASH_KEYS = 16            # kMaxKeys in csrc/hash_kernels.cu
+
+
+def _key_arrays(cols: List[torch.Tensor], device, n: int, dtypes):
+    """Host arrays of the columns' pointers and dtype codes."""
+    if not 1 <= len(cols) <= MAX_HASH_KEYS:
+        raise ValueError(f"{len(cols)} key columns; the kernels take 1 to "
+                         f"{MAX_HASH_KEYS}")
+    for i, c in enumerate(cols):
+        _require(c, f"cols[{i}]", device, n, dtypes)
+    k = len(cols)
+    ptrs = (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols])
+    codes = (ctypes.c_int * k)(*[_KEY_DTYPE[c.dtype] for c in cols])
+    return ptrs, codes
+
+
+def hash_keys(cols: List[torch.Tensor]) -> torch.Tensor:
+    """K10: hash_combine of hash64 of each int32 or int64 key column (cast
+    to int64), as int64 bits [n]."""
+    device = _cuda_device(cols[0], "cols[0]")
+    n = int(cols[0].shape[0]) if cols[0].dim() == 1 else -1
+    ptrs, codes = _key_arrays(cols, device, n, (torch.int32, torch.int64))
+    lib = build()
+    out = torch.empty(n, dtype=torch.int64, device=device)
+    if n == 0:
+        return out
+    err = lib.qs_hash_keys(len(cols), ctypes.cast(ptrs, ctypes.c_void_p),
+                           ctypes.cast(codes, ctypes.c_void_p), n, _ptr(out),
+                           _blocks(n, device), _stream(device))
+    _check(lib, err, "hash_keys")
+    LAUNCHES["hash_keys"] += 1
+    return out
+
+
+def oa_build(cols: List[torch.Tensor], alive: torch.Tensor,
+             table_size: int):
+    """K11 build: the live rows' ids, placed by the hash of their key
+    columns (K10's, computed in the kernel) and compared on those columns,
+    in a linear-probing table of table_size (a power of two above the live
+    rows) int32 slots, -1 where empty. Returns (table, 0-d bool dup flag:
+    two live rows share a key)."""
+    device = _cuda_device(alive, "alive")
+    n = int(alive.shape[0]) if alive.dim() == 1 else -1
+    _require(alive, "alive", device, n, (torch.bool,))
+    ptrs, codes = _key_arrays(cols, device, n, tuple(_KEY_DTYPE))
+    if table_size < 1 or table_size & (table_size - 1) or \
+            table_size > 2 ** 40:
+        raise ValueError(f"table size {table_size} is not a power of two")
+    _rows(n, "oa_build")
+    lib = build()
+    table = torch.full((table_size,), -1, dtype=torch.int32, device=device)
+    dup = torch.zeros((), dtype=torch.int32, device=device)
+    if n == 0:
+        return table, dup != 0
+    err = lib.qs_oa_build(len(cols), ctypes.cast(ptrs, ctypes.c_void_p),
+                          ctypes.cast(codes, ctypes.c_void_p), _ptr(alive), n,
+                          _ptr(table), table_size, _ptr(dup),
+                          _blocks(n, device), _stream(device))
+    _check(lib, err, "oa_build")
+    LAUNCHES["open_addressing"] += 1
+    return table, dup != 0
+
+
+def oa_probe(table: torch.Tensor, bcols: List[torch.Tensor],
+             pcols: List[torch.Tensor], alive: torch.Tensor):
+    """K11 probe: each live probe row's build row (int32, -1 for none) and
+    bool matched, walking from the slot of its keys' hash (K10's, computed
+    in the kernel). Build and probe key columns pair up with equal
+    dtypes."""
+    device = _cuda_device(alive, "alive")
+    n = int(alive.shape[0]) if alive.dim() == 1 else -1
+    _require(alive, "alive", device, n, (torch.bool,))
+    size = int(table.shape[0]) if table.dim() == 1 else -1
+    _require(table, "table", device, size, (torch.int32,))
+    if size < 1 or size & (size - 1):
+        raise ValueError(f"table size {size} is not a power of two")
+    if len(bcols) != len(pcols) or any(
+            b.dtype != p.dtype for b, p in zip(bcols, pcols)):
+        raise TypeError("build and probe key columns differ in number or "
+                        "dtype")
+    nb = int(bcols[0].shape[0]) if bcols and bcols[0].dim() == 1 else -1
+    bptrs, codes = _key_arrays(bcols, device, nb, tuple(_KEY_DTYPE))
+    pptrs, _ = _key_arrays(pcols, device, n, tuple(_KEY_DTYPE))
+    lib = build()
+    out = torch.full((n,), -1, dtype=torch.int32, device=device)
+    matched = torch.zeros(n, dtype=torch.bool, device=device)
+    if n == 0 or nb == 0:
+        return out, matched
+    err = lib.qs_oa_probe(_ptr(table), size, len(bcols),
+                          ctypes.cast(bptrs, ctypes.c_void_p),
+                          ctypes.cast(pptrs, ctypes.c_void_p),
+                          ctypes.cast(codes, ctypes.c_void_p), _ptr(alive), n,
+                          _ptr(out), _ptr(matched), _blocks(n, device),
+                          _stream(device))
+    _check(lib, err, "oa_probe")
+    LAUNCHES["open_addressing"] += 1
+    return out, matched
+
+
+def run_starts(s: torch.Tensor, n_live: torch.Tensor, count: bool):
+    """K12 over sorted values s: the mask i < n_live & (i == 0 | s[i] !=
+    s[i - 1]), or with count its number of set entries (0-d int64)."""
+    device = _cuda_device(s, "s")
+    n = int(s.shape[0]) if s.dim() == 1 else -1
+    _require(s, "s", device, n, tuple(_KEY_DTYPE))
+    if n_live.device != device or n_live.dtype != torch.int64 or \
+            n_live.dim() != 0:
+        raise ValueError("n_live must be a 0-d int64 tensor on the device")
+    lib = build()
+    flags = None if count else torch.zeros(n, dtype=torch.bool,
+                                           device=device)
+    total = torch.zeros((), dtype=torch.int64, device=device) if count \
+        else None
+    if n == 0:
+        return total if count else flags
+    err = lib.qs_run_starts(_KEY_DTYPE[s.dtype], _ptr(s), n, _ptr(n_live),
+                            _ptr(flags), _ptr(total), _blocks(n, device),
+                            _stream(device))
+    _check(lib, err, "run_starts")
+    LAUNCHES["distinct_count"] += 1
+    return total if count else flags
+
+
+def sort_key_encode(key: torch.Tensor, valid: Optional[torch.Tensor],
+                    asc: bool, nulls_first: Optional[bool],
+                    perm: torch.Tensor) -> torch.Tensor:
+    """K13: the order-preserving int64 of key at rows perm (int64): DESC
+    negated or inverted, NULL rows at the sentinel NULLS FIRST / LAST
+    (SQL default: last for ASC, first for DESC) asks for, floats through
+    their bits (ops/sort.py encode_key is the plain version)."""
+    device = _cuda_device(key, "key")
+    n = int(key.shape[0]) if key.dim() == 1 else -1
+    _require(key, "key", device, n, tuple(_KEY_DTYPE))
+    _require(valid, "valid", device, n, (torch.bool,))
+    _require(perm, "perm", device, n, (torch.int64,))
+    lib = build()
+    out = torch.empty(n, dtype=torch.int64, device=device)
+    if n == 0:
+        return out
+    first = nulls_first if nulls_first is not None else (not asc)
+    err = lib.qs_sort_key_encode(_KEY_DTYPE[key.dtype], _ptr(key),
+                                 _ptr(valid), _ptr(perm), n, int(not asc),
+                                 -1 if first else 1, _ptr(out),
+                                 _blocks(n, device), _stream(device))
+    _check(lib, err, "sort_key_encode")
+    LAUNCHES["order_permutation"] += 1
     return out

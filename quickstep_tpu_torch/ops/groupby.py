@@ -1,9 +1,10 @@
 """Aggregation: the scalar (no GROUP BY) reduce, the dense group-by, the
-sort group-by and its compacted form.
+sort group-by and its compacted form, and scalar DISTINCT.
 
 Counterparts of quickstep_tpu/ops/groupby.py `scalar_agg` (:435),
-`pack_dense_index` (:39), `dense_groupby` (:56), `sort_groupby` (:204) and
-`sort_groupby_compact` (:405).
+`pack_dense_index` (:39), `dense_groupby` (:56), `sort_groupby` (:204),
+`sort_groupby_compact` (:405) and `distinct_count` (:455), with the
+reference runner's `_dedup_values` (quickstep_tpu/exec/runner.py:837).
 Each aggregate has a plain torch version (`*_plain`) and a hand-written CUDA
 kernel (ops/cuda.py, csrc/agg_kernels.cu). The public function takes the
 plain version for tensors that lie on the CPU and launches the kernel for
@@ -350,3 +351,70 @@ def scalar_agg_plain(fn: str, vals: Optional[torch.Tensor],
         contrib = torch.where(live, vals, fill_t)
         return (contrib.min() if fn == "min" else contrib.max()), count
     raise ValueError(fn)
+
+
+# ---------------------------------------------------------------------
+# scalar DISTINCT: one sort, then the live run starts (K12)
+# ---------------------------------------------------------------------
+
+def _sorted_live(vals: torch.Tensor, valid: Optional[torch.Tensor],
+                 alive: torch.Tensor):
+    """(the values sorted with the dead and NULL rows as the dtype's max,
+    the number of live values): the first n_live sorted entries are the
+    live values, as in the reference."""
+    live = alive if valid is None else (alive & valid)
+    v = vals.to(torch.uint8) if vals.dtype == torch.bool else vals
+    k = torch.where(live, v, torch.full((), max_sentinel(vals.dtype),
+                                        dtype=v.dtype, device=v.device))
+    s, _ = torch.sort(k, stable=True)
+    return s, torch.sum(live, dtype=torch.int64)
+
+
+def distinct_count(vals: torch.Tensor, valid: Optional[torch.Tensor],
+                   alive: torch.Tensor) -> torch.Tensor:
+    """COUNT(DISTINCT vals) over the live non-NULL rows: a 0-d int64
+    tensor. One stable torch.sort, then on CUDA one K12 launch counts the
+    run starts among the first n_live sorted values; on the CPU the plain
+    version runs."""
+    s, n_live = _sorted_live(vals, valid, alive)
+    if _on_cpu(s):
+        return run_starts_plain(s, n_live).sum(dtype=torch.int64)
+    from quickstep_tpu_torch.ops import cuda
+    return cuda.run_starts(s, n_live, count=True)
+
+
+def distinct_count_plain(vals: torch.Tensor, valid: Optional[torch.Tensor],
+                         alive: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of distinct_count."""
+    s, n_live = _sorted_live(vals, valid, alive)
+    return run_starts_plain(s, n_live).sum(dtype=torch.int64)
+
+
+def dedup_values(vals: torch.Tensor, valid: Optional[torch.Tensor],
+                 alive: torch.Tensor):
+    """SUM/AVG/MIN/MAX DISTINCT without GROUP BY: (the sorted values, the
+    bool mask of each distinct live value's first sorted row), to be
+    aggregated as (values, None, mask). On CUDA the mask is one K12 launch
+    in its flag mode."""
+    s, n_live = _sorted_live(vals, valid, alive)
+    if vals.dtype == torch.bool:
+        s = s.to(torch.bool)
+    if _on_cpu(s):
+        return s, run_starts_plain(s, n_live)
+    from quickstep_tpu_torch.ops import cuda
+    return s, cuda.run_starts(s, n_live, count=False)
+
+
+def dedup_values_plain(vals: torch.Tensor, valid: Optional[torch.Tensor],
+                       alive: torch.Tensor):
+    """Plain torch version of dedup_values."""
+    s, n_live = _sorted_live(vals, valid, alive)
+    if vals.dtype == torch.bool:
+        s = s.to(torch.bool)
+    return s, run_starts_plain(s, n_live)
+
+
+def run_starts_plain(s: torch.Tensor, n_live: torch.Tensor) -> torch.Tensor:
+    """The bool mask i < n_live & (i == 0 | s[i] != s[i - 1])."""
+    idx = torch.arange(s.shape[0], device=s.device)
+    return ((idx == 0) | (s != torch.roll(s, 1))) & (idx < n_live)

@@ -1,27 +1,31 @@
-"""Join kernels: the direct-address table, the sorted-build unique probe,
-the expansion probe and the run-statistics probes.
+"""Join kernels: the direct-address table, open addressing, the
+sorted-build unique probe, the expansion probe and the run-statistics
+probes.
 
 Counterparts of quickstep_tpu/ops/join.py `direct_build` (:43),
-`direct_probe` (:63), `sorted_build` (:181), `expand_probe` (:228, with
-:189 `merge_starts`), `merge_stats_probe` (:247), `merge_cmp_probe` (:317)
-and `merge_unique_probe` (:382). Each has a plain torch version (`*_plain`)
-and a hand-written CUDA kernel (ops/cuda.py, csrc/join_kernels.cu: K3 for
+`direct_probe` (:63), `oa_build` (:83), `oa_probe` (:135), `sorted_build`
+(:181), `expand_probe` (:228, with :189 `merge_starts`),
+`merge_stats_probe` (:247), `merge_cmp_probe` (:317) and
+`merge_unique_probe` (:382). Each has a plain torch version (`*_plain`)
+and a hand-written CUDA kernel (ops/cuda.py; csrc/join_kernels.cu: K3 for
 the direct table, K4 for the sorted probe, K7 for the expansion probe, K8 for
-the run statistics). The public function takes the plain version for
-tensors that lie on the CPU and launches the kernel for CUDA tensors.
+the run statistics; csrc/hash_kernels.cu: K11 for open addressing). The
+public function takes the plain version for tensors that lie on the CPU and
+launches the kernel for CUDA tensors.
 
 Uniqueness violations and expansion overflows are detected on the device
 (0-d bool flags) so the executor can retry on the expansion path or with a
 wider expansion, the analog of the reference's
-HashTablePutResult::kOutOfSpace resize. Open addressing waits for the
-hashed joins.
+HashTablePutResult::kOutOfSpace resize.
 """
 
 from __future__ import annotations
 
+from typing import List
+
 import torch
 
-from quickstep_tpu_torch.ops.kernels import max_sentinel
+from quickstep_tpu_torch.ops.kernels import hash_keys_plain, max_sentinel
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -252,3 +256,115 @@ def merge_unique_probe_plain(packed_build: torch.Tensor, bmask: torch.Tensor,
                        torch.full(probe.shape, -1, dtype=torch.int32,
                                   device=probe.device))
     return bidx, matched, dup
+
+
+# ---------------------------------------------------------------------
+# open addressing (composite keys of any type: set operations, unpackable
+# semi-join keys)
+# ---------------------------------------------------------------------
+
+def _oa_slots(cols: List[torch.Tensor], table_size: int) -> torch.Tensor:
+    # (float keys hash by their int64 truncation; equality compares values)
+    return hash_keys_plain(cols) & (table_size - 1)
+
+
+def oa_build(key_cols: List[torch.Tensor], alive: torch.Tensor,
+             table_size: int):
+    """Insert the live build rows into a linear-probing table of row ids.
+    table_size is a power of two above the number of live rows. Returns
+    (int32 table[table_size] of build rows or -1, 0-d bool dup flag: two
+    live rows share a key). No row evicts one that has settled; which of
+    two equal keys settles may differ between the two versions. On CUDA
+    one K11 launch, which hashes the keys itself."""
+    if alive.device.type == "cpu":
+        return oa_build_plain(key_cols, alive, table_size)
+    from quickstep_tpu_torch.ops import cuda
+    return cuda.oa_build([c.contiguous() for c in key_cols],
+                         alive.contiguous(), table_size)
+
+
+def oa_build_plain(key_cols: List[torch.Tensor], alive: torch.Tensor,
+                   table_size: int):
+    """Plain torch version of oa_build, in the reference's rounds: every
+    pending row reads its slot; an empty slot takes one scattered
+    contender, an equal occupant (or an equal winner of the slot it lost)
+    marks the row a duplicate, any other occupant sends it to the next
+    slot. Only pending rows are touched. Unlike the reference, whose
+    losers step on without comparing, the dup flag is set exactly when two
+    live rows share a key, as in the kernel."""
+    dev = alive.device
+    mask = table_size - 1
+    table = torch.full((table_size,), -1, dtype=torch.int32, device=dev)
+    rows = torch.nonzero(alive).flatten()
+    slots = _oa_slots(key_cols, table_size)[rows] if rows.numel() else \
+        rows
+    dup = torch.zeros((), dtype=torch.bool, device=dev)
+    while rows.numel():
+        cur = table[slots].to(torch.int64)
+        occupied = cur >= 0
+        same = occupied.clone()
+        safe = torch.where(occupied, cur, rows)
+        for c in key_cols:
+            same &= c[safe] == c[rows]
+        dup = dup | torch.any(same)
+        attempt = ~occupied
+        table[slots[attempt]] = rows[attempt].to(torch.int32)
+        winner = table[slots].to(torch.int64)
+        won = attempt & (winner == rows)
+        lost = attempt & ~won
+        for c in key_cols:
+            lost &= c[winner] == c[rows]
+        dup = dup | torch.any(lost)
+        still = ~won & ~same & ~lost
+        rows = rows[still]
+        slots = (slots[still] + 1) & mask
+    return table, dup
+
+
+def oa_probe(table: torch.Tensor, build_key_cols: List[torch.Tensor],
+             probe_key_cols: List[torch.Tensor], alive: torch.Tensor):
+    """Walk from each live probe row's slot to an equal key or an empty
+    slot. Returns (int32 build row or -1, bool matched). On CUDA one K11
+    launch, which hashes the keys itself (none over an empty build side)."""
+    if alive.device.type == "cpu":
+        return oa_probe_plain(table, build_key_cols, probe_key_cols, alive)
+    from quickstep_tpu_torch.ops import cuda
+    # the kernel compares like dtypes: each pair at its promoted dtype (the
+    # hash reads both as int64, so equal values hash alike)
+    pairs = [(b, p) if b.dtype == p.dtype else
+             (b.to(torch.promote_types(b.dtype, p.dtype)),
+              p.to(torch.promote_types(b.dtype, p.dtype)))
+             for b, p in zip(build_key_cols, probe_key_cols)]
+    return cuda.oa_probe(table, [b.contiguous() for b, _ in pairs],
+                         [p.contiguous() for _, p in pairs],
+                         alive.contiguous())
+
+
+def oa_probe_plain(table: torch.Tensor, build_key_cols: List[torch.Tensor],
+                   probe_key_cols: List[torch.Tensor], alive: torch.Tensor):
+    """Plain torch version of oa_probe: the active rows advance together,
+    one slot a round."""
+    dev = alive.device
+    table_size = table.shape[0]
+    mask = table_size - 1
+    n = alive.shape[0]
+    result = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    if build_key_cols[0].shape[0] == 0:
+        return result, result >= 0
+    rows = torch.nonzero(alive).flatten()
+    slots = _oa_slots(probe_key_cols, table_size)[rows] if rows.numel() \
+        else rows
+    steps = 0
+    while rows.numel() and steps < table_size:
+        occ = table[slots].to(torch.int64)
+        filled = occ >= 0
+        match = filled.clone()
+        safe = torch.where(filled, occ, torch.zeros_like(occ))
+        for bk, pk in zip(build_key_cols, probe_key_cols):
+            match &= bk[safe] == pk[rows]
+        result[rows[match]] = occ[match].to(torch.int32)
+        go = filled & ~match
+        rows = rows[go]
+        slots = (slots[go] + 1) & mask
+        steps += 1
+    return result, result >= 0

@@ -1,14 +1,19 @@
 """Core vectorized building blocks: row masks, compaction order, sentinels,
-the stable partition and the many-column gather.
+the stable partition, the many-column gather and key hashing.
 
-The subset of quickstep_tpu/ops/kernels.py that the port's slices need.
-`multi_gather` launches the hand-written K6 kernel and `stable_partition`
-the K9 kernel on CUDA tensors, and each takes its plain version on CPU
-tensors; the other functions are single torch ops on whatever device their
-input lies on. The reference's
-TPU lane packing (`_lane_dtype`, `PACK_PAD_LIMIT`) is not carried over: a
-Hopper gather reads each column at its own width. The hashing helpers come
-with the hashed joins.
+The subset of quickstep_tpu/ops/kernels.py that the port needs.
+`multi_gather` launches the hand-written K6 kernel, `stable_partition` the
+K9 kernel and `hash_keys` the K10 kernel on CUDA tensors, and each takes its
+plain version on CPU tensors; the other functions are single torch ops on
+whatever device their input lies on. The reference's TPU lane packing
+(`_lane_dtype`, `PACK_PAD_LIMIT`) is not carried over: a Hopper gather reads
+each column at its own width. `scatter_compact` is not ported yet (nothing
+in the reference's query path calls it).
+
+Hashes are uint64 bit patterns held in int64 tensors (torch has no uint64
+arithmetic): products wrap modulo 2^64, right shifts are logical (an
+arithmetic shift, masked), and constants at or above 2^63 are written as
+the negative int64 with the same bits.
 """
 
 from __future__ import annotations
@@ -99,8 +104,60 @@ def multi_gather(cols: List[Optional[torch.Tensor]], idx: torch.Tensor):
 
 
 def multi_gather_plain(cols: List[Optional[torch.Tensor]], idx: torch.Tensor):
-    """Plain torch version of multi_gather: one index_select per column."""
-    return [None if c is None else c.index_select(0, idx) for c in cols]
+    """Plain torch version of multi_gather: one index_select per column. A
+    column of zero rows gathers to zeros of the index's length (the caller
+    marks those rows invalid)."""
+    return [None if c is None else
+            torch.zeros(idx.shape[0], dtype=c.dtype, device=c.device)
+            if c.shape[0] == 0 else c.index_select(0, idx) for c in cols]
+
+
+# SplitMix64's constants (quickstep_tpu/ops/kernels.py:143-160), as int64
+_MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_MIX2 = 0x94D049BB133111EB - (1 << 64)
+_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
+
+
+def _shr(h: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits."""
+    return (h >> s) & ((1 << (64 - s)) - 1)
+
+
+def hash64(x: torch.Tensor) -> torch.Tensor:
+    """The SplitMix64 finalizer of quickstep_tpu/ops/kernels.py:143 over
+    x's int64 value, as int64 bits."""
+    h = x.to(torch.int64)
+    h = (h ^ _shr(h, 30)) * _MIX1
+    h = (h ^ _shr(h, 27)) * _MIX2
+    return h ^ _shr(h, 31)
+
+
+def hash_combine(hs: List[torch.Tensor]) -> torch.Tensor:
+    """quickstep_tpu/ops/kernels.py:154 over int64 bits (out << 6 as a
+    wrapping product by 64)."""
+    out = hs[0]
+    for h in hs[1:]:
+        out = out ^ (h + _GOLDEN + out * 64 + _shr(out, 2))
+    return out
+
+
+def hash_keys(cols: List[torch.Tensor]) -> torch.Tensor:
+    """hash_combine of hash64 of each key column's int64 value (other
+    dtypes than int32 and int64 are cast first, floats truncating, as the
+    reference's astype(int64)): one int64 per row. On CUDA one K10 launch
+    (ops/cuda.py hash_keys, at most 16 columns); on the CPU the plain
+    version runs."""
+    if cols[0].device.type == "cpu":
+        return hash_keys_plain(cols)
+    from quickstep_tpu_torch.ops import cuda
+    return cuda.hash_keys([
+        (c if c.dtype in (torch.int32, torch.int64)
+         else c.to(torch.int64)).contiguous() for c in cols])
+
+
+def hash_keys_plain(cols: List[torch.Tensor]) -> torch.Tensor:
+    """Plain torch version of hash_keys."""
+    return hash_combine([hash64(c) for c in cols])
 
 
 def next_pow2(n: int) -> int:

@@ -57,6 +57,40 @@ JOINS_WITHOUT_JAX = textwrap.dedent("""
     print("JOINS OK")
 """)
 
+DML_AND_OPERATORS_WITHOUT_JAX = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None          # any `import jax` now fails
+    import quickstep_tpu_torch.bench.golden_corpus
+    import quickstep_tpu_torch.bench.zero_rows
+    import quickstep_tpu_torch.ops.sort
+    import quickstep_tpu_torch.utils.visualize
+    from quickstep_tpu_torch import Database
+    from quickstep_tpu_torch.utils.golden import run_golden_file
+    from quickstep_tpu_torch.utils.testdb import load_test_relation
+    for name in ("Insert", "Update", "Delete", "Copy", "Union", "Distinct",
+                 "TableGenerator", "LIP"):
+        db = Database(device="cpu")
+        load_test_relation(db)
+        failures = run_golden_file(f"tests/golden/reference/{name}.test", db)
+        assert not failures, failures[0]
+        db.close()
+    bad = [m for m, mod in sys.modules.items() if mod is not None and (
+           m == "jax" or m.startswith("jax.")
+           or m == "quickstep_tpu" or m.startswith("quickstep_tpu."))]
+    assert not bad, bad
+    print("DML OK")
+""")
+
+# The host modules the port copies, and the function of each copy that was
+# changed for torch (compared without it).
+COPIES = {
+    "storage/csv_io.py": None,
+    "utils/testdb.py": None,
+    "utils/golden.py": None,
+    "utils/reference_plan.py": None,
+    "utils/visualize.py": "profile_plan",
+}
+
 # Runs tools/sf100_fullgen.py as its own __main__, with the copy of the
 # oracle it writes to a fixed path under /tmp sent into its output directory.
 RUN_FULLGEN_TOOL = textwrap.dedent("""
@@ -90,6 +124,40 @@ def test_port_runs_join_queries_without_jax():
     proc = _run(["-c", JOINS_WITHOUT_JAX], REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "JOINS OK" in proc.stdout
+
+
+def test_port_runs_dml_and_operators_without_jax():
+    proc = _run(["-c", DML_AND_OPERATORS_WITHOUT_JAX], REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "DML OK" in proc.stdout
+
+
+def _without_function(text, name):
+    """text without the top-level function `name` (its def line up to the
+    next top-level statement)."""
+    if name is None:
+        return text
+    lines = text.split("\n")
+    start = next(i for i, line in enumerate(lines)
+                 if line.startswith(f"def {name}("))
+    end = next(i for i in range(start + 1, len(lines))
+               if lines[i] and not lines[i][0].isspace())
+    return "\n".join(lines[:start] + lines[end:])
+
+
+@pytest.mark.parametrize("path", sorted(COPIES))
+def test_copied_host_modules_equal_their_sources(path):
+    """Each copy names its source on its first line and is the source with
+    quickstep_tpu renamed, apart from the function COPIES names."""
+    with open(os.path.join(REPO, "quickstep_tpu_torch", path)) as f:
+        first, copy = f.read().split("\n", 1)
+    with open(os.path.join(REPO, "quickstep_tpu", path)) as f:
+        source = f.read()
+    assert first.startswith(f"# Copied from quickstep_tpu/{path};")
+    copy = copy.replace("quickstep_tpu_torch", "quickstep_tpu")
+    assert _without_function(copy, COPIES[path]) == \
+        _without_function(source, COPIES[path])
+    assert "jax" not in copy
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

@@ -726,3 +726,206 @@ def test_window_public_functions_take_plain_versions_on_cpu():
     TW.window_aggregate([key], [key], [True], "avg", c, None, live,
                         ("rows", 2, 2))
     assert not any(TC.LAUNCHES.values()), TC.LAUNCHES
+
+
+# ---------------------------------------------------------------------
+# K10 hashing, K11 open addressing, K12 run starts, K13 sort keys, and
+# every kernel at zero rows
+# ---------------------------------------------------------------------
+
+from quickstep_tpu_torch.bench.zero_rows import zero_row_cases  # noqa: E402
+from quickstep_tpu_torch.ops import sort as TS  # noqa: E402
+
+HASH_EDGES = [-(1 << 63), (1 << 63) - 1, -1, 0, 1, -(1 << 31), (1 << 31) - 1]
+
+
+def _key_cols(dtype, ncols, n, seed, device, domain=None):
+    rng = np.random.default_rng(seed)
+    info = torch.iinfo(dtype) if not dtype.is_floating_point else None
+    cols = []
+    for _ in range(ncols):
+        if domain is not None:
+            c = rng.integers(0, domain, n)
+            c = c * 0.5 if dtype.is_floating_point else c
+        else:
+            c = rng.integers(info.min, info.max, n, endpoint=True,
+                             dtype=np.int64 if dtype == torch.int64
+                             else np.int32)
+            c[:len(HASH_EDGES)] = np.array(HASH_EDGES).astype(c.dtype)
+        cols.append(torch.from_numpy(np.asarray(c)).to(dtype).to(device))
+    return cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncols", (1, 2, 3, 8))
+@pytest.mark.parametrize("dtype", (torch.int32, torch.int64), ids=str)
+def test_hash_keys_kernel_matches_plain(card, dtype, ncols):
+    cols = _key_cols(dtype, ncols, 100_003, 61 + ncols, card)
+    _same(TK.hash_keys(cols), TK.hash_keys_plain(cols), 0.0)
+
+
+def _oa_sides(dtype, ncols, dups, device, n_build=20_011, n_probe=50_021,
+              seed=67):
+    rng = np.random.default_rng(seed)
+    domain = n_build * 50
+    build = _key_cols(dtype, ncols, n_build, seed, device, domain)
+    # a distinct first column: every composite key is unique
+    first = rng.choice(domain, n_build, replace=False)
+    build[0] = torch.from_numpy(first * 0.5 if dtype.is_floating_point
+                                else first).to(dtype).to(device)
+    if dups:
+        # every row a copy of one of the first half's rows
+        rows = torch.from_numpy(rng.integers(0, n_build // 2, n_build))
+        build = [c[rows.to(device)] for c in build]
+    pick = torch.from_numpy(rng.integers(0, n_build, n_probe)).to(device)
+    probe = [c[pick] for c in build]
+    miss = torch.from_numpy(rng.random(n_probe) < 0.3).to(device)
+    probe[0] = torch.where(miss, probe[0] + domain * 3, probe[0])
+    balive = torch.from_numpy(rng.random(n_build) < 0.9).to(device)
+    palive = torch.from_numpy(rng.random(n_probe) < 0.9).to(device)
+    return build, probe, balive, palive
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dups", (False, True), ids=("unique", "dups"))
+@pytest.mark.parametrize("ncols", (1, 2, 3))
+@pytest.mark.parametrize("dtype", (torch.int32, torch.int64, torch.float64),
+                         ids=str)
+def test_open_addressing_kernel_matches_plain(card, dtype, ncols, dups):
+    """matched and the dup flag exactly; the build row wherever the probe's
+    key has one live build row; every matched row holds the probe's key."""
+    build, probe, balive, palive = _oa_sides(dtype, ncols, dups, card)
+    size = TK.next_pow2(2 * len(balive))
+    table, dup = TJ.oa_build(build, balive, size)
+    ptable, pdup = TJ.oa_build_plain(build, balive, size)
+    assert bool(dup) == bool(pdup) == dups
+    idx, matched = TJ.oa_probe(table, build, probe, palive)
+    pidx, pmatched = TJ.oa_probe_plain(ptable, build, probe, palive)
+    _same(matched, pmatched, 0.0)
+    for b, p in zip(build, probe):
+        _same(b[idx.long()[matched]], p[matched], 0.0)
+    if not dups:
+        _same(idx, pidx, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, size", ((100, 128), (120, 128), (100_000,
+                                                               131_072)))
+def test_open_addressing_kernel_never_evicts(card, n, size):
+    keys = torch.arange(n, dtype=torch.int64, device=card) * 7919 + 13
+    alive = torch.ones(n, dtype=torch.bool, device=card)
+    table, dup = TJ.oa_build([keys], alive, size)
+    assert not bool(dup)
+    idx, matched = TJ.oa_probe(table, [keys], [keys], alive)
+    assert bool(matched.all())
+    _same(idx, torch.arange(n, dtype=torch.int32, device=card), 0.0)
+
+
+def _sort_values(dtype, n, seed, device, domain=40):
+    rng = np.random.default_rng(seed)
+    if dtype == torch.bool:
+        v = rng.random(n) < 0.5
+    elif dtype.is_floating_point:
+        v = rng.integers(-domain, domain, n) * 0.25
+        v[:6] = [0.0, -0.0, np.nan, np.inf, -np.inf, np.nan]
+    else:
+        v = rng.integers(-domain, domain, n)
+    return torch.from_numpy(np.asarray(v)).to(dtype).to(device)
+
+
+SORT_DTYPES = DTYPES + (torch.bool,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nullable", (False, True))
+@pytest.mark.parametrize("dtype", SORT_DTYPES, ids=str)
+def test_distinct_kernel_matches_plain(card, dtype, nullable):
+    rng = np.random.default_rng(71)
+    n = 100_003
+    vals = _sort_values(dtype, n, 73, card, domain=5_000)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(card) if nullable \
+        else None
+    alive = torch.from_numpy(rng.random(n) < 0.8).to(card)
+    _same(TG.distinct_count(vals, valid, alive),
+          TG.distinct_count_plain(vals, valid, alive), 0.0)
+    s, mask = TG.dedup_values(vals, valid, alive)
+    ps, pmask = TG.dedup_values_plain(vals, valid, alive)
+    _same(mask, pmask, 0.0)
+    assert torch.equal(s[mask].cpu(), ps[pmask].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nulls_first", (None, True, False), ids=str)
+@pytest.mark.parametrize("asc", (True, False), ids=("asc", "desc"))
+@pytest.mark.parametrize("dtype", SORT_DTYPES, ids=str)
+def test_order_permutation_kernel_matches_plain(card, dtype, asc,
+                                                nulls_first):
+    rng = np.random.default_rng(79)
+    n = 100_003
+    keys = [_sort_values(dtype, n, 83, card, domain=30),
+            _sort_values(torch.int32, n, 89, card, domain=7)]
+    valids = [torch.from_numpy(rng.random(n) < 0.85).to(card), None]
+    alive = torch.from_numpy(rng.random(n) < 0.9).to(card)
+    args = (keys, valids, [asc, True], [nulls_first, None], alive)
+    _same(TS.order_permutation(*args), TS.order_permutation_plain(*args), 0.0)
+
+
+@pytest.mark.cuda
+def test_k10_to_k13_launches_are_counted(card):
+    build, probe, balive, palive = _oa_sides(torch.int64, 2, False, card)
+    vals = _sort_values(torch.float64, len(palive), 97, card)
+    TC.reset_launches()
+    TK.hash_keys(build)
+    table, _ = TJ.oa_build(build, balive, TK.next_pow2(2 * len(balive)))
+    TJ.oa_probe(table, build, probe, palive)
+    TG.distinct_count(vals, None, palive)
+    TS.order_permutation([vals, probe[0]], [None, None], [False, True],
+                         [None, None], palive)
+    TK.hash_keys_plain(build)
+    TG.distinct_count_plain(vals, None, palive)
+    # open addressing hashes its keys inside its own kernels
+    assert TC.LAUNCHES == dict(dict.fromkeys(TC.LAUNCHES, 0), hash_keys=1,
+                               open_addressing=2, distinct_count=1,
+                               order_permutation=2)
+
+
+def test_k10_to_k13_wrappers_reject_cpu_tensors():
+    x = torch.arange(4, dtype=torch.int64)
+    flags = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.hash_keys([x])
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.oa_build([x], flags, 8)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.run_starts(x, torch.tensor(4), True)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.sort_key_encode(x, None, True, None, x)
+
+
+def test_k10_to_k13_public_functions_take_plain_versions_on_cpu():
+    build, probe, balive, palive = _oa_sides(torch.int32, 2, True, "cpu",
+                                             n_build=500, n_probe=700)
+    TC.reset_launches()
+    TK.hash_keys(build)
+    table, _ = TJ.oa_build(build, balive, 1024)
+    TJ.oa_probe(table, build, probe, palive)
+    TG.distinct_count(probe[0], None, palive)
+    TG.dedup_values(probe[0], None, palive)
+    TS.order_permutation([probe[0]], [None], [False], [None], palive)
+    assert not any(TC.LAUNCHES.values()), TC.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(TC.LAUNCHES))
+def test_kernel_at_zero_rows(card, kernel):
+    """An empty input (an empty build side under a few probe rows for the
+    join kernels) launches nothing and gives the plain version's result."""
+    kernel_fn, plain_fn = zero_row_cases(card)[kernel]
+    TC.reset_launches()
+    got = kernel_fn()
+    torch.cuda.synchronize()
+    assert not any(TC.LAUNCHES.values()), TC.LAUNCHES
+    want = plain_fn()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
