@@ -1,7 +1,8 @@
 """Smoke run of quickstep_tpu_torch on one CUDA card: builds the kernels,
 holds each against its plain torch version at SF10 shapes and at zero rows,
 checks all 22 TPC-H queries (and a Q20 variant that returns rows) at SF0.01
-against sqlite, runs the reference's golden corpus (16 reference and 3
+against sqlite, on one device and on an 8-shard mesh of the card, runs the
+reference's golden corpus (16 reference and 3
 execute files) on the card, and runs Q1, Q6, Q3, Q4, Q5, Q10, Q7, Q12, Q14,
 Q19, Q9, Q16, Q18 and Q21 at SF10 with all 8 tables generated in the
 process and resident on the card, against the generator's exact oracle,
@@ -11,7 +12,12 @@ takes the expansion join, the six window queries of bench/tpch_fullgen.py
 DISTINCT, EXCEPT, INTERSECT, a join on hashed keys, ORDER BY ... LIMIT
 below the root) on the same resident tables against their exact oracles,
 and a DML sequence (O-DML: INSERT ... SELECT, DELETE, UPDATE) whose totals
-are checked against the oracle.
+are checked against the oracle. Then the same generated tables go to a
+second database on an 8-shard mesh of the card (Config.distributed), where
+Q3, Q5, Q9, Q10 and Q18 take the shuffle join (K14-K16) and Q9 the
+two-phase GROUP BY, against the same oracle; and the distributed
+aggregate-join step runs at 7.5 M rows per shard over 8 shards against a
+plain computation.
 
     python3 chip_smoke.py
 
@@ -21,6 +27,7 @@ object, {"ok": true, "device": {...}}; the line before it names the card and
 its power limit, and the one before that holds the kernels' numbers.
 """
 
+import gc
 import json
 import math
 import re
@@ -46,6 +53,15 @@ N_SEGMENTS = 15_000_000
 N_PARTS = 2_000_000             # part rows at SF10; partsupp has 4 per part
 N_SEMI_PROBE = 38_000_000       # ~ Q21's late lineitem rows at SF10
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at 700 W
+N_SHARD_ROWS = 7_500_000       # one of 8 row shards of lineitem at SF10
+MESH_SHARDS = 8
+# the SF0.01 mesh's replicate threshold: lineitem, orders, partsupp and
+# part shard, the other tables replicate (tests/test_distributed.py:22)
+SMALL_MESH_THRESHOLD = 2000
+# SF10 queries on the 8-shard mesh (default replicate threshold) and the
+# kernels each must launch: every one shuffles inner joins with the LIP on
+SHUFFLE_KERNELS = ("partition_dest", "scatter_compact", "bloom_filter")
+MESH_QUERIES = (3, 5, 9, 10, 18)
 # a Q20 whose p_name prefix has rows at SF0.01 (the spec's 'forest%' has none)
 Q20_ROWS_PREFIX = "green"
 # SF10 queries and the kernels each must launch
@@ -132,6 +148,12 @@ KERNELS = {   # name: (source, the reference function it replaces)
                        "quickstep_tpu/ops/groupby.py:455"),
     "order_permutation": ("quickstep_tpu_torch/csrc/sort_kernels.cu",
                           "quickstep_tpu/ops/sort.py:21"),
+    "partition_dest": ("quickstep_tpu_torch/csrc/shuffle_kernels.cu",
+                       "quickstep_tpu/parallel/shuffle.py:36"),
+    "scatter_compact": ("quickstep_tpu_torch/csrc/shuffle_kernels.cu",
+                        "quickstep_tpu/ops/kernels.py:44"),
+    "bloom_filter": ("quickstep_tpu_torch/csrc/shuffle_kernels.cu",
+                     "quickstep_tpu/ops/bloom.py:41"),
 }
 
 
@@ -702,6 +724,67 @@ def phase_operator_kernels(case, dev):
          lambda: (S.encode_key(price, None, False, None),), atol=0)
     del price, qty, qvalid, tie, alive, args, ident
     torch.cuda.empty_cache()
+    phase_shuffle_kernels(case, dev)
+
+
+def phase_shuffle_kernels(case, dev):
+    """K14-K16 against their plain versions at the mesh path's SF10 shapes:
+    the radix partition of one lineitem shard (N_SHARD_ROWS int64 keys, 95 %
+    live) into MESH_SHARDS buckets of twice the mean share, a salted build
+    side and buckets that overflow; the scatter of those row ids into the
+    buckets; a bloom filter of 2^22 slots built over N_BUILD_ROWS orders
+    keys and probed by N_KERNEL_ROWS lineitem keys."""
+    from quickstep_tpu_torch.ops import bloom as B, kernels as K
+    from quickstep_tpu_torch.parallel import shuffle as SH
+    n, parts = N_SHARD_ROWS, MESH_SHARDS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    key = torch.randint(1, 4 * N_BUILD_ROWS, (n,), device=dev, generator=gen)
+    alive = torch.rand(n, device=dev, generator=gen) < 0.95
+    cap = 2 * n // parts
+    case("partition_dest", "7.5M int64 keys, 8 buckets",
+         lambda: SH.partition_dest(key, alive, parts, cap),
+         lambda: SH.partition_dest_plain(key, alive, parts, cap), main=True,
+         inputs=(key, alive), plain_reps=3)
+    case("partition_dest", "build side, salt 4",
+         lambda: SH.partition_dest(key, alive, parts, 4 * cap, 4, False),
+         lambda: SH.partition_dest_plain(key, alive, parts, 4 * cap, 4,
+                                         False), plain_reps=2)
+    small = n // parts * 9 // 10
+    case("partition_dest", "buckets that overflow",
+         lambda: SH.partition_dest(key, alive, parts, small),
+         lambda: SH.partition_dest_plain(key, alive, parts, small),
+         plain_reps=2)
+    if not bool(SH.partition_dest(key, alive, parts, small)[1]):
+        raise AssertionError("partition_dest: no overflow past the buckets")
+    dest, _ = SH.partition_dest(key, alive, parts, cap)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    slots = parts * cap
+    dest64 = dest.long()
+    case("scatter_compact", "7.5M row ids into 8 buckets",
+         lambda: (K.scatter_compact(rows, dest, slots, fill=-1),),
+         lambda: (K.scatter_compact_plain(rows, dest, slots, fill=-1),),
+         main=True, inputs=(rows, dest),
+         library=lambda: torch.full((slots + 1,), -1, dtype=torch.int32,
+                                    device=dev).index_copy_(0, dest64, rows))
+    del key, alive, dest, dest64, rows
+
+    nbits = 1 << 22
+    okey = torch.arange(1, N_BUILD_ROWS + 1, device=dev) * 4
+    oalive = torch.rand(N_BUILD_ROWS, device=dev, generator=gen) < 0.5
+    case("bloom_filter", "build 15M keys, 2^22 slots",
+         lambda: (B.bloom_build([okey], oalive, nbits),),
+         lambda: (B.bloom_build_plain([okey], oalive, nbits),))
+    bits = B.bloom_build([okey], oalive, nbits)
+    lkey = torch.randint(1, 4 * N_BUILD_ROWS + 4, (N_KERNEL_ROWS,),
+                         device=dev, generator=gen)
+    lalive = torch.rand(N_KERNEL_ROWS, device=dev, generator=gen) < 0.9
+    case("bloom_filter", "probe 60M keys, 2^22 slots",
+         lambda: (B.bloom_probe(bits, [lkey], lalive),),
+         lambda: (B.bloom_probe_plain(bits, [lkey], lalive),), main=True,
+         inputs=(bits, lkey, lalive))
+    del okey, oalive, bits, lkey, lalive
+    torch.cuda.empty_cache()
 
 
 def phase_zero_rows():
@@ -757,12 +840,25 @@ def small_queries():
     return out
 
 
-def phase_small(cuda):
+def phase_small(cuda, mesh_shards=None):
+    """The 22 TPC-H queries and the Q20 variant at SF_SMALL against sqlite,
+    on one device or, with mesh_shards, on a mesh of that many shards of
+    the card with the large tables sharded (SMALL_MESH_THRESHOLD); the
+    mesh's shuffle joins must launch K14 and K15."""
     from quickstep_tpu_torch import Database
     from quickstep_tpu_torch.bench.tpch import (
         load_tpch, load_sqlite, to_sqlite_sql)
-    log(f"phase 2: TPC-H SF{SF_SMALL} against sqlite")
-    db = Database(device="cuda")
+    from quickstep_tpu_torch.config import Config
+    where = "one device" if mesh_shards is None else \
+        f"an {mesh_shards}-shard mesh"
+    log(f"phase 2{'' if mesh_shards is None else 'c'}: TPC-H SF{SF_SMALL} "
+        f"on {where} against sqlite")
+    cfg = Config()
+    if mesh_shards is not None:
+        cfg.distributed = True
+        cfg.replicate_threshold_rows = SMALL_MESH_THRESHOLD
+    db = Database(config=cfg, device="cuda", mesh_shards=mesh_shards)
+    total = dict.fromkeys(cuda.LAUNCHES, 0)
     try:
         data = load_tpch(db, scale=SF_SMALL, seed=SEED)
         conn = load_sqlite(data)
@@ -784,8 +880,13 @@ def phase_small(cuda):
             log(f"  {label}: {len(ours)} rows match sqlite; host syncs "
                 f"{db.executor.host_syncs}, retries {db.executor.retries}; "
                 f"launched {', '.join(launched)}")
+            for k, v in cuda.LAUNCHES.items():
+                total[k] += v
     finally:
         db.close()
+    if mesh_shards is not None and not (total["partition_dest"] and
+                                        total["scatter_compact"]):
+        raise AssertionError(f"the SF{SF_SMALL} mesh never shuffled: {total}")
 
 
 def phase_golden():
@@ -810,68 +911,89 @@ def phase_golden():
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def run_query(db, cuda, oracle, total, label, q, must, sql=None,
+              rel_tol=None, warm=WARM_RUNS):
+    """One query cold and `warm` times warm against the exact oracle, its
+    launches counted from 0 (they must include `must`) and added to total;
+    warm runs must take one host sync and no retry. Returns (times in ms,
+    peak device memory in GiB)."""
+    from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES, with_tiebreak
+    from quickstep_tpu_torch.bench.tpch_fullgen import (
+        ORACLE_REL_TOL, check_rows)
+    sql = sql or with_tiebreak(q, TPCH_QUERIES[q])
+    rel_tol = ORACLE_REL_TOL if rel_tol is None else rel_tol
+    times, syncs, retries = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    for _ in range(1 + warm):
+        t0 = time.perf_counter()
+        rows = db.execute(sql).rows
+        times.append((time.perf_counter() - t0) * 1000)
+        syncs.append(db.executor.host_syncs)
+        retries.append(db.executor.retries)
+        check_rows(q, rows, oracle, rel_tol)
+    launches = dict(cuda.LAUNCHES)
+    missing = [k for k in must if not launches[k]]
+    if missing:
+        raise AssertionError(f"{label} never launched {missing}")
+    if any(r != 0 or s != 1 for r, s in zip(retries[1:], syncs[1:])):
+        raise AssertionError(f"{label} warm runs: host syncs "
+                             f"{syncs[1:]}, retries {retries[1:]}")
+    for k, v in launches.items():
+        total[k] += v
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {label}: cold {times[0]:.1f} ms, warm "
+        + ", ".join(f"{t:.1f}" for t in times[1:])
+        + f" ms; {len(rows)} rows match the exact oracle; host syncs"
+        f" {syncs}, retries {retries}; peak device memory "
+        f"{peak:.2f} GiB; "
+        "launches " + ", ".join(f"{k} {v}" for k, v in
+                                 launches.items() if v))
+    return times, peak
+
+
 def phase_large(cuda):
     """All 8 tables at SF_LARGE, each query cold and WARM_RUNS warm against
     the exact oracle: the TPC-H queries, then the window queries. Each
     query's launches are counted from 0 and must include the kernels
-    LARGE_QUERIES, STALE_PARTSUPP_Q9 or WINDOW_RUNS names; returns their
-    sum."""
+    LARGE_QUERIES, STALE_PARTSUPP_Q9 or WINDOW_RUNS names. Returns their
+    sum, the generated (tables, stats, oracle) and the times and peak
+    memory of the MESH_QUERIES; the database's device copies are dropped
+    before it returns."""
     from quickstep_tpu_torch import Database
-    from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES, with_tiebreak
     from quickstep_tpu_torch.bench.tpch_fullgen import (
-        OPERATOR_QUERIES, ORACLE_REL_TOL, WINDOW_QUERIES, WINDOW_REL_TOL,
-        check_rows, load_tpch_full)
+        OPERATOR_QUERIES, WINDOW_QUERIES, WINDOW_REL_TOL, extra_oracles,
+        generate, load_tables, operator_oracles, window_oracles)
     log(f"phase 3: all 8 TPC-H tables at SF{SF_LARGE:g} on the card")
     db = Database(device="cuda")
     try:
         t0 = time.perf_counter()
-        oracle = load_tpch_full(db, SF_LARGE, log=lambda msg: None,
-                                windows=True, operators=True)
+        tables, stats, oracle = generate(SF_LARGE, log=lambda msg: None)
+        load_tables(db, tables, stats)
+        for more in (extra_oracles, window_oracles, operator_oracles):
+            oracle.update(more(tables))
         rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
         log(f"  generated {oracle['rows']} in {time.perf_counter() - t0:.1f}"
             f" s; peak host RSS {rss:.2f} GiB")
         total = dict.fromkeys(cuda.LAUNCHES, 0)
+        single = {}
 
-        def run(label, q, must, sql=None, rel_tol=ORACLE_REL_TOL,
-                warm=WARM_RUNS):
-            sql = sql or with_tiebreak(q, TPCH_QUERIES[q])
-            times, syncs, retries = [], [], []
-            torch.cuda.reset_peak_memory_stats()
-            cuda.reset_launches()
-            for _ in range(1 + warm):
-                t0 = time.perf_counter()
-                rows = db.execute(sql).rows
-                times.append((time.perf_counter() - t0) * 1000)
-                syncs.append(db.executor.host_syncs)
-                retries.append(db.executor.retries)
-                check_rows(q, rows, oracle, rel_tol)
-            launches = dict(cuda.LAUNCHES)
-            missing = [k for k in must if not launches[k]]
-            if missing:
-                raise AssertionError(f"{label} never launched {missing}")
-            if any(r != 0 or s != 1 for r, s in zip(retries[1:], syncs[1:])):
-                raise AssertionError(f"{label} warm runs: host syncs "
-                                     f"{syncs[1:]}, retries {retries[1:]}")
-            for k, v in launches.items():
-                total[k] += v
-            log(f"  {label}: cold {times[0]:.1f} ms, warm "
-                + ", ".join(f"{t:.1f}" for t in times[1:])
-                + f" ms; {len(rows)} rows match the exact oracle; host syncs"
-                f" {syncs}, retries {retries}; peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-                "launches " + ", ".join(f"{k} {v}" for k, v in
-                                         launches.items() if v))
+        def run(label, q, must, sql=None, rel_tol=None):
+            return run_query(db, cuda, oracle, total, label, q, must, sql,
+                             rel_tol)
 
         for q, must in LARGE_QUERIES.items():
-            run(f"Q{q}", q, must)
+            times = run(f"Q{q}", q, must)
+            if q in MESH_QUERIES:
+                single[q] = times
         cols = [t for key, (cs, _m) in db.executor._device_cache.items()
                 for name, pair in cs.items()
                 if name != "__num_rows__" for t in pair if t is not None]
-        tables = sorted({key[0] for key in db.executor._device_cache})
-        if set(tables) != set(oracle["rows"]) or any(
+        resident = sorted({key[0] for key in db.executor._device_cache})
+        if set(resident) != set(oracle["rows"]) or any(
                 t.device.type != "cuda" for t in cols):
-            raise AssertionError(f"not every table is resident: {tables}")
-        log(f"  {len(cols)} columns of {len(tables)} tables resident on "
+            raise AssertionError(f"not every table is resident: {resident}")
+        log(f"  {len(cols)} columns of {len(resident)} tables resident on "
             f"{sorted({str(t.device) for t in cols})}, "
             f"{sum(t.numel() * t.element_size() for t in cols) / 2**30:.2f}"
             " GiB")
@@ -892,9 +1014,114 @@ def phase_large(cuda):
         launches = phase_dml(db, oracle, cuda)
         for k, v in launches.items():
             total[k] += v
-        return total
+        return total, (tables, stats, oracle), single
     finally:
+        db.executor._device_cache.clear()
         db.close()
+        del db
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_large_mesh(cuda, generated, single, total):
+    """The generated SF_LARGE tables in a second database, on a mesh of
+    MESH_SHARDS shards of the card at the default replicate threshold
+    (every table but nation and region shards): MESH_QUERIES cold and warm
+    against the exact oracle, each launching K14-K16, Q9 through the
+    two-phase GROUP BY; times and peak memory beside the one-device run's.
+    Adds the launches to total."""
+    from quickstep_tpu_torch import Database
+    from quickstep_tpu_torch.bench.tpch_fullgen import load_tables
+    from quickstep_tpu_torch.config import Config
+    from quickstep_tpu_torch.exec.runner import PlanRunner
+    tables, stats, oracle = generated
+    log(f"phase 6: TPC-H SF{SF_LARGE:g} on an {MESH_SHARDS}-shard mesh of "
+        "the card")
+    cfg = Config()
+    cfg.distributed = True
+    db = Database(config=cfg, device="cuda", mesh_shards=MESH_SHARDS)
+    two_phase = [0]
+    real = PlanRunner._dist_sort_groupby
+
+    def counted(self, *args, **kwargs):
+        out = real(self, *args, **kwargs)
+        two_phase[0] += out is not None
+        return out
+    PlanRunner._dist_sort_groupby = counted
+    try:
+        load_tables(db, tables, stats)
+        for q in MESH_QUERIES:
+            two_phase[0] = 0
+            times, peak = run_query(db, cuda, oracle, total,
+                                    f"Q{q} ({MESH_SHARDS} shards)", q,
+                                    SHUFFLE_KERNELS)
+            info = PlanRunner.trace_shuffle_info
+            one = single[q]
+            log(f"    one device: cold {one[0][0]:.1f} ms, warm "
+                + ", ".join(f"{t:.1f}" for t in one[0][1:])
+                + f" ms, peak {one[1]:.2f} GiB; last shuffle {info}; "
+                f"two-phase GROUP BYs {two_phase[0]}")
+            if q == 9 and not two_phase[0]:
+                raise AssertionError("Q9 on the mesh took the one-phase "
+                                     "GROUP BY")
+    finally:
+        PlanRunner._dist_sort_groupby = real
+        db.executor._device_cache.clear()
+        db.close()
+        del db
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_dist_step(cuda):
+    """distributed_agg_join_step over MESH_SHARDS shards of N_SHARD_ROWS
+    rows each (keys in the step's 4,096-key domain, half of them in the
+    build side) against a plain computation: exact counts, float64 sums
+    within rel 1e-9 (each shard's K2 sums and their psum add in another
+    order than one index_add_)."""
+    from quickstep_tpu_torch.parallel.dist import (
+        DOMAIN, N_GROUPS, distributed_agg_join_step)
+    from quickstep_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda")
+    mesh = make_mesh(MESH_SHARDS, dev)
+    n = MESH_SHARDS * N_SHARD_ROWS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    l_key = torch.randint(0, DOMAIN, (n,), device=dev, generator=gen)
+    l_val = torch.rand(n, device=dev, generator=gen, dtype=torch.float64) * 100
+    l_grp = torch.randint(0, N_GROUPS, (n,), device=dev, generator=gen)
+    l_alive = torch.rand(n, device=dev, generator=gen) < 0.95
+    b_key = torch.arange(0, DOMAIN, 2, device=dev)
+    b_alive = torch.ones(b_key.shape[0], dtype=torch.bool, device=dev)
+    step = distributed_agg_join_step(mesh)
+    args = (l_key, l_val, l_grp, l_alive, b_key, b_alive)
+
+    def plain():
+        present = torch.zeros(DOMAIN, dtype=torch.bool, device=dev)
+        present[b_key[b_alive]] = True
+        m = l_alive & present[l_key]
+        sums = torch.zeros(N_GROUPS, dtype=torch.float64,
+                           device=dev).index_add_(0, l_grp[m], l_val[m])
+        return sums, torch.bincount(l_grp[m], minlength=N_GROUPS)
+    cuda.reset_launches()
+    sums, counts = step(*args)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    want_sums, want_counts = plain()
+    if not torch.equal(counts, want_counts) or not torch.all(
+            (sums - want_sums).abs() <= 1e-9 * want_sums.abs()):
+        raise AssertionError(f"distributed_agg_join_step: {sums} {counts} "
+                             f"!= {want_sums} {want_counts}")
+    if set(launches) != {"direct_join", "dense_groupby"}:
+        raise AssertionError(f"distributed_agg_join_step launched {launches}")
+    ms, plain_ms = cuda_ms(lambda: step(*args)), cuda_ms(plain)
+    bound = sum(t.numel() * t.element_size() for t in args[:4]) \
+        / HBM_BYTES_PER_S * 1e3
+    err = float((sums - want_sums).abs().max())
+    log(f"phase 7: distributed_agg_join_step, {MESH_SHARDS} shards x "
+        f"{N_SHARD_ROWS} rows: matches the plain computation (max abs err "
+        f"{err:.3e}); {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound:.3f} ms; launches {launches}")
 
 
 def phase_dml(db, oracle, cuda):
@@ -963,6 +1190,7 @@ def phase_dml(db, oracle, cuda):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    t_start = time.perf_counter()
     card = gpu_name_and_power()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     from quickstep_tpu_torch.ops import cuda, groupby as G
@@ -975,8 +1203,12 @@ def main():
     rows = phase_kernels(G)
     torch.cuda.empty_cache()
     phase_small(cuda)
+    phase_small(cuda, mesh_shards=MESH_SHARDS)
     phase_golden()
-    launches = phase_large(cuda)
+    launches, generated, single = phase_large(cuda)
+    phase_large_mesh(cuda, generated, single, launches)
+    del generated
+    phase_dist_step(cuda)
 
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith("jax.") or m == "quickstep_tpu"
@@ -994,6 +1226,7 @@ def main():
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
             "library_ms": main_case["library_ms"]})
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

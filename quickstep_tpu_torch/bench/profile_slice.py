@@ -3,7 +3,7 @@ operator queries goes on one CUDA card, with their tables resident in
 device memory.
 
     python -m quickstep_tpu_torch.bench.profile_slice [--scale 10] [--runs 5]
-        [--queries 6,1] [--trace-dir DIR]
+        [--queries 6,1] [--trace-dir DIR] [--mesh-shards N]
 
 --queries takes TPC-H query numbers and the names of bench/tpch_fullgen.py's
 WINDOW_QUERIES (w1 to w6) and OPERATOR_QUERIES (o1 to o5). Q1 and Q6 alone run on lineitem's 7 columns from
@@ -17,7 +17,8 @@ torch.profiler and prints the device time per run (the kernels and copies
 that ran on the card), the share of run_plan's wall time under the profiler
 in which the card was busy, the number of device operations per run, and the
 top of the profiler's table. With --trace-dir it also writes a Chrome trace
-per query there.
+per query there. With --mesh-shards the tables live on a mesh of N shards of
+the card (Config.distributed), where the large joins shuffle.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from quickstep_tpu_torch.bench.lineitem_gen import load_lineitem
 from quickstep_tpu_torch.bench.tpch_fullgen import (
     OPERATOR_QUERIES, WINDOW_QUERIES, load_tpch_full)
 from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES
+from quickstep_tpu_torch.config import Config
 from quickstep_tpu_torch.optimizer.resolver import Resolver
 from quickstep_tpu_torch.optimizer.rules import optimize_plan
 from quickstep_tpu_torch.parser import parse_statements
@@ -106,12 +108,14 @@ def main(argv=None):
                          "window and operator query names (w1 to w6, o1 "
                          "to o5)")
     ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("--mesh-shards", type=int, default=None)
     args = ap.parse_args(argv)
     queries = [q if q in NAMED_QUERIES else int(q)
                for q in args.queries.split(",")]
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")
-    db = Database(device="cuda")
+    cfg = Config(distributed=args.mesh_shards is not None)
+    db = Database(config=cfg, device="cuda", mesh_shards=args.mesh_shards)
     try:
         t0 = time.perf_counter()
         if set(queries) <= {1, 6}:
@@ -120,8 +124,10 @@ def main(argv=None):
         else:
             oracle = load_tpch_full(db, args.scale, log=lambda msg: None)
             what = "all 8 tables"
-        print(f"{what} SF{args.scale:g}: {oracle['rows']} rows generated "
-              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        where = "" if args.mesh_shards is None else \
+            f", on {args.mesh_shards} shards"
+        print(f"{what} SF{args.scale:g}{where}: {oracle['rows']} rows "
+              f"generated in {time.perf_counter() - t0:.1f} s", flush=True)
         for q in queries:
             profile_query(db, q, args.runs, args.trace_dir)
     finally:

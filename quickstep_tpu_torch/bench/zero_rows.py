@@ -1,4 +1,4 @@
-"""Every kernel at zero rows: for each of the 17 kernels of ops/cuda.py, a
+"""Every kernel at zero rows: for each of the 20 kernels of ops/cuda.py, a
 call of its public function on an empty input (for the join kernels that
 read a build side, an empty build side under a probe of a few rows)
 beside the same call of the plain version. On the card the kernel call
@@ -15,11 +15,13 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from quickstep_tpu_torch.ops import bloom as B
 from quickstep_tpu_torch.ops import groupby as G
 from quickstep_tpu_torch.ops import join as J
 from quickstep_tpu_torch.ops import kernels as K
 from quickstep_tpu_torch.ops import sort as S
 from quickstep_tpu_torch.ops import window as W
+from quickstep_tpu_torch.parallel import shuffle as SH
 
 Case = Tuple[Callable[[], tuple], Callable[[], tuple]]
 
@@ -115,7 +117,26 @@ def zero_row_cases(dev) -> Dict[str, Case]:
             lambda: (S.order_permutation_plain([f64, i32], [None, b],
                                                [False, True], [None, True],
                                                b),)),
+        "partition_dest": (
+            lambda: (*SH.partition_dest(i64, b, 8, 4),
+                     *SH.partition_dest(i32, b, 8, 4, 2, False)),
+            lambda: (*SH.partition_dest_plain(i64, b, 8, 4),
+                     *SH.partition_dest_plain(i32, b, 8, 4, 2, False))),
+        "scatter_compact": (
+            lambda: (K.scatter_compact(f64, i32, 6, fill=-1),
+                     K.scatter_compact(b, i64, 3)),
+            lambda: (K.scatter_compact_plain(f64, i32, 6, fill=-1),
+                     K.scatter_compact_plain(b, i64, 3))),
+        "bloom_filter": (
+            lambda: _bloom(B.bloom_build, B.bloom_probe, i64, i32, b),
+            lambda: _bloom(B.bloom_build_plain, B.bloom_probe_plain, i64, i32,
+                           b)),
     }
+
+
+def _bloom(build, probe_fn, keys, keys32, alive):
+    bits = build([keys, keys32], alive, 16)
+    return bits, probe_fn(bits, [keys, keys32], alive)
 
 
 def _oa(build, probe_fn, keys, alive, probe, pmask):

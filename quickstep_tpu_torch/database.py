@@ -1,8 +1,11 @@
 """Top-level Database facade: the embedded-engine public API.
 
-The counterpart of quickstep_tpu/database.py with one addition: the device
+The counterpart of quickstep_tpu/database.py with two additions: the device
 that holds the tables and runs the operators is named explicitly ("cuda" or
-"cpu"); nothing probes the hardware to choose it.
+"cpu"), and so is the shard count of the mesh that `Config.distributed`
+runs on (`mesh_shards`, n row shards of that device, the counterpart of the
+reference's mesh over the devices JAX sees); nothing probes the hardware to
+choose either.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ def _check_device(device) -> torch.device:
 
 class Database:
     def __init__(self, config: Optional[Config] = None,
-                 storage_path: Optional[str] = None, *, device):
+                 storage_path: Optional[str] = None, *, device,
+                 mesh_shards: Optional[int] = None):
         # Per-instance copy of the defaults: callers tune db.config after
         # construction, and a shared DEFAULT would leak one instance's knobs
         # into every other Database in the process.
@@ -37,9 +41,13 @@ class Database:
         if storage_path is not None:
             self.config.storage_path = storage_path
         self.device = _check_device(device)
+        self.mesh_shards = mesh_shards
         self.catalog = Catalog.load(self.config.storage_path) \
             if storage_path else Catalog()
         self._executor = None
+        if self.config.distributed or self.config.hbm_budget_bytes > 0:
+            # the executor refuses what it cannot honour: say so now
+            self.executor
         if self.config.preload_buffer_pool:
             self.executor.preload()
 
@@ -47,7 +55,8 @@ class Database:
     def executor(self):
         if self._executor is None:
             from quickstep_tpu_torch.exec.executor import Executor
-            self._executor = Executor(self.catalog, self.config, self.device)
+            self._executor = Executor(self.catalog, self.config, self.device,
+                                      self.mesh_shards)
         return self._executor
 
     @property

@@ -295,3 +295,28 @@ class Chunk:
                     out |= dep
                     changed = True
         return out
+
+
+def concat_chunks(chs: List[Chunk]) -> Chunk:
+    """Row-concatenate materialized chunks of the same attrs (the shuffle
+    join's per-shard and per-slice outputs; the reference's
+    exec/runner.py:2104 _concat_join_chunks). A valid mask is kept where
+    any part has one."""
+    base = chs[0]
+    slots = {}
+    for a in base.attrs:
+        parts = [c.slots[a.expr_id] for c in chs]
+        any_v = any(v is not None for _d, v in parts)
+        data = torch.cat([_full(d, c.capacity)
+                          for (d, _v), c in zip(parts, chs)])
+        valid = None
+        if any_v:
+            valid = torch.cat([
+                _full(v, c.capacity) if v is not None else
+                torch.ones(c.capacity, dtype=torch.bool, device=c.device)
+                for (_d, v), c in zip(parts, chs)])
+        slots[a.expr_id] = (data, valid)
+    return Chunk(attrs=list(base.attrs), slots=slots,
+                 alive=torch.cat([c.alive for c in chs]),
+                 capacity=sum(c.capacity for c in chs),
+                 ranges=dict(base.ranges))

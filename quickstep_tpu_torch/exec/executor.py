@@ -45,6 +45,7 @@ from quickstep_tpu_torch.exec.runner import JoinOverride, PlanRunner
 from quickstep_tpu_torch.exec.result import QueryResult
 from quickstep_tpu_torch.expressions.scalar import EvalContext, Lit
 from quickstep_tpu_torch.ops import kernels as K
+from quickstep_tpu_torch.parallel.mesh import make_mesh, pad_to_multiple
 
 # Plan runs per statement before the retry gives up (each run installs at
 # least one override, and there are few of them per plan).
@@ -54,10 +55,22 @@ LEARNED_LIMIT = 256
 
 
 class Executor:
-    def __init__(self, catalog: Catalog, config: Config, device: torch.device):
+    def __init__(self, catalog: Catalog, config: Config, device: torch.device,
+                 mesh_shards: Optional[int] = None):
         self.catalog = catalog
         self.config = config
         self.device = device
+        # Config.distributed: a mesh of mesh_shards row shards on the device
+        # (exec/executor.py:80-87 of the reference, whose mesh is every
+        # device JAX sees); nothing probes the hardware for the count
+        self.mesh = None
+        if config.distributed and mesh_shards is not None:
+            self.mesh = make_mesh(mesh_shards, device,
+                                  config.default_mesh_axis)
+        self._check_config()
+        # the runtime flags the last plan run produced, by name, with their
+        # values (the reference's last_flags)
+        self.last_flags: Dict[str, bool] = {}
         # (relation, version) -> (columns on the device, metadata)
         self._device_cache: Dict[Tuple[str, int], Tuple[dict, dict]] = {}
         # device->host synchronisations of the last statement
@@ -80,8 +93,24 @@ class Executor:
     # ================================================================
     # statement dispatch
     # ================================================================
+    def _check_config(self) -> None:
+        """Refuse the settings the port would otherwise ignore: a device
+        memory budget (out-of-core execution is not ported) and a
+        distributed run without its shard count."""
+        if self.config.hbm_budget_bytes > 0:
+            raise ExecutionError(
+                f"hbm_budget_bytes = {self.config.hbm_budget_bytes}: "
+                "out-of-core execution under a device memory budget is not "
+                "ported (ROADMAP queue 1 item 5); set it to 0 to run "
+                "resident")
+        if self.config.distributed and self.mesh is None:
+            raise ExecutionError(
+                "distributed = True needs the mesh's shard count: "
+                "Database(config, device=..., mesh_shards=n)")
+
     def execute_statement(self, stmt: A.Statement) -> QueryResult:
         t0 = time.perf_counter()
+        self._check_config()
         self.host_syncs = 0
         self.retries = 0
         if isinstance(stmt, A.SelectStmt):
@@ -158,7 +187,7 @@ class Executor:
         for attempt in range(MAX_ATTEMPTS):
             self.retries = attempt
             runner = PlanRunner(device_plan, inputs, meta, self.config,
-                                self.device, overrides)
+                                self.device, overrides, mesh=self.mesh)
             chunk = runner.exec(device_plan)
             fired, pulled = self._pull_outputs(device_plan, chunk, out_attrs,
                                                runner.flags, host_sort)
@@ -206,6 +235,10 @@ class Executor:
                 # width: re-run with four times the width
                 prev.strategy = "expand"
                 prev.max_matches = (prev.max_matches or 8) * 4
+            elif kind == "shuffle_overflow":
+                # a radix-exchange bucket overflowed (a skewed partition):
+                # re-run with four times the bucket capacity
+                prev.shuffle_factor = max(prev.shuffle_factor, 1) * 4
             elif kind in ("compact_probe", "compact_build"):
                 # the estimate was short: re-run this node uncompacted; a
                 # second such node disables compaction for the whole plan
@@ -260,6 +293,8 @@ class Executor:
             prefix = self._result_prefix(plan, chunk.capacity)
         ds, vs = chunk.take_columns(order[:prefix], eids)
         host = self._to_host([count, flag_t] + ds + vs)
+        self.last_flags = {} if flag_t is None else {
+            k: bool(f) for k, f in zip(names, host[1])}
         if flag_t is not None:
             fired = [k for k, f in zip(names, host[1]) if f]
             if fired:
@@ -382,7 +417,9 @@ class Executor:
         """Column-granular device residency: the plan-referenced columns are
         uploaded once per (relation, version) and kept; later queries upload
         only their missing columns. needed=None means all columns. Rows are
-        not padded: capacity is the row count."""
+        not padded: capacity is the row count, rounded up under a mesh to a
+        multiple of its shards with dead rows (the reference's _bucket,
+        executor.py:1188), so that each shard holds an equal row range."""
         key = (rel.name, rel.version)
         names = [a.name for a in rel.attributes
                  if needed is None or a.name in needed]
@@ -400,6 +437,8 @@ class Executor:
             missing = names
 
         n = rel.data.num_rows
+        shards = 1 if self.mesh is None else self.mesh.n
+        cap = K.round_up(n, shards)
         st = rel.statistics
         ranges = dict(m["ranges"]) if m is not None else {}
         unique_cols = set(m["unique_cols"]) if m is not None else set()
@@ -410,9 +449,11 @@ class Executor:
             arr = np.asarray(col.data)
             valid = None
             if col.valid is not None:
-                valid = torch.tensor(np.asarray(col.valid, dtype=bool),
-                                     device=self.device)
-            new_cols[cname] = (torch.tensor(arr, device=self.device), valid)
+                valid = torch.tensor(pad_to_multiple(
+                    np.asarray(col.valid, dtype=bool), shards),
+                    device=self.device)
+            new_cols[cname] = (torch.tensor(pad_to_multiple(arr, shards),
+                                            device=self.device), valid)
             if np.issubdtype(arr.dtype, np.integer):
                 if st.exact and cname in st.min_values and \
                         not col.type.is_string:
@@ -431,7 +472,7 @@ class Executor:
 
         if cols is None:
             cols = {"__num_rows__": n}
-            m = {"capacity": n, "rows": n, "ranges": ranges,
+            m = {"capacity": cap, "rows": n, "ranges": ranges,
                  "unique_cols": unique_cols, "version": rel.version,
                  "unique_pairs": [tuple(p) for p in st.unique_pairs]
                  if st.exact else [],
@@ -587,14 +628,14 @@ class Executor:
             attrs.append(oa)
         e = Resolver(self.db)._resolve_expr(expr_ast, scope, _EMPTY_STATE)
         used = e.referenced_attrs()
-        cols, _m = self._device_table(
+        cols, meta = self._device_table(
             rel, {oa.name for oa in attrs if oa.expr_id in used})
         slots = {oa.expr_id: cols[oa.name] for oa in attrs
                  if oa.expr_id in used}
         d, v = e.eval(EvalContext(slots, device=self.device))
-        n = rel.data.num_rows
-        d = torch.broadcast_to(d, (n,))
-        v = None if v is None else torch.broadcast_to(v, (n,))
+        n, cap = rel.data.num_rows, meta["capacity"]
+        d = torch.broadcast_to(d, (cap,))[:n]
+        v = None if v is None else torch.broadcast_to(v, (cap,))[:n]
         d, v = self._to_host([d, v])
         return e, d, v
 

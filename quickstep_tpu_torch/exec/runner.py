@@ -13,9 +13,15 @@ reference. Runtime fallbacks (duplicate build keys, expansion overflow,
 compaction under-estimates) surface as 0-d device flags in `self.flags`
 that the executor reads with the result and answers with a retry. A scalar
 subquery is evaluated inside the plan, its value and presence kept as 0-d
-device tensors, so the query keeps its one host sync. The mesh-only paths
-of the reference (the shuffle join, the distributed sort group-by) are not
-ported.
+device tensors, so the query keeps its one host sync.
+
+Under a mesh (Config.distributed, parallel/mesh.py) two operators run per
+shard, as the reference's shard_map bodies do: the shuffle join
+(_shuffle_join: radix exchange of both sides by join key, then the join
+core on each shard) and the two-phase sort GROUP BY (_dist_sort_groupby).
+Their per-shard bodies run as a Python loop over the shards, in shard
+order; every other operator runs over the whole tensors, which on a
+one-device mesh gives the rows the reference's GSPMD partitioning gives.
 
 Capacities are row counts, not padded buckets, so any operator may meet an
 input of zero rows: a gather into a source of zero rows yields invalid rows
@@ -36,7 +42,7 @@ from quickstep_tpu_torch.optimizer import logical as L
 from quickstep_tpu_torch.optimizer.logical import OutAttr
 from quickstep_tpu_torch.optimizer.stats import infer_range
 from quickstep_tpu_torch.exec.chunk import (
-    Chunk, _full, compose_slots, repeat_slots)
+    Chunk, _full, compose_slots, concat_chunks, repeat_slots)
 from quickstep_tpu_torch.ops import kernels as K
 from quickstep_tpu_torch.ops import groupby as G
 from quickstep_tpu_torch.ops import join as J
@@ -59,18 +65,28 @@ class JoinOverride:
     max_matches: Optional[int] = None  # expansion width after an overflow
     no_compact_probe: bool = False    # estimate-driven compaction overflowed
     no_compact_build: bool = False
+    shuffle_factor: int = 1           # bucket-capacity escalation on shuffle overflow
 
 
 class PlanRunner:
+    # the most recent shuffle join's configuration (chunking, LIP filter
+    # size, bucket rows), for tests and profiles: see _shuffle_join
+    trace_shuffle_info: Optional[dict] = None
+
     def __init__(self, plan: L.LogicalNode,
                  inputs: Dict[str, Dict[str, object]],
                  input_meta: Dict[str, dict], config: Config,
                  device: torch.device,
-                 overrides: Optional[Dict[int, JoinOverride]] = None):
+                 overrides: Optional[Dict[int, JoinOverride]] = None,
+                 mesh=None):
         """inputs: relation name -> {attr name -> (data, valid), "__num_rows__"}.
         input_meta: relation name -> {capacity, ranges, unique_cols, ...}.
         overrides are keyed by structural (preorder) node indices so they
-        survive re-resolution of the same query."""
+        survive re-resolution of the same query. mesh: the
+        parallel/mesh.py Mesh that a distributed run shards over, or
+        None."""
+        self.mesh = mesh
+        self.last_shuffle_info: Optional[dict] = None
         self.inputs = inputs
         self.input_meta = input_meta
         self.config = config
@@ -500,11 +516,25 @@ class PlanRunner:
         packed = self._pack_sort_key([key_data[i] for i in keep],
                                      [key_valid[i] for i in keep],
                                      [key_ranges[i] for i in keep])
-        out_keys, out_valids, occupied, _n_groups, results, rep_rows = \
-            G.sort_groupby([key_data[i] for i in carried],
-                           [key_valid[i] for i in carried],
-                           agg_inputs, chunk.alive, packed_key=packed,
-                           sort_subset=sub_positions, want_rows=True)
+        dist = None
+        if not defer and packed is not None:
+            span_total = 1
+            for i in keep:
+                span_total *= key_ranges[i][1] - key_ranges[i][0] + 2
+            dist = self._dist_sort_groupby(
+                [key_data[i] for i in carried],
+                [key_valid[i] for i in carried], agg_inputs, chunk.alive,
+                packed, sub_positions, span_total,
+                [key_ranges[i] for i in keep])
+        capacity = chunk.capacity
+        if dist is not None:
+            out_keys, out_valids, occupied, results, capacity = dist
+        else:
+            out_keys, out_valids, occupied, _n_groups, results, rep_rows = \
+                G.sort_groupby([key_data[i] for i in carried],
+                               [key_valid[i] for i in carried],
+                               agg_inputs, chunk.alive, packed_key=packed,
+                               sort_subset=sub_positions, want_rows=True)
         slots = {}
         ranges = {}
         for pos, i in enumerate(carried):
@@ -526,8 +556,104 @@ class PlanRunner:
         uniq = [frozenset(a.expr_id for a in node.group_attrs)]
         fds = [(uniq[0], frozenset(a.expr_id for a in node.output))]
         return Chunk(attrs=list(node.output), slots=slots, alive=occupied,
-                     capacity=chunk.capacity, ranges=ranges,
+                     capacity=capacity, ranges=ranges,
                      unique_sets=uniq, fds=fds)
+
+    def _dist_sort_groupby(self, key_data, key_valid, agg_inputs, alive,
+                           packed, sort_subset, span_total, keep_ranges):
+        """Two-phase sort GROUP BY over the mesh (quickstep_tpu/exec/
+        runner.py:656, the reference's per-partition AggregationOperator
+        and FinalizeAggregationOperator split). Phase 1, per shard: the sort
+        group-by of its row range, its groups compacted to a prefix of
+        cap_p >= the key domain's span rows (so no shard's groups can
+        overflow it). Phase 2: one sort group-by over the n * cap_p partial
+        rows with merge aggregates (count -> sum, sum -> sum, min/max ->
+        min/max, avg -> sum / count). Returns (out_keys, out_valids,
+        occupied, results, capacity) in sort_groupby's shape, or None where
+        it does not apply (no mesh, unknown key domain, or a domain too
+        wide for the partials to be smaller than a shard)."""
+        mesh = self.mesh
+        if mesh is None or not self.config.use_partition_rule or \
+                packed is None:
+            return None
+        n = mesh.n
+        cap = alive.shape[0]
+        if n <= 1 or cap % n or span_total >= 2 ** 31:
+            return None
+        lc = cap // n
+        cap_p = K.next_pow2(max(8, span_total))
+        if cap_p > lc // 2:
+            return None
+        # phase-1 aggregates: avg splits into its mergeable sum and count
+        p_specs = [("sum" if fn == "avg" else fn, v, vd)
+                   for fn, v, vd in agg_inputs]
+        nk = len(key_data)
+
+        def cut(t, sl):
+            return None if t is None else _full(t, cap)[sl]
+
+        parts = []
+        for i in range(n):
+            sl = slice(i * lc, (i + 1) * lc)
+            out_k, out_v, occ, ng, res = G.sort_groupby(
+                [cut(d, sl) for d in key_data],
+                [cut(v, sl) for v in key_valid],
+                [(fn, cut(v, sl), cut(vd, sl)) for fn, v, vd in p_specs],
+                alive[sl], packed_key=packed[sl], sort_subset=sort_subset)
+            order = K.stable_partition(occ)[:cap_p]
+            # re-pack the sorted key columns (out_k and out_v line up with
+            # occ; the input's packed key does not)
+            pk_sorted = self._pack_sort_key(
+                [out_k[p] for p in sort_subset],
+                [out_v[p] for p in sort_subset], keep_ranges)
+            sent = torch.full((), torch.iinfo(pk_sorted.dtype).max,
+                              dtype=pk_sorted.dtype, device=self.device)
+            flat = [torch.where(occ, pk_sorted, sent)] + list(out_k) + \
+                list(out_v) + [d for d, _nn in res] + [nn for _d, nn in res]
+            g = K.multi_gather(flat, order)
+            row_ok = torch.arange(cap_p, device=self.device) < ng
+            parts.append(g + [row_ok])
+        merged = [None if parts[0][j] is None else
+                  torch.cat([p[j] for p in parts])
+                  for j in range(len(parts[0]))]
+        pk_m = merged[0]
+        kd_m = merged[1:1 + nk]
+        kv_m = merged[1 + nk:1 + 2 * nk]
+        r = len(p_specs)
+        datas_m = merged[1 + 2 * nk:1 + 2 * nk + r]
+        nns_m = merged[1 + 2 * nk + r:1 + 2 * nk + 2 * r]
+        row_ok = merged[-1]
+
+        # phase 2: merge the partial states (n * cap_p rows)
+        m_specs = []
+        layout = []   # per aggregate: (kind, data index, count index)
+        for i, (fn, _v, _vd) in enumerate(agg_inputs):
+            if fn == "count":
+                layout.append(("count", len(m_specs), None))
+                m_specs.append(("sum", nns_m[i].to(torch.int64), None))
+            else:
+                di = len(m_specs)
+                m_specs.append((fn if fn in ("min", "max") else "sum",
+                                datas_m[i],
+                                (nns_m[i] > 0) if fn in ("min", "max")
+                                else None))
+                ni = len(m_specs)
+                m_specs.append(("sum", nns_m[i].to(torch.int64), None))
+                layout.append((fn, di, ni))
+        out_keys, out_valids, occupied, _ng, m_res = G.sort_groupby(
+            kd_m, kv_m, m_specs, row_ok, packed_key=pk_m,
+            sort_subset=sort_subset)
+        results = []
+        for kind, di, ni in layout:
+            if kind == "count":
+                cnt = m_res[di][0]
+                results.append((cnt, cnt))
+            else:
+                data, nn = m_res[di][0], m_res[ni][0]
+                if kind == "avg":
+                    data = data.to(torch.float64) / torch.clamp(nn, min=1)
+                results.append((data, nn))
+        return out_keys, out_valids, occupied, results, n * cap_p
 
     def _fill_agg_slots(self, node, results, slots):
         for spec, a, (data, nn) in zip(node.aggregates, node.agg_attrs, results):
@@ -717,6 +843,11 @@ class PlanRunner:
                                         pmask, bmask)
             if out is not None:
                 return na_correct(out)
+        if pk_valid is None and bk_valid is None:
+            out = self._shuffle_join(node, probe, build, pk_data, bk_data, ov,
+                                     strategy, build_unique)
+            if out is not None:
+                return na_correct(out)
         return na_correct(self._join_local(
             node, probe, build, pk_data, bk_data, strategy, build_unique,
             pmask, bmask))
@@ -730,6 +861,203 @@ class PlanRunner:
                                      pmask=pmask, bmask=bmask)
         return self._expand_join(node, probe, build, pk_data, bk_data,
                                  pmask, bmask)
+
+    def _shuffle_join(self, node, probe, build, pk_data, bk_data, ov,
+                      strategy, build_unique) -> Optional[Chunk]:
+        """Key-partitioned join over the mesh (quickstep_tpu/exec/
+        runner.py:1042, the Partition rule, PartitionAwareInsertDestination
+        and PartitionedHashTablePool analog): both sides are radix-exchanged
+        by join key (parallel/shuffle.py), then the join core runs on each
+        shard. Returns None where it does not apply (no mesh, a build side
+        below replicate_threshold_rows, another join kind). Bucket sizes,
+        salting, probe slices and the LIP filter follow the reference, so
+        overflow and retry behave as there; each shard's flags and each
+        slice's are OR'd, and nothing is read on the host."""
+        from quickstep_tpu_torch.ops import bloom as B
+        from quickstep_tpu_torch.parallel import shuffle as SH
+        from quickstep_tpu_torch.parallel.mesh import shard_rows
+        mesh = self.mesh
+        if mesh is None or not self.config.use_partition_rule:
+            return None
+        n = mesh.n
+        if n <= 1 or node.kind not in ("inner", "left", "semi", "anti") or \
+                node.null_aware:
+            return None
+        # a broadcast (replicated) build is cheaper for small build sides
+        if build.capacity < self.config.replicate_threshold_rows:
+            return None
+        if probe.capacity % n or build.capacity % n:
+            return None
+
+        # the exchange moves whole columns: gather pending row-id maps
+        probe.materialize_all()
+        build.materialize_all()
+        # routing key only: colliding hashes merely co-locate distinct keys;
+        # the join core re-packs from the real key columns
+        packed_b, packed_p, _hashed = self._pack_keys(node, build, probe,
+                                                      bk_data, pk_data)
+
+        def flatten_side(chunk, key_cols):
+            arrays = [_full(c, chunk.capacity).contiguous() for c in key_cols]
+            layout = []   # (expr_id, has_valid)
+            for a in chunk.attrs:
+                d, v = chunk.slots[a.expr_id]
+                arrays.append(_full(d, chunk.capacity).contiguous())
+                if v is not None:
+                    arrays.append(_full(v, chunk.capacity).contiguous())
+                layout.append((a.expr_id, v is not None))
+            return arrays, layout
+
+        p_arrays, p_layout = flatten_side(probe, [packed_p] + list(pk_data))
+        b_arrays, b_layout = flatten_side(build, [packed_b] + list(bk_data))
+        nkeys = len(pk_data)
+
+        factor = ov.shuffle_factor if ov else 1
+        lp, lb = probe.capacity // n, build.capacity // n
+        # heavy-hitter salting: when the hottest build key exceeds one
+        # shard's average build share, split its probe stream over salt
+        # partitions
+        salt = 1
+        key_ids = [e.expr_id for e in node.right_keys if isinstance(e, Attr)]
+        if len(key_ids) == len(node.right_keys) and key_ids:
+            mc = min((build.max_counts[i] for i in key_ids
+                      if i in build.max_counts), default=None)
+            if mc is not None and mc > lb:
+                salt = min(n, K.next_pow2(-(-mc * n // build.capacity)))
+        # receive buckets sized from the estimated live rows (4x cushion);
+        # the shuffle_factor retry backs up an under-estimate
+        est_p, est_b = node.est_left_rows, node.est_right_rows
+        live_p = min(1.0, 4.0 * est_p / max(probe.capacity, 1)) \
+            if est_p else 1.0
+        live_b = min(1.0, 4.0 * est_b / max(build.capacity, 1)) \
+            if est_b else 1.0
+        # skew cushion: 1.25x the mean plus the heaviest probe key where
+        # the statistics know it, else 2x
+        pk_ids = [e.expr_id for e in node.left_keys if isinstance(e, Attr)]
+        mc_p = min((probe.max_counts[i] for i in pk_ids
+                    if i in probe.max_counts), default=None) \
+            if len(pk_ids) == len(node.left_keys) and pk_ids else None
+
+        def psize(rows_per_shard):
+            if mc_p is None:
+                return -(-int(2 * rows_per_shard) // n)
+            return -(-int(1.25 * rows_per_shard) // n) + int(mc_p)
+        bb = factor * max(8, -(-int(2 * lb * live_b) * salt // n))
+        recv_b = n * bb
+        # the probe side runs in `chunks` slices, each its own exchange and
+        # join (the reference's exchange/compute overlap)
+        chunks = max(1, int(self.config.shuffle_overlap_chunks))
+        if chunks > 1 and lp % chunks != 0:
+            chunks = 1
+        lc = lp // chunks
+
+        # pre-shuffle LIP filter (AttachLIPFilters analog): a one-hash bloom
+        # over the build keys, OR'd over the shards, drops probe rows that
+        # cannot match before the exchange, and the probe buckets shrink
+        # with the estimated pass rate. Only inner and semi joins may drop
+        # probe rows.
+        use_lip = self.config.use_lip_filters and node.kind in ("inner",
+                                                                "semi")
+        lip_bits = 0
+        sel = 1.0
+        if use_lip:
+            lip_bits = K.next_pow2(
+                int(min(max(4 * build.capacity, 1024), 1 << 22)))
+            branges = self._key_ranges(node.right_keys, build)
+            pranges = self._key_ranges(node.left_keys, probe)
+            if len(branges) == 1 and branges[0] is not None and \
+                    pranges[0] is not None:
+                blo, bhi = branges[0]
+                plo, phi = pranges[0]
+                olo, ohi = max(blo, plo), min(bhi, phi)
+                if ohi < olo:
+                    sel = 0.0
+                else:
+                    inside = (ohi - olo + 1) / max(phi - plo + 1, 1)
+                    hit = min(1.0, build.capacity / max(bhi - blo + 1, 1))
+                    sel = inside * hit
+            # never below 1/8 of the unfiltered buckets: a wrong estimate
+            # costs a retry
+            sel = max(min(sel, 1.0), 0.125)
+        bp_c = factor * max(8, psize(lc * sel * live_p))
+        recv_p_c = n * bp_c
+        # every exchanged column crosses the mesh once, at bucket size
+        probe_row_bytes = sum(a.element_size() for a in p_arrays) + 1
+        build_row_bytes = sum(a.element_size() for a in b_arrays) + 1
+        self.last_shuffle_info = {
+            "chunks": chunks, "lip_bits": lip_bits,
+            "probe_bucket_rows": chunks * recv_p_c,
+            "build_bucket_rows": recv_b, "sel_est": round(sel, 4),
+            "salt": salt,
+            "exchange_bytes": int(n * (chunks * recv_p_c * probe_row_bytes +
+                                       recv_b * build_row_bytes))}
+        type(self).trace_shuffle_info = dict(self.last_shuffle_info)
+
+        idx = self.node_index[id(node)]
+        pre_flags = set(self.flags)
+        p_sh = [shard_rows(mesh, a) for a in p_arrays + [probe.alive]]
+        b_sh = [shard_rows(mesh, a) for a in b_arrays + [build.alive]]
+
+        def rebuild(chunk, layout, ex, alive, cap):
+            pos = 1 + nkeys   # the packed key and the key columns lead
+            keys = list(ex[1:pos])
+            slots = {}
+            for expr_id, has_valid in layout:
+                d = ex[pos]
+                pos += 1
+                v = None
+                if has_valid:
+                    v = ex[pos] & alive
+                    pos += 1
+                slots[expr_id] = (d, v)
+            return keys, Chunk(
+                attrs=list(chunk.attrs), slots=slots, alive=alive,
+                capacity=cap, ranges=dict(chunk.ranges),
+                unique_sets=list(chunk.unique_sets),
+                max_counts=dict(chunk.max_counts), fds=list(chunk.fds))
+
+        b_ex, b_alive, over = SH.radix_exchange(
+            mesh, b_sh[0], [list(cols) for cols in zip(*b_sh[:-1])],
+            b_sh[-1], bb, salt=salt, probe_side=False)
+        build_loc = [rebuild(build, b_layout, b_ex[j], b_alive[j], recv_b)
+                     for j in range(n)]
+        lip = None
+        if use_lip:
+            for i in range(n):
+                bits = B.bloom_build([b_sh[0][i]], b_sh[-1][i], lip_bits)
+                lip = bits if lip is None else (lip | bits)
+
+        new_flags: Dict[str, torch.Tensor] = {}
+        outs = [[] for _ in range(n)]
+        for ci in range(chunks):
+            sl = slice(ci * lc, (ci + 1) * lc)
+            keys_c = [p_sh[0][i][sl] for i in range(n)]
+            alive_c = [p_sh[-1][i][sl] for i in range(n)]
+            if lip is not None:
+                alive_c = [B.bloom_probe(lip, [k], a)
+                           for k, a in zip(keys_c, alive_c)]
+            pays = [[col[i][sl] for col in p_sh[:-1]] for i in range(n)]
+            p_ex, p_alive, p_over = SH.radix_exchange(
+                mesh, keys_c, pays, alive_c, bp_c, salt=salt,
+                probe_side=True)
+            over = over | p_over
+            for j in range(n):
+                pk_loc, probe_loc = rebuild(probe, p_layout, p_ex[j],
+                                            p_alive[j], recv_p_c)
+                bk_loc, b_loc = build_loc[j]
+                out = self._join_local(node, probe_loc, b_loc, pk_loc, bk_loc,
+                                       strategy, build_unique,
+                                       probe_loc.alive, b_loc.alive)
+                outs[j].append(out.materialize_all())
+                # each shard's and slice's runtime flags OR together
+                for k in [k for k in self.flags if k not in pre_flags]:
+                    v = self.flags.pop(k)
+                    new_flags[k] = (new_flags[k] | v) if k in new_flags else v
+        new_flags[f"shuffle_overflow_{idx}"] = over
+        for k, v in new_flags.items():
+            self.flags[k] = (self.flags[k] | v) if k in self.flags else v
+        # shard-major, as shard_map concatenates its outputs
+        return concat_chunks([o for shard in outs for o in shard])
 
     def _key_ranges(self, keys, chunk):
         return [infer_range(e, chunk.ranges) for e in keys]
@@ -1051,8 +1379,10 @@ class PlanRunner:
         cost-model estimate. Sound through the retry protocol: when the live
         count exceeds the target, rows would be dropped, so the flag (a
         device tensor, never read here) makes the executor re-run with
-        compaction disabled for this node."""
-        if disabled or est is None or not self.config.join_compaction:
+        compaction disabled for this node. Skipped under a mesh (rows are
+        sharded)."""
+        if disabled or est is None or self.mesh is not None or \
+                not self.config.join_compaction:
             return chunk
         if chunk.capacity <= 4096:
             return chunk
@@ -1073,8 +1403,10 @@ class PlanRunner:
     def _compact_chunk(self, chunk: Chunk, target: int) -> Chunk:
         """Gather live rows into a smaller capacity (sound only when `target`
         is at least the live row count). Only the row-id maps move; payload
-        columns stay LazyCols against their bases."""
-        target = max(K.round_up(target, 8), 8)
+        columns stay LazyCols against their bases. Under a mesh the
+        capacity stays a multiple of its shards."""
+        quantum = 8 if self.mesh is None else max(8, self.mesh.n)
+        target = max(K.round_up(target, quantum), quantum)
         if target >= chunk.capacity:
             return chunk
         order = K.compact_order(chunk.alive)[:target]

@@ -41,8 +41,10 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # stable live-first partition), the window kernels (W1 window_prefix, W2
 # frame_minmax, W3 frame_bounds, W4 sliding_sum), K10 hash_keys, K11
 # open_addressing (its build and probe), K12 distinct_count (the run starts,
-# counted or flagged) and K13 order_permutation (the sort key encoding).
-# A wrapper given an empty input launches nothing and returns the empty or
+# counted or flagged), K13 order_permutation (the sort key encoding), and
+# the mesh path's K14 partition_dest (the radix partition), K15
+# scatter_compact (the bucket scatter) and K16 bloom_filter (its build and
+# probe). A wrapper given an empty input launches nothing and returns the empty or
 # neutral result of its plain version.
 LAUNCHES = {"scalar_agg": 0, "dense_groupby": 0, "direct_join": 0,
             "merge_unique_probe": 0, "sort_groupby": 0, "multi_gather": 0,
@@ -50,7 +52,8 @@ LAUNCHES = {"scalar_agg": 0, "dense_groupby": 0, "direct_join": 0,
             "sort_groupby_compact": 0, "window_prefix": 0,
             "frame_minmax": 0, "frame_bounds": 0, "sliding_sum": 0,
             "hash_keys": 0, "open_addressing": 0, "distinct_count": 0,
-            "order_permutation": 0}
+            "order_permutation": 0, "partition_dest": 0,
+            "scatter_compact": 0, "bloom_filter": 0}
 # Seconds the last build took in this process (None: the library was loaded
 # from an earlier build with the same source hash).
 BUILD_SECONDS: Optional[float] = None
@@ -82,8 +85,9 @@ def _nvcc() -> str:
 
 
 def _source_hash(sources) -> str:
+    """A hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()
@@ -164,6 +168,14 @@ def build() -> ctypes.CDLL:
             "qs_oa_probe": [p, i64, i32, p, p, p, p, i64, p, p, i32, p],
             "qs_run_starts": [i32, p, i64, p, p, p, i32, p],
             "qs_sort_key_encode": [i32, p, p, p, i64, i32, i32, p, i32, p],
+            "qs_partition_count": [p, i32, p, i64, i32, i32, i32, i64, i32, p,
+                                   p],
+            "qs_partition_dest": [p, i32, p, i64, i32, i32, i32, i64, i32, p,
+                                  i32, p, p, p],
+            "qs_scatter_compact": [i32, p, p, i32, i64, i64,
+                                   ctypes.c_uint64, p, i32, p],
+            "qs_bloom_build": [i32, p, p, p, i64, p, i64, i32, p],
+            "qs_bloom_probe": [i32, p, p, p, i64, p, i64, p, i32, p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
@@ -908,4 +920,142 @@ def sort_key_encode(key: torch.Tensor, valid: Optional[torch.Tensor],
                                  _blocks(n, device), _stream(device))
     _check(lib, err, "sort_key_encode")
     LAUNCHES["order_permutation"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------
+# K14-K16: the mesh path's radix partition, bucket scatter and bloom
+# filter (csrc/shuffle_kernels.cu)
+# ---------------------------------------------------------------------
+_PART_TILE = 256 * 16           # kTile in csrc/shuffle_kernels.cu
+MAX_PARTS = 1024                # kMaxParts in csrc/shuffle_kernels.cu
+
+
+def partition_dest(key: torch.Tensor, alive: torch.Tensor, n_parts: int,
+                   cap: int, salt: int = 1, probe_side: bool = True):
+    """K14: each row's slot in n_parts buckets of cap rows: p * cap + its
+    stable rank among the live rows of partition p, where p is the hash
+    partition of its key (int32 or int64) plus its salt; n_parts * cap for
+    a dead row and for a live row past its bucket's capacity. A salted build
+    side (salt > 1, probe_side False) has salt * L rows, row s * L + i being
+    row i with salt s. Returns (int32 dest, 0-d bool overflow)."""
+    device = _cuda_device(alive, "alive")
+    n = int(alive.shape[0]) if alive.dim() == 1 else -1
+    _require(alive, "alive", device, n, (torch.bool,))
+    _require(key, "key", device, n, tuple(_KEY))
+    if not 1 <= n_parts <= MAX_PARTS:
+        raise ValueError(f"{n_parts} partitions; the kernel takes 1 to "
+                         f"{MAX_PARTS}")
+    if salt < 1 or cap < 1 or n_parts * cap >= 2 ** 31:
+        raise ValueError(f"salt {salt}, bucket capacity {cap}: out of range")
+    tiled = salt > 1 and not probe_side
+    lx = n * salt if tiled else n
+    _rows(lx, "partition_dest")
+    lib = build()
+    dest = torch.empty(lx, dtype=torch.int32, device=device)
+    overflow = torch.zeros((), dtype=torch.int32, device=device)
+    if lx == 0:
+        return dest, overflow != 0
+    n_tiles = -(-lx // _PART_TILE)
+    counts = torch.empty((n_parts + 1, n_tiles), dtype=torch.int32,
+                         device=device)
+    args = (_ptr(key), int(key.dtype == torch.int64), _ptr(alive), n, salt,
+            int(tiled), n_parts, lx, n_tiles)
+    _check(lib, lib.qs_partition_count(*args, _ptr(counts), _stream(device)),
+           "partition_dest")
+    # each bin's ranks in the earlier tiles
+    first = (torch.cumsum(counts, dim=1, dtype=torch.int32) - counts) \
+        .contiguous()
+    _check(lib, lib.qs_partition_dest(*args, _ptr(first), cap, _ptr(dest),
+                                      _ptr(overflow), _stream(device)),
+           "partition_dest")
+    LAUNCHES["partition_dest"] += 1
+    return dest, overflow != 0
+
+
+def _fill_bits(fill, dtype: torch.dtype) -> int:
+    """The bit pattern of fill in dtype, as an unsigned 64-bit int."""
+    t = torch.tensor([fill], dtype=dtype)
+    width = t.element_size()
+    as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+              8: torch.int64}[width]
+    return int(t.view(as_int).item()) & ((1 << (8 * width)) - 1)
+
+
+def scatter_compact(col: torch.Tensor, dest: torch.Tensor, capacity: int,
+                    fill=0) -> torch.Tensor:
+    """K15: out[capacity] with out[dest[i]] = col[i] where dest[i] lies in
+    [0, capacity) (other rows are dropped) and fill elsewhere. Destinations
+    are unique; col is 1-D with 1-, 2-, 4- or 8-byte elements, dest int32
+    or int64."""
+    device = _cuda_device(dest, "dest")
+    n = int(dest.shape[0]) if dest.dim() == 1 else -1
+    _require(dest, "dest", device, n, (torch.int32, torch.int64))
+    _require(col, "col", device, n, (col.dtype,))
+    if col.element_size() not in (1, 2, 4, 8):
+        raise TypeError(f"col has {col.element_size()}-byte elements")
+    if capacity < 0:
+        raise ValueError(f"capacity {capacity} is negative")
+    lib = build()
+    if n == 0 or capacity == 0:
+        # nothing to scatter: the fill alone, as the plain version gives it
+        return torch.full((capacity,), fill, dtype=col.dtype, device=device)
+    out = torch.empty(capacity, dtype=col.dtype, device=device)
+    err = lib.qs_scatter_compact(
+        col.element_size(), _ptr(col), _ptr(dest),
+        int(dest.dtype == torch.int64), n, capacity,
+        _fill_bits(fill, col.dtype), _ptr(out),
+        _blocks(max(n, capacity), device), _stream(device))
+    _check(lib, err, "scatter_compact")
+    LAUNCHES["scatter_compact"] += 1
+    return out
+
+
+def _check_nbits(nbits: int) -> None:
+    if nbits < 1 or nbits & (nbits - 1) or nbits > 2 ** 40:
+        raise ValueError(f"bloom filter of {nbits} slots: not a power of two")
+
+
+def bloom_build(cols: List[torch.Tensor], alive: torch.Tensor,
+                nbits: int) -> torch.Tensor:
+    """K16 build: bool[nbits] with a 1 at the slot of each live row, the
+    hash of its key columns (K10's) & (nbits - 1)."""
+    device = _cuda_device(alive, "alive")
+    n = int(alive.shape[0]) if alive.dim() == 1 else -1
+    _require(alive, "alive", device, n, (torch.bool,))
+    ptrs, codes = _key_arrays(cols, device, n, tuple(_KEY_DTYPE))
+    _check_nbits(nbits)
+    lib = build()
+    if n == 0:
+        return torch.zeros(nbits, dtype=torch.bool, device=device)
+    bits = torch.empty(nbits, dtype=torch.bool, device=device)
+    err = lib.qs_bloom_build(len(cols), ctypes.cast(ptrs, ctypes.c_void_p),
+                             ctypes.cast(codes, ctypes.c_void_p), _ptr(alive),
+                             n, _ptr(bits), nbits, _blocks(n, device),
+                             _stream(device))
+    _check(lib, err, "bloom_build")
+    LAUNCHES["bloom_filter"] += 1
+    return bits
+
+
+def bloom_probe(bits: torch.Tensor, cols: List[torch.Tensor],
+                alive: torch.Tensor) -> torch.Tensor:
+    """K16 probe: alive & bits[the slot of each row's key columns]."""
+    device = _cuda_device(alive, "alive")
+    n = int(alive.shape[0]) if alive.dim() == 1 else -1
+    _require(alive, "alive", device, n, (torch.bool,))
+    nbits = int(bits.shape[0]) if bits.dim() == 1 else -1
+    _require(bits, "bits", device, nbits, (torch.bool,))
+    _check_nbits(nbits)
+    ptrs, codes = _key_arrays(cols, device, n, tuple(_KEY_DTYPE))
+    lib = build()
+    out = torch.empty(n, dtype=torch.bool, device=device)
+    if n == 0:
+        return out
+    err = lib.qs_bloom_probe(len(cols), ctypes.cast(ptrs, ctypes.c_void_p),
+                             ctypes.cast(codes, ctypes.c_void_p), _ptr(alive),
+                             n, _ptr(bits), nbits, _ptr(out),
+                             _blocks(n, device), _stream(device))
+    _check(lib, err, "bloom_probe")
+    LAUNCHES["bloom_filter"] += 1
     return out

@@ -1,14 +1,14 @@
 """Core vectorized building blocks: row masks, compaction order, sentinels,
-the stable partition, the many-column gather and key hashing.
+the stable partition, the bucket scatter, the many-column gather and key
+hashing.
 
 The subset of quickstep_tpu/ops/kernels.py that the port needs.
 `multi_gather` launches the hand-written K6 kernel, `stable_partition` the
-K9 kernel and `hash_keys` the K10 kernel on CUDA tensors, and each takes its
-plain version on CPU tensors; the other functions are single torch ops on
-whatever device their input lies on. The reference's TPU lane packing
-(`_lane_dtype`, `PACK_PAD_LIMIT`) is not carried over: a Hopper gather reads
-each column at its own width. `scatter_compact` is not ported yet (nothing
-in the reference's query path calls it).
+K9 kernel, `hash_keys` the K10 kernel and `scatter_compact` the K15 kernel
+on CUDA tensors, and each takes its plain version on CPU tensors; the other
+functions are single torch ops on whatever device their input lies on. The
+reference's TPU lane packing (`_lane_dtype`, `PACK_PAD_LIMIT`) is not
+carried over: a Hopper gather reads each column at its own width.
 
 Hashes are uint64 bit patterns held in int64 tensors (torch has no uint64
 arithmetic): products wrap modulo 2^64, right shifts are logical (an
@@ -64,6 +64,33 @@ def stable_partition(mask: torch.Tensor) -> torch.Tensor:
         return compact_order(mask)
     from quickstep_tpu_torch.ops import cuda
     return cuda.stable_partition(mask.contiguous())
+
+
+def scatter_compact(col: torch.Tensor, dest: torch.Tensor, capacity: int,
+                    fill=0) -> torch.Tensor:
+    """quickstep_tpu/ops/kernels.py:44: out[dest[i]] = col[i] into a
+    tensor of `capacity` filled with `fill`; a dest outside [0, capacity)
+    (the callers use capacity) drops its row. Destinations are unique. On
+    CUDA one K15 call (ops/cuda.py scatter_compact); on the CPU the plain
+    version."""
+    if dest.device.type == "cpu":
+        return scatter_compact_plain(col, dest, capacity, fill)
+    from quickstep_tpu_torch.ops import cuda
+    return cuda.scatter_compact(col.contiguous(), dest.contiguous(),
+                                capacity, fill)
+
+
+def scatter_compact_plain(col: torch.Tensor, dest: torch.Tensor,
+                          capacity: int, fill=0) -> torch.Tensor:
+    """Plain torch version of scatter_compact: one index_put into
+    capacity + 1 slots, the last of which takes the dropped rows."""
+    d = dest.to(torch.int64)
+    slot = torch.where((d >= 0) & (d < capacity), d,
+                       torch.full_like(d, capacity))
+    out = torch.full((capacity + 1,), fill, dtype=col.dtype,
+                     device=col.device)
+    out[slot] = col
+    return out[:capacity]
 
 
 def to_device(arr: np.ndarray, device) -> torch.Tensor:

@@ -81,10 +81,38 @@ DML_AND_OPERATORS_WITHOUT_JAX = textwrap.dedent("""
     print("DML OK")
 """)
 
+MESH_WITHOUT_JAX = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None          # any `import jax` now fails
+    import quickstep_tpu_torch.parallel.dist
+    import quickstep_tpu_torch.parallel.mesh
+    import quickstep_tpu_torch.parallel.shuffle
+    import quickstep_tpu_torch.storage.native_io
+    from quickstep_tpu_torch import Database
+    from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES, load_tpch
+    from quickstep_tpu_torch.config import Config
+    cfg = Config()
+    cfg.distributed = True
+    cfg.replicate_threshold_rows = 1000
+    db = Database(config=cfg, device="cpu", mesh_shards=8)
+    load_tpch(db, 0.002, 0)
+    for q in (3, 9):
+        assert db.execute(TPCH_QUERIES[q]).rows, q
+        assert any(k.startswith("shuffle_overflow")
+                   for k in db.executor.last_flags), q
+    db.close()
+    bad = [m for m, mod in sys.modules.items() if mod is not None and (
+           m == "jax" or m.startswith("jax.")
+           or m == "quickstep_tpu" or m.startswith("quickstep_tpu."))]
+    assert not bad, bad
+    print("MESH OK")
+""")
+
 # The host modules the port copies, and the function of each copy that was
 # changed for torch (compared without it).
 COPIES = {
     "storage/csv_io.py": None,
+    "storage/native_io.py": "_load_library",
     "utils/testdb.py": None,
     "utils/golden.py": None,
     "utils/reference_plan.py": None,
@@ -130,6 +158,12 @@ def test_port_runs_dml_and_operators_without_jax():
     proc = _run(["-c", DML_AND_OPERATORS_WITHOUT_JAX], REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "DML OK" in proc.stdout
+
+
+def test_port_runs_the_mesh_path_without_jax():
+    proc = _run(["-c", MESH_WITHOUT_JAX], REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "MESH OK" in proc.stdout
 
 
 def _without_function(text, name):

@@ -929,3 +929,123 @@ def test_kernel_at_zero_rows(card, kernel):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         _same(g, w, 0.0)
+
+
+# ---------------------------------------------------------------------
+# K14 radix partition, K15 bucket scatter, K16 bloom filter
+# ---------------------------------------------------------------------
+from quickstep_tpu_torch.parallel import shuffle as TSH  # noqa: E402
+
+
+def _part_inputs(dtype, device, n=100_003, seed=61, live=0.95, hot=0.0):
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int32:
+        keys = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64)
+    else:
+        keys = rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64)
+    keys = np.where(rng.random(n) < hot, keys[0], keys)
+    key = torch.from_numpy(keys).to(dtype).to(device)
+    alive = torch.from_numpy(rng.random(n) < live).to(device)
+    return key, alive
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("salt,probe_side", [(1, True), (2, True), (4, True),
+                                             (2, False), (4, False)])
+@pytest.mark.parametrize("n_parts", (2, 3, 8, 1000))
+@pytest.mark.parametrize("dtype", (torch.int32, torch.int64), ids=str)
+def test_partition_dest_kernel_matches_plain(card, dtype, n_parts, salt,
+                                             probe_side):
+    key, alive = _part_inputs(dtype, card)
+    n = key.shape[0]
+    cap = -(-2 * n * salt // n_parts)
+    got = TSH.partition_dest(key, alive, n_parts, cap, salt, probe_side)
+    want = TSH.partition_dest_plain(key, alive, n_parts, cap, salt,
+                                    probe_side)
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+    assert not bool(got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", (0.0, 0.4))
+def test_partition_dest_kernel_overflows_like_plain(card, hot):
+    key, alive = _part_inputs(torch.int64, card, hot=hot)
+    n = key.shape[0]
+    cap = n // 8 + (0 if hot else -500)   # a hot key, or too small buckets
+    got = TSH.partition_dest(key, alive, 8, cap)
+    want = TSH.partition_dest_plain(key, alive, 8, cap)
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+    assert bool(got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES + (torch.bool,), ids=str)
+def test_scatter_compact_kernel_matches_plain(card, dtype):
+    key, alive = _part_inputs(torch.int64, card)
+    n = key.shape[0]
+    dest, _ = TSH.partition_dest(key, alive, 8, n // 4)
+    slots = 8 * (n // 4)          # dropped rows point at slots itself
+    col = torch.arange(n, device=card).to(dtype) if dtype != torch.bool \
+        else alive
+    fill = -1 if dtype != torch.bool else True
+    for d in (dest, dest.long()):
+        _same(TK.scatter_compact(col, d, slots, fill=fill),
+              TK.scatter_compact_plain(col, d, slots, fill=fill), 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncols", (1, 3))
+def test_bloom_kernels_match_plain(card, ncols):
+    rng = np.random.default_rng(71)
+    build = [torch.from_numpy(rng.integers(0, 10 ** 6, 50_000)).to(card)
+             for _ in range(ncols)]
+    probe = [torch.from_numpy(rng.integers(0, 10 ** 6, 200_003)).to(card)
+             for _ in range(ncols)]
+    if ncols == 3:
+        build[1], probe[1] = build[1].int(), probe[1].int()
+    balive = torch.from_numpy(rng.random(50_000) < 0.7).to(card)
+    palive = torch.from_numpy(rng.random(200_003) < 0.9).to(card)
+    for nbits in (1024, 1 << 22):
+        bits = TB.bloom_build(build, balive, nbits)
+        _same(bits, TB.bloom_build_plain(build, balive, nbits), 0.0)
+        _same(TB.bloom_probe(bits, probe, palive),
+              TB.bloom_probe_plain(bits, probe, palive), 0.0)
+
+
+@pytest.mark.cuda
+def test_k14_to_k16_launches_are_counted(card):
+    key, alive = _part_inputs(torch.int64, card, n=10_000)
+    TC.reset_launches()
+    dest, _ = TSH.partition_dest(key, alive, 8, 5_000, 2, False)
+    TK.scatter_compact(dest, dest, 40_000)
+    bits = TB.bloom_build([key], alive, 1024)
+    TB.bloom_probe(bits, [key], alive)
+    TSH.partition_dest_plain(key, alive, 8, 5_000)
+    TK.scatter_compact_plain(dest, dest, 40_000)
+    assert TC.LAUNCHES == dict(dict.fromkeys(TC.LAUNCHES, 0),
+                               partition_dest=1, scatter_compact=1,
+                               bloom_filter=2)
+
+
+def test_k14_to_k16_wrappers_reject_cpu_tensors():
+    key = torch.arange(4, dtype=torch.int64)
+    alive = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.partition_dest(key, alive, 8, 4)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.scatter_compact(key, key, 8)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.bloom_build([key], alive, 8)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.bloom_probe(alive, [key], alive)
+
+
+def test_k14_to_k16_public_functions_take_plain_versions_on_cpu():
+    key, alive = _part_inputs(torch.int64, "cpu", n=1000)
+    TC.reset_launches()
+    dest, _ = TSH.partition_dest(key, alive, 8, 500, 2, True)
+    TK.scatter_compact(dest, dest, 4000)
+    TB.bloom_probe(TB.bloom_build([key], alive, 64), [key], alive)
+    assert not any(TC.LAUNCHES.values()), TC.LAUNCHES
