@@ -72,21 +72,23 @@ LARGE_QUERIES = {
     4: ("direct_join", "dense_groupby", "multi_gather"),
     5: ("direct_join", "merge_unique_probe", "dense_groupby", "multi_gather"),
     10: ("direct_join", "sort_groupby", "multi_gather"),
-    7: ("direct_join", "sort_groupby", "multi_gather"),
+    # a two-key group-by: its key gathers take K6's row-packed route
+    7: ("direct_join", "sort_groupby", "multi_gather", "multi_gather_packed"),
     12: ("direct_join", "dense_groupby", "multi_gather"),
     14: ("direct_join", "scalar_agg", "multi_gather"),
     19: ("direct_join", "scalar_agg", "multi_gather"),
     # exact statistics prove (ps_partkey, ps_suppkey) unique: a K4 probe
-    9: ("direct_join", "merge_unique_probe", "sort_groupby", "multi_gather"),
+    9: ("direct_join", "merge_unique_probe", "sort_groupby", "multi_gather",
+        "multi_gather_packed"),
     16: ("direct_join", "sort_groupby", "sort_groupby_compact",
-         "multi_gather"),
+         "multi_gather", "multi_gather_packed"),
     18: ("direct_join", "sort_groupby", "multi_gather"),
     21: ("direct_join", "merge_cmp_probe", "multi_gather"),
 }
 # Q9 after partsupp is reloaded without statistics: its build side can no
 # longer be proven unique, and the join expands
 STALE_PARTSUPP_Q9 = ("direct_join", "expand_probe", "sort_groupby",
-                     "multi_gather")
+                     "multi_gather", "multi_gather_packed")
 # SF10 window queries (bench/tpch_fullgen.py WINDOW_QUERIES) and the window
 # kernels each must launch
 WINDOW_RUNS = {
@@ -94,22 +96,26 @@ WINDOW_RUNS = {
     "w2": ("window_prefix",),
     "w3": ("window_prefix",),
     "w4": ("frame_bounds", "sliding_sum"),
-    "w5": ("frame_bounds", "frame_minmax"),
+    # a RANGE frame: the values and the order key gathered by the sort
+    # permutation together, on K6's row-packed route
+    "w5": ("frame_bounds", "frame_minmax", "multi_gather_packed"),
     "w6": ("frame_bounds", "frame_minmax"),
 }
 N_SUPPLIERS = 100_000           # W-Q1's and W-Q5's partitions at SF10
 N_WINDOW_ONE_SEGMENT = 15_000_000   # W-Q3's single segment (orders)
 N_PARTSUPP = 8_000_000          # partsupp rows at SF10
 SECTOR_BYTES = 32               # one random DRAM access on an H100
+N_L2_ROWS = 1_500_000           # a gather source whose packed rows fit the L2
 # SF10 operator queries (bench/tpch_fullgen.py OPERATOR_QUERIES) and the
 # kernels each must launch
 OPERATOR_RUNS = {
-    "o1": ("distinct_count",),
+    "o1": ("distinct_sort", "distinct_count"),
     # EXCEPT and INTERSECT: K11 (which runs K10's hash in its own kernels)
     # and the DISTINCT after it, which has no aggregate and so is the sort
-    # group-by's torch.sort and K6 gathers, with no K5 reduction
-    "o2": ("open_addressing", "multi_gather"),
-    "o3": ("open_addressing", "multi_gather"),
+    # group-by's torch.sort and its key gathers by the sort permutation (K6's
+    # row-packed route), with no K5 reduction
+    "o2": ("open_addressing", "multi_gather_packed"),
+    "o3": ("open_addressing", "multi_gather_packed"),
     "o4": ("hash_keys", "merge_unique_probe", "multi_gather"),
     "o5": ("order_permutation",),
 }
@@ -126,6 +132,8 @@ KERNELS = {   # name: (source, the reference function it replaces)
                      "quickstep_tpu/ops/groupby.py:204"),
     "multi_gather": ("quickstep_tpu_torch/csrc/gather_kernels.cu",
                      "quickstep_tpu/ops/kernels.py:88"),
+    "multi_gather_packed": ("quickstep_tpu_torch/csrc/gather_kernels.cu",
+                            "quickstep_tpu/ops/kernels.py:88"),
     "expand_probe": ("quickstep_tpu_torch/csrc/join_kernels.cu",
                      "quickstep_tpu/ops/join.py:228"),
     "merge_cmp_probe": ("quickstep_tpu_torch/csrc/join_kernels.cu",
@@ -144,6 +152,8 @@ KERNELS = {   # name: (source, the reference function it replaces)
                   "quickstep_tpu/ops/kernels.py:143"),
     "open_addressing": ("quickstep_tpu_torch/csrc/hash_kernels.cu",
                         "quickstep_tpu/ops/join.py:83"),
+    "distinct_sort": ("quickstep_tpu_torch/csrc/radix_kernels.cu",
+                      "quickstep_tpu/ops/groupby.py:455"),
     "distinct_count": ("quickstep_tpu_torch/csrc/sort_kernels.cu",
                        "quickstep_tpu/ops/groupby.py:455"),
     "order_permutation": ("quickstep_tpu_torch/csrc/sort_kernels.cu",
@@ -317,9 +327,10 @@ def phase_join_kernels(case, rng, dev):
     """K3-K6 against their plain versions at SF10 shapes: a probe of
     N_KERNEL_ROWS rows against an orders-sized build (orderkey-like keys,
     domain 4x the build rows), Q5's composite-key probe, the segmented
-    reduce over ~N_SEGMENTS groups, and a six-column gather."""
+    reduce over ~N_SEGMENTS groups, then K6's routes on lineitem-like
+    columns (phase_gather_kernels)."""
     from quickstep_tpu_torch.ops import bloom as B, cuda, groupby as G
-    from quickstep_tpu_torch.ops import join as J, kernels as K
+    from quickstep_tpu_torch.ops import join as J
     n, nb = N_KERNEL_ROWS, N_BUILD_ROWS
     lo, domain = 4, 4 * nb
     bkey = (torch.arange(1, nb + 1, device=dev, dtype=torch.int32) * 4)
@@ -398,19 +409,101 @@ def phase_join_kernels(case, rng, dev):
                                            packed_key=gkey, want_rows=True)))
     del specs
 
-    # six lineitem-like columns gathered by one 60M-row index
-    cols = [palive, pkey, pkey + 1, money, price.float(), price]
-    idx = torch.from_numpy(rng.integers(0, n, n)).to(dev)
-    case("multi_gather", "6 columns by a 60M index",
-         lambda: K.multi_gather(cols, idx),
-         lambda: K.multi_gather_plain(cols, idx), main=True,
-         inputs=(*cols, idx))
-    case("multi_gather", "6 columns by a 60M int32 index",
-         lambda: K.multi_gather(cols, idx.int()),
-         lambda: K.multi_gather_plain(cols, idx.int()))
-    del cols, idx, gkey, money, price, pkey, palive
+    del gkey
+    phase_gather_kernels(case, rng, dev, [palive, pkey, pkey + 1, money,
+                                          price.float(), price])
+    del money, price, pkey, palive
     torch.cuda.empty_cache()
     phase_new_kernels(case, rng, dev)
+
+
+def gather_sectors(m, widths, route):
+    """32-byte sectors a gather of m random rows reads: one per row and
+    column on the direct route, the packed row's on the other."""
+    from quickstep_tpu_torch.ops import cuda
+    if route == "direct":
+        return m * len(widths)
+    return m * -(-cuda.packed_layout(widths)[1] // SECTOR_BYTES)
+
+
+def phase_gather_kernels(case, rng, dev, cols):
+    """K6's two routes against the plain version (one index_select per
+    column), bit for bit, on six lineitem-like columns of N_KERNEL_ROWS
+    rows: by an ascending half-live index (a compaction, the direct
+    route's case; the packed route on it is timed beside it), by a uniform
+    random 60 M-row index (the row-packed route's case; the direct route on
+    it too), with an int32 index, from a 1.5 M-row source that sits in the
+    L2, and two columns. Each case's bound counts the gathered rows' bytes,
+    the index and the outputs; the random-sector limit (one sector per row
+    and column direct, per packed row packed, at the card's memory rate)
+    is logged beside the random cases. Both routes must launch as
+    gather_route says."""
+    from quickstep_tpu_torch.ops import cuda, kernels as K
+    n = N_KERNEL_ROWS
+    widths = [c.element_size() for c in cols]
+    row = sum(widths)
+
+    def launched(fn, key):
+        cuda.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        if cuda.LAUNCHES[key] != 1:
+            raise AssertionError(f"{key} not launched: {cuda.LAUNCHES}")
+
+    def limit(label, m, ws, route):
+        sectors = gather_sectors(m, ws, route)
+        log(f"  multi_gather  {label}: random-sector limit {sectors} "
+            f"sectors, {sectors * SECTOR_BYTES / HBM_BYTES_PER_S * 1e3:.3f}"
+            " ms")
+
+    asc = torch.nonzero(torch.from_numpy(rng.random(n) < 0.5).to(dev)
+                        ).flatten()
+    m = asc.shape[0]
+    launched(lambda: K.multi_gather(cols, asc), "multi_gather")
+    case("multi_gather", "6 columns, ascending half-live",
+         lambda: K.multi_gather(cols, asc),
+         lambda: K.multi_gather_plain(cols, asc), main=True, atol=0,
+         bound_bytes=m * (2 * row + 8),
+         library=lambda: [c.index_select(0, asc) for c in cols])
+    ms = cuda_ms(lambda: K.multi_gather(cols, asc, random=True))
+    log(f"  multi_gather  the packed route on that index: {ms:.3f} ms")
+    del asc
+
+    idx = torch.from_numpy(rng.integers(0, n, n)).to(dev)
+    launched(lambda: K.multi_gather(cols, idx, random=True),
+             "multi_gather_packed")
+    case("multi_gather_packed", "6 columns by a 60M index",
+         lambda: K.multi_gather(cols, idx, random=True),
+         lambda: K.multi_gather_plain(cols, idx), main=True, atol=0,
+         bound_bytes=n * (2 * row + 8),
+         library=lambda: [c.index_select(0, idx) for c in cols])
+    limit("6 columns by a 60M index, packed", n, widths, "packed")
+    case("multi_gather", "6 columns by a 60M index",
+         lambda: K.multi_gather(cols, idx),
+         lambda: K.multi_gather_plain(cols, idx), atol=0)
+    limit("6 columns by a 60M index, direct", n, widths, "direct")
+    case("multi_gather_packed", "6 columns by a 60M int32 index",
+         lambda: K.multi_gather(cols, idx.int(), random=True),
+         lambda: K.multi_gather_plain(cols, idx.int()), atol=0)
+    two = [cols[3], cols[1]]
+    launched(lambda: K.multi_gather(two, idx, random=True),
+             "multi_gather_packed")
+    case("multi_gather_packed", "2 columns by a 60M index",
+         lambda: K.multi_gather(two, idx, random=True),
+         lambda: K.multi_gather_plain(two, idx), atol=0)
+    limit("2 columns by a 60M index, packed", n, [8, 4], "packed")
+    small = [c[:N_L2_ROWS].contiguous() for c in cols]
+    sidx = idx % N_L2_ROWS
+    launched(lambda: K.multi_gather(small, sidx, random=True),
+             "multi_gather_packed")
+    case("multi_gather_packed", "6 columns of 1.5M rows, 60M index",
+         lambda: K.multi_gather(small, sidx, random=True),
+         lambda: K.multi_gather_plain(small, sidx), atol=0)
+    case("multi_gather", "6 columns of 1.5M rows, 60M index",
+         lambda: K.multi_gather(small, sidx),
+         lambda: K.multi_gather_plain(small, sidx), atol=0)
+    del cols, idx, two, small, sidx
+    torch.cuda.empty_cache()
 
 
 def phase_new_kernels(case, rng, dev):
@@ -693,10 +786,32 @@ def phase_operator_kernels(case, dev):
          lambda: (G.distinct_count_plain(vals, None, every),), main=True,
          inputs=(vals, every), atol=0,
          library=lambda: torch.unique(vals).numel())
+    case("distinct_sort", "radix sort 60M int32",
+         lambda: G._sorted_live(vals, None, every),
+         lambda: G._sorted_live_plain(vals, None, every), main=True,
+         inputs=(vals, every), atol=0,
+         library=lambda: torch.sort(vals, stable=True)[0])
+    log(f"  distinct_sort passes skipped: {skipped_passes(vals)} of 4")
     half = torch.rand(n, device=dev, generator=gen) < 0.5
     case("distinct_count", "SUM(DISTINCT) mask, 60M, half live",
          lambda: G.dedup_values(vals, None, half),
          lambda: G.dedup_values_plain(vals, None, half), atol=0)
+    wide = torch.randint(0, 1 << 33, (n,), device=dev, generator=gen)
+    case("distinct_count", "DISTINCT mask, 60M int64 of 33 bits",
+         lambda: G.dedup_values(wide, None, half),
+         lambda: G.dedup_values_plain(wide, None, half), atol=0)
+    log(f"  distinct_sort passes skipped: {skipped_passes(wide)} of 8")
+    del wide
+    edges = float_edges(n, dev, gen)
+
+    def bits(out):
+        s, mask = out
+        return s.view(torch.int64), mask
+    case("distinct_count", "DISTINCT mask, 60M float64 edges",
+         lambda: bits(G.dedup_values(edges, None, half)),
+         lambda: bits(G.dedup_values_plain(edges, None, half)), atol=0)
+    del edges
+    no_torch_sort(dev, gen)
     s_vals, n_live = G._sorted_live(vals, None, half)
     case("distinct_count", "run starts alone, 60M sorted",
          lambda: (cuda.run_starts(s_vals, n_live, count=True),),
@@ -725,6 +840,70 @@ def phase_operator_kernels(case, dev):
     del price, qty, qvalid, tie, alive, args, ident
     torch.cuda.empty_cache()
     phase_shuffle_kernels(case, dev)
+
+
+def skipped_passes(v):
+    """K12's passes over integers that its plan skips: the 8-bit digits
+    of the values' bits that are the same in every row (the key is the
+    bits with the sign flipped, so its digits vary where the bits' do)."""
+    x = v.view(torch.int32 if v.element_size() == 4 else torch.int64)
+    return sum(int(((x >> (8 * p)) & 255).min()) ==
+               int(((x >> (8 * p)) & 255).max())
+               for p in range(v.element_size()))
+
+
+def float_edges(n, dev, gen):
+    """n float64 values from a small domain, a third of them -0.0, +0.0,
+    -inf, +inf or NaNs of both signs with several payloads."""
+    v = torch.randint(-500, 500, (n,), device=dev, generator=gen) / 4
+    nan_bits = [0x7ff8000000000000, 0xfff8000000000000 - (1 << 64),
+                0x7ff0000000000001, 0xfff0000000000123 - (1 << 64)]
+    pool = torch.cat([torch.tensor([0.0, -0.0, math.inf, -math.inf],
+                                   dtype=torch.float64),
+                      torch.tensor(nan_bits).view(torch.float64)]).to(dev)
+    pick = torch.randint(0, len(pool), (n,), device=dev, generator=gen)
+    edge = torch.rand(n, device=dev, generator=gen) < 1 / 3
+    return torch.where(edge, pool[pick], v)
+
+
+def no_torch_sort(dev, gen):
+    """distinct_count and dedup_values on the card, for every dtype the
+    sort takes, with torch.sort and torch.unique made to raise: the K12
+    radix sort and run starts launch, and the results equal the plain
+    versions'."""
+    from quickstep_tpu_torch.ops import cuda, groupby as G
+    n = 1_000_003
+    alive = torch.rand(n, device=dev, generator=gen) < 0.8
+    cols = {torch.int32: torch.randint(-99, 99, (n,), device=dev,
+                                       generator=gen, dtype=torch.int32),
+            torch.int64: torch.randint(-99, 99, (n,), device=dev,
+                                       generator=gen),
+            torch.float32: float_edges(n, dev, gen).float(),
+            torch.float64: float_edges(n, dev, gen),
+            torch.bool: alive.roll(1)}
+    sort, unique = torch.sort, torch.unique
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.sort or torch.unique on the CUDA path")
+    for dt, v in cols.items():
+        cuda.reset_launches()
+        torch.sort = torch.unique = refuse
+        try:
+            got = (G.distinct_count(v, None, alive),
+                   *G.dedup_values(v, None, alive))
+        finally:
+            torch.sort, torch.unique = sort, unique
+        if cuda.LAUNCHES["distinct_sort"] != 2 or \
+                cuda.LAUNCHES["distinct_count"] != 2:
+            raise AssertionError(f"DISTINCT over {dt}: {cuda.LAUNCHES}")
+        want = (G.distinct_count_plain(v, None, alive),
+                *G.dedup_values_plain(v, None, alive))
+        as_bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+        compare(f"DISTINCT over {dt}",
+                [t.view(as_bits.get(t.dtype, t.dtype)) for t in got],
+                [t.view(as_bits.get(t.dtype, t.dtype)) for t in want], atol=0)
+    log(f"  distinct_count and dedup_values over {len(cols)} dtypes: no "
+        "torch.sort or torch.unique, equal to the plain versions")
 
 
 def phase_shuffle_kernels(case, dev):
@@ -887,11 +1066,13 @@ def phase_small(cuda, mesh_shards=None):
     if mesh_shards is not None and not (total["partition_dest"] and
                                         total["scatter_compact"]):
         raise AssertionError(f"the SF{SF_SMALL} mesh never shuffled: {total}")
+    return total
 
 
-def phase_golden():
+def phase_golden(cuda):
     """The reference's golden corpus through the port's harness on the card:
-    tiny tables and empty relations on the real kernels."""
+    tiny tables and empty relations on the real kernels. Returns the
+    kernels' launches."""
     import pathlib
     from quickstep_tpu_torch.bench.golden_corpus import (
         corpus_files, count_cases, run_file)
@@ -902,13 +1083,16 @@ def phase_golden():
     log(f"phase 2b: the golden corpus on the card, {len(files)} files")
     t0 = time.perf_counter()
     failures = []
+    cuda.reset_launches()
     for path in files:
         failures += run_file(path, "cuda")
+    launches = dict(cuda.LAUNCHES)
     if failures:
         raise AssertionError(f"{len(failures)} golden mismatches\n"
                              + "\n\n".join(failures[:5]))
     log(f"  {sum(count_cases(p) for p in files)} cases match in "
         f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def run_query(db, cuda, oracle, total, label, q, must, sql=None,
@@ -1122,6 +1306,7 @@ def phase_dist_step(cuda):
         f"{N_SHARD_ROWS} rows: matches the plain computation (max abs err "
         f"{err:.3e}); {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bound:.3f} ms; launches {launches}")
+    return launches
 
 
 def phase_dml(db, oracle, cuda):
@@ -1202,13 +1387,26 @@ def main():
 
     rows = phase_kernels(G)
     torch.cuda.empty_cache()
-    phase_small(cuda)
-    phase_small(cuda, mesh_shards=MESH_SHARDS)
-    phase_golden()
-    launches, generated, single = phase_large(cuda)
+    # launches over every phase that drives the engine (not phase 1's
+    # comparisons): each phase counts from 0 and hands its counts on
+    launches = dict.fromkeys(cuda.LAUNCHES, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+    add(phase_small(cuda))
+    add(phase_small(cuda, mesh_shards=MESH_SHARDS))
+    add(phase_golden(cuda))
+    large, generated, single = phase_large(cuda)
+    add(large)
     phase_large_mesh(cuda, generated, single, launches)
     del generated
-    phase_dist_step(cuda)
+    add(phase_dist_step(cuda))
+    log("launches over the run: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    idle = [k for k in KERNELS if not launches[k]]
+    if idle:
+        raise AssertionError(f"the engine never launched {idle}")
 
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith("jax.") or m == "quickstep_tpu"

@@ -1,4 +1,4 @@
-"""Every kernel at zero rows: for each of the 20 kernels of ops/cuda.py, a
+"""Every kernel at zero rows: for each of the 22 kernels of ops/cuda.py, a
 call of its public function on an empty input (for the join kernels that
 read a build side, an empty build side under a probe of a few rows)
 beside the same call of the plain version. On the card the kernel call
@@ -76,6 +76,9 @@ def zero_row_cases(dev) -> Dict[str, Case]:
         "multi_gather": (lambda: tuple(K.multi_gather([f64, i32], probe)),
                          lambda: tuple(K.multi_gather_plain([f64, i32],
                                                             probe))),
+        "multi_gather_packed": (
+            lambda: tuple(K.multi_gather([f64, i32], probe, random=True)),
+            lambda: tuple(K.multi_gather_plain([f64, i32], probe))),
         "expand_probe": (
             lambda: J.expand_probe(skey, order, probe, pmask, 4),
             lambda: J.expand_probe_plain(skey, order, probe, pmask, 4)),
@@ -106,6 +109,8 @@ def zero_row_cases(dev) -> Dict[str, Case]:
             lambda: _oa(J.oa_build, J.oa_probe, i64, b, probe, pmask),
             lambda: _oa(J.oa_build_plain, J.oa_probe_plain, i64, b, probe,
                         pmask)),
+        "distinct_sort": (lambda: G._sorted_live(i64, i64 > 0, b),
+                          lambda: G._sorted_live_plain(i64, i64 > 0, b)),
         "distinct_count": (
             lambda: (G.distinct_count(f64, None, b),
                      *G.dedup_values(i32, None, b)),

@@ -44,14 +44,17 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # counted or flagged), K13 order_permutation (the sort key encoding), and
 # the mesh path's K14 partition_dest (the radix partition), K15
 # scatter_compact (the bucket scatter) and K16 bloom_filter (its build and
-# probe). A wrapper given an empty input launches nothing and returns the empty or
-# neutral result of its plain version.
+# probe). K6's two routes count apart: multi_gather is the direct route,
+# multi_gather_packed the row-packed one; and K12's radix sort counts as
+# distinct_sort. A wrapper given an empty input launches nothing and
+# returns the empty or neutral result of its plain version.
 LAUNCHES = {"scalar_agg": 0, "dense_groupby": 0, "direct_join": 0,
             "merge_unique_probe": 0, "sort_groupby": 0, "multi_gather": 0,
-            "expand_probe": 0, "merge_cmp_probe": 0,
-            "sort_groupby_compact": 0, "window_prefix": 0,
-            "frame_minmax": 0, "frame_bounds": 0, "sliding_sum": 0,
-            "hash_keys": 0, "open_addressing": 0, "distinct_count": 0,
+            "multi_gather_packed": 0, "expand_probe": 0,
+            "merge_cmp_probe": 0, "sort_groupby_compact": 0,
+            "window_prefix": 0, "frame_minmax": 0, "frame_bounds": 0,
+            "sliding_sum": 0, "hash_keys": 0, "open_addressing": 0,
+            "distinct_sort": 0, "distinct_count": 0,
             "order_permutation": 0, "partition_dest": 0,
             "scatter_compact": 0, "bloom_filter": 0}
 # Seconds the last build took in this process (None: the library was loaded
@@ -154,6 +157,8 @@ def build() -> ctypes.CDLL:
                                 p],
             "qs_sorted_probe": [p, p, i64, p, p, i64, p, p, p, i32, p],
             "qs_multi_gather": [i32, p, p, p, i64, p, i32, i64, i32, p],
+            "qs_packed_gather": [i32, p, p, p, p, i32, i64, p, p, i32, i64,
+                                 i32, p],
             "qs_expand_probe": [p, p, i64, p, p, i64, i32, p, p, p, i32, p],
             "qs_run_stats_probe": [p, p, i64, p, p, p, p, p, p, i64, i32, p,
                                    p, p, i32, i32, p],
@@ -167,6 +172,8 @@ def build() -> ctypes.CDLL:
             "qs_oa_build": [i32, p, p, p, i64, p, i64, p, i32, p],
             "qs_oa_probe": [p, i64, i32, p, p, p, p, i64, p, p, i32, p],
             "qs_run_starts": [i32, p, i64, p, p, p, i32, p],
+            "qs_radix_sort_live": [i32, p, p, p, i64, p, p, p, p, i32, i32,
+                                   p],
             "qs_sort_key_encode": [i32, p, p, p, i64, i32, i32, p, i32, p],
             "qs_partition_count": [p, i32, p, i64, i32, i32, i32, i64, i32, p,
                                    p],
@@ -181,6 +188,8 @@ def build() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = i32
+        lib.qs_radix_scratch_words.argtypes = [i64]
+        lib.qs_radix_scratch_words.restype = i64
         lib.qs_error_string.argtypes = [i32]
         lib.qs_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -468,11 +477,57 @@ def sorted_probe(sorted_key: torch.Tensor, order: torch.Tensor,
     return bidx, matched, dup != 0
 
 
-def multi_gather(cols: List[torch.Tensor], idx: torch.Tensor):
+# K6's cost model (gather_route): the two rates of an NVIDIA H100 80GB HBM3
+# at a 700.00 W power limit, measured by python -m
+# quickstep_tpu_torch.bench.gather_rates: bytes per second of a coalesced
+# copy (read plus write), and 32-byte sectors per second of a one-column
+# int64 gather by a uniformly random index over a 480 MB source.
+COALESCED_BYTES_PER_S = 2.955e12
+RANDOM_SECTORS_PER_S = 3.128e10
+SECTOR_BYTES = 32
+PACKED_ROW_BYTES = (16, 32, 64)  # kMaxRowBytes in csrc/gather_kernels.cu
+
+
+def packed_layout(widths: List[int]):
+    """(the byte offset of each column in a packed row, the row's bytes)
+    of K6's row-packed route: the columns widest first, so that each field
+    sits at a multiple of its width, the row rounded up to 16, 32 or 64
+    bytes; None where the columns take more than 64 bytes."""
+    offsets = [0] * len(widths)
+    at = 0
+    for i in sorted(range(len(widths)), key=lambda i: -widths[i]):
+        offsets[i] = at
+        at += widths[i]
+    row = next((b for b in PACKED_ROW_BYTES if at <= b), None)
+    return None if row is None else (offsets, row)
+
+
+def gather_route(n_src: int, m: int, widths: List[int], random: bool) -> str:
+    """'packed' or 'direct': K6's route for m rows of columns of these
+    widths out of n_src rows. Only an index its caller calls random (a
+    sort permutation) may take the packed route, and only where the cost
+    model says packing the source (read and written once, coalesced) plus
+    one random row of sectors per output row costs less than a random
+    sector per output row and column. The index read and the output writes
+    are the same on both routes and are left out."""
+    layout = packed_layout(widths) if random and n_src and m else None
+    if layout is None:
+        return "direct"
+    row = layout[1]
+    direct = m * len(widths) / RANDOM_SECTORS_PER_S
+    packed = n_src * (sum(widths) + row) / COALESCED_BYTES_PER_S + \
+        m * -(-row // SECTOR_BYTES) / RANDOM_SECTORS_PER_S
+    return "packed" if packed < direct else "direct"
+
+
+def multi_gather(cols: List[torch.Tensor], idx: torch.Tensor,
+                 random: bool = False):
     """K6: every column at rows idx (int32 or int64), MAX_GATHER_COLS
     columns per launch. Columns are 1-D, contiguous, of one length, with
     1-, 2-, 4- or 8-byte elements; an index outside the columns is
-    clamped."""
+    clamped. random says the index is a permutation or random (not nearly
+    ascending); gather_route then picks the direct or the row-packed route
+    for each group of columns."""
     device = _cuda_device(idx, "idx")
     m = int(idx.shape[0]) if idx.dim() == 1 else -1
     _require(idx, "idx", device, m, (torch.int32, torch.int64))
@@ -493,17 +548,29 @@ def multi_gather(cols: List[torch.Tensor], idx: torch.Tensor):
     for s in range(0, len(cols), MAX_GATHER_COLS):
         part = range(s, min(s + MAX_GATHER_COLS, len(cols)))
         k = len(part)
+        widths = [cols[i].element_size() for i in part]
         srcs = (ctypes.c_void_p * k)(*[cols[i].data_ptr() for i in part])
         dsts = (ctypes.c_void_p * k)(*[outs[i].data_ptr() for i in part])
-        widths = (ctypes.c_int * k)(*[cols[i].element_size() for i in part])
-        err = lib.qs_multi_gather(
-            k, ctypes.cast(srcs, ctypes.c_void_p),
-            ctypes.cast(dsts, ctypes.c_void_p),
-            ctypes.cast(widths, ctypes.c_void_p), n_src, _ptr(idx),
-            int(idx.dtype == torch.int64), m, _blocks(m, device),
-            _stream(device))
-        _check(lib, err, "multi_gather")
-        LAUNCHES["multi_gather"] += 1
+        c_widths = (ctypes.c_int * k)(*widths)
+        head = (k, ctypes.cast(srcs, ctypes.c_void_p),
+                ctypes.cast(dsts, ctypes.c_void_p),
+                ctypes.cast(c_widths, ctypes.c_void_p))
+        tail = (_ptr(idx), int(idx.dtype == torch.int64), m)
+        if gather_route(n_src, m, widths, random) == "packed":
+            offsets, row = packed_layout(widths)
+            packed = torch.empty(n_src * row // 16, 2, dtype=torch.int64,
+                                 device=device)
+            c_offsets = (ctypes.c_int * k)(*offsets)
+            err = lib.qs_packed_gather(
+                *head, ctypes.cast(c_offsets, ctypes.c_void_p), row, n_src,
+                _ptr(packed), *tail, _blocks(n_src, device), _stream(device))
+            _check(lib, err, "multi_gather (packed)")
+            LAUNCHES["multi_gather_packed"] += 1
+        else:
+            err = lib.qs_multi_gather(*head, n_src, *tail,
+                                      _blocks(m, device), _stream(device))
+            _check(lib, err, "multi_gather")
+            LAUNCHES["multi_gather"] += 1
     return outs
 
 
@@ -769,8 +836,8 @@ def sliding_sum(c: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
 
 
 # ---------------------------------------------------------------------
-# K10-K13: hashing, open addressing, run starts, sort keys
-# (csrc/hash_kernels.cu, csrc/sort_kernels.cu)
+# K10-K13: hashing, open addressing, K12's radix sort and run starts, sort
+# keys (csrc/hash_kernels.cu, csrc/radix_kernels.cu, csrc/sort_kernels.cu)
 # ---------------------------------------------------------------------
 _KEY_DTYPE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
               torch.float64: 3, torch.bool: 4, torch.uint8: 4}
@@ -895,6 +962,38 @@ def run_starts(s: torch.Tensor, n_live: torch.Tensor, count: bool):
     _check(lib, err, "run_starts")
     LAUNCHES["distinct_count"] += 1
     return total if count else flags
+
+
+def radix_sort_live(vals: torch.Tensor, valid: Optional[torch.Tensor],
+                    alive: torch.Tensor):
+    """K12's sort: (vals with the rows that are not alive & valid as the
+    dtype's maximum, sorted stably; the number of live rows, 0-d int64),
+    as ops/groupby.py _sorted_live_plain computes them with torch.sort;
+    bools come back as 0 / 1 bytes (uint8), as there."""
+    device = _cuda_device(alive, "alive")
+    n = int(alive.shape[0]) if alive.dim() == 1 else -1
+    _require(alive, "alive", device, n, (torch.bool,))
+    _require(valid, "valid", device, n, (torch.bool,))
+    _require(vals, "vals", device, n, tuple(_KEY_DTYPE))
+    _rows(n, "radix_sort_live")
+    lib = build()
+    v = vals.view(torch.uint8) if vals.dtype == torch.bool else vals
+    out = torch.empty_like(v)
+    n_live = torch.zeros((), dtype=torch.int64, device=device)
+    if n == 0:
+        return out, n_live
+    tmp = torch.empty_like(v)
+    scratch = torch.zeros(lib.qs_radix_scratch_words(n), dtype=torch.int64,
+                          device=device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    err = lib.qs_radix_sort_live(_KEY_DTYPE[v.dtype], _ptr(v), _ptr(alive),
+                                 _ptr(valid), n, _ptr(out), _ptr(tmp),
+                                 _ptr(scratch), _ptr(n_live),
+                                 _blocks(n, device), 4 * sms,
+                                 _stream(device))
+    _check(lib, err, "radix_sort_live")
+    LAUNCHES["distinct_sort"] += 1
+    return out, n_live
 
 
 def sort_key_encode(key: torch.Tensor, valid: Optional[torch.Tensor],

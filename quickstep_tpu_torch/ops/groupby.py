@@ -179,7 +179,8 @@ def _sort_groupby(key_cols, key_valids, agg_specs, alive, packed_key,
         s_alive = s_key != sent
         change = pos == 0
         change = change | (s_key != torch.roll(s_key, 1))
-        sorted_keys = gather(list(key_cols) + list(key_valids), perm)
+        sorted_keys = gather(list(key_cols) + list(key_valids), perm,
+                             random=True)
     else:
         subset = list(sort_subset) if sort_subset is not None \
             else list(range(len(key_cols)))
@@ -199,7 +200,7 @@ def _sort_groupby(key_cols, key_valids, agg_specs, alive, packed_key,
             _, p = torch.sort(k.index_select(0, perm), stable=True)
             perm = perm.index_select(0, p)
         g = gather([alive] + sort_keys + list(key_cols) + list(key_valids),
-                   perm)
+                   perm, random=True)
         s_alive = g[0]
         change = pos == 0
         for sk in g[1:1 + len(sort_keys)]:
@@ -361,32 +362,56 @@ def _sorted_live(vals: torch.Tensor, valid: Optional[torch.Tensor],
                  alive: torch.Tensor):
     """(the values sorted with the dead and NULL rows as the dtype's max,
     the number of live values): the first n_live sorted entries are the
-    live values, as in the reference."""
+    live values, as in the reference. On CUDA one K12 radix sort
+    (ops/cuda.py radix_sort_live); on the CPU the plain version."""
+    if _on_cpu(alive):
+        return _sorted_live_plain(vals, valid, alive)
+    from quickstep_tpu_torch.ops import cuda
+    return cuda.radix_sort_live(
+        vals.contiguous(), None if valid is None else valid.contiguous(),
+        alive.contiguous())
+
+
+def _sorted_live_plain(vals: torch.Tensor, valid: Optional[torch.Tensor],
+                       alive: torch.Tensor):
+    """Plain torch version of _sorted_live: one stable torch.sort. Floats
+    sort by a copy in which -0.0 is +0.0 and every NaN the one positive
+    NaN, then the values are gathered in that order: the reference's order
+    (equal zeros and all NaNs last, each in input order) on any device. On
+    the card, torch.sort of the values themselves would put negative NaNs
+    before -inf."""
     live = alive if valid is None else (alive & valid)
     v = vals.to(torch.uint8) if vals.dtype == torch.bool else vals
     k = torch.where(live, v, torch.full((), max_sentinel(vals.dtype),
                                         dtype=v.dtype, device=v.device))
-    s, _ = torch.sort(k, stable=True)
-    return s, torch.sum(live, dtype=torch.int64)
+    if not k.dtype.is_floating_point:
+        return torch.sort(k, stable=True)[0], torch.sum(live,
+                                                        dtype=torch.int64)
+    zero = torch.zeros((), dtype=k.dtype, device=k.device)
+    key = torch.where(torch.isnan(k), torch.full_like(zero, float("nan")),
+                      torch.where(k == 0, zero, k))
+    order = torch.sort(key, stable=True)[1]
+    return k.index_select(0, order), torch.sum(live, dtype=torch.int64)
 
 
 def distinct_count(vals: torch.Tensor, valid: Optional[torch.Tensor],
                    alive: torch.Tensor) -> torch.Tensor:
     """COUNT(DISTINCT vals) over the live non-NULL rows: a 0-d int64
-    tensor. One stable torch.sort, then on CUDA one K12 launch counts the
-    run starts among the first n_live sorted values; on the CPU the plain
-    version runs."""
-    s, n_live = _sorted_live(vals, valid, alive)
-    if _on_cpu(s):
-        return run_starts_plain(s, n_live).sum(dtype=torch.int64)
+    tensor. The stable sort of _sorted_live, then the run starts among the
+    first n_live sorted values are counted: on CUDA the K12 radix sort and
+    one K12 run-start launch, no torch.sort; on the CPU the plain
+    version."""
+    if _on_cpu(alive):
+        return distinct_count_plain(vals, valid, alive)
     from quickstep_tpu_torch.ops import cuda
+    s, n_live = _sorted_live(vals, valid, alive)
     return cuda.run_starts(s, n_live, count=True)
 
 
 def distinct_count_plain(vals: torch.Tensor, valid: Optional[torch.Tensor],
                          alive: torch.Tensor) -> torch.Tensor:
     """Plain torch version of distinct_count."""
-    s, n_live = _sorted_live(vals, valid, alive)
+    s, n_live = _sorted_live_plain(vals, valid, alive)
     return run_starts_plain(s, n_live).sum(dtype=torch.int64)
 
 
@@ -394,21 +419,20 @@ def dedup_values(vals: torch.Tensor, valid: Optional[torch.Tensor],
                  alive: torch.Tensor):
     """SUM/AVG/MIN/MAX DISTINCT without GROUP BY: (the sorted values, the
     bool mask of each distinct live value's first sorted row), to be
-    aggregated as (values, None, mask). On CUDA the mask is one K12 launch
-    in its flag mode."""
-    s, n_live = _sorted_live(vals, valid, alive)
-    if vals.dtype == torch.bool:
-        s = s.to(torch.bool)
-    if _on_cpu(s):
-        return s, run_starts_plain(s, n_live)
+    aggregated as (values, None, mask). On CUDA the sort is K12's radix
+    sort and the mask one K12 launch in its flag mode."""
+    if _on_cpu(alive):
+        return dedup_values_plain(vals, valid, alive)
     from quickstep_tpu_torch.ops import cuda
-    return s, cuda.run_starts(s, n_live, count=False)
+    s, n_live = _sorted_live(vals, valid, alive)
+    mask = cuda.run_starts(s, n_live, count=False)
+    return (s.view(torch.bool) if vals.dtype == torch.bool else s), mask
 
 
 def dedup_values_plain(vals: torch.Tensor, valid: Optional[torch.Tensor],
                        alive: torch.Tensor):
     """Plain torch version of dedup_values."""
-    s, n_live = _sorted_live(vals, valid, alive)
+    s, n_live = _sorted_live_plain(vals, valid, alive)
     if vals.dtype == torch.bool:
         s = s.to(torch.bool)
     return s, run_starts_plain(s, n_live)

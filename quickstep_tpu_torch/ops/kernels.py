@@ -104,11 +104,15 @@ def to_device(arr: np.ndarray, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def multi_gather(cols: List[Optional[torch.Tensor]], idx: torch.Tensor):
+def multi_gather(cols: List[Optional[torch.Tensor]], idx: torch.Tensor,
+                 random: bool = False):
     """Gather many equal-length columns by one index vector (int32 or int64,
     in range: callers clip). None entries pass through. On CUDA one K6
     launch gathers every column (ops/cuda.py multi_gather); on the CPU the
-    plain version runs."""
+    plain version runs. A caller whose index is a permutation or random (a
+    sort permutation, not a nearly ascending compaction) says so with
+    random, which lets K6 take its row-packed route where its cost model
+    favours it."""
     if idx.device.type == "cpu":
         return multi_gather_plain(cols, idx)
     from quickstep_tpu_torch.ops import cuda
@@ -124,16 +128,17 @@ def multi_gather(cols: List[Optional[torch.Tensor]], idx: torch.Tensor):
             todo.append(i)
     if todo:
         got = cuda.multi_gather([cols[i].contiguous() for i in todo],
-                                idx.contiguous())
+                                idx.contiguous(), random)
         for i, g in zip(todo, got):
             out[i] = g
     return out
 
 
-def multi_gather_plain(cols: List[Optional[torch.Tensor]], idx: torch.Tensor):
-    """Plain torch version of multi_gather: one index_select per column. A
-    column of zero rows gathers to zeros of the index's length (the caller
-    marks those rows invalid)."""
+def multi_gather_plain(cols: List[Optional[torch.Tensor]], idx: torch.Tensor,
+                       random: bool = False):
+    """Plain torch version of multi_gather (both of K6's routes): one
+    index_select per column. A column of zero rows gathers to zeros of the
+    index's length (the caller marks those rows invalid)."""
     return [None if c is None else
             torch.zeros(idx.shape[0], dtype=c.dtype, device=c.device)
             if c.shape[0] == 0 else c.index_select(0, idx) for c in cols]

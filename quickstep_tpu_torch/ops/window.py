@@ -114,7 +114,8 @@ def _sort_rows(part_keys, okeys, alive, ranges, plain):
     for k in reversed([(~alive).to(torch.uint8)] + keys):
         _, p = torch.sort(k.index_select(0, perm), stable=True)
         perm = perm.index_select(0, p)
-    g = (multi_gather_plain if plain else multi_gather)([alive] + keys, perm)
+    g = (multi_gather_plain if plain else multi_gather)([alive] + keys, perm,
+                                                        random=True)
     s_alive = g[0]
     seg = first | (~s_alive & torch.roll(s_alive, 1))
     for sk in g[1:1 + len(part_keys)]:
@@ -174,7 +175,7 @@ def _window_aggregate(part_keys, order_keys, order_desc, fn, vals, valid,
         (frame[1] is not None or frame[2] is not None) and \
         not (frame[1] is None and frame[2] == 0)
     g = (multi_gather_plain if plain else multi_gather)(
-        [vals, valid, okeys[0] if need_key else None], perm)
+        [vals, valid, okeys[0] if need_key else None], perm, random=True)
     s_vals, s_valid, s_key = g
     if s_vals is None:
         s_vals = torch.ones(n, dtype=torch.int64, device=dev)

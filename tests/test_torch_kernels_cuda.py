@@ -312,6 +312,54 @@ def test_multi_gather_kernel_matches_plain(card, idx_dtype):
         _same(g, w, 0.0)
 
 
+GATHER_DTYPES = {1: (torch.bool, torch.int8), 2: (torch.int16,),
+                 4: (torch.int32, torch.float32),
+                 8: (torch.int64, torch.float64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", ((2, 1), (8, 4), (1, 4, 4, 8, 4, 8),
+                                    (8,) * 8, (8,) * 9, (4,)),
+                         ids=lambda w: "-".join(map(str, w)))
+@pytest.mark.parametrize("idx_dtype", (torch.int32, torch.int64), ids=str)
+def test_multi_gather_routes_match_plain(card, widths, idx_dtype):
+    """A random index with random=True: the route gather_route picks (the
+    row-packed route for 16-, 32- and 64-byte rows; the direct one for one
+    column and for rows past 64 bytes) launches and equals index_select."""
+    rng = np.random.default_rng(sum(widths))
+    n, m = 50_021, 120_007
+    cols = []
+    for i, w in enumerate(widths):
+        dt = GATHER_DTYPES[w][i % len(GATHER_DTYPES[w])]
+        c = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n))
+        cols.append((c > 0 if dt == torch.bool else c.to(dt)).to(card))
+    idx = torch.from_numpy(rng.integers(0, n, m)).to(idx_dtype).to(card)
+    route = TC.gather_route(n, m, list(widths), True)
+    assert route == ("direct" if len(widths) == 1 or sum(widths) > 64
+                     else "packed")
+    TC.reset_launches()
+    got = TK.multi_gather(cols, idx, random=True)
+    key = "multi_gather_packed" if route == "packed" else "multi_gather"
+    assert TC.LAUNCHES == dict(dict.fromkeys(TC.LAUNCHES, 0), **{key: 1})
+    for g, w in zip(got, TK.multi_gather_plain(cols, idx)):
+        _same(g, w, 0.0)
+    TC.reset_launches()
+    TK.multi_gather(cols, idx)
+    assert TC.LAUNCHES["multi_gather"] == 1
+
+
+@pytest.mark.cuda
+def test_packed_gather_clamps_indices(card):
+    cols = [torch.arange(10, dtype=torch.int64, device=card),
+            torch.arange(10, dtype=torch.int32, device=card) * 3]
+    idx = torch.tensor([-5, 0, 9, 10, 1 << 40] * 200, device=card)
+    TC.reset_launches()
+    got = TC.multi_gather(cols, idx, random=True)
+    assert TC.LAUNCHES["multi_gather_packed"] == 1
+    assert got[0].cpu().tolist() == [0, 0, 9, 9, 9] * 200
+    assert got[1].cpu().tolist() == [0, 0, 27, 27, 27] * 200
+
+
 @pytest.mark.cuda
 def test_multi_gather_kernel_clamps_indices(card):
     col = torch.arange(10, dtype=torch.int64, device=card)
@@ -335,9 +383,11 @@ def test_join_kernel_launches_are_counted(card):
                     [("sum", k2, None), ("count", None, None)], alive)
     TJ.direct_build_plain(bkey, balive, lo, domain)
     TJ.merge_unique_probe_plain(bkey.long(), balive, pkey.long(), palive)
+    # the two-key group-by gathers its keys by the sort permutation: K6's
+    # row-packed route
     assert TC.LAUNCHES == dict(dict.fromkeys(TC.LAUNCHES, 0), direct_join=4,
                                merge_unique_probe=1, sort_groupby=2,
-                               multi_gather=1)
+                               multi_gather_packed=1)
 
 
 def test_join_wrappers_reject_cpu_tensors():
@@ -854,6 +904,116 @@ def test_distinct_kernel_matches_plain(card, dtype, nullable):
     assert torch.equal(s[mask].cpu(), ps[pmask].cpu())
 
 
+def _bits(t):
+    """A tensor's bit patterns on the host, so that NaNs compare by their
+    payloads and -0.0 differs from +0.0."""
+    view = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return (t.view(view[t.dtype]) if t.dtype in view else t).cpu()
+
+
+# NaNs of both signs with several payloads, as bit patterns
+NAN_BITS = {torch.float32: [0x7fc00000, 0xffc00000, 0x7f800001, 0xff800123,
+                            0x7fc00abc],
+            torch.float64: [0x7ff8000000000000, 0xfff8000000000000,
+                            0x7ff0000000000001, 0xfff0000000000123,
+                            0x7ff8000000000abc]}
+
+
+def _radix_values(dtype, n, seed, device, wide=False):
+    """Values with every edge of K12's key map: INT_MIN and INT_MAX; -0.0,
+    +0.0, -inf, +inf and NaNs of both signs with several payloads; or, wide,
+    int64 values of about 33 bits (five of eight digits vary)."""
+    rng = np.random.default_rng(seed)
+    if dtype == torch.bool:
+        return torch.from_numpy(rng.random(n) < 0.5).to(device)
+    if wide:
+        return torch.from_numpy(rng.integers(0, 1 << 33, n)).to(device)
+    if not dtype.is_floating_point:
+        info = torch.iinfo(dtype)
+        v = rng.integers(-50, 50, n)
+        edges = [info.min, info.max, info.min + 1, info.max - 1, 0, -1]
+        pick = rng.random(n) < 0.2
+        v[pick] = np.array(edges)[rng.integers(0, len(edges), int(pick.sum()))]
+        return torch.from_numpy(v).to(dtype).to(device)
+    ibits = torch.int32 if dtype == torch.float32 else torch.int64
+    v = torch.from_numpy(rng.integers(-50, 50, n) * 0.25).to(dtype)
+    edges = torch.tensor([0.0, -0.0, float("inf"), float("-inf")],
+                         dtype=dtype)
+    nans = torch.tensor([b - (1 << 32) if dtype == torch.float32 and
+                         b >= 1 << 31 else
+                         b - (1 << 64) if b >= 1 << 63 else b
+                         for b in NAN_BITS[dtype]],
+                        dtype=ibits).view(dtype)
+    pool = torch.cat([edges, nans])
+    pick = torch.from_numpy(rng.random(n) < 0.3)
+    which = torch.from_numpy(rng.integers(0, len(pool), n))
+    return torch.where(pick, pool[which], v).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1, 4095, 4096, 4097, 100_003))
+@pytest.mark.parametrize("mode", ("mixed", "all_dead", "one_live"))
+@pytest.mark.parametrize("dtype", SORT_DTYPES, ids=str)
+def test_radix_sort_matches_torch_sort(card, dtype, mode, n):
+    """K12's radix sort against the stable torch.sort of its plain version,
+    bit for bit: where -0.0, +0.0, +inf and each NaN land, at tile
+    boundaries (4,096 rows), with every row dead and with one live row."""
+    rng = np.random.default_rng(n + 3)
+    vals = _radix_values(dtype, n, n, card)
+    valid = None
+    if mode == "mixed":
+        alive = torch.from_numpy(rng.random(n) < 0.8).to(card)
+        valid = torch.from_numpy(rng.random(n) < 0.9).to(card)
+    else:
+        alive = torch.zeros(n, dtype=torch.bool, device=card)
+        if mode == "one_live":
+            alive[n // 2] = True
+    TC.reset_launches()
+    s, n_live = TC.radix_sort_live(vals, valid, alive)
+    assert TC.LAUNCHES["distinct_sort"] == 1
+    ps, pn = TG._sorted_live_plain(vals, valid, alive)
+    assert torch.equal(_bits(s), _bits(ps))
+    assert int(n_live) == int(pn)
+
+
+@pytest.mark.cuda
+def test_radix_sort_wide_int64_matches_torch_sort(card):
+    """int64 values of about 33 bits: five digit passes run, three are
+    skipped on the device."""
+    n = 1_000_003
+    vals = _radix_values(torch.int64, n, 5, card, wide=True)
+    alive = torch.from_numpy(np.random.default_rng(6).random(n) < 0.7).to(card)
+    s, n_live = TC.radix_sort_live(vals, None, alive)
+    ps, pn = TG._sorted_live_plain(vals, None, alive)
+    assert torch.equal(s.cpu(), ps.cpu()) and int(n_live) == int(pn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", SORT_DTYPES, ids=str)
+def test_distinct_on_cuda_calls_no_torch_sort(card, dtype, monkeypatch):
+    """distinct_count and dedup_values on CUDA tensors run the K12 radix
+    sort and run starts, and neither torch.sort nor torch.unique."""
+    n = 50_021
+    vals = _radix_values(dtype, n, 9, card)
+    alive = torch.from_numpy(np.random.default_rng(10).random(n) < 0.8).to(
+        card)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.sort or torch.unique on the CUDA path")
+    TC.reset_launches()
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "sort", refuse)
+        mp.setattr(torch, "unique", refuse)
+        count = TG.distinct_count(vals, None, alive)
+        s, mask = TG.dedup_values(vals, None, alive)
+    assert TC.LAUNCHES == dict(dict.fromkeys(TC.LAUNCHES, 0),
+                               distinct_sort=2, distinct_count=2)
+    _same(count, TG.distinct_count_plain(vals, None, alive), 0.0)
+    ps, pmask = TG.dedup_values_plain(vals, None, alive)
+    _same(mask, pmask, 0.0)
+    assert torch.equal(_bits(s), _bits(ps))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nulls_first", (None, True, False), ids=str)
 @pytest.mark.parametrize("asc", (True, False), ids=("asc", "desc"))
@@ -885,8 +1045,8 @@ def test_k10_to_k13_launches_are_counted(card):
     TG.distinct_count_plain(vals, None, palive)
     # open addressing hashes its keys inside its own kernels
     assert TC.LAUNCHES == dict(dict.fromkeys(TC.LAUNCHES, 0), hash_keys=1,
-                               open_addressing=2, distinct_count=1,
-                               order_permutation=2)
+                               open_addressing=2, distinct_sort=1,
+                               distinct_count=1, order_permutation=2)
 
 
 def test_k10_to_k13_wrappers_reject_cpu_tensors():
