@@ -250,8 +250,11 @@ def phase_kernels(G):
     rows = []
 
     def case(kernel, label, k_fn, p_fn, main=False, inputs=(),
-             library=None, atol=None, plain_reps=REPS, bound_bytes=None):
+             library=None, atol=None, plain_reps=REPS, bound_bytes=None,
+             decode=None):
         got, want = k_fn(), p_fn()
+        if decode is not None:     # the kernel's layout, read as the plain
+            got = decode(got)
         torch.cuda.synchronize()
         err = compare(f"{kernel} {label}", got, want, atol)
         ms, plain_ms = cuda_ms(k_fn), cuda_ms(p_fn, plain_reps)
@@ -326,7 +329,11 @@ def phase_kernels(G):
 def phase_join_kernels(case, rng, dev):
     """K3-K6 against their plain versions at SF10 shapes: a probe of
     N_KERNEL_ROWS rows against an orders-sized build (orderkey-like keys,
-    domain 4x the build rows), Q5's composite-key probe, the segmented
+    domain 4x the build rows) by random keys and by ascending lineitem-like
+    ones (1-7 an order), and by random keys against a part-sized table;
+    K3's build with and without its probe; its presence mode; each with
+    its random-sector limits, and the other K3 layout timed beside the one
+    the route rule takes. Then Q5's composite-key probe, the segmented
     reduce over ~N_SEGMENTS groups, then K6's routes on lineitem-like
     columns (phase_gather_kernels)."""
     from quickstep_tpu_torch.ops import bloom as B, cuda, groupby as G
@@ -338,26 +345,73 @@ def phase_join_kernels(case, rng, dev):
     pkey = torch.from_numpy(rng.integers(1, domain + 4, n)
                             .astype(np.int32)).to(dev)
     palive = torch.from_numpy(rng.random(n) < 0.8).to(dev)
-    table, _ = J.direct_build(bkey, balive, lo, domain)
+
+    def slots(out, domain=domain):
+        return J.direct_table(out[0], domain), out[1]
     case("direct_join", "build 15M, domain 60M",
          lambda: J.direct_build(bkey, balive, lo, domain),
-         lambda: J.direct_build_plain(bkey, balive, lo, domain))
+         lambda: J.direct_build_plain(bkey, balive, lo, domain),
+         decode=slots)
+    table, _ = J.direct_build(bkey, balive, lo, domain)
+    plain = J.direct_table(table, domain)
     case("direct_join", "probe 60M int32",
          lambda: J.direct_probe(table, pkey, palive, lo, domain),
-         lambda: J.direct_probe_plain(table, pkey, palive, lo, domain),
-         main=True, inputs=(table, pkey, palive))
+         lambda: J.direct_probe_plain(plain, pkey, palive, lo, domain),
+         main=True, inputs=(plain, pkey, palive))
+    k3_limits("probe 60M int32", plain, pkey, palive, lo)
+    k3_other_route("probe 60M int32", bkey, balive, pkey, palive, lo, domain)
+    case("direct_join", "build + probe 60M int32",
+         lambda: J.direct_probe(J.direct_build(bkey, balive, lo, domain)[0],
+                                pkey, palive, lo, domain),
+         lambda: J.direct_probe_plain(
+             J.direct_build_plain(bkey, balive, lo, domain)[0], pkey, palive,
+             lo, domain))
     case("direct_join", "probe 60M int64",
          lambda: J.direct_probe(table, pkey.long(), palive, lo, domain),
-         lambda: J.direct_probe_plain(table, pkey.long(), palive, lo, domain))
-    del table
+         lambda: J.direct_probe_plain(plain, pkey.long(), palive, lo, domain))
+    # lineitem's orderkeys into orders' table: 1-7 lines an order, ascending
+    lines = torch.from_numpy(rng.integers(1, 8, nb)).to(dev)
+    akey = bkey.repeat_interleave(lines)
+    aalive = torch.from_numpy(rng.random(len(akey)) < 0.8).to(dev)
+    label = f"ascending probe {len(akey) / 1e6:.0f}M int32"
+    case("direct_join", label,
+         lambda: J.direct_probe(table, akey, aalive, lo, domain),
+         lambda: J.direct_probe_plain(plain, akey, aalive, lo, domain))
+    k3_limits(label, plain, akey, aalive, lo)
+    k3_other_route(label, bkey, balive, akey, aalive, lo, domain)
+
+    def bits(out, domain=domain):
+        return (B.presence_bits(out[0], domain),)
+    # Q4's semi-join build: lineitem's orderkeys, ascending, repeated
+    case("direct_join",
+         f"filter build {len(akey) / 1e6:.0f}M ascending (presence)",
+         lambda: (B.exact_filter_build(akey, aalive, lo, domain),),
+         lambda: (B.exact_filter_build_plain(akey, aalive, lo, domain),),
+         decode=bits)
+    del table, plain, lines, akey, aalive
+    # lineitem's partkeys into part's table (2 M slots: it fits the L2)
+    part = torch.arange(1, N_PARTS + 1, device=dev, dtype=torch.int32)
+    part_alive = torch.from_numpy(rng.random(N_PARTS) < 0.5).to(dev)
+    lkey = torch.from_numpy(rng.integers(1, N_PARTS + 1, n)
+                            .astype(np.int32)).to(dev)
+    small, _ = J.direct_build(part, part_alive, 1, N_PARTS)
+    small_plain = J.direct_table(small, N_PARTS)
+    case("direct_join", "probe 60M int32, 2M slots",
+         lambda: J.direct_probe(small, lkey, palive, 1, N_PARTS),
+         lambda: J.direct_probe_plain(small_plain, lkey, palive, 1, N_PARTS))
+    k3_other_route("probe 60M int32, 2M slots", part, part_alive, lkey,
+                   palive, 1, N_PARTS)
+    del part, part_alive, lkey, small, small_plain
     case("direct_join", "filter build 60M (presence)",
          lambda: (B.exact_filter_build(pkey, palive, lo, domain),),
-         lambda: (B.exact_filter_build_plain(pkey, palive, lo, domain),))
-    bits = B.exact_filter_build(pkey, palive, lo, domain)
+         lambda: (B.exact_filter_build_plain(pkey, palive, lo, domain),),
+         decode=bits)
+    words = B.exact_filter_build(pkey, palive, lo, domain)
     case("direct_join", "filter probe 15M (presence)",
-         lambda: (B.exact_filter_probe(bits, bkey, balive, lo),),
-         lambda: (B.exact_filter_probe_plain(bits, bkey, balive, lo),))
-    del bits, bkey, balive
+         lambda: (B.exact_filter_probe(words, bkey, balive, lo),),
+         lambda: (B.exact_filter_probe_plain(bits((words,))[0], bkey, balive,
+                                             lo),))
+    del words, bkey, balive
     torch.cuda.empty_cache()
 
     # Q5's (suppkey, nationkey) key range-packed into int64
@@ -417,6 +471,56 @@ def phase_join_kernels(case, rng, dev):
     phase_new_kernels(case, rng, dev)
 
 
+def sector_limit(kernel, label, sectors):
+    """Logs a case's random-sector limit: its random sectors at 32 bytes
+    each over the card's memory rate, and at the random-sector rate of
+    quickstep_tpu_torch/bench/gather_rates.py (ops/cuda.py
+    RANDOM_SECTORS_PER_S)."""
+    from quickstep_tpu_torch.ops import cuda
+    log(f"  {kernel:13s} {label}: random-sector limit {sectors} sectors, "
+        f"{sectors * SECTOR_BYTES / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+        f"{SECTOR_BYTES} B each, "
+        f"{sectors / cuda.RANDOM_SECTORS_PER_S * 1e3:.3f} ms at "
+        f"{cuda.RANDOM_SECTORS_PER_S:.3e} sectors/s")
+
+
+def k3_limits(label, plain, key, alive, lo):
+    """K3's random-sector limits on a probe: one table sector per live
+    in-range row (a probe that reads the table for every row), and one per
+    row whose key is present (a probe that reads it only on a hit)."""
+    idx = key.long() - lo
+    live = alive & (idx >= 0) & (idx < plain.shape[0])
+    hits = live & (plain[idx.clamp(0, plain.shape[0] - 1)] >= 0)
+    sector_limit("direct_join", f"{label}, every live row",
+                 int(live.sum()))
+    sector_limit("direct_join", f"{label}, present keys only",
+                 int(hits.sum()))
+
+
+def k3_other_route(label, bkey, balive, pkey, palive, lo, domain):
+    """K3's probe on the layout its route rule (ops/cuda.py direct_route)
+    does not take for this domain, held to the plain version and timed."""
+    from quickstep_tpu_torch.ops import cuda
+    from quickstep_tpu_torch.ops import join as J
+    names = {cuda.DIRECT_TABLE: "the row table alone",
+             cuda.DIRECT_TABLE_BITS: "the bitmap in front"}
+    taken = cuda.direct_route(domain)
+    saved = cuda.DIRECT_BITMAP_SLOTS
+    cuda.DIRECT_BITMAP_SLOTS = 0 if taken == cuda.DIRECT_TABLE else 2 ** 62
+    try:
+        table, _ = J.direct_build(bkey, balive, lo, domain)
+        compare(f"direct_join {label}, other route",
+                J.direct_probe(table, pkey, palive, lo, domain),
+                J.direct_probe_plain(J.direct_table(table, domain), pkey,
+                                     palive, lo, domain))
+        ms = cuda_ms(lambda: J.direct_probe(table, pkey, palive, lo, domain))
+    finally:
+        cuda.DIRECT_BITMAP_SLOTS = saved
+    other = [v for k, v in names.items() if k != taken][0]
+    log(f"  direct_join   {label}: the route rule takes {names[taken]}; "
+        f"{other} {ms:.3f} ms")
+
+
 def gather_sectors(m, widths, route):
     """32-byte sectors a gather of m random rows reads: one per row and
     column on the direct route, the packed row's on the other."""
@@ -451,10 +555,7 @@ def phase_gather_kernels(case, rng, dev, cols):
             raise AssertionError(f"{key} not launched: {cuda.LAUNCHES}")
 
     def limit(label, m, ws, route):
-        sectors = gather_sectors(m, ws, route)
-        log(f"  multi_gather  {label}: random-sector limit {sectors} "
-            f"sectors, {sectors * SECTOR_BYTES / HBM_BYTES_PER_S * 1e3:.3f}"
-            " ms")
+        sector_limit("multi_gather", label, gather_sectors(m, ws, route))
 
     asc = torch.nonzero(torch.from_numpy(rng.random(n) < 0.5).to(dev)
                         ).flatten()
@@ -508,7 +609,8 @@ def phase_gather_kernels(case, rng, dev, cols):
 
 def phase_new_kernels(case, rng, dev):
     """K7-K9 against their plain versions at SF10 shapes: Q9's partsupp-like
-    build (N_PARTS keys, 4 rows each) probed by N_KERNEL_ROWS rows; Q21's
+    build (N_PARTS keys, 4 rows each) probed by N_KERNEL_ROWS rows, on part
+    keys and on range-packed (partkey, suppkey) keys (the stale Q9); Q21's
     lineitem-like build (orderkeys with 1-7 lines, suppkey values) probed
     by N_SEMI_PROBE of its rows; the stable partition of a N_KERNEL_ROWS
     mask at 50 % and 1 % live."""
@@ -526,7 +628,26 @@ def phase_new_kernels(case, rng, dev):
              lambda k=k: J.expand_probe_plain(sorted_key, order, pkey,
                                               palive, k),
              main=main, inputs=(sorted_key, order, pkey, palive))
-    del bkey, balive, pkey, palive, sorted_key, order
+    sector_limit("expand_probe", "60M probes, one sector a live row",
+                 int((palive & (pkey <= N_PARTS)).sum()))
+    # the stale Q9's key: partsupp's (ps_partkey, ps_suppkey), its suppkeys
+    # by the TPC-H rule, range-packed into int64 (range ~2e11), probed by
+    # lineitem-like rows that each name one partsupp row
+    s = N_SUPPLIERS
+    part = torch.arange(1, N_PARTS + 1, device=dev).repeat_interleave(4)
+    supp = (part + torch.arange(4, device=dev).repeat(N_PARTS)
+            * (s // 4 + (part - 1) // s)) % s + 1
+    ckey = part * (s + 1) + supp
+    calive = torch.ones(len(ckey), dtype=torch.bool, device=dev)
+    cprobe = ckey[torch.from_numpy(rng.integers(0, len(ckey), n)).to(dev)]
+    sorted_key, order = J.sorted_build(ckey, calive)
+    case("expand_probe", "60M (partkey, suppkey) probes, 8M rows, K=4",
+         lambda: J.expand_probe(sorted_key, order, cprobe, palive, 4),
+         lambda: J.expand_probe_plain(sorted_key, order, cprobe, palive, 4))
+    sector_limit("expand_probe", "(partkey, suppkey), one sector a live row",
+                 int(palive.sum()))
+    del bkey, balive, pkey, palive, sorted_key, order, part, supp, ckey
+    del calive, cprobe
     torch.cuda.empty_cache()
 
     lines = torch.from_numpy(rng.integers(1, 8, N_BUILD_ROWS)).to(dev)

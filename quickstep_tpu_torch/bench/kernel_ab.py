@@ -1,17 +1,30 @@
-"""K6 and K12 at chip_smoke.py's SF10 shapes, timed in the checkout it runs
-from, so that two checkouts can be compared on one card in one call (run
-this file from each checkout's root in turn: parent, change, change,
-parent). It uses only the public functions both sides have:
-ops/kernels.py multi_gather (with random=True where the checkout takes it)
-and ops/groupby.py distinct_count.
+"""K3, K6, K7 and K12 at chip_smoke.py's SF10 shapes, timed in the
+checkout it runs from, so that two checkouts can be compared on one card in
+one call: run this file from each checkout's root in turn, parent, change,
+change, parent, parent, change. It uses only the public functions both
+sides have: ops/join.py direct_build and direct_probe, sorted_build and
+expand_probe, ops/bloom.py exact_filter_build, ops/kernels.py multi_gather (with random=True where the
+checkout takes it) and ops/groupby.py distinct_count.
 
     python -m quickstep_tpu_torch.bench.kernel_ab
 
 Cases, each timed by CUDA events (median of 10 runs after one warm-up):
+- k3_random: 60 M int32 probe keys, uniform over a 60 M-slot domain, 80 %
+  live, into an orders-like table (15 M keys, every 4th slot, half live);
+- k3_ascending: the same table probed by ascending lineitem-like orderkeys
+  (1-7 lines an order, about 60 M rows, 80 % live);
+- k3_build_probe: k3_random's build and probe together;
+- k3_filter_random, k3_filter_ascending: the exact filter's build (K3's
+  presence mode) over k3_random's and k3_ascending's probe keys;
 - k6_ascending: six lineitem-like columns (1-, 4-, 4-, 8-, 4- and 8-byte)
   of 60 M rows gathered by the ascending positions of a random half-live
   mask (a compaction index, about 30 M rows);
 - k6_random: the same columns by a uniformly random 60 M-row int64 index;
+- k7: 60 M probes (80 % live) into a partsupp-like build of 8 M rows (4 a
+  part key over 2 M keys, 95 % live), K = 4, sorted_build outside the time;
+- k7_packed: the same on range-packed (partkey, suppkey) keys, each probe
+  naming one partsupp row (the stale Q9's shape);
+- k7_k16: k7 at K = 16 (the executor's width after one overflow retry);
 - k12: COUNT(DISTINCT) of 60 M int32 values in [1, 2 M], all live.
 Prints one JSON object with the times, the checkout's root and the card's
 name and power limit. It needs a CUDA card.
@@ -49,6 +62,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: torch.cuda.is_available() is false")
     from quickstep_tpu_torch.ops import cuda, groupby as G, kernels as K
+    from quickstep_tpu_torch.ops import bloom as B, join as J
     cuda.build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -67,8 +81,45 @@ def main() -> None:
     vals = torch.randint(1, 2_000_001, (N,), device=dev, generator=gen,
                          dtype=torch.int32)
     every = torch.ones(N, dtype=torch.bool, device=dev)
+    nb, domain = 15_000_000, 60_000_000
+    bkey = torch.arange(1, nb + 1, device=dev, dtype=torch.int32) * 4
+    balive = torch.rand(nb, device=dev, generator=gen) < 0.5
+    rkey = torch.randint(1, domain + 4, (N,), device=dev, generator=gen,
+                         dtype=torch.int32)
+    palive = torch.rand(N, device=dev, generator=gen) < 0.8
+    lines = torch.randint(1, 8, (nb,), device=dev, generator=gen)
+    akey = bkey.repeat_interleave(lines)
+    aalive = torch.rand(len(akey), device=dev, generator=gen) < 0.8
+    table, _ = J.direct_build(bkey, balive, 4, domain)
+    parts = torch.arange(1, 2_000_001, device=dev).repeat_interleave(4)
+    sk, order = J.sorted_build(
+        parts, torch.rand(len(parts), device=dev, generator=gen) < 0.95)
+    probe = torch.randint(1, 2_200_000, (N,), device=dev, generator=gen)
+    supp = (parts + torch.arange(4, device=dev).repeat(2_000_000)
+            * (25_000 + (parts - 1) // 100_000)) % 100_000 + 1
+    packed = parts * 100_001 + supp
+    psk, porder = J.sorted_build(
+        packed, torch.ones(len(packed), dtype=torch.bool, device=dev))
+    pprobe = packed[torch.randint(0, len(packed), (N,), device=dev,
+                                  generator=gen)]
     out = {
         "root": str(pathlib.Path(K.__file__).resolve().parents[2]),
+        "k3_random_ms": _ms(lambda: J.direct_probe(table, rkey, palive,
+                                                   4, domain)),
+        "k3_ascending_ms": _ms(lambda: J.direct_probe(table, akey, aalive, 4,
+                                                      domain)),
+        "k3_build_probe_ms": _ms(lambda: J.direct_probe(
+            J.direct_build(bkey, balive, 4, domain)[0], rkey, palive, 4,
+            domain)),
+        "k7_ms": _ms(lambda: J.expand_probe(sk, order, probe, palive, 4)),
+        "k7_packed_ms": _ms(lambda: J.expand_probe(psk, porder, pprobe,
+                                                   palive, 4)),
+        "k7_k16_ms": _ms(lambda: J.expand_probe(sk, order, probe, palive,
+                                                16)),
+        "k3_filter_random_ms": _ms(lambda: B.exact_filter_build(
+            rkey, palive, 4, domain)),
+        "k3_filter_ascending_ms": _ms(lambda: B.exact_filter_build(
+            akey, aalive, 4, domain)),
         "k6_ascending_ms": _ms(lambda: K.multi_gather(cols, asc)),
         "k6_ascending_rows": int(asc.shape[0]),
         "k6_random_ms": _ms(lambda: K.multi_gather(cols, rnd, **random_kw)),

@@ -51,7 +51,8 @@ def zero_row_cases(dev) -> Dict[str, Case]:
     def direct(build, probe_fn):
         # the table of an empty build is not empty: the probe side is
         table, dup = build(i32, b, 4, 16)
-        return (table, dup) + tuple(probe_fn(table, i32, b, 4, 16))
+        return (J.direct_table(table, 16), dup) + tuple(
+            probe_fn(table, i32, b, 4, 16))
 
     def sort_gb(fn):
         keys, valids, last, n_groups, res = fn([i64], [None],

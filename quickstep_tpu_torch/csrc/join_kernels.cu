@@ -10,15 +10,25 @@
 // probe half of ops/join.py:382 merge_unique_probe (:189 merge_starts); the
 // build half, a stable sort of the packed build keys, is torch.sort.
 //
-// What bounds them on an H100: random accesses to device memory. The build
-// scatters one 4-byte row id (or one byte) per build row into a table of
-// `domain` entries; the probe reads one entry per probe row. At SF10 the
-// orderkey table is 60 M int32 (240 MB), far beyond the 50 MB L2, so each
-// access is a DRAM sector. Both are one thread per row with a grid-stride
-// loop: the key and mask reads are coalesced, the table access is the one
-// random access the algorithm needs. The TPU formulation (a colliding-free
-// scatter plus a read-back gather to find duplicates) becomes an atomicCAS:
-// a row that finds its slot taken by another row is the duplicate.
+// K3 is bound by random accesses to device memory: the build claims one slot
+// of a table of `domain` int32 row ids per build row, the probe reads one
+// slot per live in-range probe row. The SF10 orderkey table has 60 M slots
+// (240 MB), far beyond the 50 MB L2, so each read is a DRAM sector, and most
+// probes of a selective join pay it to learn that the key is absent. So a
+// table too large for the L2 carries a presence bitmap of ceil(domain / 32)
+// words behind it (kTableBits: 7.5 MB at 60 M slots, 16.8 MB at the 2^27-slot
+// limit, both L2-resident): the build sets a key's bit in the launch that
+// claims its slot, and the probe tests the bit in the L2 and reads the table
+// only where it is set. A table that fits the L2 is read directly (kTable);
+// ops/cuda.py direct_route picks the layout from the domain. The exact
+// filter is the bitmap alone (kBits), a bit where the reference keeps a byte.
+// The probe takes four rows a thread by vector accesses (int4 or two
+// longlong2 of keys, uchar4 of the mask and of the matched flags, int4 of row
+// ids) that stream past the L2 (__ldcs, __stcs), so that the bitmap and the
+// table stay there, and it issues the four rows' bitmap reads, then their
+// table reads, together. The TPU formulation (a collision-free scatter plus a
+// read-back gather to find duplicates) becomes an atomicCAS: a row that finds
+// its slot taken by another row is the duplicate.
 //
 // The sorted probe is one thread per probe row binary-searching the lower
 // bound of its key in the sorted build keys (log2(n) dependent reads, most of
@@ -26,14 +36,29 @@
 // merge sort existed only because TPU gathers are slow.
 //
 // qs_expand_probe replaces quickstep_tpu/ops/join.py:228 expand_probe (and
-// the (start, count) of :189 merge_starts): one thread per probe row searches
-// the lower bound of its key, walks at most K + 1 keys from there (a binary
-// search finds the run's end only past them) and writes the first K build
-// rows of the run, in stable sort order, into its K slots of the row-major
-// output (-1 pads). The same launch raises the overflow flag when a live run
-// is longer than K, which the executor answers with a retry at 4 K. The
-// lower-bound search's dependent random reads bound it: a second search for
-// the upper bound, as in the first version, doubled them.
+// the (start, count) of :189 merge_starts). A binary search over the sorted
+// build keys costs ceil(log2 n) dependent reads a probe row (23 at 8 M rows)
+// in arrays beyond the L2, and the walk then reads the int64 permutation.
+// What bounds it is the number of random loads a thread issues: each costs
+// the SM's L1 one pass whatever its width (measured: the walk's five scalar
+// key loads alone took 1.7 of 7.4 ms). So a first launch copies the sorted
+// keys (padded to whole sectors) and the rows as int32, and builds a fence
+// over the keys: level 0 holds every 4th key, each further level every 4th
+// key of the level below, up to a level of at most kTopKeys keys (64 KB),
+// which every block of the second launch stages in shared memory. A probe
+// row binary-searches that top level in shared memory, then reads one
+// sector of 4 keys a level (two loads) and counts the keys below its own,
+// down to its leaf (four levels at 8 M rows, 21 MB that stay in the L2).
+// For K <= 4 it reads the leaf and the next as one window of eight keys and
+// the rows as two int4, and counts the run and picks its rows in
+// registers: six loads where the leaf and a walk key by key and row by row
+// take eleven. It writes the
+// first K build rows of the run, in stable sort order, into its K slots of
+// the row-major output (-1 pads; int4 stores where K is a multiple of 4).
+// The same launch raises the overflow flag when a live run is longer than
+// K, which the executor answers with a retry at 4 K; where the window or
+// the walk cannot see the run's end, its length comes from a second search,
+// for the key plus one.
 //
 // qs_run_stats_probe replaces ops/join.py:317 merge_cmp_probe and :247
 // merge_stats_probe. The reference concatenates build and probe, sorts them
@@ -54,56 +79,386 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// K3 build. Table mode: table[key - lo] = row by atomicCAS from -1; a row
+// K3's layouts of its one int32 buffer: the row table of `domain` slots; the
+// row table with the presence bitmap behind it; the bitmap alone.
+enum DirectMode { kTable = 0, kTableBits = 1, kBits = 2 };
+
+// K3 build. The row table: table[key - lo] = row by atomicCAS from -1; a row
 // that loses to ANOTHER row raises *dup. Which duplicate wins may differ from
 // XLA's scatter, but only when the dup flag is set, and then the executor
-// discards the result and retries on the expansion path.
-// Presence mode (exact filter): the byte table[key - lo] = 1, no dup flag
-// (semi-join builds repeat keys by design).
-template <typename K, bool PRESENCE>
+// discards the result and retries on the expansion path. The bitmap: where
+// neighbouring lanes of a warp share a word, the lanes of each word OR their
+// bits together and one of them sets them by atomicOr (a build of ascending
+// keys, or a semi-join build that repeats keys by design, would otherwise
+// queue its atomics on one word); each atomicOr is skipped where its bits
+// are set already. The bitmap alone raises no dup flag. The loop runs whole blocks of rows, so that every lane of a warp
+// reaches the warp-wide match.
+template <typename K, int MODE>
 __global__ void __launch_bounds__(kThreads)
 direct_build_kernel(const K* __restrict__ key, const uint8_t* __restrict__ alive,
-                    int64_t n, int64_t lo, int64_t domain, void* table,
+                    int64_t n, int64_t lo, int64_t domain,
+                    int* __restrict__ table, unsigned* __restrict__ bits,
                     int* __restrict__ dup) {
   const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    if (!alive[i]) continue;
-    const int64_t idx = (int64_t)key[i] - lo;
-    if (idx < 0 || idx >= domain) continue;
-    if constexpr (PRESENCE) {
-      static_cast<uint8_t*>(table)[idx] = 1;
-    } else {
-      int* slot = static_cast<int*>(table) + idx;
-      const int old = atomicCAS(slot, -1, (int)i);
-      if (old != -1 && old != (int)i) atomicExch(dup, 1);
+  for (int64_t base = (int64_t)blockIdx.x * kThreads; base < n;
+       base += stride) {
+    const int64_t i = base + threadIdx.x;
+    int64_t idx = 0;
+    bool ok = false;
+    if (i < n && alive[i]) {
+      idx = (int64_t)key[i] - lo;
+      ok = idx >= 0 && idx < domain;
+    }
+    if constexpr (MODE != kTable) {
+      const unsigned long long word = ok ? (unsigned long long)(idx >> 5)
+                                         : ~0ull;
+      const unsigned bit = ok ? 1u << (idx & 31) : 0u;
+      unsigned mine = bit;
+      bool leader = ok;
+      // random keys seldom share a word with the next lane's, and then
+      // every lane sets its own bit (every lane takes part in the shuffle)
+      const unsigned long long prev = __shfl_up_sync(0xffffffffu, word, 1);
+      const bool near = ok && (threadIdx.x & 31) != 0 && prev == word;
+      if (__any_sync(0xffffffffu, near)) {
+        const unsigned peers = __match_any_sync(0xffffffffu, word);
+        mine = __reduce_or_sync(peers, bit);
+        leader = ok && (int)(threadIdx.x & 31) == __ffs(peers) - 1;
+      }
+      if (leader) {
+        unsigned* w = bits + (idx >> 5);
+        if ((*w & mine) != mine) atomicOr(w, mine);
+      }
+    }
+    if constexpr (MODE != kBits) {
+      if (ok) {
+        const int old = atomicCAS(table + idx, -1, (int)i);
+        if (old != -1 && old != (int)i) atomicExch(dup, 1);
+      }
     }
   }
 }
 
-// K3 probe: one table read per live in-range probe row.
-template <typename K, bool PRESENCE>
+// The keys and mask of R probe rows from row i: R = 4 by vector loads (the
+// caller checked the alignment), R = 1 by scalar ones; all streamed.
+template <typename K, int R>
+__device__ __forceinline__ void load_rows(const K* __restrict__ key,
+                                          const uint8_t* __restrict__ alive,
+                                          int64_t i, long long (&k)[R],
+                                          bool (&live)[R]) {
+  if constexpr (R == 1) {
+    k[0] = __ldcs(key + i);
+    live[0] = __ldcs(alive + i);
+  } else {
+    if constexpr (sizeof(K) == 4) {
+      const int4 v = __ldcs(reinterpret_cast<const int4*>(key + i));
+      k[0] = v.x; k[1] = v.y; k[2] = v.z; k[3] = v.w;
+    } else {
+      const longlong2 a = __ldcs(reinterpret_cast<const longlong2*>(key + i));
+      const longlong2 b =
+          __ldcs(reinterpret_cast<const longlong2*>(key + i + 2));
+      k[0] = a.x; k[1] = a.y; k[2] = b.x; k[3] = b.y;
+    }
+    const uchar4 m = __ldcs(reinterpret_cast<const uchar4*>(alive + i));
+    live[0] = m.x; live[1] = m.y; live[2] = m.z; live[3] = m.w;
+  }
+}
+
+// K3's lookup of R rows: every row's bitmap word first, then every table
+// slot whose bit is set, so that each round of reads is in flight together.
+template <int MODE, int R>
+__device__ __forceinline__ void lookup(const long long (&k)[R],
+                                       const bool (&live)[R], int64_t lo,
+                                       int64_t domain,
+                                       const int* __restrict__ table,
+                                       const unsigned* __restrict__ bits,
+                                       int (&b)[R], bool (&hit)[R]) {
+  int64_t idx[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    idx[r] = k[r] - lo;
+    hit[r] = live[r] && idx[r] >= 0 && idx[r] < domain;
+  }
+  if constexpr (MODE != kTable) {
+    unsigned w[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) w[r] = hit[r] ? __ldg(bits + (idx[r] >> 5)) : 0u;
+#pragma unroll
+    for (int r = 0; r < R; ++r) hit[r] = (w[r] >> (idx[r] & 31)) & 1u;
+  }
+  if constexpr (MODE != kBits) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) b[r] = hit[r] ? __ldg(table + idx[r]) : -1;
+#pragma unroll
+    for (int r = 0; r < R; ++r) hit[r] = b[r] >= 0;
+  }
+}
+
+template <int MODE, int R>
+__device__ __forceinline__ void store_rows(int* __restrict__ bidx,
+                                           uint8_t* __restrict__ matched,
+                                           int64_t i, const int (&b)[R],
+                                           const bool (&hit)[R]) {
+  if constexpr (R == 1) {
+    __stcs(matched + i, (uint8_t)hit[0]);
+    if constexpr (MODE != kBits) __stcs(bidx + i, b[0]);
+  } else {
+    __stcs(reinterpret_cast<uchar4*>(matched + i),
+           make_uchar4(hit[0], hit[1], hit[2], hit[3]));
+    if constexpr (MODE != kBits) {
+      __stcs(reinterpret_cast<int4*>(bidx + i),
+             make_int4(b[0], b[1], b[2], b[3]));
+    }
+  }
+}
+
+// K3 probe: groups of four rows (VEC), then the rows past the last whole
+// group (or every row, where the buffers are not aligned for vectors) one
+// at a time.
+template <typename K, int MODE, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 direct_probe_kernel(const K* __restrict__ key, const uint8_t* __restrict__ alive,
                     int64_t n, int64_t lo, int64_t domain,
-                    const void* __restrict__ table, int* __restrict__ bidx,
+                    const int* __restrict__ table,
+                    const unsigned* __restrict__ bits, int* __restrict__ bidx,
                     uint8_t* __restrict__ matched) {
+  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t idx = (int64_t)key[i] - lo;
-    bool hit = false;
-    int b = -1;
-    if (alive[i] && idx >= 0 && idx < domain) {
-      if constexpr (PRESENCE) {
-        hit = static_cast<const uint8_t*>(table)[idx] != 0;
+  int64_t first = 0;
+  if constexpr (VEC) {
+    const int64_t groups = n / 4;
+    for (int64_t g = tid; g < groups; g += stride) {
+      long long k[4];
+      bool live[4], hit[4];
+      int b[4];
+      load_rows<K, 4>(key, alive, 4 * g, k, live);
+      lookup<MODE, 4>(k, live, lo, domain, table, bits, b, hit);
+      store_rows<MODE, 4>(bidx, matched, 4 * g, b, hit);
+    }
+    first = 4 * groups;
+  }
+  for (int64_t i = first + tid; i < n; i += stride) {
+    long long k[1];
+    bool live[1], hit[1];
+    int b[1];
+    load_rows<K, 1>(key, alive, i, k, live);
+    lookup<MODE, 1>(k, live, lo, domain, table, bits, b, hit);
+    store_rows<MODE, 1>(bidx, matched, i, b, hit);
+  }
+}
+
+// K7's scratch: the sorted keys, padded with dead keys to a whole leaf of
+// kLeafKeys and two leaves more (so that a walk of five keys from any lower
+// bound stays inside); the build rows as int32, padded alike with -1; then
+// the fence: level 0 holds every kLeafKeys-th key, level l + 1 every
+// kFanout-th key of level l, up to a top level of at most kTopKeys keys.
+// Each level is padded with dead keys to a whole node of kFanout keys, so
+// that every node and leaf is one aligned 32-byte sector.
+constexpr int kLeafKeys = 4;       // 4 int64 keys: one 32-byte sector
+constexpr int kFanout = 4;         // the same for a fence node
+constexpr int kTopKeys = 8192;     // 64 KB of shared memory
+constexpr int kProbeThreads = 512; // three blocks an SM share its 227 KB
+constexpr int kMaxLevels = 16;
+constexpr long long kDeadKey = INT64_MAX;
+
+struct Fence {
+  long long* level[kMaxLevels];
+  int64_t size[kMaxLevels];   // keys of each level, without its padding
+  int levels;
+};
+
+__host__ __device__ constexpr int64_t round_up(int64_t x, int64_t m) {
+  return (x + m - 1) / m * m;
+}
+
+__host__ __device__ constexpr int64_t padded_keys(int64_t n_build) {
+  return round_up(n_build, kLeafKeys) + 2 * kLeafKeys;
+}
+
+// K7, first launch: the padded keys, the int32 rows and the fence.
+__global__ void __launch_bounds__(kThreads)
+fence_pack_kernel(const long long* __restrict__ sorted_key,
+                  const long long* __restrict__ order, int64_t n_build,
+                  long long* __restrict__ keys, int* __restrict__ rows,
+                  Fence f) {
+  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const int64_t padded = padded_keys(n_build);
+  for (int64_t i = tid; i < padded; i += stride) {
+    const long long key = i < n_build ? sorted_key[i] : kDeadKey;
+    keys[i] = key;
+    rows[i] = i < n_build ? (int)order[i] : -1;
+    if (i >= n_build || i % kLeafKeys) continue;
+    int64_t j = i / kLeafKeys;
+    f.level[0][j] = key;
+    for (int l = 1; l < f.levels && j % kFanout == 0; ++l) {
+      j /= kFanout;
+      f.level[l][j] = key;
+    }
+  }
+  for (int64_t t = tid; t < (int64_t)f.levels * kFanout; t += stride) {
+    const int l = (int)(t / kFanout);
+    const int64_t j = f.size[l] + t % kFanout;
+    if (j < round_up(f.size[l], kFanout)) f.level[l][j] = kDeadKey;
+  }
+}
+
+// The keys below k among the four of one aligned sector at p.
+__device__ __forceinline__ int count_below(const long long* __restrict__ p,
+                                           long long k) {
+  const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(p));
+  const longlong2 b = __ldg(reinterpret_cast<const longlong2*>(p) + 1);
+  return (a.x < k) + (a.y < k) + (b.x < k) + (b.y < k);
+}
+
+// The leaf (the first of kLeafKeys sorted keys) that holds the first key >=
+// k, or whose end it is. c counts the keys of a level below k: every key
+// before node c - 1 of the level beneath is below k (it is at most key c -
+// 1 of this level, which is), every key from node c on is not, so the count
+// there is the node's start plus its keys below k. One sector a level.
+__device__ __forceinline__ int64_t fence_leaf(const long long* top,
+                                              int64_t n_top, const Fence& f,
+                                              long long k) {
+  int64_t lo = 0, hi = n_top;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (top[mid] < k) lo = mid + 1;
+    else hi = mid;
+  }
+  int64_t c = lo;
+  for (int l = f.levels - 2; l >= 0; --l) {
+    const int64_t base = (c > 0 ? c - 1 : 0) * kFanout;
+    c = base + count_below(f.level[l] + base, k);
+  }
+  return (c > 0 ? c - 1 : 0) * kLeafKeys;
+}
+
+// The first key >= k (where c above is 0, every key is >= k: the count in
+// leaf 0 is 0).
+__device__ __forceinline__ int64_t fence_lower_bound(
+    const long long* top, int64_t n_top, const Fence& f,
+    const long long* __restrict__ keys, long long k) {
+  const int64_t base = fence_leaf(top, n_top, f, k);
+  return base + count_below(keys + base, k);
+}
+
+// a[i] for a small register array and an index known only at run time,
+// without a trip through local memory.
+template <int N, typename T>
+__device__ __forceinline__ T pick(const T (&a)[N], int i) {
+  T x = a[0];
+#pragma unroll
+  for (int t = 1; t < N; ++t) x = i == t ? a[t] : x;
+  return x;
+}
+
+// K7, second launch: the run [lb, lb + count) of every live probe row's key;
+// rows receives the run's first min(count, k) build rows in the row's k
+// slots and -1 in the others; counts receives count (0 for dead rows and
+// the dead key). SMALL (k <= 4): the leaf and the next leaf are read as one
+// window of eight keys (a ninth where the lower bound is the leaf's end),
+// which holds the lower bound and the five keys the run needs, and the
+// eight rows from the lower bound's aligned group of four as two int4. A
+// run of up to four is counted exactly from the window; where all five keys
+// are the probe's, the run's end comes from a second search, for the key
+// plus one. K = 4 stores its slots as one int4. Otherwise the walk reads
+// key by key and stores four slots at a time (one int4 where K is a
+// multiple of 4).
+template <bool SMALL>
+__global__ void __launch_bounds__(kProbeThreads)
+expand_probe_kernel(const long long* __restrict__ keys,
+                    const int* __restrict__ build_rows, int64_t n_build,
+                    Fence f, const long long* __restrict__ probe,
+                    const uint8_t* __restrict__ alive, int64_t n_probe, int k,
+                    int* __restrict__ rows, int* __restrict__ counts,
+                    int* __restrict__ overflow) {
+  extern __shared__ long long top[];
+  const int64_t n_top = f.size[f.levels - 1];
+  for (int t = threadIdx.x; t < n_top; t += kProbeThreads) {
+    top[t] = f.level[f.levels - 1][t];
+  }
+  __syncthreads();
+  const int64_t stride = (int64_t)gridDim.x * kProbeThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kProbeThreads + threadIdx.x;
+       i < n_probe; i += stride) {
+    const long long key = __ldcs(probe + i);
+    const bool live = __ldcs(alive + i) && key != kDeadKey;
+    int* out = rows + i * k;
+    int64_t count = 0;
+    if constexpr (SMALL) {
+      int slot[4] = {-1, -1, -1, -1};
+      if (live) {
+        const int64_t base = fence_leaf(top, n_top, f, key);
+        const longlong2* w2 = reinterpret_cast<const longlong2*>(keys + base);
+        long long w[9];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const longlong2 x = __ldg(w2 + j);
+          w[2 * j] = x.x;
+          w[2 * j + 1] = x.y;
+        }
+        const int off = (w[0] < key) + (w[1] < key) + (w[2] < key) +
+                        (w[3] < key);
+        const int64_t lb = base + off;
+        w[8] = off == kLeafKeys ? __ldg(keys + base + 2 * kLeafKeys)
+                                : kDeadKey;
+        const int64_t a = lb & ~(int64_t)3;
+        const int4 r0 = __ldg(reinterpret_cast<const int4*>(build_rows + a));
+        const int4 r1 =
+            __ldg(reinterpret_cast<const int4*>(build_rows + a) + 1);
+        const int r[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+        const int ro = (int)(lb - a);
+        bool on = true;
+#pragma unroll
+        for (int j = 0; j < 5; ++j) {
+          on = on && pick(w, off + j) == key;
+          count += on;
+          if (j < 4) slot[j] = on ? pick(r, ro + j) : -1;
+        }
+        if (count == 5) {
+          count = fence_lower_bound(top, n_top, f, keys, key + 1) - lb;
+        }
+      }
+      if (k == 4) {
+        __stcs(reinterpret_cast<int4*>(out),
+               make_int4(slot[0], slot[1], slot[2], slot[3]));
       } else {
-        b = static_cast<const int*>(table)[idx];
-        hit = b >= 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j < k) out[j] = slot[j];
+        }
+      }
+    } else {
+      const int64_t lb = live ? fence_lower_bound(top, n_top, f, keys, key)
+                              : 0;
+      int64_t end = lb;   // the first position not known to be in the run
+      bool on = live;
+      for (int g = 0; g < k; g += 4) {
+        int v[4] = {-1, -1, -1, -1};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (g + j < k) {
+            on = on && end < n_build && __ldg(keys + end) == key;
+            v[j] = on ? __ldg(build_rows + end) : -1;
+            end += on;
+          }
+        }
+        if ((k & 3) == 0) {
+          __stcs(reinterpret_cast<int4*>(out + g),
+                 make_int4(v[0], v[1], v[2], v[3]));
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (g + j < k) out[g + j] = v[j];
+          }
+        }
+      }
+      count = end - lb;
+      if (on && end < n_build && __ldg(keys + end) == key) {
+        count = fence_lower_bound(top, n_top, f, keys, key + 1) - lb;
       }
     }
-    matched[i] = hit;
-    if constexpr (!PRESENCE) bidx[i] = hit ? b : -1;
+    __stcs(counts + i, (int)count);
+    if (count > k) *overflow = 1;
   }
 }
 
@@ -148,47 +503,16 @@ sorted_probe_kernel(const long long* __restrict__ sorted_key,
   }
 }
 
-// First position in [lo, hi) of sorted_key whose key is >= k (upper: > k).
-template <bool UPPER>
-__device__ __forceinline__ int64_t bound(const long long* __restrict__ a,
-                                         int64_t lo, int64_t hi, long long k) {
+// The first position in [lo, hi) of a whose key is >= k.
+__device__ __forceinline__ int64_t lower_bound(const long long* __restrict__ a,
+                                               int64_t lo, int64_t hi,
+                                               long long k) {
   while (lo < hi) {
     const int64_t mid = lo + ((hi - lo) >> 1);
-    if (UPPER ? a[mid] <= k : a[mid] < k) lo = mid + 1;
+    if (a[mid] < k) lo = mid + 1;
     else hi = mid;
   }
   return lo;
-}
-
-// K7: the run [lb, ub) of equal build keys for every live probe row; rows
-// receives order[lb + j] for j < min(count, k) in the row's k slots, -1 in
-// the others; counts receives ub - lb (0 for dead rows and the dead key).
-__global__ void __launch_bounds__(kThreads)
-expand_probe_kernel(const long long* __restrict__ sorted_key,
-                    const long long* __restrict__ order, int64_t n_build,
-                    const long long* __restrict__ probe,
-                    const uint8_t* __restrict__ alive, int64_t n_probe, int k,
-                    int* __restrict__ rows, int* __restrict__ counts,
-                    int* __restrict__ overflow) {
-  const long long kDead = INT64_MAX;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n_probe;
-       i += stride) {
-    const long long key = probe[i];
-    int64_t lb = 0, count = 0;
-    if (alive[i] && key != kDead) {
-      lb = bound<false>(sorted_key, 0, n_build, key);
-      const int64_t stop = lb + k + 1 < n_build ? lb + k + 1 : n_build;
-      int64_t end = lb;
-      while (end < stop && sorted_key[end] == key) ++end;
-      if (end == lb + k + 1) end = bound<true>(sorted_key, end, n_build, key);
-      count = end - lb;
-    }
-    counts[i] = (int)count;
-    if (count > k) *overflow = 1;
-    int* out = rows + i * k;
-    for (int j = 0; j < k; ++j) out[j] = j < count ? (int)order[lb + j] : -1;
-  }
 }
 
 // K8, first launch: at the first sorted position of every run of equal live
@@ -238,7 +562,7 @@ stats_probe_kernel(const long long* __restrict__ sorted_key, int64_t n_build,
     bool has = false;
     int mn = INT32_MAX, mx = INT32_MIN;
     if (key != kDead) {
-      const int64_t lb = bound<false>(sorted_key, 0, n_build, key);
+      const int64_t lb = lower_bound(sorted_key, 0, n_build, key);
       if (lb < n_build && sorted_key[lb] == key) {
         has = true;
         mn = run_min[lb];
@@ -268,61 +592,106 @@ stats_probe_kernel(const long long* __restrict__ sorted_key, int64_t n_build,
 
 enum KeyType { kKeyI32 = 0, kKeyI64 = 1 };
 
-template <typename K, bool PRESENCE>
-cudaError_t launch_build(const void* key, const void* alive, int64_t n,
-                         int64_t lo, int64_t domain, void* table, void* dup,
-                         int blocks, cudaStream_t stream) {
-  direct_build_kernel<K, PRESENCE><<<blocks, kThreads, 0, stream>>>(
-      (const K*)key, (const uint8_t*)alive, n, lo, domain, table, (int*)dup);
+bool aligned(const void* p, uintptr_t bytes) {
+  return ((uintptr_t)p & (bytes - 1)) == 0;
+}
+
+template <int MODE>
+cudaError_t launch_build(int key_type, const void* key, const void* alive,
+                         int64_t n, int64_t lo, int64_t domain, void* table,
+                         void* bits, void* dup, int blocks,
+                         cudaStream_t stream) {
+  if (key_type == kKeyI32) {
+    direct_build_kernel<int, MODE><<<blocks, kThreads, 0, stream>>>(
+        (const int*)key, (const uint8_t*)alive, n, lo, domain, (int*)table,
+        (unsigned*)bits, (int*)dup);
+  } else {
+    direct_build_kernel<long long, MODE><<<blocks, kThreads, 0, stream>>>(
+        (const long long*)key, (const uint8_t*)alive, n, lo, domain,
+        (int*)table, (unsigned*)bits, (int*)dup);
+  }
   return cudaGetLastError();
 }
 
-template <typename K, bool PRESENCE>
+template <typename K, int MODE>
 cudaError_t launch_probe(const void* key, const void* alive, int64_t n,
                          int64_t lo, int64_t domain, const void* table,
-                         void* bidx, void* matched, int blocks,
-                         cudaStream_t stream) {
-  direct_probe_kernel<K, PRESENCE><<<blocks, kThreads, 0, stream>>>(
-      (const K*)key, (const uint8_t*)alive, n, lo, domain, table, (int*)bidx,
-      (uint8_t*)matched);
+                         const void* bits, void* bidx, void* matched,
+                         int blocks, cudaStream_t stream) {
+  const bool vec = aligned(key, 16) && aligned(alive, 4) &&
+                   aligned(matched, 4) && (MODE == kBits || aligned(bidx, 16));
+  auto kernel = vec ? direct_probe_kernel<K, MODE, true>
+                    : direct_probe_kernel<K, MODE, false>;
+  kernel<<<blocks, kThreads, 0, stream>>>(
+      (const K*)key, (const uint8_t*)alive, n, lo, domain, (const int*)table,
+      (const unsigned*)bits, (int*)bidx, (uint8_t*)matched);
   return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t probe_mode(int key_type, const void* key, const void* alive,
+                       int64_t n, int64_t lo, int64_t domain,
+                       const void* table, const void* bits, void* bidx,
+                       void* matched, int blocks, cudaStream_t stream) {
+  return key_type == kKeyI32
+             ? launch_probe<int, MODE>(key, alive, n, lo, domain, table, bits,
+                                       bidx, matched, blocks, stream)
+             : launch_probe<long long, MODE>(key, alive, n, lo, domain, table,
+                                             bits, bidx, matched, blocks,
+                                             stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-int qs_direct_build(int key_type, int presence, const void* key,
+// mode: 0 the row table alone, 1 the row table and the bitmap, 2 the bitmap
+// alone (the exact filter: table and dup unused). The row table holds
+// `domain` slots at -1 and the bitmap ceil(domain / 32) zero words.
+int qs_direct_build(int key_type, int mode, const void* key,
                     const void* alive, int64_t n, int64_t lo, int64_t domain,
-                    void* table, void* dup, int blocks, void* stream) {
+                    void* table, void* bits, void* dup, int blocks,
+                    void* stream) {
+  if (key_type != kKeyI32 && key_type != kKeyI64) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  if (key_type == kKeyI32) {
-    return presence ? launch_build<int, true>(key, alive, n, lo, domain, table, dup, blocks, s)
-                    : launch_build<int, false>(key, alive, n, lo, domain, table, dup, blocks, s);
+  switch (mode) {
+    case kTable:
+      return launch_build<kTable>(key_type, key, alive, n, lo, domain, table,
+                                  bits, dup, blocks, s);
+    case kTableBits:
+      return launch_build<kTableBits>(key_type, key, alive, n, lo, domain,
+                                      table, bits, dup, blocks, s);
+    case kBits:
+      return launch_build<kBits>(key_type, key, alive, n, lo, domain, table,
+                                 bits, dup, blocks, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-  if (key_type == kKeyI64) {
-    return presence ? launch_build<long long, true>(key, alive, n, lo, domain, table, dup, blocks, s)
-                    : launch_build<long long, false>(key, alive, n, lo, domain, table, dup, blocks, s);
-  }
-  return cudaErrorInvalidValue;
 }
 
-int qs_direct_probe(int key_type, int presence, const void* key,
+// mode as for qs_direct_build; in mode 2 bidx is unused and domain may be
+// the bitmap's 32 x words (no bit past the build's domain is set).
+int qs_direct_probe(int key_type, int mode, const void* key,
                     const void* alive, int64_t n, int64_t lo, int64_t domain,
-                    const void* table, void* bidx, void* matched, int blocks,
-                    void* stream) {
+                    const void* table, const void* bits, void* bidx,
+                    void* matched, int blocks, void* stream) {
+  if (key_type != kKeyI32 && key_type != kKeyI64) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  if (key_type == kKeyI32) {
-    return presence ? launch_probe<int, true>(key, alive, n, lo, domain, table, bidx, matched, blocks, s)
-                    : launch_probe<int, false>(key, alive, n, lo, domain, table, bidx, matched, blocks, s);
+  switch (mode) {
+    case kTable:
+      return probe_mode<kTable>(key_type, key, alive, n, lo, domain, table,
+                                bits, bidx, matched, blocks, s);
+    case kTableBits:
+      return probe_mode<kTableBits>(key_type, key, alive, n, lo, domain,
+                                    table, bits, bidx, matched, blocks, s);
+    case kBits:
+      return probe_mode<kBits>(key_type, key, alive, n, lo, domain, table,
+                               bits, bidx, matched, blocks, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-  if (key_type == kKeyI64) {
-    return presence ? launch_probe<long long, true>(key, alive, n, lo, domain, table, bidx, matched, blocks, s)
-                    : launch_probe<long long, false>(key, alive, n, lo, domain, table, bidx, matched, blocks, s);
-  }
-  return cudaErrorInvalidValue;
 }
 
 int qs_sorted_probe(const void* sorted_key, const void* order, int64_t n_build,
@@ -337,16 +706,48 @@ int qs_sorted_probe(const void* sorted_key, const void* order, int64_t n_build,
   return cudaGetLastError();
 }
 
+// scratch (int64 words): the keys, round4(n_build) + 8 of them; the int32
+// rows, as many, rounded up to whole sectors; then each fence level's
+// level_sizes[l] keys rounded up to a multiple of 4 (ops/cuda.py
+// fence_layout, fence_scratch_words). The top level holds at most 8,192.
 int qs_expand_probe(const void* sorted_key, const void* order,
                     int64_t n_build, const void* probe, const void* alive,
-                    int64_t n_probe, int k, void* rows, void* counts,
-                    void* overflow, int blocks, void* stream) {
-  if (n_probe == 0) return cudaSuccess;
-  if (k < 1) return cudaErrorInvalidValue;
-  expand_probe_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)sorted_key, (const long long*)order, n_build,
-      (const long long*)probe, (const uint8_t*)alive, n_probe, k, (int*)rows,
-      (int*)counts, (int*)overflow);
+                    int64_t n_probe, int k, void* scratch,
+                    const int64_t* level_sizes, int levels, void* rows,
+                    void* counts, void* overflow, int pack_blocks,
+                    int blocks, void* stream) {
+  if (n_probe == 0 || n_build == 0) return cudaSuccess;
+  if (k < 1 || levels < 1 || levels > kMaxLevels ||
+      level_sizes[levels - 1] > kTopKeys) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t padded = padded_keys(n_build);
+  long long* keys = (long long*)scratch;
+  int* build_rows = (int*)(keys + padded);
+  long long* at = keys + padded + round_up(padded, 2 * kLeafKeys) / 2;
+  Fence f;
+  f.levels = levels;
+  for (int l = 0; l < kMaxLevels; ++l) {
+    f.level[l] = l < levels ? at : nullptr;
+    f.size[l] = l < levels ? level_sizes[l] : 0;
+    if (l < levels) at += round_up(level_sizes[l], kFanout);
+  }
+  fence_pack_kernel<<<pack_blocks, kThreads, 0, s>>>(
+      (const long long*)sorted_key, (const long long*)order, n_build, keys,
+      build_rows, f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int shared = (int)(level_sizes[levels - 1] * sizeof(long long));
+  auto kernel = k <= 4 ? expand_probe_kernel<true> : expand_probe_kernel<false>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kTopKeys * (int)sizeof(long long));
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kProbeThreads, shared, s>>>(
+      keys, build_rows, n_build, f, (const long long*)probe,
+      (const uint8_t*)alive, n_probe, k, (int*)rows, (int*)counts,
+      (int*)overflow);
   return cudaGetLastError();
 }
 

@@ -2,10 +2,12 @@
 the one-hash bloom filter of the shuffle join.
 
 Counterparts of quickstep_tpu/ops/bloom.py `exact_filter_build` (:24) and
-`exact_filter_probe` (:33), the BitVectorExactFilter analog: one presence
-byte per key value in [lo, lo + domain). On CUDA tensors they run K3 in its
-presence mode (ops/cuda.py direct_build/direct_probe, csrc/join_kernels.cu);
-on CPU tensors the plain versions. `bloom_build` (:41) and `bloom_probe`
+`exact_filter_probe` (:33), the BitVectorExactFilter analog: presence per
+key value in [lo, lo + domain). On CUDA tensors they run K3 in its presence
+mode (ops/cuda.py direct_build/direct_probe, csrc/join_kernels.cu), which
+keeps one bit per value in int32 words (value i at bit i % 32 of word
+i // 32: `presence_words`, `presence_bits`); on CPU tensors the plain
+versions, one bool per value. `bloom_build` (:41) and `bloom_probe`
 (:52), the SingleIdentityHashFilter analog over composite keys: one byte
 per slot of a power-of-two table, the slot the low bits of K10's hash. On
 CUDA tensors they run K16 (ops/cuda.py bloom_build/bloom_probe,
@@ -23,7 +25,8 @@ from quickstep_tpu_torch.ops.kernels import hash_keys_plain
 
 def exact_filter_build(key: torch.Tensor, alive: torch.Tensor, lo: int,
                        domain: int) -> torch.Tensor:
-    """Presence per key value in [lo, lo + domain): bool[domain]."""
+    """Presence per key value in [lo, lo + domain): bool[domain] on the CPU,
+    the int32 bitmap words of presence_words on CUDA."""
     if key.device.type == "cpu":
         return exact_filter_build_plain(key, alive, lo, domain)
     from quickstep_tpu_torch.ops import cuda
@@ -47,7 +50,8 @@ def exact_filter_probe(bits: torch.Tensor, key: torch.Tensor,
     if key.device.type == "cpu":
         return exact_filter_probe_plain(bits, key, alive, lo)
     from quickstep_tpu_torch.ops import cuda
-    return cuda.direct_probe(bits, key.contiguous(), alive.contiguous(), lo)
+    return cuda.direct_probe(bits, key.contiguous(), alive.contiguous(), lo,
+                             presence=True)
 
 
 def exact_filter_probe_plain(bits: torch.Tensor, key: torch.Tensor,
@@ -56,6 +60,25 @@ def exact_filter_probe_plain(bits: torch.Tensor, key: torch.Tensor,
     idx = key.to(torch.int64) - lo
     ok = alive & (idx >= 0) & (idx < domain)
     return ok & bits[torch.clamp(idx, 0, domain - 1)]
+
+
+def presence_words(bits: torch.Tensor) -> torch.Tensor:
+    """bool[domain] packed into ceil(domain / 32) int32 words, value i at
+    bit i % 32 of word i // 32: the layout of K3's bitmap."""
+    domain = bits.shape[0]
+    words = -(-domain // 32)
+    padded = torch.zeros(words * 32, dtype=torch.int64, device=bits.device)
+    padded[:domain] = bits.to(torch.int64)
+    shift = torch.arange(32, dtype=torch.int64, device=bits.device)
+    packed = (padded.view(words, 32) << shift).sum(1)
+    return torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed).to(
+        torch.int32)
+
+
+def presence_bits(words: torch.Tensor, domain: int) -> torch.Tensor:
+    """The bool[domain] that presence_words packed."""
+    idx = torch.arange(domain, dtype=torch.int64, device=words.device)
+    return ((words.to(torch.int64)[idx >> 5] >> (idx & 31)) & 1) != 0
 
 
 def bloom_build(key_cols: List[torch.Tensor], alive: torch.Tensor,

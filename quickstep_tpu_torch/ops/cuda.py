@@ -152,14 +152,16 @@ def build() -> ctypes.CDLL:
             "qs_dense_group_reduce": [i32, i32, p, p, p, p, i64, i32, p, p, p,
                                       i32, p, p, p, p],
             "qs_segment_reduce": [i32, i32, p, p, p, i64, p, p, p, p, i32, p],
-            "qs_direct_build": [i32, i32, p, p, i64, i64, i64, p, p, i32, p],
-            "qs_direct_probe": [i32, i32, p, p, i64, i64, i64, p, p, p, i32,
+            "qs_direct_build": [i32, i32, p, p, i64, i64, i64, p, p, p, i32,
                                 p],
+            "qs_direct_probe": [i32, i32, p, p, i64, i64, i64, p, p, p, p,
+                                i32, p],
             "qs_sorted_probe": [p, p, i64, p, p, i64, p, p, p, i32, p],
             "qs_multi_gather": [i32, p, p, p, i64, p, i32, i64, i32, p],
             "qs_packed_gather": [i32, p, p, p, p, i32, i64, p, p, i32, i64,
                                  i32, p],
-            "qs_expand_probe": [p, p, i64, p, p, i64, i32, p, p, p, i32, p],
+            "qs_expand_probe": [p, p, i64, p, p, i64, i32, p, p, i32, p, p,
+                                p, i32, i32, p],
             "qs_run_stats_probe": [p, p, i64, p, p, p, p, p, p, i64, i32, p,
                                    p, p, i32, i32, p],
             "qs_stable_partition": [p, i64, p, p, p, p],
@@ -221,9 +223,13 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _blocks(n: int, device: torch.device) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min((n + _THREADS - 1) // _THREADS, _BLOCKS_PER_SM * sms))
+    return max(1, min((n + _THREADS - 1) // _THREADS,
+                      _BLOCKS_PER_SM * _sms(device)))
 
 
 def _acc_out_dtypes(fn: str, dtype: torch.dtype):
@@ -393,11 +399,31 @@ def segment_reduce(fn: str, change: torch.Tensor, s_alive: torch.Tensor,
     return (out_nn if fn == "count" else out_val), out_nn
 
 
+# K3's layouts (csrc/join_kernels.cu DirectMode) and the route between the
+# first two: a row table of more than DIRECT_BITMAP_SLOTS slots does not sit
+# in the L2 of an NVIDIA H100 (50 MB), so it carries a presence bitmap behind
+# it that does, and the probe reads the table only where a bit is set.
+DIRECT_TABLE, DIRECT_TABLE_BITS, DIRECT_BITS = 0, 1, 2
+DIRECT_BITMAP_SLOTS = 1 << 22
+
+
+def direct_route(domain: int) -> int:
+    """DIRECT_TABLE_BITS for a row table of more than DIRECT_BITMAP_SLOTS
+    slots, else DIRECT_TABLE."""
+    return DIRECT_TABLE_BITS if domain > DIRECT_BITMAP_SLOTS else DIRECT_TABLE
+
+
+def bitmap_words(domain: int) -> int:
+    return -(-domain // 32)
+
+
 def direct_build(key: torch.Tensor, alive: torch.Tensor, lo: int, domain: int,
                  presence: bool = False):
     """K3 build over the live rows with key - lo in [0, domain). Table mode:
-    (int32 table [domain] of build row or -1, 0-d bool dup flag). Presence
-    mode (the exact filter): (bool table [domain], None)."""
+    (int32 buffer, 0-d bool dup flag); the buffer's first `domain` entries
+    are the row table (build row or -1), and past DIRECT_BITMAP_SLOTS slots
+    the presence bitmap's bitmap_words(domain) words follow. Presence mode
+    (the exact filter): (the int32 bitmap words, None)."""
     device = _cuda_device(alive, "alive")
     n = int(alive.shape[0]) if alive.dim() == 1 else -1
     _require(alive, "alive", device, n, (torch.bool,))
@@ -406,42 +432,60 @@ def direct_build(key: torch.Tensor, alive: torch.Tensor, lo: int, domain: int,
     if not 1 <= domain < 2 ** 40:
         raise ValueError(f"direct-address domain {domain} is out of range")
     lib = build()
-    if presence:
-        table = torch.zeros(domain, dtype=torch.bool, device=device)
+    words = bitmap_words(domain)
+    mode = DIRECT_BITS if presence else direct_route(domain)
+    if mode == DIRECT_BITS:
+        buf = torch.zeros(words, dtype=torch.int32, device=device)
+        table, bits = None, buf
     else:
-        table = torch.full((domain,), -1, dtype=torch.int32, device=device)
+        extra = words if mode == DIRECT_TABLE_BITS else 0
+        buf = torch.empty(domain + extra, dtype=torch.int32, device=device)
+        table = buf[:domain].fill_(-1)
+        bits = buf[domain:].zero_() if extra else None
     dup = torch.zeros((), dtype=torch.int32, device=device)
     if n == 0:
-        return table, (None if presence else dup != 0)
+        return buf, (None if presence else dup != 0)
     err = lib.qs_direct_build(
-        _KEY[key.dtype], int(presence), _ptr(key), _ptr(alive), n, int(lo),
-        int(domain), _ptr(table), _ptr(dup), _blocks(n, device),
+        _KEY[key.dtype], mode, _ptr(key), _ptr(alive), n, int(lo),
+        int(domain), _ptr(table), _ptr(bits), _ptr(dup), _blocks(n, device),
         _stream(device))
     _check(lib, err, "direct_build")
     LAUNCHES["direct_join"] += 1
-    return table, (None if presence else dup != 0)
+    return buf, (None if presence else dup != 0)
 
 
 def direct_probe(table: torch.Tensor, key: torch.Tensor, alive: torch.Tensor,
-                 lo: int):
-    """K3 probe. Table mode (int32 table): (int32 build row or -1, bool
-    matched). Presence mode (bool table): bool matched."""
+                 lo: int, domain: Optional[int] = None,
+                 presence: bool = False):
+    """K3 probe of direct_build's buffer. Table mode (domain given): (int32
+    build row or -1, bool matched). Presence mode (the bitmap words):
+    bool matched."""
     device = _cuda_device(alive, "alive")
     n = int(alive.shape[0]) if alive.dim() == 1 else -1
     _require(alive, "alive", device, n, (torch.bool,))
     _require(key, "key", device, n, tuple(_KEY))
-    domain = int(table.shape[0]) if table.dim() == 1 else -1
-    _require(table, "table", device, domain, (torch.int32, torch.bool))
-    presence = table.dtype == torch.bool
+    size = int(table.shape[0]) if table.dim() == 1 else -1
+    _require(table, "table", device, size, (torch.int32,))
+    if presence:
+        # no bit past the build's domain is set
+        mode, domain = DIRECT_BITS, 32 * size
+    else:
+        if domain is None or size not in (domain, domain + bitmap_words(domain)):
+            raise ValueError(f"a table of {size} entries is no direct table "
+                             f"of domain {domain}")
+        mode = DIRECT_TABLE if size == domain else DIRECT_TABLE_BITS
     lib = build()
     matched = torch.empty(n, dtype=torch.bool, device=device)
     bidx = None if presence else torch.empty(n, dtype=torch.int32,
                                              device=device)
     if n == 0:
         return matched if presence else (bidx, matched)
+    bits = table if presence else (
+        table[domain:] if mode == DIRECT_TABLE_BITS else None)
     err = lib.qs_direct_probe(
-        _KEY[key.dtype], int(presence), _ptr(key), _ptr(alive), n, int(lo),
-        domain, _ptr(table), _ptr(bidx), _ptr(matched), _blocks(n, device),
+        _KEY[key.dtype], mode, _ptr(key), _ptr(alive), n, int(lo),
+        int(domain), None if presence else _ptr(table), _ptr(bits),
+        _ptr(bidx), _ptr(matched), _blocks(-(-n // 4), device),
         _stream(device))
     _check(lib, err, "direct_probe")
     LAUNCHES["direct_join"] += 1
@@ -574,6 +618,43 @@ def multi_gather(cols: List[torch.Tensor], idx: torch.Tensor,
     return outs
 
 
+# K7's fence (csrc/join_kernels.cu): every 4th sorted key, then every 4th
+# key of the level below (each node and leaf one 32-byte sector), up to a
+# top level of at most FENCE_TOP_KEYS keys, which each block of the probe
+# stages in shared memory; the probe's blocks of FENCE_THREADS threads,
+# FENCE_BLOCKS_PER_SM an SM.
+FENCE_LEAF_KEYS, FENCE_FANOUT, FENCE_TOP_KEYS = 4, 4, 8192
+FENCE_THREADS, FENCE_BLOCKS_PER_SM = 512, 3
+
+
+def fence_layout(n_build: int) -> List[int]:
+    """The keys of each level of K7's fence over n_build >= 1 sorted keys,
+    the finest level first."""
+    sizes = [-(-n_build // FENCE_LEAF_KEYS)]
+    while sizes[-1] > FENCE_TOP_KEYS:
+        sizes.append(-(-sizes[-1] // FENCE_FANOUT))
+    return sizes
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def fence_keys(n_build: int) -> int:
+    """The keys K7 copies: n_build, padded with dead keys to a whole leaf
+    and two leaves more."""
+    return _up(n_build, FENCE_LEAF_KEYS) + 2 * FENCE_LEAF_KEYS
+
+
+def fence_scratch_words(n_build: int) -> int:
+    """int64 words of K7's scratch: the padded keys, as many int32 rows
+    (rounded up to whole sectors), then each fence level padded to a whole
+    node."""
+    padded = fence_keys(n_build)
+    return padded + _up(padded, 2 * FENCE_LEAF_KEYS) // 2 + sum(
+        _up(s, FENCE_FANOUT) for s in fence_layout(n_build))
+
+
 def expand_probe(sorted_key: torch.Tensor, order: torch.Tensor,
                  probe: torch.Tensor, alive: torch.Tensor, k: int):
     """K7: for each live probe row, the first k build rows (in the stable
@@ -581,7 +662,8 @@ def expand_probe(sorted_key: torch.Tensor, order: torch.Tensor,
     keys sorted, dead rows as INT64_MAX; order is the sort permutation.
     Returns (int32 rows [n * k], row-major, -1 pads; int32 run length [n],
     0 on dead rows; 0-d bool overflow flag: some live run is longer than
-    k)."""
+    k). One call copies the keys and rows and builds their fence, then
+    probes."""
     device = _cuda_device(alive, "alive")
     n_build = int(sorted_key.shape[0]) if sorted_key.dim() == 1 else -1
     n_probe = int(alive.shape[0]) if alive.dim() == 1 else -1
@@ -598,10 +680,18 @@ def expand_probe(sorted_key: torch.Tensor, order: torch.Tensor,
     overflow = torch.zeros((), dtype=torch.int32, device=device)
     if n_probe == 0 or n_build == 0:
         return rows.fill_(-1), counts.zero_(), overflow != 0
+    sizes = fence_layout(n_build)
+    scratch = torch.empty(fence_scratch_words(n_build), dtype=torch.int64,
+                          device=device)
+    c_sizes = (ctypes.c_int64 * len(sizes))(*sizes)
     err = lib.qs_expand_probe(
         _ptr(sorted_key), _ptr(order), n_build, _ptr(probe), _ptr(alive),
-        n_probe, k, _ptr(rows), _ptr(counts), _ptr(overflow),
-        _blocks(n_probe, device), _stream(device))
+        n_probe, k, _ptr(scratch), ctypes.cast(c_sizes, ctypes.c_void_p),
+        len(sizes), _ptr(rows), _ptr(counts), _ptr(overflow),
+        _blocks(fence_keys(n_build), device),
+        max(1, min(-(-n_probe // FENCE_THREADS),
+                   FENCE_BLOCKS_PER_SM * _sms(device))),
+        _stream(device))
     _check(lib, err, "expand_probe")
     LAUNCHES["expand_probe"] += 1
     return rows, counts, overflow != 0

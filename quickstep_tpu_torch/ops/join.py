@@ -38,9 +38,12 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 def direct_build(key: torch.Tensor, alive: torch.Tensor, lo: int,
                  domain: int):
-    """Returns (int32 table[domain] of build row or -1, 0-d bool dup flag).
-    When keys repeat, which row wins differs between the two versions; the
-    dup flag is set then and the executor discards the table."""
+    """Returns (int32 table of build row or -1, 0-d bool dup flag). When
+    keys repeat, which row wins differs between the two versions; the dup
+    flag is set then and the executor discards the table. The plain table
+    is [domain]; the kernel's may carry a presence bitmap behind its
+    `domain` slots (ops/cuda.py direct_build), so only direct_probe reads
+    it, and direct_table gives its slots."""
     if _on_cpu(key):
         return direct_build_plain(key, alive, lo, domain)
     from quickstep_tpu_torch.ops import cuda
@@ -68,7 +71,13 @@ def direct_probe(table: torch.Tensor, key: torch.Tensor, alive: torch.Tensor,
     if _on_cpu(key):
         return direct_probe_plain(table, key, alive, lo, domain)
     from quickstep_tpu_torch.ops import cuda
-    return cuda.direct_probe(table, key.contiguous(), alive.contiguous(), lo)
+    return cuda.direct_probe(table, key.contiguous(), alive.contiguous(), lo,
+                             domain)
+
+
+def direct_table(table: torch.Tensor, domain: int) -> torch.Tensor:
+    """The int32 row table[domain] of either version's direct_build."""
+    return table[:domain]
 
 
 def direct_probe_plain(table: torch.Tensor, key: torch.Tensor,

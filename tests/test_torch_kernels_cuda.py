@@ -208,11 +208,12 @@ def test_direct_join_kernel_matches_plain(card, key_dtype, dups):
     want_table, want_dup = TJ.direct_build_plain(bkey, balive, lo, domain)
     _same(dup, want_dup, 0.0)
     assert bool(dup) == dups
+    slots = TJ.direct_table(table, domain)
     if not dups:
-        _same(table, want_table, 0.0)
+        _same(slots, want_table, 0.0)
     else:
         # which duplicate wins may differ; every other slot agrees
-        differ = (table != want_table).nonzero().flatten().tolist()
+        differ = (slots != want_table).nonzero().flatten().tolist()
         assert len(differ) <= 1
     got = TJ.direct_probe(table, pkey, palive, lo, domain)
     want = TJ.direct_probe_plain(table, pkey, palive, lo, domain)
@@ -230,9 +231,10 @@ def test_exact_filter_kernel_matches_plain(card, key_dtype):
     bkey = torch.cat([bkey, bkey[:500]])
     balive = torch.cat([balive, balive[:500]])
     bits = TB.exact_filter_build(bkey, balive, lo, domain)
-    _same(bits, TB.exact_filter_build_plain(bkey, balive, lo, domain), 0.0)
+    want = TB.exact_filter_build_plain(bkey, balive, lo, domain)
+    _same(TB.presence_bits(bits, domain), want, 0.0)
     _same(TB.exact_filter_probe(bits, pkey, palive, lo),
-          TB.exact_filter_probe_plain(bits, pkey, palive, lo), 0.0)
+          TB.exact_filter_probe_plain(want, pkey, palive, lo), 0.0)
 
 
 @pytest.mark.cuda
@@ -1209,3 +1211,249 @@ def test_k14_to_k16_public_functions_take_plain_versions_on_cpu():
     TK.scatter_compact(dest, dest, 4000)
     TB.bloom_probe(TB.bloom_build([key], alive, 64), [key], alive)
     assert not any(TC.LAUNCHES.values()), TC.LAUNCHES
+
+
+# ---------------------------------------------------------------------
+# K3's bitmap and K7's fence (the redesigned kernels)
+# ---------------------------------------------------------------------
+
+@pytest.fixture(params=("table", "bitmap"))
+def k3_route(request, monkeypatch):
+    """K3's layout forced for every domain: the row table alone, or the row
+    table with the presence bitmap behind it."""
+    monkeypatch.setattr(TC, "DIRECT_BITMAP_SLOTS",
+                        2 ** 62 if request.param == "table" else 0)
+    return request.param
+
+
+def _k3_inputs(key_dtype, domain, dups, device, n_probe=50_003, seed=61):
+    """Unique build keys over the domain and 3 slots each side of it (dead
+    rows ~20%, the domain's first key live), one live key twice when
+    `dups`; probe keys over 10 more slots each side."""
+    rng = np.random.default_rng(seed + domain)
+    lo = 1_000
+    bkey = rng.permutation(domain + 6)[:max(1, (domain + 6) // 2)] + lo - 3
+    balive = rng.random(len(bkey)) < 0.8
+    if lo not in bkey:            # a live key in a domain of one slot
+        bkey[0] = lo
+    balive[np.nonzero(bkey == lo)[0][0]] = True
+    if dups:
+        inside = int(np.nonzero((bkey >= lo) & (bkey < lo + domain))[0][0])
+        bkey = np.concatenate([bkey, bkey[inside:inside + 1]])
+        balive = np.concatenate([balive, [True]])
+        balive[inside] = True
+    pkey = rng.integers(lo - 10, lo + domain + 10, n_probe)
+    palive = rng.random(n_probe) < 0.8
+    t = [torch.from_numpy(a).to(device) for a in (bkey, balive, pkey, palive)]
+    t[0], t[2] = t[0].to(key_dtype), t[2].to(key_dtype)
+    return t + [lo]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1), ids=("aligned", "unaligned"))
+@pytest.mark.parametrize("dups", (False, True), ids=("unique", "dups"))
+@pytest.mark.parametrize("domain", (1, 31, 32, 33, 100_003))
+@pytest.mark.parametrize("key_dtype", (torch.int32, torch.int64), ids=str)
+def test_direct_join_layouts_match_plain(card, k3_route, key_dtype, domain,
+                                         dups, offset):
+    """Both layouts, bit for bit: the decoded table and the dup flag, and
+    the probe (by vectors of four rows, or one row at a time where the
+    probe's buffers start off a 16-byte boundary)."""
+    bkey, balive, pkey, palive, lo = _k3_inputs(key_dtype, domain, dups,
+                                                card)
+    table, dup = TJ.direct_build(bkey, balive, lo, domain)
+    extra = TC.bitmap_words(domain) if k3_route == "bitmap" else 0
+    assert table.shape == (domain + extra,)
+    want_table, want_dup = TJ.direct_build_plain(bkey, balive, lo, domain)
+    assert bool(dup) == bool(want_dup) == dups
+    slots = TJ.direct_table(table, domain)
+    if not dups:
+        _same(slots, want_table, 0.0)
+    else:
+        assert (slots != want_table).sum() <= 1
+    if extra:
+        _same(TB.presence_bits(table[domain:], domain), slots >= 0, 0.0)
+    pkey, palive = pkey[offset:], palive[offset:]
+    got = TJ.direct_probe(table, pkey, palive, lo, domain)
+    want = TJ.direct_probe_plain(slots, pkey, palive, lo, domain)
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+    assert 0 < int(got[1].sum()) < len(pkey)
+
+
+@pytest.mark.cuda
+def test_direct_join_at_the_domain_limit(card):
+    """2^27 slots (config.direct_join_domain_limit): the route rule takes
+    the bitmap, 16.8 MB behind a 512 MB table."""
+    domain, lo = 1 << 27, 7
+    assert TC.direct_route(domain) == TC.DIRECT_TABLE_BITS
+    gen = torch.Generator(device=card)
+    gen.manual_seed(67)
+    bkey = torch.randperm(domain, device=card, generator=gen)[:1_000_000]
+    bkey = bkey + lo
+    balive = torch.rand(len(bkey), device=card, generator=gen) < 0.8
+    pkey = torch.randint(0, domain + 20, (2_000_003,), device=card,
+                         generator=gen)
+    palive = torch.rand(len(pkey), device=card, generator=gen) < 0.8
+    table, dup = TJ.direct_build(bkey, balive, lo, domain)
+    assert table.shape == (domain + TC.bitmap_words(domain),) and not dup
+    want_table, _ = TJ.direct_build_plain(bkey, balive, lo, domain)
+    slots = TJ.direct_table(table, domain)
+    _same(slots, want_table, 0.0)
+    for g, w in zip(TJ.direct_probe(table, pkey, palive, lo, domain),
+                    TJ.direct_probe_plain(slots, pkey, palive, lo, domain)):
+        _same(g, w, 0.0)
+    words = TB.exact_filter_build(bkey, balive, lo, domain)
+    _same(TB.presence_bits(words, domain), want_table >= 0, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_build, n_probe", ((0, 5), (5, 0), (0, 0)))
+def test_direct_join_layouts_at_zero_rows(card, k3_route, n_build, n_probe):
+    key = torch.arange(n_build, dtype=torch.int32, device=card) + 4
+    probe = torch.arange(n_probe, dtype=torch.int32, device=card) + 4
+    alive = torch.ones(n_build, dtype=torch.bool, device=card)
+    palive = torch.ones(n_probe, dtype=torch.bool, device=card)
+    TC.reset_launches()
+    table, dup = TJ.direct_build(key, alive, 4, 40)
+    got = TJ.direct_probe(table, probe, palive, 4, 40)
+    assert TC.LAUNCHES["direct_join"] == (n_build > 0) + (n_probe > 0)
+    want_table, want_dup = TJ.direct_build_plain(key, alive, 4, 40)
+    _same(TJ.direct_table(table, 40), want_table, 0.0)
+    _same(dup, want_dup, 0.0)
+    for g, w in zip(got, TJ.direct_probe_plain(want_table, probe, palive, 4,
+                                               40)):
+        _same(g, w, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", (1, 31, 32, 33, 100_003))
+@pytest.mark.parametrize("key_dtype", (torch.int32, torch.int64), ids=str)
+def test_exact_filter_bitmap_matches_plain(card, key_dtype, domain):
+    """The presence bitmap alone, over a build that repeats every key four
+    times (by design: semi-join builds)."""
+    bkey, balive, pkey, palive, lo = _k3_inputs(key_dtype, domain, False,
+                                                card)
+    bkey, balive = bkey.repeat(4), balive.repeat(4)
+    words = TB.exact_filter_build(bkey, balive, lo, domain)
+    assert words.dtype == torch.int32
+    assert words.shape == (TC.bitmap_words(domain),)
+    bits = TB.exact_filter_build_plain(bkey, balive, lo, domain)
+    _same(TB.presence_bits(words, domain), bits, 0.0)
+    _same(words, TB.presence_words(bits), 0.0)
+    for offset in (0, 3):
+        _same(TB.exact_filter_probe(words, pkey[offset:], palive[offset:],
+                                    lo),
+              TB.exact_filter_probe_plain(bits, pkey[offset:],
+                                          palive[offset:], lo), 0.0)
+
+
+def test_direct_probe_refuses_a_buffer_of_another_domain():
+    key = torch.arange(4, dtype=torch.int32)
+    alive = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.direct_probe(torch.full((4,), -1, dtype=torch.int32), key, alive,
+                        0, 4)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.direct_probe(torch.zeros(1, dtype=torch.int32), key, alive, 0,
+                        presence=True)
+
+
+@pytest.mark.cuda
+def test_direct_probe_refuses_a_buffer_of_another_domain_on_card(card):
+    key = torch.arange(4, dtype=torch.int32, device=card)
+    alive = torch.ones(4, dtype=torch.bool, device=card)
+    table, _ = TC.direct_build(key, alive, 0, 64)
+    with pytest.raises(ValueError, match="no direct table"):
+        TC.direct_probe(table, key, alive, 0, 65)
+    with pytest.raises(ValueError, match="no direct table"):
+        TC.direct_probe(table, key, alive, 0)
+
+
+def _fence_inputs(n_build, device, seed=71, n_probe=20_011):
+    """Build keys in runs of 1-20 rows (runs cross leaves and fence lines),
+    shuffled, ~10% dead; probe keys on the runs, between them, below the
+    first and above the last key, and INT64_MAX; ~15% dead."""
+    rng = np.random.default_rng(seed + n_build)
+    runs = rng.integers(1, 21, n_build)
+    ends = np.cumsum(runs)
+    m = int(np.searchsorted(ends, n_build)) + 1
+    runs = runs[:m]
+    runs[-1] -= ends[m - 1] - n_build
+    base = np.cumsum(rng.integers(2, 5, m)) * 1_000_003
+    bkey = rng.permutation(np.repeat(base, runs))
+    balive = rng.random(n_build) < 0.9
+    pkey = np.concatenate([rng.choice(base, n_probe), base[:50] + 1,
+                           [base[0] - 1, base[-1] + 1,
+                            np.iinfo(np.int64).max]])
+    palive = rng.random(len(pkey)) < 0.85
+    palive[-3:] = True
+    return [torch.from_numpy(a.astype(dt)).to(device) for a, dt in
+            ((bkey, np.int64), (balive, bool), (pkey, np.int64),
+             (palive, bool))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", (1, 2, 4, 16))
+@pytest.mark.parametrize("n_build", (1, 3, 4, 5, 7, 8, 9, 300, 32_768,
+                                     32_769, 131_073, 2_000_003))
+def test_expand_probe_fence_matches_plain(card, n_build, k):
+    """Builds of one leaf (4 keys) or less, of whole and partial leaves, of
+    a top level that fills the shared memory (4 x 8,192 rows), of one level
+    more (32,769 rows), two more (131,073) and four more (2 M); every K the
+    executor asks for, with runs longer than K (the overflow flag and an
+    exact count)."""
+    bkey, balive, pkey, palive = _fence_inputs(n_build, card)
+    sorted_key, order = TJ.sorted_build(bkey, balive)
+    got = TJ.expand_probe(sorted_key, order, pkey, palive, k)
+    want = TJ.expand_probe_plain(sorted_key, order, pkey, palive, k)
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+    counts = got[1].cpu()
+    assert counts[-3:].tolist() == [0, 0, 0]
+    if n_build >= 300:
+        assert int((counts > 0).sum()) > 1000
+    if n_build >= 32_768:
+        assert bool(got[2]) and int(counts.max()) > k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_build, n_probe", ((0, 5), (5, 0), (0, 0)))
+def test_expand_probe_fence_at_zero_rows(card, n_build, n_probe):
+    key = torch.arange(n_build, dtype=torch.int64, device=card)
+    probe = torch.arange(n_probe, dtype=torch.int64, device=card)
+    sorted_key, order = TJ.sorted_build(
+        key, torch.ones(n_build, dtype=torch.bool, device=card))
+    palive = torch.ones(n_probe, dtype=torch.bool, device=card)
+    TC.reset_launches()
+    got = TJ.expand_probe(sorted_key, order, probe, palive, 4)
+    assert TC.LAUNCHES["expand_probe"] == int(n_build > 0 and n_probe > 0)
+    for g, w in zip(got, TJ.expand_probe_plain(sorted_key, order, probe,
+                                               palive, 4)):
+        _same(g, w, 0.0)
+
+
+@pytest.mark.cuda
+def test_direct_and_expand_kernels_take_no_torch_search(card, monkeypatch):
+    """On CUDA tensors K3 and K7 search, sort and gather in their own
+    kernels: torch.searchsorted, torch.sort and index_select raise."""
+    bkey, balive, pkey, palive = _fence_inputs(40_000, card)
+    sorted_key, order = TJ.sorted_build(bkey, balive)
+    want = TJ.expand_probe_plain(sorted_key, order, pkey, palive, 4)
+    k3 = _k3_inputs(torch.int32, 100_003, False, card)
+
+    def boom(*args, **kwargs):
+        raise AssertionError("a torch search, sort or gather ran")
+    for name in ("searchsorted", "sort", "index_select"):
+        monkeypatch.setattr(torch, name, boom)
+    monkeypatch.setattr(torch.Tensor, "index_select", boom)
+    got = TJ.expand_probe(sorted_key, order, pkey, palive, 4)
+    bkey3, balive3, pkey3, palive3, lo = k3
+    table, _ = TJ.direct_build(bkey3, balive3, lo, 100_003)
+    probe3 = TJ.direct_probe(table, pkey3, palive3, lo, 100_003)
+    monkeypatch.undo()
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+    for g, w in zip(probe3, TJ.direct_probe_plain(
+            TJ.direct_table(table, 100_003), pkey3, palive3, lo, 100_003)):
+        _same(g, w, 0.0)
