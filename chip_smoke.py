@@ -252,6 +252,8 @@ def phase_kernels(G):
     def case(kernel, label, k_fn, p_fn, main=False, inputs=(),
              library=None, atol=None, plain_reps=REPS, bound_bytes=None,
              decode=None):
+        """bound_bytes (or, for the main case, the bytes of inputs and
+        outputs) gives the case its bound; library only the main case."""
         got, want = k_fn(), p_fn()
         if decode is not None:     # the kernel's layout, read as the plain
             got = decode(got)
@@ -261,14 +263,15 @@ def phase_kernels(G):
         row = {"kernel": kernel, "case": label, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "main": main}
         extra = ""
-        if main:
-            if bound_bytes is None:
-                bound_bytes = nbytes(inputs) + nbytes(got)
+        if main and bound_bytes is None:
+            bound_bytes = nbytes(inputs) + nbytes(got)
+        if bound_bytes is not None:
             row["bound_ms"] = bound_bytes / HBM_BYTES_PER_S * 1e3
+            extra = f"  bound {row['bound_ms']:.3f} ms"
+        if main:
             row["library_ms"] = None if library is None else cuda_ms(library)
-            extra = f"  bound {row['bound_ms']:.3f} ms" + (
-                "" if library is None else
-                f"  library {row['library_ms']:.3f} ms")
+            extra += "" if library is None else \
+                f"  library {row['library_ms']:.3f} ms"
         rows.append(row)
         log(f"  {kernel:13s} {label:28s} err {err:.3e}  kernel {ms:8.3f} ms"
             f"  plain {plain_ms:8.3f} ms{extra}")
@@ -427,8 +430,10 @@ def phase_join_kernels(case, rng, dev):
                                             palive), main=True,
          inputs=(packed_b, b_alive, packed_p, palive),
          library=lambda: torch.searchsorted(sorted_b, packed_p))
+    k4_limit("60M probes, 100K keys", packed_b, b_alive, packed_p, palive)
     del sorted_b
     del packed_p
+    k4_partsupp(case, dev)
 
     # the sort group-by: ~N_SEGMENTS groups over N_KERNEL_ROWS rows
     gkey = torch.from_numpy(rng.integers(0, N_SEGMENTS, n)).to(dev)
@@ -450,6 +455,7 @@ def phase_join_kernels(case, rng, dev):
                  fn, change, s_alive, last, perm, v, None), main=main,
              inputs=(change, s_alive, perm, v))
     del s_key, perm, s_alive, change, last
+    k5_shapes(case, dev, money, price)
     specs = [("sum", money, None), ("avg", price, None), ("min", money, None),
              ("count", None, None)]
 
@@ -469,6 +475,80 @@ def phase_join_kernels(case, rng, dev):
     del money, price, pkey, palive
     torch.cuda.empty_cache()
     phase_new_kernels(case, rng, dev)
+
+
+def k4_limit(label, bkey, balive, pkey, palive):
+    """K4's random-sector limit: a live probe row reads one sector of each
+    fence level under the top (which is in shared memory) and of its leaf,
+    and a hit one more for its row; and the bytes those sectors lie in (the
+    fence under its top, the padded keys, the int32 rows), against the
+    card's 50 MB L2."""
+    from quickstep_tpu_torch.ops import cuda, join as J
+    nb = int(bkey.shape[0])
+    levels = len(cuda.fence_layout(nb))
+    matched = J.merge_unique_probe(bkey, balive, pkey, palive)[1]
+    live = palive & (pkey != torch.iinfo(torch.int64).max)
+    sector_limit("merge_unique_probe", label,
+                 int(live.sum()) * levels + int(matched.sum()))
+    top = cuda.fence_layout(nb)[-1]
+    mb = (cuda.fence_scratch_words(nb) - top) * 8 / 1e6
+    log(f"  {'merge_unique_probe':13s} {label}: those sectors lie in "
+        f"{mb:.1f} MB (the L2 holds 50 MB)")
+
+
+def k4_partsupp(case, dev):
+    """K4 at Q9's partsupp: 60 M live probes, each naming one of 8 M
+    range-packed (partkey, suppkey) keys; the fence has five levels. Bytes:
+    the build's keys and mask and the probe's, the outputs."""
+    from quickstep_tpu_torch.bench.kernel_ab import unique_probe_inputs
+    from quickstep_tpu_torch.ops import join as J
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    b, ba, p, pa = unique_probe_inputs("q9", N_KERNEL_ROWS, dev, gen)
+    label = "60M live probes, 8M keys (Q9)"
+    got = J.merge_unique_probe(b, ba, p, pa)
+    case("merge_unique_probe", label,
+         lambda: J.merge_unique_probe(b, ba, p, pa),
+         lambda: J.merge_unique_probe_plain(b, ba, p, pa),
+         bound_bytes=nbytes((b, ba, p, pa)) + nbytes(got))
+    k4_limit(label, b, ba, p, pa)
+
+
+def k5_shapes(case, dev, money, price):
+    """K5 at Q9's shape (175 groups over the 5.4 % of 60 M rows that are
+    live: float64 SUM, int64 MIN) and over one live group of 60 M rows
+    (SUM of float64 multiples of 1/4, whose partial sums are all exact, so
+    the kernel equals the plain version bit for bit; COUNT), twice each
+    for the bits. Bytes: s_alive and the outputs of every row, change, perm
+    and the value of each live row; the random-sector limit: a sector a
+    live row for its value through perm."""
+    from quickstep_tpu_torch.bench.kernel_ab import segment_inputs
+    from quickstep_tpu_torch.ops import cuda, groupby as G
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    exact = torch.floor(price * 4) / 4
+    for shape, cases in (("q9", (("sum", price), ("min", money))),
+                         ("one_group", (("sum", exact), ("count", None)))):
+        change, s_alive, perm, last = segment_inputs(shape, N_KERNEL_ROWS,
+                                                     dev, gen)
+        n, live = N_KERNEL_ROWS, int(s_alive.sum())
+        for fn, v in cases:
+            width = 0 if v is None else v.element_size()
+            label = f"segment {fn} {'Q9 shape' if shape == 'q9' else '1 group'}"
+
+            def k(fn=fn, v=v):
+                return cuda.segment_reduce(fn, change, s_alive, perm, v, None)
+            again = k()
+            compare(f"sort_groupby {label}, twice", again, k(), atol=0)
+            case("sort_groupby", label, k,
+                 lambda fn=fn, v=v: G._segment_reduce_plain(
+                     fn, change, s_alive, last, perm, v, None),
+                 atol=0 if shape == "one_group" else None, plain_reps=3,
+                 bound_bytes=n * (1 + width + 4) + live * (1 + 8 + width))
+            if v is not None and shape == "q9":
+                sector_limit("sort_groupby", label, live)
+        del change, s_alive, perm, last
+    del exact
 
 
 def sector_limit(kernel, label, sectors):
@@ -1515,16 +1595,25 @@ def main():
     def add(counts):
         for k, v in counts.items():
             launches[k] += v
-    add(phase_small(cuda))
+    # the one-device phases alone as well: the main path
+    one_device = dict.fromkeys(cuda.LAUNCHES, 0)
+    small = phase_small(cuda)
+    add(small)
     add(phase_small(cuda, mesh_shards=MESH_SHARDS))
-    add(phase_golden(cuda))
+    golden = phase_golden(cuda)
+    add(golden)
     large, generated, single = phase_large(cuda)
     add(large)
+    for counts in (small, golden, large):
+        for k, v in counts.items():
+            one_device[k] += v
     phase_large_mesh(cuda, generated, single, launches)
     del generated
     add(phase_dist_step(cuda))
     log("launches over the run: " + ", ".join(
         f"{k} {v}" for k, v in launches.items()))
+    log("launches on one device: " + ", ".join(
+        f"{k} {v}" for k, v in one_device.items()))
     idle = [k for k in KERNELS if not launches[k]]
     if idle:
         raise AssertionError(f"the engine never launched {idle}")
@@ -1541,6 +1630,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_one_device": one_device[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": "bytes",

@@ -1,10 +1,13 @@
-"""K3, K6, K7 and K12 at chip_smoke.py's SF10 shapes, timed in the
+"""K3, K4, K5, K6, K7 and K12 at chip_smoke.py's SF10 shapes, timed in the
 checkout it runs from, so that two checkouts can be compared on one card in
 one call: run this file from each checkout's root in turn, parent, change,
 change, parent, parent, change. It uses only the public functions both
-sides have: ops/join.py direct_build and direct_probe, sorted_build and
-expand_probe, ops/bloom.py exact_filter_build, ops/kernels.py multi_gather (with random=True where the
-checkout takes it) and ops/groupby.py distinct_count.
+sides have: ops/join.py direct_build and direct_probe, sorted_build,
+merge_unique_probe and expand_probe, ops/cuda.py sorted_probe and
+segment_reduce, ops/bloom.py exact_filter_build, ops/kernels.py
+multi_gather (with random=True where the checkout takes it) and
+ops/groupby.py distinct_count. Its input makers, segment_inputs and
+unique_probe_inputs, also feed chip_smoke.py and the card tests.
 
     python -m quickstep_tpu_torch.bench.kernel_ab
 
@@ -25,7 +28,17 @@ Cases, each timed by CUDA events (median of 10 runs after one warm-up):
 - k7_packed: the same on range-packed (partkey, suppkey) keys, each probe
   naming one partsupp row (the stale Q9's shape);
 - k7_k16: k7 at K = 16 (the executor's width after one overflow retry);
-- k12: COUNT(DISTINCT) of 60 M int32 values in [1, 2 M], all live.
+- k12: COUNT(DISTINCT) of 60 M int32 values in [1, 2 M], all live;
+- k4_q5: merge_unique_probe of 60 M probes (80 % live) into Q5's 100 K
+  range-packed (suppkey, nationkey) keys (90 % live), the build sort
+  included;
+- k4_q9: cuda.sorted_probe alone of 60 M live probes, each naming one row,
+  into 8 M range-packed (partkey, suppkey) keys (Q9's partsupp), sorted
+  outside the time;
+- k5_groups_15m: cuda.segment_reduce, SUM of int64 over 60 M rows in about
+  15 M groups (80 % live);
+- k5_q9: the same, SUM of float64 over Q9's shape: 175 groups, 5.4 % of
+  60 M rows live.
 Prints one JSON object with the times, the checkout's root and the card's
 name and power limit. It needs a CUDA card.
 """
@@ -56,6 +69,51 @@ def _ms(fn, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+INT64_MAX = 2 ** 63 - 1
+# K5's shapes: (groups, live share) over n sorted rows
+SEGMENT_SHAPES = {"groups_15m": (15_000_000, 0.8), "q9": (175, 0.054),
+                  "one_group": (1, 1.0)}
+
+
+def segment_inputs(shape: str, n: int, dev, gen):
+    """(change, s_alive, perm, last) of a sort GROUP BY over n rows of
+    SEGMENT_SHAPES[shape], as ops/groupby.py makes them: random group keys,
+    dead rows sorted last (one_group: every row live, in one group)."""
+    groups, live = SEGMENT_SHAPES[shape]
+    key = torch.randint(0, groups, (n,), device=dev, generator=gen)
+    alive = torch.rand(n, device=dev, generator=gen) < live
+    s_key, perm = torch.sort(torch.where(alive, key, INT64_MAX), stable=True)
+    s_alive = s_key != INT64_MAX
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    change = s_alive & torch.cat([one, s_key[1:] != s_key[:-1]])
+    last = s_alive & torch.cat([change[1:] | ~s_alive[1:], one])
+    return change, s_alive, perm, last
+
+
+def unique_probe_inputs(shape: str, n: int, dev, gen):
+    """(build keys, build mask, probe keys, probe mask) of K4. q5: Q5's 100 K
+    (suppkey, nationkey) keys range-packed into int64, 90 % live, and n
+    random probe keys over their range, 80 % live. q9: partsupp's 8 M
+    (partkey, suppkey) keys packed, all live, and n live probes that each
+    name one of them."""
+    if shape == "q5":
+        nk = 100_000
+        bkey = torch.arange(1, nk + 1, device=dev) * 25 + torch.randint(
+            0, 25, (nk,), device=dev, generator=gen)
+        balive = torch.rand(nk, device=dev, generator=gen) < 0.9
+        pkey = torch.randint(0, 25 * (nk + 1), (n,), device=dev,
+                             generator=gen)
+        palive = torch.rand(n, device=dev, generator=gen) < 0.8
+        return bkey, balive, pkey, palive
+    parts = torch.arange(1, 2_000_001, device=dev).repeat_interleave(4)
+    supp = (parts + torch.arange(4, device=dev).repeat(2_000_000)
+            * (25_000 + (parts - 1) // 100_000)) % 100_000 + 1
+    bkey = parts * 100_001 + supp
+    balive = torch.ones(len(bkey), dtype=torch.bool, device=dev)
+    pkey = bkey[torch.randint(0, len(bkey), (n,), device=dev, generator=gen)]
+    return bkey, balive, pkey, torch.ones(n, dtype=torch.bool, device=dev)
 
 
 def main() -> None:
@@ -102,8 +160,19 @@ def main() -> None:
         packed, torch.ones(len(packed), dtype=torch.bool, device=dev))
     pprobe = packed[torch.randint(0, len(packed), (N,), device=dev,
                                   generator=gen)]
+    q5 = unique_probe_inputs("q5", N, dev, gen)
+    q9b, q9ba, q9p, q9pa = unique_probe_inputs("q9", N, dev, gen)
+    q9sk, q9order = J.sorted_build(q9b, q9ba)
+    seg15 = segment_inputs("groups_15m", N, dev, gen)
+    seg9 = segment_inputs("q9", N, dev, gen)
     out = {
         "root": str(pathlib.Path(K.__file__).resolve().parents[2]),
+        "k4_q5_ms": _ms(lambda: J.merge_unique_probe(*q5)),
+        "k4_q9_ms": _ms(lambda: cuda.sorted_probe(q9sk, q9order, q9p, q9pa)),
+        "k5_groups_15m_ms": _ms(lambda: cuda.segment_reduce(
+            "sum", *seg15[:3], money, None)),
+        "k5_q9_ms": _ms(lambda: cuda.segment_reduce("sum", *seg9[:3], price,
+                                                    None)),
         "k3_random_ms": _ms(lambda: J.direct_probe(table, rkey, palive,
                                                    4, domain)),
         "k3_ascending_ms": _ms(lambda: J.direct_probe(table, akey, aalive, 4,

@@ -15,8 +15,9 @@ For each query it prints, on the host clock, the median time of planning
 over `2 * runs` warm runs. Then it traces `runs` calls of `run_plan` with
 torch.profiler and prints the device time per run (the kernels and copies
 that ran on the card), the share of run_plan's wall time under the profiler
-in which the card was busy, the number of device operations per run, and the
-top of the profiler's table. With --trace-dir it also writes a Chrome trace
+in which the card was busy, the number of device operations per run, the
+top of the profiler's table, and the device time of each of the port's own
+kernels (csrc/*.cu). With --trace-dir it also writes a Chrome trace
 per query there. With --mesh-shards the tables live on a mesh of N shards of
 the card (Config.distributed), where the large joins shuffle.
 """
@@ -91,8 +92,20 @@ def profile_query(db, q, runs, trace_dir=None):
           f"{device_ms:.3f} ms per run; device busy share "
           f"{device_ms / wall_ms:.3f}; {len(device) / runs:.0f} device ops "
           f"per run", flush=True)
-    print(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                    row_limit=25), flush=True)
+    averages = prof.key_averages()
+    print(averages.table(sort_by="self_cuda_time_total", row_limit=25),
+          flush=True)
+    # the port's own kernels (csrc/*.cu, in anonymous namespaces; torch's
+    # name at::), which the table's top rows may leave out
+    ns = "(anonymous namespace)::"
+    own = [e for e in averages if e.key.removeprefix("void ").startswith(ns)
+           and "at::" not in e.key and e.self_device_time_total > 0]
+    for e in sorted(own, key=lambda e: -e.self_device_time_total):
+        ms = e.self_device_time_total / 1000 / runs
+        name = e.key.split(ns, 1)[1].split("(")[0]
+        print(f"{label}: kernel {name}: {ms:.3f} ms per run, "
+              f"{ms / device_ms:.3f} of device time, {e.count / runs:g} "
+              "launches per run", flush=True)
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(

@@ -13,9 +13,9 @@
 // quickstep_tpu/ops/groupby.py:204 sort_groupby (:146 _seg_fill, :187
 // _seg_minmax32 and the prefix-sum differences); the sort itself is
 // torch.sort. The TPU formulation (packed cummax scans, differences of
-// prefix sums) existed because TPU gathers and scatters are slow; here the
-// thread at a group's first row sums the group directly, which also makes
-// float64 sums more exact than the reference's.
+// prefix sums) existed because TPU gathers and scatters are slow; here each
+// group is reduced directly from its rows, which also makes float64 sums
+// more exact than the reference's.
 //
 // What bounds them on an H100: bytes read from device memory. Each row is
 // touched once; per row the scalar reduce reads 1 byte of live mask, 1 byte
@@ -28,58 +28,21 @@
 // launch folds the partials in a fixed order.
 //
 // Results: integer sums, counts, minima and maxima are exact. The scalar
-// reduce is deterministic (fixed grid, fixed shuffle tree). The group-by's
+// reduce and the segmented reduce are deterministic (fixed tiles, fixed
+// shuffle trees, carries combined in a fixed order). The group-by's
 // floating-point sums go through shared-memory atomics, whose order varies
 // from run to run, so they may differ in the last bits between runs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "seg_device.cuh"
 
 namespace {
-
-enum Fn { kSum = 0, kCount = 1, kMin = 2, kMax = 3 };
-enum DType { kI32 = 0, kI64 = 1, kF32 = 2, kF64 = 3 };
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDomain = 128;
-
-template <typename A> __device__ __forceinline__ A lowest();
-template <typename A> __device__ __forceinline__ A highest();
-template <> __device__ __forceinline__ int lowest<int>() { return INT32_MIN; }
-template <> __device__ __forceinline__ int highest<int>() { return INT32_MAX; }
-template <> __device__ __forceinline__ long long lowest<long long>() { return INT64_MIN; }
-template <> __device__ __forceinline__ long long highest<long long>() { return INT64_MAX; }
-template <> __device__ __forceinline__ float lowest<float>() { return __uint_as_float(0xff800000u); }
-template <> __device__ __forceinline__ float highest<float>() { return __uint_as_float(0x7f800000u); }
-template <> __device__ __forceinline__ double lowest<double>() { return __longlong_as_double((long long)0xfff0000000000000ULL); }
-template <> __device__ __forceinline__ double highest<double>() { return __longlong_as_double(0x7ff0000000000000LL); }
-
-// The identity of each reduction: 0 for sums and counts, the reference's
-// max/min sentinels (ops/kernels.py:175-196) for MIN/MAX.
-template <int FN, typename A>
-__device__ __forceinline__ A identity() {
-  if constexpr (FN == kMin) return highest<A>();
-  else if constexpr (FN == kMax) return lowest<A>();
-  else return A(0);
-}
-
-template <typename A>
-__device__ __forceinline__ bool is_nan(A x) {
-  if constexpr (std::is_floating_point<A>::value) return x != x;
-  else return false;
-}
-
-// MIN/MAX let a NaN win, as jnp.min/jnp.max and torch's min/max do.
-template <int FN, typename A>
-__device__ __forceinline__ A combine(A a, A b) {
-  if constexpr (FN == kMin) return (b < a || is_nan(b)) ? b : a;
-  else if constexpr (FN == kMax) return (b > a || is_nan(b)) ? b : a;
-  else if constexpr (FN == kSum) return a + b;
-  else return a;
-}
 
 // Block-wide reduction of (value, count): warp shuffles, one slot per warp in
 // shared memory, then the first warp. The result is valid in thread 0.
@@ -301,47 +264,269 @@ dense_group_final(const A* __restrict__ part_val,
 // ---------------------------------------------------------------------
 // K5: segmented reduce over key-sorted rows (sort GROUP BY). Row i of the
 // sorted order holds input row perm[i]; live rows form a prefix (s_alive)
-// and change[i] marks the first row of each group. The thread that owns a
-// group's first row walks the group, reading the values through perm (no
-// sorted copy of the payload is materialised), and writes the group's
-// result and live non-null count at its LAST row; every other row gets 0.
-// Deterministic: a group is summed by one thread in sorted (stable) order.
-// Slow when one group is huge (one thread walks it); TPC-H's groups are
-// short.
+// and change[i] marks the first row of each group. Each group's result and
+// live non-null count go to its LAST row; every other row gets 0. A dead
+// row ends the group before it, as the end of the live prefix does.
+//
+// What bounds it: the streams (change, s_alive, perm in; the result and
+// the count out) and one random read of the value (and of its validity) a
+// live row, through perm. One thread walking a whole group would turn a
+// large group into serial latency (Q9's 175 groups over 3 M live rows), so
+// the rows are cut by position, not by group: a block takes a tile of
+// kSegTile sorted rows, kSegItems consecutive rows a thread, loads their
+// flags and perm by vector loads, issues all of its rows' gathers before it
+// uses any, and reduces the tile with head flags in a fixed order:
+// serially within a thread, then the block's shuffle scan
+// (seg_device.cuh). Every group that starts and ends inside the tile gets
+// its result there. A tile past the live prefix writes its zeros and
+// leaves at once. Eight rows a thread (107 registers at sixteen, two
+// blocks an SM) measured best over the three shapes of PERF.md §6. Each tile also writes a carry: the value and count of
+// the group open at its end, whether a group starts inside it, and, where
+// the group open at its start ends inside it, that row and the tile's part
+// of the group. A second launch, one block, scans the tiles' carries in
+// tile order and completes the result at those rows. No decoupled
+// look-back: the order of combination never depends on timing, so float
+// sums repeat bit for bit.
 // ---------------------------------------------------------------------
+constexpr int kSegItems = 8;                                  // rows a thread
+constexpr int64_t kSegTile = (int64_t)kThreads * kSegItems;   // rows a block
+constexpr int kCarryThreads = 1024;
+
+// The carries of the tiles, carved out of the wrapper's scratch of five
+// int64 words a tile (ops/cuda.py segment_scratch_words).
+template <typename A>
+struct TileCarry {
+  A* v;              // the value since the tile's last group start
+  long long* c;      // the live non-null rows since then
+  A* fix_v;          // the tile's part of the group open at its start
+  long long* fix_c;
+  int* f;            // a group (or a dead row) starts inside the tile
+  int* fix_at;       // that group's last row, from the tile's start; -1
+};
+
+template <typename A>
+__host__ TileCarry<A> carve_carry(void* scratch, int64_t ntiles) {
+  long long* w = (long long*)scratch;
+  TileCarry<A> t;
+  t.v = (A*)w;
+  t.c = w + ntiles;
+  t.fix_v = (A*)(w + 2 * ntiles);
+  t.fix_c = w + 3 * ntiles;
+  t.f = (int*)(w + 4 * ntiles);
+  t.fix_at = t.f + ntiles;
+  return t;
+}
+
+// The kSegItems bytes of a 0/1 flag array at row r: one 8-byte load where
+// the tile is whole, else the rows below n and `pad` past them.
+__device__ __forceinline__ void load_flags(const uint8_t* __restrict__ a,
+                                           int64_t r, int64_t n, bool whole,
+                                           uint8_t pad,
+                                           uint8_t (&out)[kSegItems]) {
+  static_assert(kSegItems == 8, "one uint2 of flags a thread");
+  if (whole) {
+    const uint2 v = __ldcs(reinterpret_cast<const uint2*>(a + r));
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      out[j] = ((j < 4 ? v.x : v.y) >> (8 * (j & 3))) & 0xff;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) out[j] = r + j < n ? a[r + j] : pad;
+  }
+}
+
+template <typename O>
+__device__ __forceinline__ long long bits64(O x) {
+  if constexpr (std::is_same<O, double>::value) return __double_as_longlong(x);
+  else return (long long)x;
+}
+
+template <typename O>
+__device__ __forceinline__ int bits32(O x) {
+  if constexpr (std::is_same<O, float>::value) return __float_as_int(x);
+  else return (int)x;
+}
+
+// kSegItems values of 4 or 8 bytes from row r: 16-byte streaming stores
+// where the tile is whole, else the rows below n.
+template <typename O>
+__device__ __forceinline__ void store_items(O* __restrict__ p, int64_t r,
+                                            int64_t n, bool whole,
+                                            const O (&x)[kSegItems]) {
+  if (!whole) {
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      if (r + j < n) p[r + j] = x[j];
+    }
+  } else if constexpr (sizeof(O) == 8) {
+#pragma unroll
+    for (int q = 0; q < kSegItems / 2; ++q) {
+      longlong2 w;
+      w.x = bits64(x[2 * q]);
+      w.y = bits64(x[2 * q + 1]);
+      __stcs(reinterpret_cast<longlong2*>(p + r) + q, w);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kSegItems / 4; ++q) {
+      __stcs(reinterpret_cast<int4*>(p + r) + q,
+             make_int4(bits32(x[4 * q]), bits32(x[4 * q + 1]),
+                       bits32(x[4 * q + 2]), bits32(x[4 * q + 3])));
+    }
+  }
+}
+
+// First launch: one block a tile of kSegTile rows.
 template <int FN, typename T, typename A, typename O>
 __global__ void __launch_bounds__(kThreads)
-segment_reduce_kernel(const uint8_t* __restrict__ change,
-                      const uint8_t* __restrict__ s_alive,
-                      const long long* __restrict__ perm, int64_t n,
-                      const T* __restrict__ vals,
-                      const uint8_t* __restrict__ valid,
-                      O* __restrict__ out_val, int* __restrict__ out_nn) {
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    if (!s_alive[i]) {
-      if constexpr (FN != kCount) out_val[i] = O(0);
-      out_nn[i] = 0;
-      continue;
+segment_tile_kernel(const uint8_t* __restrict__ change,
+                    const uint8_t* __restrict__ s_alive,
+                    const long long* __restrict__ perm, int64_t n,
+                    const T* __restrict__ vals,
+                    const uint8_t* __restrict__ valid,
+                    O* __restrict__ out_val, int* __restrict__ out_nn,
+                    TileCarry<A> carry) {
+  __shared__ int s_fix;
+  const SegOp<FN, A> op;
+  const Seg<A> id = {0, identity<FN, A>(), 0};
+  const int64_t tile0 = (int64_t)blockIdx.x * kSegTile;
+  const int64_t r0 = tile0 + (int64_t)threadIdx.x * kSegItems;
+  const bool whole = r0 + kSegItems <= n;
+  if (threadIdx.x == 0) s_fix = -1;
+
+  uint8_t live[kSegItems], head[kSegItems];
+  load_flags(s_alive, r0, n, whole, 0, live);
+  load_flags(change, r0, n, whole, 1, head);
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < kSegItems; ++j) {
+    head[j] = head[j] || !live[j];
+    any = any || live[j];
+  }
+  // a tile with no live row (past the live prefix): zeros, and a carry
+  // that starts a group
+  if (!__syncthreads_or(any)) {
+    O res[kSegItems];
+    int cnt[kSegItems];
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      res[j] = O(0);
+      cnt[j] = 0;
     }
-    if (!change[i]) continue;  // written by the walker of its group
-    A acc = identity<FN, A>();
-    int nn = 0;
-    int64_t j = i;
-    while (true) {
-      const long long r = perm[j];
-      if (valid == nullptr || valid[r]) {
-        nn += 1;
-        if constexpr (FN != kCount) acc = combine<FN, A>(acc, (A)vals[r]);
+    if constexpr (FN != kCount) store_items(out_val, r0, n, whole, res);
+    store_items(out_nn, r0, n, whole, cnt);
+    if (threadIdx.x == 0) {
+      carry.f[blockIdx.x] = 1;
+      carry.v[blockIdx.x] = identity<FN, A>();
+      carry.c[blockIdx.x] = 0;
+      carry.fix_at[blockIdx.x] = -1;
+    }
+    return;
+  }
+  // every gather of the thread's rows is issued before any is used; a NULL
+  // row takes the identity
+  A x[kSegItems];
+  bool ok[kSegItems];
+#pragma unroll
+  for (int j = 0; j < kSegItems; ++j) {
+    x[j] = identity<FN, A>();
+    ok[j] = false;
+  }
+  if (any) {
+    long long p[kSegItems];
+    if (whole) {
+#pragma unroll
+      for (int q = 0; q < kSegItems / 2; ++q) {
+        const longlong2 v =
+            __ldcs(reinterpret_cast<const longlong2*>(perm + r0) + q);
+        p[2 * q] = v.x;
+        p[2 * q + 1] = v.y;
       }
-      if (j + 1 >= n || !s_alive[j + 1] || change[j + 1]) break;
-      if constexpr (FN != kCount) out_val[j] = O(0);
-      out_nn[j] = 0;
-      ++j;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kSegItems; ++j) p[j] = live[j] ? perm[r0 + j] : 0;
     }
-    if constexpr (FN != kCount) out_val[j] = (O)acc;
-    out_nn[j] = nn;
+#pragma unroll
+    for (int j = 0; j < kSegItems; ++j) {
+      ok[j] = live[j] && (valid == nullptr || __ldg(valid + p[j]));
+      if constexpr (FN != kCount) {
+        x[j] = live[j] ? (A)__ldg(vals + p[j]) : identity<FN, A>();
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kSegItems; ++j) {
+    if (!ok[j]) x[j] = identity<FN, A>();
+  }
+  Seg<A> s = id;
+#pragma unroll
+  for (int j = 0; j < kSegItems; ++j) {
+    s = op(s, Seg<A>{head[j], x[j], ok[j] ? 1 : 0});
+  }
+  Seg<A> total;
+  Seg<A> cur = block_exclusive_scan<kThreads>(s, id, op, total);
+
+  // whether the row after the thread's last starts a group (or is past n)
+  int after = __shfl_down_sync(kFull, (int)head[0], 1);
+  if ((threadIdx.x & 31) == 31) {
+    const int64_t r = r0 + kSegItems;
+    after = r >= n || change[r] || !s_alive[r];
+  }
+  O res[kSegItems];
+  int cnt[kSegItems];
+#pragma unroll
+  for (int j = 0; j < kSegItems; ++j) {
+    cur = op(cur, Seg<A>{head[j], x[j], ok[j] ? 1 : 0});
+    const bool last = live[j] && (j + 1 < kSegItems ? head[j + 1] : after);
+    res[j] = last ? (O)cur.v : O(0);
+    cnt[j] = last ? (int)cur.c : 0;
+    if (last && !cur.f) {
+      // the group open at the tile's start ends here: the carry completes it
+      s_fix = (int)(r0 + j - tile0);
+      carry.fix_v[blockIdx.x] = cur.v;
+      carry.fix_c[blockIdx.x] = cur.c;
+    }
+  }
+  if constexpr (FN != kCount) store_items(out_val, r0, n, whole, res);
+  store_items(out_nn, r0, n, whole, cnt);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    carry.f[blockIdx.x] = total.f;
+    carry.v[blockIdx.x] = total.v;
+    carry.c[blockIdx.x] = total.c;
+    carry.fix_at[blockIdx.x] = s_fix;
+  }
+}
+
+// Second launch, one block: the carry into each tile (the value and count
+// of the group open at its start, from the tiles before it), scanned in
+// tile order, completes the result at the tile's fix row.
+template <int FN, typename A, typename O>
+__global__ void __launch_bounds__(kCarryThreads)
+segment_carry_kernel(TileCarry<A> carry, int64_t ntiles,
+                     O* __restrict__ out_val, int* __restrict__ out_nn) {
+  const SegOp<FN, A> op;
+  const Seg<A> id = {0, identity<FN, A>(), 0};
+  const int64_t per = (ntiles + kCarryThreads - 1) / kCarryThreads;
+  const int64_t t0 = (int64_t)threadIdx.x * per;
+  const int64_t t1 = t0 + per < ntiles ? t0 + per : ntiles;
+  Seg<A> s = id;
+  for (int64_t t = t0; t < t1; ++t) {
+    s = op(s, Seg<A>{carry.f[t], carry.v[t], carry.c[t]});
+  }
+  Seg<A> total;
+  Seg<A> cur = block_exclusive_scan<kCarryThreads>(s, id, op, total);
+  for (int64_t t = t0; t < t1; ++t) {
+    const int at = carry.fix_at[t];
+    if (at >= 0) {
+      const int64_t e = t * kSegTile + at;
+      if constexpr (FN != kCount) {
+        out_val[e] = (O)combine<FN, A>(cur.v, carry.fix_v[t]);
+      }
+      out_nn[e] = (int)(cur.c + carry.fix_c[t]);
+    }
+    cur = op(cur, Seg<A>{carry.f[t], carry.v[t], carry.c[t]});
   }
 }
 
@@ -349,11 +534,18 @@ template <int FN, typename T, typename A, typename O>
 cudaError_t launch_segment_reduce(const void* change, const void* s_alive,
                                   const void* perm, int64_t n,
                                   const void* vals, const void* valid,
-                                  void* out_val, void* out_nn, int blocks,
+                                  void* out_val, void* out_nn, void* scratch,
                                   cudaStream_t stream) {
-  segment_reduce_kernel<FN, T, A, O><<<blocks, kThreads, 0, stream>>>(
+  const int64_t ntiles = (n + kSegTile - 1) / kSegTile;
+  const TileCarry<A> carry = carve_carry<A>(scratch, ntiles);
+  segment_tile_kernel<FN, T, A, O><<<(unsigned)ntiles, kThreads, 0, stream>>>(
       (const uint8_t*)change, (const uint8_t*)s_alive, (const long long*)perm,
-      n, (const T*)vals, (const uint8_t*)valid, (O*)out_val, (int*)out_nn);
+      n, (const T*)vals, (const uint8_t*)valid, (O*)out_val, (int*)out_nn,
+      carry);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  segment_carry_kernel<FN, A, O><<<1, kCarryThreads, 0, stream>>>(
+      carry, ntiles, (O*)out_val, (int*)out_nn);
   return cudaGetLastError();
 }
 
@@ -435,13 +627,15 @@ int qs_dense_group_reduce(int fn, int dtype, const void* idx, const void* vals,
               (cudaStream_t)stream)
 }
 
+// change, s_alive and perm 16-byte aligned; scratch of 5 int64 words a tile
+// of kSegTile rows (ops/cuda.py segment_scratch_words).
 int qs_segment_reduce(int fn, int dtype, const void* change,
                       const void* s_alive, const void* perm, int64_t n,
                       const void* vals, const void* valid, void* out_val,
-                      void* out_nn, int blocks, void* stream) {
+                      void* out_nn, void* scratch, void* stream) {
   if (n == 0) return cudaSuccess;
   QS_DISPATCH(launch_segment_reduce, change, s_alive, perm, n, vals, valid,
-              out_val, out_nn, blocks, (cudaStream_t)stream)
+              out_val, out_nn, scratch, (cudaStream_t)stream)
 }
 
 const char* qs_error_string(int err) {

@@ -30,10 +30,15 @@
 // read-back gather to find duplicates) becomes an atomicCAS: a row that finds
 // its slot taken by another row is the duplicate.
 //
-// The sorted probe is one thread per probe row binary-searching the lower
-// bound of its key in the sorted build keys (log2(n) dependent reads, most of
-// them in L2 for a build side of 100 K keys). The reference's concatenated
-// merge sort existed only because TPU gathers are slow.
+// qs_sorted_probe (K4) searches the fence that K7 builds (below): a first
+// launch packs the sorted keys, the rows as int32 and the fence levels, and
+// sets the dup flag from adjacent sorted keys; the second takes four probe
+// rows a thread by streaming vector accesses (K3's), searches the top level
+// in shared memory for the four together, then reads one sector of 4 keys a
+// level down to the leaf, and one int32 row on a hit: at 100 K build keys
+// two sectors and a row where a binary search over the keys makes 17
+// dependent reads and an int64 one. The reference's concatenated merge sort
+// existed only because TPU gathers are slow.
 //
 // qs_expand_probe replaces quickstep_tpu/ops/join.py:228 expand_probe (and
 // the (start, count) of :189 merge_starts). A binary search over the sorted
@@ -274,17 +279,22 @@ __host__ __device__ constexpr int64_t padded_keys(int64_t n_build) {
   return round_up(n_build, kLeafKeys) + 2 * kLeafKeys;
 }
 
-// K7, first launch: the padded keys, the int32 rows and the fence.
+// K7's and K4's first launch: the padded keys, the int32 rows and the
+// fence; with dup (K4), *dup = 1 where two live sorted keys are equal.
 __global__ void __launch_bounds__(kThreads)
 fence_pack_kernel(const long long* __restrict__ sorted_key,
                   const long long* __restrict__ order, int64_t n_build,
                   long long* __restrict__ keys, int* __restrict__ rows,
-                  Fence f) {
+                  Fence f, int* __restrict__ dup) {
   const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   const int64_t padded = padded_keys(n_build);
   for (int64_t i = tid; i < padded; i += stride) {
     const long long key = i < n_build ? sorted_key[i] : kDeadKey;
+    if (dup != nullptr && i + 1 < n_build && key != kDeadKey &&
+        key == sorted_key[i + 1]) {
+      *dup = 1;
+    }
     keys[i] = key;
     rows[i] = i < n_build ? (int)order[i] : -1;
     if (i >= n_build || i % kLeafKeys) continue;
@@ -349,6 +359,62 @@ __device__ __forceinline__ T pick(const T (&a)[N], int i) {
 #pragma unroll
   for (int t = 1; t < N; ++t) x = i == t ? a[t] : x;
   return x;
+}
+
+// K4's descent, which also carries the key at the lower bound down, so that
+// no load is spent on it, and searches the four rows of a thread in
+// lockstep (K7 keeps its own, above: sharing this one cost its probe about
+// 1 % in kernel_ab). One level down: c counts the keys of the level above
+// below k, and next is the first of them >= k. Every key before node c - 1 of this level is below
+// k (it is at most key c - 1 above, which is), every key from node c on is
+// not, so the count here is the node's start plus its keys below k; one
+// sector. Where the node holds no key >= k, the first such key is key c of
+// the level above (each level holds every kFanout-th key of the one below),
+// which is next already.
+__device__ __forceinline__ void fence_step(const long long* __restrict__ level,
+                                           int64_t& c, long long& next,
+                                           long long k) {
+  const int64_t base = (c > 0 ? c - 1 : 0) * kFanout;
+  const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(level + base));
+  const longlong2 b =
+      __ldg(reinterpret_cast<const longlong2*>(level + base) + 1);
+  const long long w[kFanout] = {a.x, a.y, b.x, b.y};
+  const int below = (w[0] < k) + (w[1] < k) + (w[2] < k) + (w[3] < k);
+  c = base + below;
+  if (below < kFanout) next = pick(w, below);
+}
+
+// The count c of level-0 keys below each of R keys, and next, the first
+// level-0 key >= it (kDeadKey past the end): a branchless lower bound over
+// the top level in shared memory, the same steps for every key, then one
+// fence_step a level, the R rows' loads of a level issued together. Rows
+// that are not live load nothing.
+template <int R>
+__device__ __forceinline__ void fence_descend(const long long* top,
+                                              int64_t n_top, const Fence& f,
+                                              const long long (&k)[R],
+                                              const bool (&live)[R],
+                                              int64_t (&c)[R],
+                                              long long (&next)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) c[r] = 0;
+  for (int64_t len = n_top; len > 1;) {
+    const int64_t half = len >> 1;
+#pragma unroll
+    for (int r = 0; r < R; ++r) c[r] = top[c[r] + half] < k[r] ? c[r] + half : c[r];
+    len -= half;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    c[r] += top[c[r]] < k[r];
+    next[r] = c[r] < n_top ? top[c[r]] : kDeadKey;
+  }
+  for (int l = f.levels - 2; l >= 0; --l) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (live[r]) fence_step(f.level[l], c[r], next[r], k[r]);
+    }
+  }
 }
 
 // K7, second launch: the run [lb, lb + count) of every live probe row's key;
@@ -462,44 +528,71 @@ expand_probe_kernel(const long long* __restrict__ keys,
   }
 }
 
-// K4: for each live probe row, the first build row (in stable sorted order)
-// whose key equals the probe key; dead build rows carry INT64_MAX and never
-// match. Threads below n_build - 1 also test their adjacent sorted pair and
-// raise *dup when two live build keys are equal.
-__global__ void __launch_bounds__(kThreads)
-sorted_probe_kernel(const long long* __restrict__ sorted_key,
-                    const long long* __restrict__ order, int64_t n_build,
+// K4, second launch: for each live probe row, the first build row (in
+// stable sorted order) whose key equals the probe key; dead probe rows and
+// the dead key match nothing. The fence gives the lower bound and the key
+// there (fence_descend, then fence_step over the leaf), and a hit reads one
+// int32 row. Four rows a thread in lockstep (VEC: by K3's vector loads and
+// stores), then the rows past the last group of four one at a time.
+template <int R>
+__device__ __forceinline__ void unique_lookup(const long long* top,
+                                              int64_t n_top, const Fence& f,
+                                              const long long* __restrict__ keys,
+                                              const int* __restrict__ rows,
+                                              const long long (&k)[R],
+                                              const bool (&live)[R],
+                                              int (&b)[R], bool (&hit)[R]) {
+  int64_t c[R];
+  long long at[R];
+  fence_descend<R>(top, n_top, f, k, live, c, at);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (live[r]) fence_step(keys, c[r], at[r], k[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) hit[r] = live[r] && at[r] == k[r];
+#pragma unroll
+  for (int r = 0; r < R; ++r) b[r] = hit[r] ? __ldg(rows + c[r]) : -1;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kProbeThreads, 2)
+unique_probe_kernel(const long long* __restrict__ keys,
+                    const int* __restrict__ build_rows, Fence f,
                     const long long* __restrict__ probe,
                     const uint8_t* __restrict__ pmask, int64_t n_probe,
-                    int* __restrict__ bidx, uint8_t* __restrict__ matched,
-                    int* __restrict__ dup) {
-  const long long kDead = INT64_MAX;
-  const int64_t total = n_probe > n_build ? n_probe : n_build;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < total;
-       i += stride) {
-    if (i + 1 < n_build && sorted_key[i] != kDead &&
-        sorted_key[i] == sorted_key[i + 1]) {
-      atomicExch(dup, 1);
+                    int* __restrict__ bidx, uint8_t* __restrict__ matched) {
+  extern __shared__ long long top[];
+  const int64_t n_top = f.size[f.levels - 1];
+  for (int t = threadIdx.x; t < n_top; t += kProbeThreads) {
+    top[t] = f.level[f.levels - 1][t];
+  }
+  __syncthreads();
+  const int64_t tid = (int64_t)blockIdx.x * kProbeThreads + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * kProbeThreads;
+  int64_t first = 0;
+  if constexpr (VEC) {
+    const int64_t groups = n_probe / 4;
+    for (int64_t g = tid; g < groups; g += stride) {
+      long long k[4];
+      bool live[4], hit[4];
+      int b[4];
+      load_rows<long long, 4>(probe, pmask, 4 * g, k, live);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) live[r] = live[r] && k[r] != kDeadKey;
+      unique_lookup<4>(top, n_top, f, keys, build_rows, k, live, b, hit);
+      store_rows<kTable, 4>(bidx, matched, 4 * g, b, hit);
     }
-    if (i >= n_probe) continue;
-    const long long k = probe[i];
-    bool hit = false;
-    int b = -1;
-    if (pmask[i] && k != kDead) {
-      int64_t lo = 0, hi = n_build;        // lower bound in [lo, hi)
-      while (lo < hi) {
-        const int64_t mid = lo + ((hi - lo) >> 1);
-        if (sorted_key[mid] < k) lo = mid + 1;
-        else hi = mid;
-      }
-      if (lo < n_build && sorted_key[lo] == k) {
-        hit = true;
-        b = (int)order[lo];
-      }
-    }
-    matched[i] = hit;
-    bidx[i] = b;
+    first = 4 * groups;
+  }
+  for (int64_t i = first + tid; i < n_probe; i += stride) {
+    long long k[1];
+    bool live[1], hit[1];
+    int b[1];
+    load_rows<long long, 1>(probe, pmask, i, k, live);
+    live[0] = live[0] && k[0] != kDeadKey;
+    unique_lookup<1>(top, n_top, f, keys, build_rows, k, live, b, hit);
+    store_rows<kTable, 1>(bidx, matched, i, b, hit);
   }
 }
 
@@ -594,6 +687,27 @@ enum KeyType { kKeyI32 = 0, kKeyI64 = 1 };
 
 bool aligned(const void* p, uintptr_t bytes) {
   return ((uintptr_t)p & (bytes - 1)) == 0;
+}
+
+// K4's and K7's scratch, cut into the padded keys, the int32 rows and the
+// fence levels; false where the layout is not one fence_layout makes.
+bool carve_fence(void* scratch, int64_t n_build, const int64_t* level_sizes,
+                 int levels, long long*& keys, int*& rows, Fence& f) {
+  if (levels < 1 || levels > kMaxLevels ||
+      level_sizes[levels - 1] > kTopKeys) {
+    return false;
+  }
+  const int64_t padded = padded_keys(n_build);
+  keys = (long long*)scratch;
+  rows = (int*)(keys + padded);
+  long long* at = keys + padded + round_up(padded, 2 * kLeafKeys) / 2;
+  f.levels = levels;
+  for (int l = 0; l < kMaxLevels; ++l) {
+    f.level[l] = l < levels ? at : nullptr;
+    f.size[l] = l < levels ? level_sizes[l] : 0;
+    if (l < levels) at += round_up(level_sizes[l], kFanout);
+  }
+  return true;
 }
 
 template <int MODE>
@@ -694,22 +808,45 @@ int qs_direct_probe(int key_type, int mode, const void* key,
   }
 }
 
-int qs_sorted_probe(const void* sorted_key, const void* order, int64_t n_build,
-                    const void* probe, const void* pmask, int64_t n_probe,
-                    void* bidx, void* matched, void* dup, int blocks,
-                    void* stream) {
-  if (n_build == 0 && n_probe == 0) return cudaSuccess;
-  sorted_probe_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)sorted_key, (const long long*)order, n_build,
-      (const long long*)probe, (const uint8_t*)pmask, n_probe, (int*)bidx,
-      (uint8_t*)matched, (int*)dup);
-  return cudaGetLastError();
-}
-
 // scratch (int64 words): the keys, round4(n_build) + 8 of them; the int32
 // rows, as many, rounded up to whole sectors; then each fence level's
 // level_sizes[l] keys rounded up to a multiple of 4 (ops/cuda.py
 // fence_layout, fence_scratch_words). The top level holds at most 8,192.
+// With n_probe 0 the first launch alone runs (the dup flag).
+int qs_sorted_probe(const void* sorted_key, const void* order, int64_t n_build,
+                    const void* probe, const void* pmask, int64_t n_probe,
+                    void* scratch, const int64_t* level_sizes, int levels,
+                    void* bidx, void* matched, void* dup, int pack_blocks,
+                    int blocks, void* stream) {
+  if (n_build == 0) return cudaSuccess;
+  Fence f;
+  long long* keys;
+  int* build_rows;
+  if (!carve_fence(scratch, n_build, level_sizes, levels, keys, build_rows,
+                   f)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  fence_pack_kernel<<<pack_blocks, kThreads, 0, s>>>(
+      (const long long*)sorted_key, (const long long*)order, n_build, keys,
+      build_rows, f, (int*)dup);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_probe == 0) return err;
+  const bool vec = aligned(probe, 16) && aligned(pmask, 4) &&
+                   aligned(bidx, 16) && aligned(matched, 4);
+  auto kernel = vec ? unique_probe_kernel<true> : unique_probe_kernel<false>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kTopKeys * (int)sizeof(long long));
+  if (err != cudaSuccess) return err;
+  const int shared = (int)(level_sizes[levels - 1] * sizeof(long long));
+  kernel<<<blocks, kProbeThreads, shared, s>>>(
+      keys, build_rows, f, (const long long*)probe, (const uint8_t*)pmask,
+      n_probe, (int*)bidx, (uint8_t*)matched);
+  return cudaGetLastError();
+}
+
+// scratch and level_sizes as for qs_sorted_probe.
 int qs_expand_probe(const void* sorted_key, const void* order,
                     int64_t n_build, const void* probe, const void* alive,
                     int64_t n_probe, int k, void* scratch,
@@ -717,25 +854,17 @@ int qs_expand_probe(const void* sorted_key, const void* order,
                     void* counts, void* overflow, int pack_blocks,
                     int blocks, void* stream) {
   if (n_probe == 0 || n_build == 0) return cudaSuccess;
-  if (k < 1 || levels < 1 || levels > kMaxLevels ||
-      level_sizes[levels - 1] > kTopKeys) {
+  Fence f;
+  long long* keys;
+  int* build_rows;
+  if (k < 1 || !carve_fence(scratch, n_build, level_sizes, levels, keys,
+                            build_rows, f)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  const int64_t padded = padded_keys(n_build);
-  long long* keys = (long long*)scratch;
-  int* build_rows = (int*)(keys + padded);
-  long long* at = keys + padded + round_up(padded, 2 * kLeafKeys) / 2;
-  Fence f;
-  f.levels = levels;
-  for (int l = 0; l < kMaxLevels; ++l) {
-    f.level[l] = l < levels ? at : nullptr;
-    f.size[l] = l < levels ? level_sizes[l] : 0;
-    if (l < levels) at += round_up(level_sizes[l], kFanout);
-  }
   fence_pack_kernel<<<pack_blocks, kThreads, 0, s>>>(
       (const long long*)sorted_key, (const long long*)order, n_build, keys,
-      build_rows, f);
+      build_rows, f, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int shared = (int)(level_sizes[levels - 1] * sizeof(long long));

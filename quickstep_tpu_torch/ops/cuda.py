@@ -151,12 +151,13 @@ def build() -> ctypes.CDLL:
             "qs_masked_reduce": [i32, i32, p, p, p, i64, p, p, i32, p, p, p],
             "qs_dense_group_reduce": [i32, i32, p, p, p, p, i64, i32, p, p, p,
                                       i32, p, p, p, p],
-            "qs_segment_reduce": [i32, i32, p, p, p, i64, p, p, p, p, i32, p],
+            "qs_segment_reduce": [i32, i32, p, p, p, i64, p, p, p, p, p, p],
             "qs_direct_build": [i32, i32, p, p, i64, i64, i64, p, p, p, i32,
                                 p],
             "qs_direct_probe": [i32, i32, p, p, i64, i64, i64, p, p, p, p,
                                 i32, p],
-            "qs_sorted_probe": [p, p, i64, p, p, i64, p, p, p, i32, p],
+            "qs_sorted_probe": [p, p, i64, p, p, i64, p, p, i32, p, p, p, i32,
+                                i32, p],
             "qs_multi_gather": [i32, p, p, p, i64, p, i32, i64, i32, p],
             "qs_packed_gather": [i32, p, p, p, p, i32, i64, p, p, i32, i64,
                                  i32, p],
@@ -361,6 +362,23 @@ def _rows(n: int, what: str) -> None:
         raise ValueError(f"{what}: {n} rows overflow the kernel's int32 row ids")
 
 
+# K5's tile (kSegTile in csrc/agg_kernels.cu): each block reduces this many
+# sorted rows and leaves one carry; a one-block launch combines the carries.
+SEGMENT_TILE = 256 * 8
+
+
+def segment_scratch_words(n: int) -> int:
+    """int64 words of K5's scratch: five a tile (the carry's value and
+    count, the fix row's value and count, two int32 flags)."""
+    return 5 * -(-n // SEGMENT_TILE)
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a fresh copy of it where its data does not start on 16 bytes
+    (the kernel reads it by 16-byte vector loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def segment_reduce(fn: str, change: torch.Tensor, s_alive: torch.Tensor,
                    perm: torch.Tensor, vals: Optional[torch.Tensor],
                    valid: Optional[torch.Tensor]):
@@ -368,7 +386,8 @@ def segment_reduce(fn: str, change: torch.Tensor, s_alive: torch.Tensor,
     Sorted row i is input row perm[i]; s_alive marks the live prefix and
     change the first row of each group. Returns (result [n], live non-null
     count int32 [n]), set at each group's last sorted row and 0 elsewhere;
-    for fn == count the result is the count itself."""
+    for fn == count the result is the count itself. Two launches: the tiles
+    of SEGMENT_TILE rows, then their carries in tile order."""
     if fn not in _FN:
         raise ValueError(f"unknown aggregate {fn!r}")
     device = _cuda_device(s_alive, "s_alive")
@@ -390,10 +409,13 @@ def segment_reduce(fn: str, change: torch.Tensor, s_alive: torch.Tensor,
     out_nn = torch.empty(n, dtype=torch.int32, device=device)
     if n == 0:
         return (out_nn if fn == "count" else out_val), out_nn
+    scratch = torch.empty(segment_scratch_words(n), dtype=torch.int64,
+                          device=device)
+    change, s_alive, perm = (_aligned16(t) for t in (change, s_alive, perm))
     err = lib.qs_segment_reduce(
         _FN[fn], _DTYPE[dtype], _ptr(change), _ptr(s_alive), _ptr(perm), n,
         _ptr(vals if fn != "count" else None), _ptr(valid), _ptr(out_val),
-        _ptr(out_nn), _blocks(n, device), _stream(device))
+        _ptr(out_nn), _ptr(scratch), _stream(device))
     _check(lib, err, "segment_reduce")
     LAUNCHES["sort_groupby"] += 1
     return (out_nn if fn == "count" else out_val), out_nn
@@ -497,7 +519,10 @@ def sorted_probe(sorted_key: torch.Tensor, order: torch.Tensor,
     """K4: for each live probe row, the first build row (in the stable sort
     order) with an equal key. sorted_key holds the build keys sorted, dead
     rows as INT64_MAX; order is the sort permutation. Returns (int32 build
-    row or -1, bool matched, 0-d bool dup flag: two equal live build keys)."""
+    row or -1, bool matched, 0-d bool dup flag: two equal live build keys).
+    One call copies the keys and rows, builds K7's fence over them and
+    sets the dup flag, then searches the fence for the probe rows (with no
+    probe rows only the first launch runs)."""
     device = _cuda_device(pmask, "pmask")
     n_build = int(sorted_key.shape[0]) if sorted_key.dim() == 1 else -1
     n_probe = int(pmask.shape[0]) if pmask.dim() == 1 else -1
@@ -512,10 +537,18 @@ def sorted_probe(sorted_key: torch.Tensor, order: torch.Tensor,
     dup = torch.zeros((), dtype=torch.int32, device=device)
     if n_build == 0:
         return bidx.fill_(-1), matched.fill_(False), dup != 0
+    sizes = fence_layout(n_build)
+    scratch = torch.empty(fence_scratch_words(n_build), dtype=torch.int64,
+                          device=device)
+    c_sizes = (ctypes.c_int64 * len(sizes))(*sizes)
     err = lib.qs_sorted_probe(
         _ptr(sorted_key), _ptr(order), n_build, _ptr(probe), _ptr(pmask),
-        n_probe, _ptr(bidx), _ptr(matched), _ptr(dup),
-        _blocks(max(n_probe, n_build), device), _stream(device))
+        n_probe, _ptr(scratch), ctypes.cast(c_sizes, ctypes.c_void_p),
+        len(sizes), _ptr(bidx), _ptr(matched), _ptr(dup),
+        _blocks(fence_keys(n_build), device),
+        max(1, min(-(-n_probe // (FENCE_THREADS * UNIQUE_PROBE_ROWS)),
+                   UNIQUE_PROBE_BLOCKS_PER_SM * _sms(device))),
+        _stream(device))
     _check(lib, err, "sorted_probe")
     LAUNCHES["merge_unique_probe"] += 1
     return bidx, matched, dup != 0
@@ -625,6 +658,9 @@ def multi_gather(cols: List[torch.Tensor], idx: torch.Tensor,
 # FENCE_BLOCKS_PER_SM an SM.
 FENCE_LEAF_KEYS, FENCE_FANOUT, FENCE_TOP_KEYS = 4, 4, 8192
 FENCE_THREADS, FENCE_BLOCKS_PER_SM = 512, 3
+# K4's probe over the same fence: four probe rows a thread, and blocks of
+# FENCE_THREADS that its launch bounds let two share an SM
+UNIQUE_PROBE_ROWS, UNIQUE_PROBE_BLOCKS_PER_SM = 4, 2
 
 
 def fence_layout(n_build: int) -> List[int]:

@@ -7,7 +7,10 @@ runs on a machine that has a card and no JAX:
 The `cuda`-marked tests skip where torch finds no card. Tolerances: integers
 and bools exactly, float64 within rel 1e-12, float32 within rel 1e-5; the
 window kernels' float prefix sums within 32 eps x the sum of the live
-magnitudes (_prefix_atol), their sliding sums bit for bit.
+magnitudes (_prefix_atol), their sliding sums bit for bit; K5's float sums
+at the SF10 shapes within (eps(dtype) + (m - 1) eps(float64)) x the sum of
+a group's m live magnitudes (_float_sum_atol), and bit for bit where every
+partial sum is exact.
 """
 
 import numpy as np
@@ -1456,4 +1459,217 @@ def test_direct_and_expand_kernels_take_no_torch_search(card, monkeypatch):
         _same(g, w, 0.0)
     for g, w in zip(probe3, TJ.direct_probe_plain(
             TJ.direct_table(table, 100_003), pkey3, palive3, lo, 100_003)):
+        _same(g, w, 0.0)
+
+
+# ---------------------------------------------------------------------
+# K4 on the fence, K5 by tiles, at the SF10 shapes of
+# quickstep_tpu_torch/bench/kernel_ab.py
+# ---------------------------------------------------------------------
+from quickstep_tpu_torch.bench import kernel_ab as AB  # noqa: E402
+
+N_SF10 = 60_000_000
+
+
+def _gen(card, seed):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    return gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dups", (False, True), ids=("unique", "dups"))
+@pytest.mark.parametrize("shape", ("q5", "q9"))
+def test_sorted_probe_fence_at_sf10(card, shape, dups):
+    """K4 at 100 K build keys (Q5's) and at 8 M (Q9's partsupp), 60 M probe
+    rows; with dups, runs of two and three equal live keys: the matched row
+    is the first of the run in stable order. (row, matched, dup) equal the
+    plain version's bit for bit."""
+    gen = _gen(card, 91)
+    bkey, balive, pkey, palive = AB.unique_probe_inputs(shape, N_SF10, card,
+                                                        gen)
+    if dups:
+        bkey = bkey.clone()
+        bkey[7], bkey[8] = bkey[3], bkey[3]
+        bkey[len(bkey) // 2] = bkey[-1]
+        balive = balive.clone()
+        balive[[3, 7, 8, len(bkey) // 2, len(bkey) - 1]] = True
+        pkey = pkey.clone()
+        pkey[:4] = bkey[[3, 3, len(bkey) - 1, 5]]
+    got = TJ.merge_unique_probe(bkey, balive, pkey, palive)
+    want = TJ.merge_unique_probe_plain(bkey, balive, pkey, palive)
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+    assert bool(got[2]) == dups
+    assert int(got[1].sum()) > (N_SF10 // 2 if shape == "q9" else 1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_build, n_probe", ((0, 5), (5, 0), (0, 0)))
+def test_sorted_probe_fence_at_zero_rows(card, n_build, n_probe):
+    """No launch over an empty build side; an empty probe side runs the
+    first launch alone, for the dup flag."""
+    key = torch.tensor([3, 1, 3, 2, 9][:n_build], dtype=torch.int64,
+                       device=card)
+    probe = torch.arange(n_probe, dtype=torch.int64, device=card)
+    balive = torch.ones(n_build, dtype=torch.bool, device=card)
+    palive = torch.ones(n_probe, dtype=torch.bool, device=card)
+    TC.reset_launches()
+    got = TJ.merge_unique_probe(key, balive, probe, palive)
+    assert TC.LAUNCHES["merge_unique_probe"] == int(n_build > 0)
+    for g, w in zip(got, TJ.merge_unique_probe_plain(key, balive, probe,
+                                                     palive)):
+        _same(g, w, 0.0)
+    assert bool(got[2]) == (n_build > 0)
+
+
+def _segment_values(dtype, n, card, gen, dyadic):
+    """Values of one dtype in original row order; floats in [0, 1000), or
+    with dyadic multiples of 1/4 (every partial sum exact in float64);
+    int32 and float32 nullable (90 % valid)."""
+    if dtype.is_floating_point:
+        v = torch.rand(n, device=card, generator=gen, dtype=torch.float64)
+        v = v * 1000
+        if dyadic:
+            v = torch.floor(v * 4) / 4
+        v = v.to(dtype)
+    else:
+        v = torch.randint(-10**6, 10**6, (n,), device=card, generator=gen,
+                          dtype=dtype)
+    valid = None
+    if dtype in (torch.int32, torch.float32):
+        valid = torch.rand(n, device=card, generator=gen) < 0.9
+    return v, valid
+
+
+def _float_sum_atol(change, s_alive, last, perm, v, valid, count):
+    """Per-group tolerance of a float sum over m live rows: (eps(dtype) +
+    (m - 1) eps(float64)) x the group's sum of live magnitudes, at its last
+    row. Both versions add in float64 and round to the dtype once, the
+    kernel in its tile tree, the plain version by atomics in no fixed
+    order; two orders of m float64 additions differ by at most (m - 1)
+    eps(float64) x the sum of magnitudes (Higham, Accuracy and Stability of
+    Numerical Algorithms, 4.2), which for one group of 60 M rows exceeds
+    rel 1e-12."""
+    mag, _ = TG._segment_reduce_plain("sum", change, s_alive, last, perm,
+                                      v.abs(), valid)
+    m = torch.clamp(count.double() - 1, min=0)
+    return (torch.finfo(v.dtype).eps + m * torch.finfo(torch.float64).eps) \
+        * mag.double()
+
+
+@pytest.fixture(scope="module")
+def segment_shapes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    card = torch.device("cuda")
+    return {shape: AB.segment_inputs(shape, N_SF10, card, _gen(card, i))
+            for i, shape in enumerate(AB.SEGMENT_SHAPES)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("fn", ("sum", "count", "min", "max"))
+@pytest.mark.parametrize("shape", tuple(AB.SEGMENT_SHAPES))
+def test_segment_reduce_tiles_at_sf10(card, segment_shapes, shape, fn,
+                                      dtype):
+    """K5 over 60 M rows: about 15 M groups, Q9's 175 groups over 5.4 % live
+    rows, one group of every row. Counts, integer sums, MIN and MAX equal
+    the plain version's exactly; float sums within _float_sum_atol (the
+    worst case of two orders of addition); a second run is identical bit
+    for bit."""
+    change, s_alive, perm, last = segment_shapes[shape]
+    v, valid = _segment_values(dtype, N_SF10, card, _gen(card, 7), False)
+    got = TC.segment_reduce(fn, change, s_alive, perm, v, valid)
+    want = TG._segment_reduce_plain(fn, change, s_alive, last, perm, v,
+                                    valid)
+    _same(got[1], want[1], 0.0)
+    if fn == "sum" and dtype.is_floating_point:
+        assert got[0].dtype == want[0].dtype
+        err = (got[0].double() - want[0].double()).abs()
+        atol = _float_sum_atol(change, s_alive, last, perm, v, valid, got[1])
+        assert bool(torch.all(err <= atol)), float((err - atol).max())
+    else:
+        _same(got[0], want[0], 0.0)
+    again = TC.segment_reduce(fn, change, s_alive, perm, v, valid)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert int(torch.count_nonzero(got[1])) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64), ids=str)
+@pytest.mark.parametrize("shape", tuple(AB.SEGMENT_SHAPES))
+def test_segment_reduce_exact_float_sums(card, segment_shapes, shape, dtype):
+    """Float values in multiples of 1/4 below 1000: every partial sum is
+    exact in float64, so any order of addition gives the same bits, and K5
+    equals the plain version bit for bit, a 60 M-row group included."""
+    change, s_alive, perm, last = segment_shapes[shape]
+    v, valid = _segment_values(dtype, N_SF10, card, _gen(card, 8), True)
+    got = TC.segment_reduce("sum", change, s_alive, perm, v, valid)
+    want = TG._segment_reduce_plain("sum", change, s_alive, last, perm, v,
+                                    valid)
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1, 7, 8, 9, 2047, 2048, 2049, 12_289))
+@pytest.mark.parametrize("layout", ("one_group", "tile_edges", "runs"))
+def test_segment_reduce_tile_edges(card, layout, n):
+    """Groups that end exactly at a thread's and at a tile's last row
+    (TC.SEGMENT_TILE rows), one group across several tiles, and short runs,
+    each with a dead suffix; every fn against the plain version exactly
+    (int64 values)."""
+    rng = np.random.default_rng(n)
+    pos = np.arange(n)
+    if layout == "one_group":
+        change = pos == 0
+    elif layout == "tile_edges":
+        change = (pos % TC.SEGMENT_TILE == 0) | (pos % 8 == 0)
+    else:
+        change = (pos == 0) | (rng.random(n) < 0.3)
+    n_live = n - n // 7
+    s_alive = pos < n_live
+    change &= s_alive
+    last = s_alive & np.append(change[1:] | ~s_alive[1:], True)
+    perm = rng.permutation(n)
+    v = rng.integers(-10**9, 10**9, n)
+    valid = rng.random(n) < 0.8
+    t = [torch.from_numpy(a).to(card) for a in (change, s_alive, last, perm,
+                                                 v, valid)]
+    for fn in ("sum", "count", "min", "max"):
+        got = TC.segment_reduce(fn, t[0], t[1], t[3], t[4], t[5])
+        want = TG._segment_reduce_plain(fn, t[0], t[1], t[2], t[3], t[4],
+                                        t[5])
+        for g, w in zip(got, want):
+            _same(g, w, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ("sum", "count", "min", "max"))
+def test_segment_reduce_at_zero_rows(card, fn):
+    e = torch.zeros(0, dtype=torch.bool, device=card)
+    perm = torch.zeros(0, dtype=torch.int64, device=card)
+    v = torch.zeros(0, dtype=torch.float64, device=card)
+    TC.reset_launches()
+    got = TC.segment_reduce(fn, e, e, perm, v, None)
+    assert not any(TC.LAUNCHES.values()), TC.LAUNCHES
+    want = TG._segment_reduce_plain(fn, e, e, e, perm, v, None)
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+
+
+@pytest.mark.cuda
+def test_segment_reduce_takes_unaligned_inputs(card):
+    """change, s_alive and perm that do not start on 16 bytes (views one
+    row in) give the same result as aligned copies."""
+    change, s_alive, perm, last = AB.segment_inputs(
+        "groups_15m", 100_003, card, _gen(card, 3))
+    v = torch.arange(100_003, device=card, dtype=torch.int64)
+    views = [torch.cat([t[:1], t])[1:] for t in (change, s_alive, perm)]
+    assert views[0].data_ptr() % 16 != 0
+    got = TC.segment_reduce("sum", *views, v, None)
+    want = TC.segment_reduce("sum", change, s_alive, perm, v, None)
+    for g, w in zip(got, want):
         _same(g, w, 0.0)
