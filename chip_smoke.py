@@ -52,6 +52,7 @@ N_PACKED_KEYS = 100_000         # ~ supplier rows at SF10 (Q5's composite key)
 N_SEGMENTS = 15_000_000
 N_PARTS = 2_000_000             # part rows at SF10; partsupp has 4 per part
 N_SEMI_PROBE = 38_000_000       # ~ Q21's late lineitem rows at SF10
+N_SKEW_ROWS = 10_000_000        # K8's skewed build: rows on one key
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at 700 W
 N_SHARD_ROWS = 7_500_000       # one of 8 row shards of lineitem at SF10
 MESH_SHARDS = 8
@@ -551,6 +552,31 @@ def k5_shapes(case, dev, money, price):
     del exact
 
 
+def k8_limit(label, okey, late, supp, p_okey, p_alive):
+    """K8's random-sector limit: a live probe row whose key lies in the
+    build's range reads one sector of each fence level under the top (in
+    shared memory) and of its leaf, and a hit one more for its run's
+    stats."""
+    from quickstep_tpu_torch.ops import cuda, join as J
+    nb = int(okey.shape[0])
+    live_keys = okey[late]
+    inside = p_alive & (p_okey >= live_keys.min()) & \
+        (p_okey <= live_keys.max())
+    hits = J.merge_stats_probe(okey, late, supp, p_okey, p_alive)[0]
+    sector_limit("merge_cmp_probe", label,
+                 int(inside.sum()) * len(cuda.fence_layout(nb)) +
+                 int(hits.sum()))
+
+
+def k13_limit(label, args):
+    """K13's random-sector limit: every key but the last (the first
+    sorted) and its validity, and the dead flag, are read at the current
+    permutation: one sector a row each."""
+    keys, valids, _asc, _nf, alive = args
+    gathered = len(keys) - 1 + sum(v is not None for v in valids[:-1]) + 1
+    sector_limit("order_permutation", label, gathered * int(alive.shape[0]))
+
+
 def sector_limit(kernel, label, sectors):
     """Logs a case's random-sector limit: its random sectors at 32 bytes
     each over the card's memory rate, and at the random-sector rate of
@@ -692,8 +718,9 @@ def phase_new_kernels(case, rng, dev):
     build (N_PARTS keys, 4 rows each) probed by N_KERNEL_ROWS rows, on part
     keys and on range-packed (partkey, suppkey) keys (the stale Q9); Q21's
     lineitem-like build (orderkeys with 1-7 lines, suppkey values) probed
-    by N_SEMI_PROBE of its rows; the stable partition of a N_KERNEL_ROWS
-    mask at 50 % and 1 % live."""
+    by N_SEMI_PROBE of its rows under each of the five comparisons and in
+    stats mode, then with N_SKEW_ROWS of the build on one key; the stable
+    partition of a N_KERNEL_ROWS mask at 50 % and 1 % live."""
     from quickstep_tpu_torch.ops import groupby as G
     from quickstep_tpu_torch.ops import join as J, kernels as K
     n = N_KERNEL_ROWS
@@ -739,17 +766,35 @@ def phase_new_kernels(case, rng, dev):
     pick = torch.from_numpy(rng.integers(0, len(okey), N_SEMI_PROBE)).to(dev)
     p_okey, p_supp = okey[pick], supp[pick]
     p_alive = torch.from_numpy(rng.random(N_SEMI_PROBE) < 0.9).to(dev)
-    for op, main in (("<>", True), ("<", False)):
+    k8_bytes = nbytes((okey, late, supp, p_okey, p_alive, p_supp)) + \
+        N_SEMI_PROBE
+    for op in ("<>", "<", "<=", ">", ">="):
         case("merge_cmp_probe", f"{op} 60M build, 38M probes",
              lambda op=op: (J.merge_cmp_probe(okey, late, supp, p_okey,
                                               p_alive, p_supp, op),),
              lambda op=op: (J.merge_cmp_probe_plain(okey, late, supp, p_okey,
                                                     p_alive, p_supp, op),),
-             main=main, inputs=(okey, late, supp, p_okey, p_alive, p_supp))
+             main=op == "<>", inputs=(okey, late, supp, p_okey, p_alive,
+                                      p_supp),
+             plain_reps=REPS if op == "<>" else 3)
+    k8_limit("<> 60M build, 38M probes", okey, late, supp, p_okey, p_alive)
     case("merge_cmp_probe", "stats 60M build, 38M probes",
          lambda: J.merge_stats_probe(okey, late, supp, p_okey, p_alive),
-         lambda: J.merge_stats_probe_plain(okey, late, supp, p_okey, p_alive))
-    del lines, okey, supp, late, pick, p_okey, p_supp, p_alive
+         lambda: J.merge_stats_probe_plain(okey, late, supp, p_okey, p_alive),
+         plain_reps=3)
+    # the skewed build: 10 M of the build rows moved onto one key, live
+    # (the parent's one thread a run would walk that run serially)
+    rows = torch.from_numpy(rng.permutation(len(okey))[:N_SKEW_ROWS]).to(dev)
+    okey[rows] = int(okey[len(okey) // 2])
+    late[rows] = True
+    case("merge_cmp_probe", "<> skewed: 10M rows on one key",
+         lambda: (J.merge_cmp_probe(okey, late, supp, p_okey, p_alive,
+                                    p_supp, "<>"),),
+         lambda: (J.merge_cmp_probe_plain(okey, late, supp, p_okey, p_alive,
+                                          p_supp, "<>"),),
+         plain_reps=3, bound_bytes=k8_bytes)
+    k8_limit("<> skewed", okey, late, supp, p_okey, p_alive)
+    del lines, okey, supp, late, pick, p_okey, p_supp, p_alive, rows
     torch.cuda.empty_cache()
 
     for live, main in ((0.5, True), (0.01, False)):
@@ -918,7 +963,9 @@ def phase_operator_kernels(case, dev):
     (part, supplier) pairs, full of duplicates, and probed by partsupp's
     8 M pairs; COUNT(DISTINCT) over 60 M int32 values; and ORDER BY over
     60 M rows by a DOUBLE DESC key, a nullable int key and an int
-    tiebreak. K11's bound counts its bytes (its key columns and masks read
+    tiebreak, by five keys (a nullable bool and a float32 before those),
+    and by three 64-bit keys over their whole range (more than 128
+    significant bits), each with its random-sector limit. K11's bound counts its bytes (its key columns and masks read
     once, its table and outputs written once: it hashes in the kernel and
     reads no hash array); its random-sector limit (one
     32-byte sector per slot touched and per occupant key compared) is
@@ -1034,11 +1081,33 @@ def phase_operator_kernels(case, dev):
          lambda: (S.order_permutation(*args),),
          lambda: (S.order_permutation_plain(*args),), main=True,
          inputs=(price, qty, qvalid, tie, alive), atol=0)
-    ident = torch.arange(n, device=dev)
-    case("order_permutation", "encode DOUBLE DESC alone, 60M",
-         lambda: (cuda.sort_key_encode(price, None, False, None, ident),),
-         lambda: (S.encode_key(price, None, False, None),), atol=0)
-    del price, qty, qvalid, tie, alive, args, ident
+    k13_limit("3 keys, 60M rows", args)
+    # five keys: the same three after a nullable bool DESC and a float32
+    flag = torch.rand(n, device=dev, generator=gen) < 0.3
+    disc = (torch.randint(0, 11, (n,), device=dev, generator=gen) / 100
+            ).float()
+    five = ([flag, disc, price, qty, tie], [qvalid, None, None, qvalid, None],
+            [False, True, False, True, True], [True, None, None, False, None],
+            alive)
+    case("order_permutation", "5 keys, 60M rows",
+         lambda: (S.order_permutation(*five),),
+         lambda: (S.order_permutation_plain(*five),), atol=0, plain_reps=3,
+         bound_bytes=nbytes((flag, disc, price, qty, qvalid, tie, alive)) +
+         8 * n)
+    k13_limit("5 keys, 60M rows", five)
+    # more than 128 significant bits: a float64 of every bit pattern and
+    # two int64 keys over their whole range
+    wide = [torch.randint(-2**63, 2**63 - 1, (n,), device=dev, generator=gen)
+            for _ in range(3)]
+    wide[0] = wide[0].view(torch.float64)
+    over = (wide, [None, qvalid, None], [True, False, True],
+            [None, None, None], alive)
+    case("order_permutation", "3 keys of 64 bits, 60M rows",
+         lambda: (S.order_permutation(*over),),
+         lambda: (S.order_permutation_plain(*over),), atol=0, plain_reps=3,
+         bound_bytes=nbytes((*wide, qvalid, alive)) + 8 * n)
+    k13_limit("3 keys of 64 bits", over)
+    del price, qty, qvalid, tie, alive, args, flag, disc, five, wide, over
     torch.cuda.empty_cache()
     phase_shuffle_kernels(case, dev)
 

@@ -1,13 +1,14 @@
-"""K3, K4, K5, K6, K7 and K12 at chip_smoke.py's SF10 shapes, timed in the
+"""K3-K8, K12 and K13 at chip_smoke.py's SF10 shapes, timed in the
 checkout it runs from, so that two checkouts can be compared on one card in
 one call: run this file from each checkout's root in turn, parent, change,
 change, parent, parent, change. It uses only the public functions both
 sides have: ops/join.py direct_build and direct_probe, sorted_build,
-merge_unique_probe and expand_probe, ops/cuda.py sorted_probe and
-segment_reduce, ops/bloom.py exact_filter_build, ops/kernels.py
-multi_gather (with random=True where the checkout takes it) and
-ops/groupby.py distinct_count. Its input makers, segment_inputs and
-unique_probe_inputs, also feed chip_smoke.py and the card tests.
+merge_unique_probe, expand_probe and merge_cmp_probe, ops/cuda.py
+sorted_probe and segment_reduce, ops/bloom.py exact_filter_build,
+ops/kernels.py multi_gather (with random=True where the checkout takes
+it), ops/groupby.py distinct_count and ops/sort.py order_permutation. Its
+input makers, segment_inputs and unique_probe_inputs, also feed
+chip_smoke.py and the card tests.
 
     python -m quickstep_tpu_torch.bench.kernel_ab
 
@@ -38,7 +39,17 @@ Cases, each timed by CUDA events (median of 10 runs after one warm-up):
 - k5_groups_15m: cuda.segment_reduce, SUM of int64 over 60 M rows in about
   15 M groups (80 % live);
 - k5_q9: the same, SUM of float64 over Q9's shape: 175 groups, 5.4 % of
-  60 M rows live.
+  60 M rows live;
+- k8: merge_cmp_probe `<>` of 38 M probes (90 % live) into a Q21-like
+  build of about 60 M lineitem orderkeys (1-7 lines an order over 15 M
+  orders, 63 % live) with int32 suppkey values, the build's sort included
+  (k8_inputs); k8_split: the device ms of each kernel of one such call, by
+  torch.profiler; k8_skewed (where the checkout's K8 takes the build keys
+  themselves, PR 10 on): the same with 10 M of the build rows moved onto
+  one key and made live;
+- k13: order_permutation of 60 M rows by a DOUBLE DESC of two decimals, a
+  nullable INT of 1..50 and an int64 permutation tiebreak, 95 % live
+  (k13_inputs, the smoke's case); k13_split its kernels as for k8.
 Prints one JSON object with the times, the checkout's root and the card's
 name and power limit. It needs a CUDA card.
 """
@@ -116,6 +127,69 @@ def unique_probe_inputs(shape: str, n: int, dev, gen):
     return bkey, balive, pkey, torch.ones(n, dtype=torch.bool, device=dev)
 
 
+def k8_inputs(dev, gen, skew_rows: int = 0):
+    """(build keys, build mask, int32 build values, probe keys, probe mask,
+    int32 probe values) of Q21's EXISTS with `<>` at SF10: lineitem's
+    orderkeys (1-7 lines for each of 15 M orders, every 4th key), 63 % of
+    the rows live (the late lines), suppkeys in [1, 100 K], and 38 M probe
+    rows drawn from the build rows, 90 % live. skew_rows: that many build
+    rows moved onto one key and made live."""
+    nb = 15_000_000
+    lines = torch.randint(1, 8, (nb,), device=dev, generator=gen)
+    okey = (torch.arange(1, nb + 1, device=dev) * 4).repeat_interleave(lines)
+    n = len(okey)
+    supp = torch.randint(1, 100_001, (n,), device=dev, generator=gen,
+                         dtype=torch.int32)
+    late = torch.rand(n, device=dev, generator=gen) < 0.63
+    pick = torch.randint(0, n, (38_000_000,), device=dev, generator=gen)
+    p_okey, p_supp = okey[pick], supp[pick]
+    p_alive = torch.rand(len(pick), device=dev, generator=gen) < 0.9
+    if skew_rows:
+        rows = torch.randperm(n, device=dev, generator=gen)[:skew_rows]
+        okey = okey.clone()
+        okey[rows] = int(okey[n // 2])
+        late = late.clone()
+        late[rows] = True
+    return okey, late, supp, p_okey, p_alive, p_supp
+
+
+def k13_inputs(n: int, dev, gen):
+    """(keys, valids, ascending, nulls_first, alive) of ORDER BY a DOUBLE
+    DESC of two decimals in [900, 105 000], a nullable INT of 1..50 (10 %
+    NULL) and an int64 permutation tiebreak, 95 % of the rows live."""
+    price = torch.randint(90_000, 10_500_000, (n,), device=dev,
+                          generator=gen).double() / 100
+    qty = torch.randint(1, 51, (n,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    qvalid = torch.rand(n, device=dev, generator=gen) < 0.9
+    tie = torch.randperm(n, device=dev, generator=gen)
+    alive = torch.rand(n, device=dev, generator=gen) < 0.95
+    return ([price, qty, tie], [None, qvalid, None], [False, True, True],
+            [None, None, None], alive)
+
+
+def kernel_split(fn) -> dict:
+    """The device ms of each kernel of one call of fn (after a warm-up), by
+    torch.profiler, summed by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            key = e.key.removeprefix("void ").replace(
+                "(anonymous namespace)::", "")
+            name = key.split("(")[0]
+            if "<" in name:
+                head, args = name.split("<", 1)
+                name = f"{head.split('::')[-1]}<{args[:30]}"
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1000
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: torch.cuda.is_available() is false")
@@ -165,7 +239,14 @@ def main() -> None:
     q9sk, q9order = J.sorted_build(q9b, q9ba)
     seg15 = segment_inputs("groups_15m", N, dev, gen)
     seg9 = segment_inputs("q9", N, dev, gen)
+    k8 = k8_inputs(dev, gen)
+    k13 = k13_inputs(N, dev, gen)
+    from quickstep_tpu_torch.ops import sort as S
     out = {
+        "k8_ms": _ms(lambda: J.merge_cmp_probe(*k8, "<>")),
+        "k8_split": kernel_split(lambda: J.merge_cmp_probe(*k8, "<>")),
+        "k13_ms": _ms(lambda: S.order_permutation(*k13)),
+        "k13_split": kernel_split(lambda: S.order_permutation(*k13)),
         "root": str(pathlib.Path(K.__file__).resolve().parents[2]),
         "k4_q5_ms": _ms(lambda: J.merge_unique_probe(*q5)),
         "k4_q9_ms": _ms(lambda: cuda.sorted_probe(q9sk, q9order, q9p, q9pa)),
@@ -194,11 +275,17 @@ def main() -> None:
         "k6_random_ms": _ms(lambda: K.multi_gather(cols, rnd, **random_kw)),
         "k6_random_packed": bool(random_kw),
         "k12_ms": _ms(lambda: G.distinct_count(vals, None, every)),
+        "k8_skewed_ms": None,
         "card": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip().splitlines()[0],
     }
+    if "build_key" in inspect.signature(cuda.run_stats_probe).parameters:
+        # the parent's one thread a run would walk the 10 M-row run
+        del k8, k13
+        skewed = k8_inputs(dev, gen, skew_rows=10_000_000)
+        out["k8_skewed_ms"] = _ms(lambda: J.merge_cmp_probe(*skewed, "<>"))
     print(json.dumps(out))
 
 

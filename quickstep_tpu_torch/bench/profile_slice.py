@@ -95,14 +95,17 @@ def profile_query(db, q, runs, trace_dir=None):
     averages = prof.key_averages()
     print(averages.table(sort_by="self_cuda_time_total", row_limit=25),
           flush=True)
-    # the port's own kernels (csrc/*.cu, in anonymous namespaces; torch's
-    # name at::), which the table's top rows may leave out
-    ns = "(anonymous namespace)::"
-    own = [e for e in averages if e.key.removeprefix("void ").startswith(ns)
+    # the port's own kernels (csrc/*.cu, in anonymous namespaces and the
+    # radix sort's namespace radix; torch's name at::), which the table's
+    # top rows may leave out
+    prefixes = ("(anonymous namespace)::", "radix::")
+    own = [e for e in averages
+           if e.key.removeprefix("void ").startswith(prefixes)
            and "at::" not in e.key and e.self_device_time_total > 0]
     for e in sorted(own, key=lambda e: -e.self_device_time_total):
         ms = e.self_device_time_total / 1000 / runs
-        name = e.key.split(ns, 1)[1].split("(")[0]
+        name = e.key.removeprefix("void ").removeprefix(
+            prefixes[0]).split("(")[0]
         print(f"{label}: kernel {name}: {ms:.3f} ms per run, "
               f"{ms / device_ms:.3f} of device time, {e.count / runs:g} "
               "launches per run", flush=True)

@@ -83,13 +83,18 @@ def zero_row_cases(dev) -> Dict[str, Case]:
         "expand_probe": (
             lambda: J.expand_probe(skey, order, probe, pmask, 4),
             lambda: J.expand_probe_plain(skey, order, probe, pmask, 4)),
+        # an empty build under the probe rows, then the probe rows as the
+        # build over an empty probe side
         "merge_cmp_probe": (
             lambda: (J.merge_cmp_probe(i64, b, i32, probe, pmask, probe32,
                                        "<>"),
-                     *J.merge_stats_probe(i64, b, i32, probe, pmask)),
+                     *J.merge_stats_probe(i64, b, i32, probe, pmask),
+                     *J.merge_stats_probe(probe, pmask, probe32, i64, b)),
             lambda: (J.merge_cmp_probe_plain(i64, b, i32, probe, pmask,
                                              probe32, "<>"),
-                     *J.merge_stats_probe_plain(i64, b, i32, probe, pmask))),
+                     *J.merge_stats_probe_plain(i64, b, i32, probe, pmask),
+                     *J.merge_stats_probe_plain(probe, pmask, probe32, i64,
+                                                b))),
         "sort_groupby_compact": (lambda: (K.stable_partition(b),),
                                  lambda: (K.compact_order(b),)),
         "window_prefix": (

@@ -68,17 +68,37 @@
 // qs_run_stats_probe replaces ops/join.py:317 merge_cmp_probe and :247
 // merge_stats_probe. The reference concatenates build and probe, sorts them
 // together, takes segmented min/max by packed cummax scans and sorts back,
-// all to avoid TPU gathers. Here the build keys are sorted once (torch.sort,
-// dead rows at INT64_MAX); a first launch has the thread at each run's first
-// sorted position walk its run and store the run's min and max of the int32
-// build values there; a second launch has one thread per probe row find the
-// lower bound of its key and read that run's stats. In compare mode it
-// returns pmask & (a live build row has the key) & (pval OP the run's stat);
-// in stats mode (matched, min, max), with (INT32_MAX, INT32_MIN) for a probe
-// row that matches nothing.
+// all to avoid TPU gathers. Here one call runs:
+// - a range reduce over the live build keys (a key of INT64_MAX, which no
+//   probe row can match, counts as dead) and the key-value radix sort of
+//   radix_device.cuh over their range-compressed codes, with the int32
+//   build values as the payload: K8 needs only each run's min and max,
+//   never the build row, so no value is gathered through a permutation.
+//   Dead rows sort last, at max + 1. Q21's orderkeys span about 26 bits, so
+//   four 8-bit passes of 8-byte records run where a sort of the int64 keys
+//   with INT64_MAX sentinels runs eight of 16-byte ones;
+// - each run's min and max by a segmented reduce over the sorted records in
+//   tiles of kStatTile (K5's tile-and-carry design with seg_device.cuh's
+//   block scan, run from the tile's end so that the result lands at the
+//   run's first position): no run is walked by one thread, and MIN and MAX
+//   are exact in any grouping. A run that starts in a tile and ends past it
+//   is completed by a one-block launch over the tiles' carries. Min and max
+//   are stored packed in one int64, so a hit costs one load;
+// - K4's fence over the sorted codes (the pack launch), then the probe:
+//   four probe rows a thread in lockstep map their keys into the code
+//   range (a key outside [min, max] matches nothing: dead build rows never
+//   match), descend the fence to the lower bound and the code there, and
+//   a hit reads the packed stats. Probe keys, masks, values and outputs
+//   stream (__ldcs, __stcs) so that the fence stays in the L2.
+// In compare mode it returns pmask & (a live build row has the key) & (pval
+// OP the run's stat); in stats mode (matched, min, max), with (INT32_MAX,
+// INT32_MIN) for a probe row that matches nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "radix_device.cuh"
+#include "seg_device.cuh"
 
 namespace {
 
@@ -279,24 +299,39 @@ __host__ __device__ constexpr int64_t padded_keys(int64_t n_build) {
   return round_up(n_build, kLeafKeys) + 2 * kLeafKeys;
 }
 
-// K7's and K4's first launch: the padded keys, the int32 rows and the
-// fence; with dup (K4), *dup = 1 where two live sorted keys are equal.
+// The fence's int64 of a sorted key: K4's and K7's keys as they are; K8's
+// range-compressed codes, 32-bit ones as they are and 64-bit ones with the
+// top bit flipped, so that the signed order is theirs.
+__device__ __forceinline__ long long fence_key(long long x) { return x; }
+__device__ __forceinline__ long long fence_key(unsigned x) {
+  return (long long)x;
+}
+__device__ __forceinline__ long long fence_key(unsigned long long x) {
+  return (long long)(x ^ 0x8000000000000000ull);
+}
+
+// K7's, K4's and K8's first launch: the padded keys, the int32 rows (where
+// order is given) and the fence; with dup (K4), *dup = 1 where two live
+// sorted keys are equal. K8 launches it in both key widths (narrow picks).
+template <typename K>
 __global__ void __launch_bounds__(kThreads)
-fence_pack_kernel(const long long* __restrict__ sorted_key,
+fence_pack_kernel(const K* __restrict__ sorted_key,
                   const long long* __restrict__ order, int64_t n_build,
                   long long* __restrict__ keys, int* __restrict__ rows,
-                  Fence f, int* __restrict__ dup) {
+                  Fence f, int* __restrict__ dup,
+                  const int* __restrict__ narrow) {
+  if (radix::wrong_width<K>(narrow)) return;
   const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   const int64_t padded = padded_keys(n_build);
   for (int64_t i = tid; i < padded; i += stride) {
-    const long long key = i < n_build ? sorted_key[i] : kDeadKey;
+    const long long key = i < n_build ? fence_key(sorted_key[i]) : kDeadKey;
     if (dup != nullptr && i + 1 < n_build && key != kDeadKey &&
-        key == sorted_key[i + 1]) {
+        key == fence_key(sorted_key[i + 1])) {
       *dup = 1;
     }
     keys[i] = key;
-    rows[i] = i < n_build ? (int)order[i] : -1;
+    if (order != nullptr) rows[i] = i < n_build ? (int)order[i] : -1;
     if (i >= n_build || i % kLeafKeys) continue;
     int64_t j = i / kLeafKeys;
     f.level[0][j] = key;
@@ -596,90 +631,292 @@ unique_probe_kernel(const long long* __restrict__ keys,
   }
 }
 
-// The first position in [lo, hi) of a whose key is >= k.
-__device__ __forceinline__ int64_t lower_bound(const long long* __restrict__ a,
-                                               int64_t lo, int64_t hi,
-                                               long long k) {
-  while (lo < hi) {
-    const int64_t mid = lo + ((hi - lo) >> 1);
-    if (a[mid] < k) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
-// K8, first launch: at the first sorted position of every run of equal live
-// keys, the min and max of the run's build values (read through the sort
-// permutation). Other positions are not written.
-__global__ void __launch_bounds__(kThreads)
-run_stats_kernel(const long long* __restrict__ sorted_key,
-                 const long long* __restrict__ order, int64_t n_build,
-                 const int* __restrict__ bval, int* __restrict__ run_min,
-                 int* __restrict__ run_max) {
-  const long long kDead = INT64_MAX;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n_build;
-       i += stride) {
-    const long long key = sorted_key[i];
-    if (key == kDead || (i > 0 && sorted_key[i - 1] == key)) continue;
-    int mn = INT32_MAX, mx = INT32_MIN;
-    for (int64_t j = i; j < n_build && sorted_key[j] == key; ++j) {
-      const int v = bval[order[j]];
-      mn = v < mn ? v : mn;
-      mx = v > mx ? v : mx;
-    }
-    run_min[i] = mn;
-    run_max[i] = mx;
-  }
-}
-
 enum CmpOp { kStats = -1, kNe = 0, kLt = 1, kLe = 2, kGt = 3, kGe = 4 };
 
-// K8, second launch: one thread per probe row reads the stats of its key's
-// run. Compare mode (op >= 0): matched = pmask & has_build & (pval OP stat).
-// Stats mode: matched = pmask & has_build, and the run's min and max.
+constexpr unsigned long long kSignBit = 0x8000000000000000ull;
+
+// K8's build keys as a source of the key-value sort: the order-preserving
+// code of a live key, and max + 1 (the top of the range) for a dead row.
+struct BuildSrc {
+  const long long* key;
+  const uint8_t* alive;
+  __device__ __forceinline__ bool raw(int64_t i,
+                                      unsigned long long& u) const {
+    const long long k = key[i];
+    u = (unsigned long long)k ^ kSignBit;
+    return alive[i] && k != kDeadKey;
+  }
+  __device__ __forceinline__ unsigned long long code(
+      int64_t i, unsigned long long lo, unsigned long long hi) const {
+    unsigned long long u;
+    return raw(i, u) ? u - lo : hi - lo;
+  }
+};
+
+// K8's run statistics: tiles of kStatTile sorted records, kStatItems a
+// thread; the carries' one block.
+constexpr int kStatItems = 8;
+constexpr int kStatTile = kThreads * kStatItems;
+constexpr int kCarryThreads = 1024;
+
+// A segmented min/max element; a segment starts at a run's last row, as
+// the scan runs from the end of the rows to their start.
+struct RunStat {
+  int f;
+  int mn;
+  int mx;
+};
+
+__device__ __forceinline__ RunStat shfl_up(const RunStat& x, int d) {
+  return {__shfl_up_sync(kFull, x.f, d), __shfl_up_sync(kFull, x.mn, d),
+          __shfl_up_sync(kFull, x.mx, d)};
+}
+
+struct RunStatOp {   // (earlier, later) in scan order
+  __device__ __forceinline__ RunStat operator()(const RunStat& a,
+                                                const RunStat& b) const {
+    return {a.f | b.f, b.f ? b.mn : min(a.mn, b.mn),
+            b.f ? b.mx : max(a.mx, b.mx)};
+  }
+};
+
+__device__ __forceinline__ long long pack_stat(int mn, int mx) {
+  return (long long)(((unsigned long long)(unsigned)mx << 32) |
+                     (unsigned)mn);
+}
+
+// Per tile: the tile's scan total (whether a run ends in it, and the min
+// and max of its rows up to the first run end), and the fix row (the start
+// of the run that is open at the tile's end, or -1) with its partial stats.
+struct StatCarry {
+  int* f;
+  int* mn;
+  int* mx;
+  int* fix_at;
+  int* fix_mn;
+  int* fix_mx;
+};
+
+// K8's stats launch, one block a tile: thread t holds the kStatItems rows
+// of the tile's chunk kThreads - 1 - t, so the block scan in thread order
+// runs from the tile's end to its start and each run's first row receives
+// the min and max of the run's rows in the tile; where the run goes on past
+// the tile, that row is the tile's fix row, which the carry launch
+// completes. Launched in both key widths (narrow picks).
+template <typename K>
 __global__ void __launch_bounds__(kThreads)
-stats_probe_kernel(const long long* __restrict__ sorted_key, int64_t n_build,
-                   const int* __restrict__ run_min,
-                   const int* __restrict__ run_max,
+run_stats_tile_kernel(const K* __restrict__ keys, const int* __restrict__ vals,
+                      int64_t n, long long* __restrict__ stats,
+                      StatCarry carry, const int* __restrict__ narrow) {
+  if (radix::wrong_width<K>(narrow)) return;
+  __shared__ int s_fix;
+  const RunStatOp op;
+  const RunStat id = {0, INT32_MAX, INT32_MIN};
+  const int64_t tile0 = (int64_t)blockIdx.x * kStatTile;
+  const int64_t r0 =
+      tile0 + (int64_t)(kThreads - 1 - threadIdx.x) * kStatItems;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) s_fix = -1;
+  K k[kStatItems];
+  int v[kStatItems];
+#pragma unroll
+  for (int j = 0; j < kStatItems; ++j) {
+    const int64_t r = r0 + j;
+    k[j] = r < n ? keys[r] : K(0);
+    v[j] = r < n ? vals[r] : 0;
+  }
+  // the key after the thread's rows (the thread before's first) and the
+  // key before them (the thread after's last)
+  K after = __shfl_up_sync(kFull, k[0], 1);
+  K before = __shfl_down_sync(kFull, k[kStatItems - 1], 1);
+  if (lane == 0) after = r0 + kStatItems < n ? keys[r0 + kStatItems] : K(0);
+  if (lane == 31) before = r0 > 0 && r0 - 1 < n ? keys[r0 - 1] : K(0);
+  bool tail[kStatItems], head[kStatItems];
+#pragma unroll
+  for (int j = 0; j < kStatItems; ++j) {
+    const int64_t r = r0 + j;
+    const K next = j + 1 < kStatItems ? k[j + 1] : after;
+    const K prev = j > 0 ? k[j - 1] : before;
+    tail[j] = r < n && (r + 1 == n || k[j] != next);
+    head[j] = r < n && (r == 0 || k[j] != prev);
+  }
+  RunStat s = id;
+#pragma unroll
+  for (int j = kStatItems - 1; j >= 0; --j) {
+    if (r0 + j < n) s = op(s, RunStat{tail[j], v[j], v[j]});
+  }
+  RunStat total;
+  RunStat cur = block_exclusive_scan<kThreads>(s, id, op, total);
+#pragma unroll
+  for (int j = kStatItems - 1; j >= 0; --j) {
+    const int64_t r = r0 + j;
+    if (r >= n) continue;
+    cur = op(cur, RunStat{tail[j], v[j], v[j]});
+    if (!head[j]) continue;
+    if (cur.f) {
+      stats[r] = pack_stat(cur.mn, cur.mx);
+    } else {   // the run goes on past the tile: at most one a tile
+      s_fix = (int)(r - tile0);
+      carry.fix_mn[blockIdx.x] = cur.mn;
+      carry.fix_mx[blockIdx.x] = cur.mx;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    carry.f[blockIdx.x] = total.f;
+    carry.mn[blockIdx.x] = total.mn;
+    carry.mx[blockIdx.x] = total.mx;
+    carry.fix_at[blockIdx.x] = s_fix;
+  }
+}
+
+// K8's carry launch, one block: the tiles' totals scanned from the last
+// tile to the first give each tile the min and max of the rows after it up
+// to the first run end, which complete its fix row.
+__global__ void __launch_bounds__(kCarryThreads)
+run_stats_carry_kernel(StatCarry carry, int64_t ntiles,
+                       long long* __restrict__ stats) {
+  const RunStatOp op;
+  const RunStat id = {0, INT32_MAX, INT32_MIN};
+  const int64_t per = (ntiles + kCarryThreads - 1) / kCarryThreads;
+  const int64_t p0 = (int64_t)threadIdx.x * per;
+  const int64_t p1 = p0 + per < ntiles ? p0 + per : ntiles;
+  RunStat s = id;
+  for (int64_t p = p0; p < p1; ++p) {   // scan position p: tile ntiles-1-p
+    const int64_t t = ntiles - 1 - p;
+    s = op(s, RunStat{carry.f[t], carry.mn[t], carry.mx[t]});
+  }
+  RunStat total;
+  RunStat cur = block_exclusive_scan<kCarryThreads>(s, id, op, total);
+  for (int64_t p = p0; p < p1; ++p) {
+    const int64_t t = ntiles - 1 - p;
+    const int at = carry.fix_at[t];
+    if (at >= 0) {
+      stats[t * kStatTile + at] = pack_stat(min(cur.mn, carry.fix_mn[t]),
+                                            max(cur.mx, carry.fix_mx[t]));
+    }
+    cur = op(cur, RunStat{carry.f[t], carry.mn[t], carry.mx[t]});
+  }
+}
+
+// K8's probe of R rows from row i (R = 4 by vector accesses): each key is
+// mapped into the build's code range (outside it, and for rows that need
+// no answer, the row searches nothing), the fence gives the lower bound and
+// the code there, and a hit reads the run's packed min and max. Compare
+// mode: matched = pmask & hit & (pval OP stat); stats mode: matched = pmask
+// & hit, and min and max for every row with a hit.
+template <int R>
+__device__ __forceinline__ void stats_probe_rows(
+    const long long* top, int64_t n_top, const Fence& f,
+    const long long* __restrict__ keys, const long long* __restrict__ stats,
+    const radix::Span& sp, const long long* __restrict__ probe,
+    const uint8_t* __restrict__ pmask, const int* __restrict__ pval,
+    int64_t i, int op, uint8_t* __restrict__ matched,
+    int* __restrict__ out_min, int* __restrict__ out_max) {
+  long long k[R];
+  bool m[R];
+  load_rows<long long, R>(probe, pmask, i, k, m);
+  int v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = 0;
+  if (op != kStats) {
+    if constexpr (R == 1) {
+      v[0] = __ldcs(pval + i);
+    } else {
+      const int4 x = __ldcs(reinterpret_cast<const int4*>(pval + i));
+      v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+    }
+  }
+  long long code[R];
+  bool live[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const unsigned long long u = (unsigned long long)k[r] ^ kSignBit;
+    live[r] = (op == kStats || m[r]) && u >= sp.min && u <= sp.max;
+    const unsigned long long c = u - sp.lo;
+    code[r] = sp.narrow ? (long long)c : (long long)(c ^ kSignBit);
+  }
+  int64_t c[R];
+  long long at[R];
+  fence_descend<R>(top, n_top, f, code, live, c, at);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (live[r]) fence_step(keys, c[r], at[r], code[r]);
+  }
+  bool has[R];
+  long long st[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) has[r] = live[r] && at[r] == code[r];
+#pragma unroll
+  for (int r = 0; r < R; ++r) st[r] = has[r] ? __ldg(stats + c[r]) : 0;
+  int mn[R], mx[R];
+  uint8_t hit[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    mn[r] = has[r] ? (int)(unsigned)st[r] : INT32_MAX;
+    mx[r] = has[r] ? (int)(st[r] >> 32) : INT32_MIN;
+    bool h = m[r] && has[r];
+    switch (op) {
+      case kStats: break;
+      case kNe: h = h && (mn[r] != v[r] || mx[r] != v[r]); break;
+      case kLt: h = h && v[r] < mx[r]; break;
+      case kLe: h = h && v[r] <= mx[r]; break;
+      case kGt: h = h && v[r] > mn[r]; break;
+      default: h = h && v[r] >= mn[r]; break;
+    }
+    hit[r] = h;
+  }
+  if constexpr (R == 1) {
+    __stcs(matched + i, hit[0]);
+    if (op == kStats) {
+      __stcs(out_min + i, mn[0]);
+      __stcs(out_max + i, mx[0]);
+    }
+  } else {
+    __stcs(reinterpret_cast<uchar4*>(matched + i),
+           make_uchar4(hit[0], hit[1], hit[2], hit[3]));
+    if (op == kStats) {
+      __stcs(reinterpret_cast<int4*>(out_min + i),
+             make_int4(mn[0], mn[1], mn[2], mn[3]));
+      __stcs(reinterpret_cast<int4*>(out_max + i),
+             make_int4(mx[0], mx[1], mx[2], mx[3]));
+    }
+  }
+}
+
+// K8's probe launch: the fence's top level staged in shared memory, then
+// groups of four probe rows (VEC), then the rows past the last group.
+template <bool VEC>
+__global__ void __launch_bounds__(kProbeThreads, 2)
+stats_probe_kernel(const long long* __restrict__ keys,
+                   const long long* __restrict__ stats, Fence f,
+                   const radix::Span* __restrict__ span,
                    const long long* __restrict__ probe,
                    const uint8_t* __restrict__ pmask,
                    const int* __restrict__ pval, int64_t n_probe, int op,
                    uint8_t* __restrict__ matched, int* __restrict__ out_min,
                    int* __restrict__ out_max) {
-  const long long kDead = INT64_MAX;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n_probe;
-       i += stride) {
-    const long long key = probe[i];
-    bool has = false;
-    int mn = INT32_MAX, mx = INT32_MIN;
-    if (key != kDead) {
-      const int64_t lb = lower_bound(sorted_key, 0, n_build, key);
-      if (lb < n_build && sorted_key[lb] == key) {
-        has = true;
-        mn = run_min[lb];
-        mx = run_max[lb];
-      }
+  extern __shared__ long long top[];
+  const int64_t n_top = f.size[f.levels - 1];
+  for (int t = threadIdx.x; t < n_top; t += kProbeThreads) {
+    top[t] = f.level[f.levels - 1][t];
+  }
+  __syncthreads();
+  const radix::Span sp = *span;
+  const int64_t tid = (int64_t)blockIdx.x * kProbeThreads + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * kProbeThreads;
+  int64_t first = 0;
+  if constexpr (VEC) {
+    const int64_t groups = n_probe / 4;
+    for (int64_t g = tid; g < groups; g += stride) {
+      stats_probe_rows<4>(top, n_top, f, keys, stats, sp, probe, pmask, pval,
+                          4 * g, op, matched, out_min, out_max);
     }
-    if (op == kStats) {
-      matched[i] = pmask[i] && has;
-      out_min[i] = mn;
-      out_max[i] = mx;
-      continue;
-    }
-    bool hit = false;
-    if (pmask[i] && has) {
-      const int v = pval[i];
-      switch (op) {
-        case kNe: hit = mn != v || mx != v; break;
-        case kLt: hit = v < mx; break;
-        case kLe: hit = v <= mx; break;
-        case kGt: hit = v > mn; break;
-        default: hit = v >= mn; break;
-      }
-    }
-    matched[i] = hit;
+    first = 4 * groups;
+  }
+  for (int64_t i = first + tid; i < n_probe; i += stride) {
+    stats_probe_rows<1>(top, n_top, f, keys, stats, sp, probe, pmask, pval,
+                        i, op, matched, out_min, out_max);
   }
 }
 
@@ -827,9 +1064,9 @@ int qs_sorted_probe(const void* sorted_key, const void* order, int64_t n_build,
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  fence_pack_kernel<<<pack_blocks, kThreads, 0, s>>>(
+  fence_pack_kernel<long long><<<pack_blocks, kThreads, 0, s>>>(
       (const long long*)sorted_key, (const long long*)order, n_build, keys,
-      build_rows, f, (int*)dup);
+      build_rows, f, (int*)dup, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_probe == 0) return err;
   const bool vec = aligned(probe, 16) && aligned(pmask, 4) &&
@@ -862,9 +1099,9 @@ int qs_expand_probe(const void* sorted_key, const void* order,
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  fence_pack_kernel<<<pack_blocks, kThreads, 0, s>>>(
+  fence_pack_kernel<long long><<<pack_blocks, kThreads, 0, s>>>(
       (const long long*)sorted_key, (const long long*)order, n_build, keys,
-      build_rows, f, nullptr);
+      build_rows, f, nullptr, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int shared = (int)(level_sizes[levels - 1] * sizeof(long long));
@@ -880,28 +1117,83 @@ int qs_expand_probe(const void* sorted_key, const void* order,
   return cudaGetLastError();
 }
 
+// The int32 words of K8's carry scratch for n_build rows: six a tile.
+int64_t qs_run_stats_carry_words(int64_t n_build) {
+  return 6 * ((n_build + kStatTile - 1) / kStatTile);
+}
+
 // op: -1 stats mode (out_min and out_max written), 0..4 compare mode with
-// <>, <, <=, >, >= (pval read, out_min and out_max untouched). run_min and
-// run_max are scratch of n_build entries.
-int qs_run_stats_probe(const void* sorted_key, const void* order,
-                       int64_t n_build, const void* bval, void* run_min,
-                       void* run_max, const void* probe, const void* pmask,
+// <>, <, <=, >, >= (pval read, out_min and out_max untouched). Scratch:
+// codes 3 n_build int64 words, vals 2 n_build int32, span one radix::Span,
+// sort_scratch qs_kv_scratch_words(n_build) words, carry
+// qs_run_stats_carry_words(n_build) int32, fence_scratch and level_sizes as
+// for qs_sorted_probe. With no build or no probe rows it launches nothing
+// (the caller fills the outputs). n_build < 2^31.
+int qs_run_stats_probe(const void* bkey, const void* bmask, const void* bval,
+                       int64_t n_build, const void* probe, const void* pmask,
                        const void* pval, int64_t n_probe, int op,
                        void* matched, void* out_min, void* out_max,
-                       int build_blocks, int probe_blocks, void* stream) {
-  if (op < kStats || op > kGe) return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n_build > 0) {
-    run_stats_kernel<<<build_blocks, kThreads, 0, s>>>(
-        (const long long*)sorted_key, (const long long*)order, n_build,
-        (const int*)bval, (int*)run_min, (int*)run_max);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+                       void* codes, void* vals, void* span,
+                       void* sort_scratch, void* carry_scratch,
+                       void* fence_scratch, const int64_t* level_sizes,
+                       int levels, int blocks, int pass_blocks,
+                       int probe_blocks, void* stream) {
+  if (op < kStats || op > kGe || n_build < 0 || n_build >= (1ll << 31) ||
+      blocks < 1 || pass_blocks < 1 || probe_blocks < 1)
+    return cudaErrorInvalidValue;
+  if (n_build == 0 || n_probe == 0) return cudaSuccess;
+  Fence f;
+  long long* keys;
+  int* unused_rows;
+  if (!carve_fence(fence_scratch, n_build, level_sizes, levels, keys,
+                   unused_rows, f)) {
+    return cudaErrorInvalidValue;
   }
-  if (n_probe == 0) return cudaSuccess;
-  stats_probe_kernel<<<probe_blocks, kThreads, 0, s>>>(
-      (const long long*)sorted_key, n_build, (const int*)run_min,
-      (const int*)run_max, (const long long*)probe, (const uint8_t*)pmask,
+  cudaStream_t s = (cudaStream_t)stream;
+  radix::Span* sp = (radix::Span*)span;
+  const BuildSrc src = {(const long long*)bkey, (const uint8_t*)bmask};
+  cudaError_t err = radix::reduce_range(src, n_build, sp, ~0ull, blocks, s);
+  if (err != cudaSuccess) return err;
+  unsigned long long* c = (unsigned long long*)codes;
+  int* v = (int*)vals;
+  const radix::KvBufs b = {c, (const int*)bval, c + n_build, v,
+                           c + 2 * n_build, v + n_build};
+  err = radix::kv_sort<8>(src, sp, n_build, true, b, sort_scratch,
+                          &sp->narrow, blocks, pass_blocks, s);
+  if (err != cudaSuccess) return err;
+  // the sorted codes are in c + n_build (32- or 64-bit, as the range
+  // picks), the values in v; the sort's scratch keys hold the stats now
+  long long* stats = (long long*)(c + 2 * n_build);
+  const int64_t ntiles = (n_build + kStatTile - 1) / kStatTile;
+  int* cw = (int*)carry_scratch;
+  const StatCarry carry = {cw, cw + ntiles, cw + 2 * ntiles, cw + 3 * ntiles,
+                           cw + 4 * ntiles, cw + 5 * ntiles};
+  run_stats_tile_kernel<unsigned><<<(unsigned)ntiles, kThreads, 0, s>>>(
+      (const unsigned*)(c + n_build), v, n_build, stats, carry, &sp->narrow);
+  run_stats_tile_kernel<unsigned long long>
+      <<<(unsigned)ntiles, kThreads, 0, s>>>(c + n_build, v, n_build, stats,
+                                             carry, &sp->narrow);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  run_stats_carry_kernel<<<1, kCarryThreads, 0, s>>>(carry, ntiles, stats);
+  fence_pack_kernel<unsigned><<<blocks, kThreads, 0, s>>>(
+      (const unsigned*)(c + n_build), nullptr, n_build, keys, nullptr, f,
+      nullptr, &sp->narrow);
+  fence_pack_kernel<unsigned long long><<<blocks, kThreads, 0, s>>>(
+      c + n_build, nullptr, n_build, keys, nullptr, f, nullptr, &sp->narrow);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const bool vec = aligned(probe, 16) && aligned(pmask, 4) &&
+                   aligned(matched, 4) &&
+                   (op != kStats || (aligned(out_min, 16) &&
+                                     aligned(out_max, 16))) &&
+                   (op == kStats || aligned(pval, 16));
+  auto kernel = vec ? stats_probe_kernel<true> : stats_probe_kernel<false>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kTopKeys * (int)sizeof(long long));
+  if (err != cudaSuccess) return err;
+  const int shared = (int)(level_sizes[levels - 1] * sizeof(long long));
+  kernel<<<probe_blocks, kProbeThreads, shared, s>>>(
+      keys, stats, f, sp, (const long long*)probe, (const uint8_t*)pmask,
       (const int*)pval, n_probe, op, (uint8_t*)matched, (int*)out_min,
       (int*)out_max);
   return cudaGetLastError();

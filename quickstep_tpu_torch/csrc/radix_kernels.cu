@@ -49,6 +49,10 @@
 //    sorted order and written out in that order, so each digit's run goes
 //    out coalesced.
 //
+// The plan, the warp ranks and the look-back live in radix_device.cuh,
+// which also holds the key-value sort that K8 and K13 share; qs_kv_sort
+// runs that sort alone on given keys (for the card tests and benchmarks).
+//
 // What bounds it: the bytes, at best. The histogram pass reads the values
 // and masks once; each running pass reads and writes the values once (the
 // first reads the masks again). For the 60 M int32 values in [1, 2 M] of
@@ -61,27 +65,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "radix_device.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using namespace radix;
+
 constexpr int kItems = 16;                  // rows per lane and tile
 constexpr int kWarpRows = 32 * kItems;
 constexpr int kTile = kThreads * kItems;    // rows per tile
-constexpr int kBins = 256;
-constexpr int kMaxPasses = 8;
-constexpr int kLookBack = 16;              // status words read at once
-constexpr int kHistRows = 4;               // rows per thread and round
 
 enum { kI32 = 0, kI64 = 1, kF32 = 2, kF64 = 3, kU8 = 4 };
-enum { kInput = 0, kOut = 1, kTmp = 2 };
-
-struct Plan {
-  long long base[kMaxPasses][kBins];  // rows of the smaller digits
-  int active[kMaxPasses];
-  int src[kMaxPasses];
-  int dst[kMaxPasses];
-};
 
 template <typename T> struct Radix;
 
@@ -194,50 +188,6 @@ hist_kernel(const T* __restrict__ vals, const bool* __restrict__ alive,
     if (sh[i]) atomicAdd(&hist[i], (unsigned long long)sh[i]);
 }
 
-__global__ void __launch_bounds__(kBins)
-plan_kernel(const unsigned long long* __restrict__ hist, int passes,
-            int64_t n, Plan* plan) {
-  __shared__ unsigned long long scan[kBins];
-  __shared__ int run[kMaxPasses];
-  const int d = threadIdx.x;
-  if (d < kMaxPasses) run[d] = 1;
-  __syncthreads();
-  for (int p = 0; p < passes; ++p) {
-    const unsigned long long c = hist[p * kBins + d];
-    if (c == (unsigned long long)n) run[p] = 0;   // one digit in every row
-    scan[d] = c;
-    __syncthreads();
-    for (int off = 1; off < kBins; off <<= 1) {
-      const unsigned long long t = d >= off ? scan[d - off] : 0;
-      __syncthreads();
-      scan[d] += t;
-      __syncthreads();
-    }
-    plan->base[p][d] = (long long)(scan[d] - c);
-    __syncthreads();
-  }
-  if (d == 0) {
-    int count = 0;
-    for (int p = 0; p < passes; ++p) count += run[p];
-    if (count == 0) {
-      run[0] = 1;
-      count = 1;
-    }
-    int prev = kInput, left = count;
-    for (int p = 0; p < kMaxPasses; ++p) {
-      const bool on = p < passes && run[p];
-      plan->active[p] = on;
-      if (!on) continue;
-      // the last running pass (left == 1) writes the output
-      const int dst = (left & 1) ? kOut : kTmp;
-      plan->src[p] = prev;
-      plan->dst[p] = dst;
-      prev = dst;
-      --left;
-    }
-  }
-}
-
 // at most 85 registers a thread, so that three blocks fit on an SM: the
 // pass is bound by the latency of its steps, and a third block hides more
 // of it than the registers it gives up
@@ -266,7 +216,6 @@ pass_kernel(const T* __restrict__ vals, const bool* __restrict__ alive,
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const unsigned lower = (1u << lane) - 1u;
   const int b = threadIdx.x;                  // the digit this thread scans
   digit_base[b] = plan->base[pass][b];
 
@@ -319,35 +268,9 @@ pass_kernel(const T* __restrict__ vals, const bool* __restrict__ alive,
     const unsigned total = tile_count[b];
     volatile unsigned long long* st = status + (int64_t)tile * kBins + b;
     *st = ((tile == 0 ? pre_tag : agg_tag) << 32) | total;
-    // stable ranks within the warp: round j holds rows j * 32 + lane. A
-    // lane's peers (the lanes with its digit) come from one ballot per
-    // digit bit and one for the rows past n; the lowest peer adds the
-    // peers to the warp's count of the digit and hands the old count on.
-    // The rounds' peers first, then their atomics back to back, then the
-    // ranks: no round waits on the one before.
-    unsigned peers[kItems];
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      peers[j] = 0xffffffffu;
-#pragma unroll
-      for (int bit = 0; bit < 9; ++bit) {
-        const bool set = (dg[j] >> bit) & 1u;
-        const unsigned vote = __ballot_sync(0xffffffffu, set);
-        peers[j] &= set ? vote : ~vote;
-      }
-    }
+    // stable ranks within the warp (radix_device.cuh warp_ranks)
     unsigned rank[kItems];
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      rank[j] = 0;
-      if (lane == __ffs(peers[j]) - 1 && dg[j] < kBins)
-        rank[j] = atomicAdd(&warp_count[warp][dg[j]],
-                            (unsigned)__popc(peers[j]));
-    }
-#pragma unroll
-    for (int j = 0; j < kItems; ++j)
-      rank[j] = __shfl_sync(0xffffffffu, rank[j], __ffs(peers[j]) - 1) +
-                __popc(peers[j] & lower);
+    warp_ranks<kItems>(dg, warp_count[warp], lane, rank);
     __syncthreads();
 
     // per digit: the earlier warps' rows
@@ -380,39 +303,10 @@ pass_kernel(const T* __restrict__ vals, const bool* __restrict__ alive,
       if (d < kBins)
         stage[digit_start[d] + warp_count[warp][d] + rank[j]] = v[j];
     }
-    // look back for the digit's rows in the earlier tiles: kLookBack
-    // words are read at once, nearest first, and summed up to the first
-    // inclusive prefix; a word not yet published starts the next window
-    // there, after a pause that doubles while it waits, so that waiting
-    // tiles do not crowd the L2 with reads
+    // the digit's rows in the earlier tiles (radix_device.cuh look_back)
     long long before_tile = 0;
     if (tile > 0) {
-      unsigned pause = 32;
-      for (int t = tile - 1;;) {
-        unsigned long long w[kLookBack];
-#pragma unroll
-        for (int i = 0; i < kLookBack; ++i)
-          w[i] = t - i >= 0 ? *(volatile unsigned long long*)(
-                                  status + (int64_t)(t - i) * kBins + b)
-                            : 0ull;
-        int i = 0;
-        bool done = false;
-#pragma unroll
-        for (int k = 0; k < kLookBack; ++k) {
-          if (done || i < k) continue;
-          const unsigned long long tag = w[k] >> 32;
-          if (tag < agg_tag) continue;        // not published yet
-          before_tile += (unsigned int)w[k];
-          done = tag == pre_tag;
-          i = k + 1;
-        }
-        if (done) break;
-        if (i == 0) {
-          __nanosleep(pause);
-          pause = pause < 1024 ? 2 * pause : pause;
-        }
-        t -= i;
-      }
+      before_tile = look_back(status, tile, b, agg_tag, pre_tag);
       *st = (pre_tag << 32) | (unsigned long long)(before_tile + total);
     }
     out_base[b] = digit_base[b] + before_tile - (long long)start;
@@ -444,7 +338,7 @@ int launch_sort(const void* vals, const void* alive, const void* valid,
       (unsigned long long*)n_live);
   int err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  plan_kernel<<<1, kBins, 0, st>>>(hist, P, n, plan);
+  plan_kernel<<<1, kBins, 0, st>>>(hist, P, n, plan, nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int grid = pass_blocks < n_tiles ? pass_blocks : n_tiles;
@@ -458,6 +352,17 @@ int launch_sort(const void* vals, const void* alive, const void* valid,
   return cudaSuccess;
 }
 
+// The key-value sort of given unsigned keys (radix_device.cuh), which K8
+// and K13 run on their range-compressed codes: the source reads the keys.
+template <typename K>
+struct GivenKeys {
+  const K* keys;
+  __device__ __forceinline__ unsigned long long code(
+      int64_t i, unsigned long long, unsigned long long) const {
+    return keys[i];
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -467,6 +372,34 @@ int64_t qs_radix_scratch_words(int64_t n) {
   const int64_t n_tiles = (n + kTile - 1) / kTile;
   return kMaxPasses * kBins + kMaxPasses / 2 + (int64_t)sizeof(Plan) / 8 +
          n_tiles * kBins;
+}
+
+// The 64-bit words of scratch of a key-value sort of n rows (radix_device.cuh
+// kv_scratch_words; the sort zeroes it itself).
+int64_t qs_kv_scratch_words(int64_t n) { return radix::kv_scratch_words(n); }
+
+// The n (key, payload) records sorted stably by the unsigned key, 4 or 8
+// bytes (key_bytes); vals may be null (the payload is then the row id).
+// keys_out / vals_out receive the result, keys_tmp / vals_tmp are scratch of
+// n records, scratch holds qs_kv_scratch_words(n) words. n < 2^31.
+int qs_kv_sort(int key_bytes, const void* keys, const void* vals, int64_t n,
+               void* keys_out, void* vals_out, void* keys_tmp, void* vals_tmp,
+               void* scratch, int hist_blocks, int pass_blocks, void* stream) {
+  if (n < 0 || n >= (1ll << 31) || hist_blocks < 1 || pass_blocks < 1 ||
+      (key_bytes != 4 && key_bytes != 8))
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const radix::KvBufs b = {const_cast<void*>(keys), (const int*)vals,
+                           keys_out, (int*)vals_out, keys_tmp,
+                           (int*)vals_tmp};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (key_bytes == 4)
+    return radix::kv_sort<4>(GivenKeys<unsigned>{(const unsigned*)keys},
+                             nullptr, n, false, b, scratch, nullptr,
+                             hist_blocks, pass_blocks, st);
+  return radix::kv_sort<8>(
+      GivenKeys<unsigned long long>{(const unsigned long long*)keys}, nullptr,
+      n, false, b, scratch, nullptr, hist_blocks, pass_blocks, st);
 }
 
 // out = the n values (dtype; bools as 0 / 1 bytes) with the rows that are

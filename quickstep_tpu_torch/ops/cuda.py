@@ -37,16 +37,20 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # K1 scalar_agg, K2 dense_groupby, K3 direct_join (the direct-address build
 # and probe, and their presence mode for the exact filter), K4
 # merge_unique_probe, K5 sort_groupby, K6 multi_gather, K7 expand_probe, K8
-# merge_cmp_probe (its compare and stats modes), K9 sort_groupby_compact (the
+# merge_cmp_probe (one call of its compare or stats mode: the build's sort,
+# its run statistics and the probe), K9 sort_groupby_compact (the
 # stable live-first partition), the window kernels (W1 window_prefix, W2
 # frame_minmax, W3 frame_bounds, W4 sliding_sum), K10 hash_keys, K11
 # open_addressing (its build and probe), K12 distinct_count (the run starts,
-# counted or flagged), K13 order_permutation (the sort key encoding), and
+# counted or flagged), K13 order_permutation (one call: the whole chain of
+# key-value sorts), and
 # the mesh path's K14 partition_dest (the radix partition), K15
 # scatter_compact (the bucket scatter) and K16 bloom_filter (its build and
 # probe). K6's two routes count apart: multi_gather is the direct route,
 # multi_gather_packed the row-packed one; and K12's radix sort counts as
-# distinct_sort. A wrapper given an empty input launches nothing and
+# distinct_sort. K8 and K13 run the key-value radix sort inside their one
+# call; kv_sort runs that sort alone (for the card tests and benchmarks)
+# and counts nothing. A wrapper given an empty input launches nothing and
 # returns the empty or neutral result of its plain version.
 LAUNCHES = {"scalar_agg": 0, "dense_groupby": 0, "direct_join": 0,
             "merge_unique_probe": 0, "sort_groupby": 0, "multi_gather": 0,
@@ -163,8 +167,9 @@ def build() -> ctypes.CDLL:
                                  i32, p],
             "qs_expand_probe": [p, p, i64, p, p, i64, i32, p, p, i32, p, p,
                                 p, i32, i32, p],
-            "qs_run_stats_probe": [p, p, i64, p, p, p, p, p, p, i64, i32, p,
-                                   p, p, i32, i32, p],
+            "qs_run_stats_probe": [p, p, p, i64, p, p, p, i64, i32, p, p, p,
+                                   p, p, p, p, p, p, p, i32, i32, i32, i32,
+                                   p],
             "qs_stable_partition": [p, i64, p, p, p, p],
             "qs_window_prefix": [i32, i32, p, p, p, p, i64, *[p] * 11],
             "qs_frame_bounds": [i32, i32, p, p, i64, i64, i64, i32, i32,
@@ -177,7 +182,9 @@ def build() -> ctypes.CDLL:
             "qs_run_starts": [i32, p, i64, p, p, p, i32, p],
             "qs_radix_sort_live": [i32, p, p, p, i64, p, p, p, p, i32, i32,
                                    p],
-            "qs_sort_key_encode": [i32, p, p, p, i64, i32, i32, p, i32, p],
+            "qs_kv_sort": [i32, p, p, i64, p, p, p, p, p, i32, i32, p],
+            "qs_order_permutation": [i32, p, p, p, p, p, p, i64, p, p, p, p,
+                                     p, i32, i32, p],
             "qs_partition_count": [p, i32, p, i64, i32, i32, i32, i64, i32, p,
                                    p],
             "qs_partition_dest": [p, i32, p, i64, i32, i32, i32, i64, i32, p,
@@ -191,8 +198,12 @@ def build() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = i32
-        lib.qs_radix_scratch_words.argtypes = [i64]
-        lib.qs_radix_scratch_words.restype = i64
+        for name in ("qs_radix_scratch_words", "qs_kv_scratch_words",
+                     "qs_run_stats_carry_words"):
+            getattr(lib, name).argtypes = [i64]
+            getattr(lib, name).restype = i64
+        lib.qs_span_words.argtypes = []
+        lib.qs_span_words.restype = i64
         lib.qs_error_string.argtypes = [i32]
         lib.qs_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -736,23 +747,24 @@ def expand_probe(sorted_key: torch.Tensor, order: torch.Tensor,
 CMP_OPS = {"<>": 0, "<": 1, "<=": 2, ">": 3, ">=": 4}
 
 
-def run_stats_probe(sorted_key: torch.Tensor, order: torch.Tensor,
+def run_stats_probe(build_key: torch.Tensor, bmask: torch.Tensor,
                     bval: torch.Tensor, probe: torch.Tensor,
                     pmask: torch.Tensor, pval: Optional[torch.Tensor] = None,
                     op: Optional[str] = None):
-    """K8: the min and max of the int32 build values bval over each run of
-    equal live build keys (sorted_key and order as for expand_probe; bval in
-    the build's own row order), read by every probe row at its key. With op
-    (one of <>, <, <=, >, >=) and the probe's int32 pval: the bool matched
-    = pmask & (a live build row has the key) & (pval OP the run's min or
-    max, as ops/join.py merge_cmp_probe decides). Without op: (matched,
-    int32 min, int32 max), with (INT32_MAX, INT32_MIN) where the key has no
-    live build row."""
+    """K8: the min and max of the int32 build values bval over the live
+    build rows of each int64 key (a key of INT64_MAX counts as dead), read
+    by every probe row at its key. With op (one of <>, <, <=, >, >=) and the
+    probe's int32 pval: the bool matched = pmask & (a live build row has the
+    key) & (pval OP the run's min or max, as ops/join.py merge_cmp_probe
+    decides). Without op: (matched, int32 min, int32 max), with (INT32_MAX,
+    INT32_MIN) where the key has no live build row. One call: the build's
+    range and key-value radix sort carrying bval, the run statistics in
+    tiles, K4's fence over the sorted codes, and the probe."""
     device = _cuda_device(pmask, "pmask")
-    n_build = int(sorted_key.shape[0]) if sorted_key.dim() == 1 else -1
+    n_build = int(build_key.shape[0]) if build_key.dim() == 1 else -1
     n_probe = int(pmask.shape[0]) if pmask.dim() == 1 else -1
-    _require(sorted_key, "sorted_key", device, n_build, (torch.int64,))
-    _require(order, "order", device, n_build, (torch.int64,))
+    _require(build_key, "build_key", device, n_build, (torch.int64,))
+    _require(bmask, "bmask", device, n_build, (torch.bool,))
     _require(bval, "bval", device, n_build, (torch.int32,))
     _require(probe, "probe", device, n_probe, (torch.int64,))
     _require(pmask, "pmask", device, n_probe, (torch.bool,))
@@ -764,8 +776,6 @@ def run_stats_probe(sorted_key: torch.Tensor, order: torch.Tensor,
         _require(pval, "pval", device, n_probe, (torch.int32,))
     _rows(n_build, "run_stats_probe")
     lib = build()
-    run_min = torch.empty(n_build, dtype=torch.int32, device=device)
-    run_max = torch.empty(n_build, dtype=torch.int32, device=device)
     matched = torch.empty(n_probe, dtype=torch.bool, device=device)
     out_min = out_max = None
     if op is None:
@@ -777,11 +787,28 @@ def run_stats_probe(sorted_key: torch.Tensor, order: torch.Tensor,
             out_min.fill_(torch.iinfo(torch.int32).max)
             out_max.fill_(torch.iinfo(torch.int32).min)
     elif n_probe:
+        codes = torch.empty(3 * n_build, dtype=torch.int64, device=device)
+        vals = torch.empty(2 * n_build, dtype=torch.int32, device=device)
+        span = torch.empty(lib.qs_span_words(), dtype=torch.int64,
+                           device=device)
+        sort_scratch = torch.empty(lib.qs_kv_scratch_words(n_build),
+                                   dtype=torch.int64, device=device)
+        carry = torch.empty(lib.qs_run_stats_carry_words(n_build),
+                            dtype=torch.int32, device=device)
+        sizes = fence_layout(n_build)
+        fence = torch.empty(fence_scratch_words(n_build), dtype=torch.int64,
+                            device=device)
+        c_sizes = (ctypes.c_int64 * len(sizes))(*sizes)
         err = lib.qs_run_stats_probe(
-            _ptr(sorted_key), _ptr(order), n_build, _ptr(bval), _ptr(run_min),
-            _ptr(run_max), _ptr(probe), _ptr(pmask), _ptr(pval), n_probe,
+            _ptr(build_key), _ptr(bmask), _ptr(bval), n_build, _ptr(probe),
+            _ptr(pmask), _ptr(pval), n_probe,
             -1 if op is None else CMP_OPS[op], _ptr(matched), _ptr(out_min),
-            _ptr(out_max), _blocks(n_build, device), _blocks(n_probe, device),
+            _ptr(out_max), _ptr(codes), _ptr(vals), _ptr(span),
+            _ptr(sort_scratch), _ptr(carry), _ptr(fence),
+            ctypes.cast(c_sizes, ctypes.c_void_p), len(sizes),
+            _blocks(n_build, device), 4 * _sms(device),
+            max(1, min(-(-n_probe // (FENCE_THREADS * UNIQUE_PROBE_ROWS)),
+                       UNIQUE_PROBE_BLOCKS_PER_SM * _sms(device))),
             _stream(device))
         _check(lib, err, "run_stats_probe")
         LAUNCHES["merge_cmp_probe"] += 1
@@ -962,8 +989,9 @@ def sliding_sum(c: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
 
 
 # ---------------------------------------------------------------------
-# K10-K13: hashing, open addressing, K12's radix sort and run starts, sort
-# keys (csrc/hash_kernels.cu, csrc/radix_kernels.cu, csrc/sort_kernels.cu)
+# K10-K13: hashing, open addressing, K12's radix sort and run starts, the
+# key-value sort of K13 (csrc/hash_kernels.cu, csrc/radix_kernels.cu,
+# csrc/sort_kernels.cu)
 # ---------------------------------------------------------------------
 _KEY_DTYPE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
               torch.float64: 3, torch.bool: 4, torch.uint8: 4}
@@ -1122,28 +1150,77 @@ def radix_sort_live(vals: torch.Tensor, valid: Optional[torch.Tensor],
     return out, n_live
 
 
-def sort_key_encode(key: torch.Tensor, valid: Optional[torch.Tensor],
-                    asc: bool, nulls_first: Optional[bool],
-                    perm: torch.Tensor) -> torch.Tensor:
-    """K13: the order-preserving int64 of key at rows perm (int64): DESC
-    negated or inverted, NULL rows at the sentinel NULLS FIRST / LAST
-    (SQL default: last for ASC, first for DESC) asks for, floats through
-    their bits (ops/sort.py encode_key is the plain version)."""
-    device = _cuda_device(key, "key")
-    n = int(key.shape[0]) if key.dim() == 1 else -1
-    _require(key, "key", device, n, tuple(_KEY_DTYPE))
-    _require(valid, "valid", device, n, (torch.bool,))
-    _require(perm, "perm", device, n, (torch.int64,))
+def kv_sort(keys: torch.Tensor, vals: Optional[torch.Tensor]):
+    """The key-value radix sort that K8 and K13 run inside their calls,
+    alone: (keys, vals) sorted stably by the keys read as unsigned (int32
+    keys as uint32, int64 as uint64), vals int32 or None (then the row ids).
+    Counts no launch: it is not a kernel of the engine's path by itself."""
+    device = _cuda_device(keys, "keys")
+    n = int(keys.shape[0]) if keys.dim() == 1 else -1
+    _require(keys, "keys", device, n, (torch.int32, torch.int64))
+    _require(vals, "vals", device, n, (torch.int32,))
+    _rows(n, "kv_sort")
+    lib = build()
+    keys_out = torch.empty_like(keys)
+    vals_out = torch.empty(n, dtype=torch.int32, device=device)
+    if n == 0:
+        return keys_out, vals_out
+    keys_tmp, vals_tmp = torch.empty_like(keys), torch.empty_like(vals_out)
+    scratch = torch.empty(lib.qs_kv_scratch_words(n), dtype=torch.int64,
+                          device=device)
+    err = lib.qs_kv_sort(keys.element_size(), _ptr(keys), _ptr(vals), n,
+                         _ptr(keys_out), _ptr(vals_out), _ptr(keys_tmp),
+                         _ptr(vals_tmp), _ptr(scratch), _blocks(n, device),
+                         4 * _sms(device), _stream(device))
+    _check(lib, err, "kv_sort")
+    return keys_out, vals_out
+
+
+def order_permutation(keys: List[torch.Tensor],
+                      valids: List[Optional[torch.Tensor]],
+                      ascending: List[bool], nulls_first: List[Optional[bool]],
+                      alive: torch.Tensor) -> torch.Tensor:
+    """K13: the stable int64 permutation that sorts the live rows by the
+    keys (keys[0] most significant; DESC, NULLS FIRST / LAST as the SQL
+    default or as asked), the dead rows after them in key order: what
+    ops/sort.py order_permutation_plain gives. One call: a chain of
+    key-value radix sorts over each key's range-compressed codes, last key
+    first, carrying int32 row ids, then the dead flag."""
+    device = _cuda_device(alive, "alive")
+    n = int(alive.shape[0]) if alive.dim() == 1 else -1
+    _require(alive, "alive", device, n, (torch.bool,))
+    cols = [k.view(torch.uint8) if k.dtype == torch.bool else k for k in keys]
+    for i, (c, v) in enumerate(zip(cols, valids)):
+        _require(c, f"keys[{i}]", device, n, tuple(_KEY_DTYPE))
+        _require(v, f"valids[{i}]", device, n, (torch.bool,))
+    _rows(n, "order_permutation")
     lib = build()
     out = torch.empty(n, dtype=torch.int64, device=device)
     if n == 0:
         return out
-    first = nulls_first if nulls_first is not None else (not asc)
-    err = lib.qs_sort_key_encode(_KEY_DTYPE[key.dtype], _ptr(key),
-                                 _ptr(valid), _ptr(perm), n, int(not asc),
-                                 -1 if first else 1, _ptr(out),
-                                 _blocks(n, device), _stream(device))
-    _check(lib, err, "sort_key_encode")
+    k = len(cols)
+    firsts = [nf if nf is not None else (not asc)
+              for asc, nf in zip(ascending, nulls_first)]
+    codes = torch.empty(3 * n, dtype=torch.int64, device=device)
+    vals = torch.empty(3 * n, dtype=torch.int32, device=device)
+    spans = torch.empty(max(1, k) * lib.qs_span_words(), dtype=torch.int64,
+                        device=device)
+    scratch = torch.empty(lib.qs_kv_scratch_words(n), dtype=torch.int64,
+                          device=device)
+    c_dtypes = (ctypes.c_int * max(1, k))(*[_KEY_DTYPE[c.dtype] for c in cols])
+    c_keys = (ctypes.c_void_p * max(1, k))(*[c.data_ptr() for c in cols])
+    c_valids = (ctypes.c_void_p * max(1, k))(*[_ptr(v) for v in valids])
+    c_desc = (ctypes.c_int * max(1, k))(*[int(not a) for a in ascending])
+    c_first = (ctypes.c_int * max(1, k))(*[int(f) for f in firsts])
+    err = lib.qs_order_permutation(
+        k, ctypes.cast(c_dtypes, ctypes.c_void_p),
+        ctypes.cast(c_keys, ctypes.c_void_p),
+        ctypes.cast(c_valids, ctypes.c_void_p),
+        ctypes.cast(c_desc, ctypes.c_void_p),
+        ctypes.cast(c_first, ctypes.c_void_p), _ptr(alive), n, _ptr(out),
+        _ptr(codes), _ptr(vals), _ptr(spans), _ptr(scratch),
+        _blocks(n, device), 4 * _sms(device), _stream(device))
+    _check(lib, err, "order_permutation")
     LAUNCHES["order_permutation"] += 1
     return out
 

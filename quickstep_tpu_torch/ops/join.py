@@ -9,7 +9,9 @@ Counterparts of quickstep_tpu/ops/join.py `direct_build` (:43),
 `merge_unique_probe` (:382). Each has a plain torch version (`*_plain`)
 and a hand-written CUDA kernel (ops/cuda.py; csrc/join_kernels.cu: K3 for
 the direct table, K4 for the sorted probe, K7 for the expansion probe, K8 for
-the run statistics; csrc/hash_kernels.cu: K11 for open addressing). The
+the run statistics, which sorts its build side with the key-value radix sort
+of csrc/radix_device.cuh, not with sorted_build; csrc/hash_kernels.cu: K11
+for open addressing). The
 public function takes the plain version for tensors that lie on the CPU and
 launches the kernel for CUDA tensors.
 
@@ -153,8 +155,8 @@ def merge_stats_probe(packed_build: torch.Tensor, bmask: torch.Tensor,
         return merge_stats_probe_plain(packed_build, bmask, bval,
                                        packed_probe, pmask)
     from quickstep_tpu_torch.ops import cuda
-    sorted_key, order = sorted_build(packed_build.to(torch.int64), bmask)
-    return cuda.run_stats_probe(sorted_key, order,
+    return cuda.run_stats_probe(packed_build.to(torch.int64).contiguous(),
+                                bmask.contiguous(),
                                 bval.to(torch.int32).contiguous(),
                                 packed_probe.to(torch.int64).contiguous(),
                                 pmask.contiguous())
@@ -201,8 +203,8 @@ def merge_cmp_probe(packed_build: torch.Tensor, bmask: torch.Tensor,
         return merge_cmp_probe_plain(packed_build, bmask, bval, packed_probe,
                                      pmask, pval, op)
     from quickstep_tpu_torch.ops import cuda
-    sorted_key, order = sorted_build(packed_build.to(torch.int64), bmask)
-    return cuda.run_stats_probe(sorted_key, order,
+    return cuda.run_stats_probe(packed_build.to(torch.int64).contiguous(),
+                                bmask.contiguous(),
                                 bval.to(torch.int32).contiguous(),
                                 packed_probe.to(torch.int64).contiguous(),
                                 pmask.contiguous(),

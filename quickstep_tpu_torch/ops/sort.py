@@ -1,14 +1,14 @@
 """ORDER BY below the root: the stable permutation of a sort.
 
-Counterpart of quickstep_tpu/ops/sort.py `order_permutation` (:21). Each
-key is mapped to an order-preserving int64 (DESC by negation or bitwise
-not, NULLs to the sentinel NULLS FIRST/LAST asks for, floats through the
-sign-flip bit trick with -0.0 equal to 0.0 and NaN after +inf, as
-jnp.lexsort orders them), then one stable torch.sort per key, last key
-first, and the dead rows sort after every live row. On CUDA each key's
-encoding, read at the current permutation, is one K13 launch (ops/cuda.py
-sort_key_encode); on the CPU the plain version runs. The sorts stay torch
-ops, as in the sort group-by.
+Counterpart of quickstep_tpu/ops/sort.py `order_permutation` (:21). The
+plain version maps each key to an order-preserving int64 (DESC by negation
+or bitwise not, NULLs to the sentinel NULLS FIRST/LAST asks, floats through
+the sign-flip bit trick with -0.0 equal to 0.0 and NaN after +inf, as
+jnp.lexsort orders them), then runs one stable torch.sort per key, last key
+first, and the dead rows sort after every live row. On CUDA the whole chain
+is one K13 call (ops/cuda.py order_permutation): hand-written key-value
+radix sorts over each key's range-compressed codes carrying int32 row ids,
+with no library sort; on the CPU the plain version runs.
 """
 
 from __future__ import annotations
@@ -40,8 +40,8 @@ def _float_bits(col: torch.Tensor) -> torch.Tensor:
 
 def encode_key(col: torch.Tensor, valid: Optional[torch.Tensor], asc: bool,
                nulls_first: Optional[bool]) -> torch.Tensor:
-    """Plain torch version of one key's K13 encoding: the reference's DESC
-    and NULL transforms, then an order-preserving int64."""
+    """One key of the plain version: the reference's DESC and NULL
+    transforms, then an order-preserving int64."""
     if not asc:
         if col.dtype.is_floating_point:
             col = -col
@@ -73,27 +73,21 @@ def order_permutation(keys: List[torch.Tensor],
         return order_permutation_plain(keys, valids, ascending, nulls_first,
                                        alive)
     from quickstep_tpu_torch.ops import cuda
-
-    def encode(k, v, asc, nf, perm):
-        return cuda.sort_key_encode(k.contiguous(), None if v is None
-                                    else v.contiguous(), asc, nf, perm)
-    return _chained_sort(keys, valids, ascending, nulls_first, alive, encode)
+    return cuda.order_permutation(
+        [k.contiguous() for k in keys],
+        [None if v is None else v.contiguous() for v in valids],
+        list(ascending), list(nulls_first), alive.contiguous())
 
 
 def order_permutation_plain(keys, valids, ascending, nulls_first, alive):
-    """Plain torch version of order_permutation."""
-    def encode(k, v, asc, nf, perm):
-        return encode_key(k, v, asc, nf).index_select(0, perm)
-    return _chained_sort(keys, valids, ascending, nulls_first, alive, encode)
-
-
-def _chained_sort(keys, valids, ascending, nulls_first, alive, encode):
-    """One stable sort per key, least significant first, each key encoded
-    at the current permutation; the live mask last."""
+    """Plain torch version of order_permutation: one stable sort per key,
+    least significant first, each key encoded at the current permutation;
+    the live mask last."""
     perm = torch.arange(alive.shape[0], device=alive.device)
     for k, v, asc, nf in reversed(list(zip(keys, valids, ascending,
                                            nulls_first))):
-        _, p = torch.sort(encode(k, v, asc, nf, perm), stable=True)
+        enc = encode_key(k, v, asc, nf).index_select(0, perm)
+        _, p = torch.sort(enc, stable=True)
         perm = perm.index_select(0, p)
     _, p = torch.sort((~alive).index_select(0, perm).to(torch.uint8),
                       stable=True)

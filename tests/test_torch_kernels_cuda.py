@@ -1035,6 +1035,253 @@ def test_order_permutation_kernel_matches_plain(card, dtype, asc,
     _same(TS.order_permutation(*args), TS.order_permutation_plain(*args), 0.0)
 
 
+def _kv_keys(dtype, n, bits, seed, device):
+    """Unsigned keys of `bits` random low bits (64: every bit), stored as
+    the signed dtype, with many ties."""
+    rng = np.random.default_rng(seed)
+    width = 32 if dtype == torch.int32 else 64
+    if bits >= width:
+        u = rng.integers(0, 1 << 62, n, dtype=np.uint64) * 4 + \
+            rng.integers(0, 4, n, dtype=np.uint64)
+        u = u >> np.uint64(64 - width)
+    else:
+        u = rng.integers(0, 1 << bits, n, dtype=np.uint64)
+    u = u.astype(np.uint32 if width == 32 else np.uint64)
+    return torch.from_numpy(u.view(np.int32 if width == 32
+                                   else np.int64)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", (False, True))
+@pytest.mark.parametrize("bits", (1, 12, 26, 33, 64))
+@pytest.mark.parametrize("n", (1, 3071, 3072, 100_003))
+@pytest.mark.parametrize("dtype", (torch.int32, torch.int64), ids=str)
+def test_kv_sort_matches_torch_sort(card, dtype, n, bits, payload):
+    """The key-value radix sort that K8 and K13 share against torch.sort
+    (stable) of its unsigned keys: the keys and the payload that travels
+    with each, at tile edges (2,048 and 3,072 records) and at every width,
+    digits skipped on the device where they do not vary."""
+    keys = _kv_keys(dtype, n, bits, n + bits, card)
+    vals = torch.from_numpy(np.random.default_rng(bits).integers(
+        -2**31, 2**31 - 1, n).astype(np.int32)).to(card) if payload else None
+    got_k, got_v = TC.kv_sort(keys, vals)
+    sign = -2**31 if dtype == torch.int32 else -2**63
+    order = torch.sort(keys ^ sign, stable=True).indices
+    assert torch.equal(got_k, keys[order])
+    want_v = order.to(torch.int32) if vals is None else vals[order]
+    assert torch.equal(got_v, want_v)
+
+
+@pytest.mark.cuda
+def test_kv_sort_at_zero_rows(card):
+    for dtype in (torch.int32, torch.int64):
+        keys, vals = TC.kv_sort(torch.zeros(0, dtype=dtype, device=card),
+                                None)
+        assert keys.shape == (0,) and vals.shape == (0,)
+
+
+def _k8_build(device, n_keys, per_key, skew_rows=0, seed=101):
+    """An orderkey-like build (1..2 per_key lines a key, every 4th key) with
+    int32 values, 63 % live, the probe drawn from the build's keys and from
+    keys below, between and above them; skew_rows more live rows on one
+    key."""
+    rng = np.random.default_rng(seed)
+    lines = rng.integers(1, 2 * per_key, n_keys)
+    key = np.repeat(np.arange(1, n_keys + 1) * 4, lines)
+    if skew_rows:
+        key = np.concatenate([key, np.full(skew_rows, 4 * (n_keys // 2))])
+    alive = rng.random(len(key)) < 0.63
+    if skew_rows:
+        alive[-skew_rows:] = True
+    perm = rng.permutation(len(key))
+    key, alive = key[perm], alive[perm]
+    val = rng.integers(1, 100_001, len(key)).astype(np.int32)
+    n_probe = 3 * len(key) // 2
+    pkey = key[rng.integers(0, len(key), n_probe)]
+    odd = rng.random(n_probe) < 0.2
+    pkey[odd] = rng.integers(-10, 4 * n_keys + 10, int(odd.sum()))
+    pkey[:4] = [np.iinfo(np.int64).max, np.iinfo(np.int64).min, 0,
+                4 * n_keys + 4]
+    palive = rng.random(n_probe) < 0.9
+    pval = val[rng.integers(0, len(val), n_probe)]
+    return [torch.from_numpy(a).to(device)
+            for a in (key, alive, val, pkey, palive, pval)]
+
+
+K8_OPS = ("<>", "<", "<=", ">", ">=", "stats")
+
+
+def _k8_same(card, op, bkey, balive, bval, pkey, palive, pval):
+    if op == "stats":
+        got = TJ.merge_stats_probe(bkey, balive, bval, pkey, palive)
+        want = TJ.merge_stats_probe_plain(bkey, balive, bval, pkey, palive)
+    else:
+        got = (TJ.merge_cmp_probe(bkey, balive, bval, pkey, palive, pval,
+                                  op),)
+        want = (TJ.merge_cmp_probe_plain(bkey, balive, bval, pkey, palive,
+                                         pval, op),)
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", K8_OPS)
+@pytest.mark.parametrize("shape", ("q21", "skewed"))
+def test_run_stats_probe_redesign_matches_plain(card, shape, op):
+    """K8 exactly as its plain version in both modes: Q21's shape (1-7 rows
+    a key, runs across K8's 2,048-row tiles) at 1 M keys, and a build
+    where one key holds 2 M live rows (a run across a thousand tiles)."""
+    args = _k8_build(card, 1_000_000 if shape == "q21" else 100_000, 4,
+                     skew_rows=0 if shape == "q21" else 2_000_000)
+    got = _k8_same(card, op, *args)
+    assert 0 < int(got[0].sum()) < len(args[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", K8_OPS)
+@pytest.mark.parametrize("case", ("extremes", "no_live_build", "wide",
+                                  "one_run", "tiny"))
+def test_run_stats_probe_edges_match_plain(card, case, op):
+    """K8's range compression at its edges: build keys at INT64_MIN and
+    next to INT64_MAX (codes spanning all 64 bits), a live INT64_MAX key
+    (which no probe may match), no live build row, one run holding every
+    live row, and three rows."""
+    rng = np.random.default_rng(7)
+    n = 50_000
+    big = np.iinfo(np.int64)
+    if case == "extremes":
+        key = rng.integers(-3, 3, n) + np.where(rng.random(n) < 0.5,
+                                                big.min + 3, big.max - 3)
+        key[5] = big.max
+    elif case == "wide":
+        key = rng.integers(big.min, big.max, n) // 1024 * 1024
+    else:
+        key = rng.integers(0, 300, n) * 7
+    alive = rng.random(n) < 0.7
+    if case == "no_live_build":
+        alive[:] = False
+    if case == "one_run":
+        key[alive] = 42
+    key = key[:3] if case == "tiny" else key
+    alive = alive[:3] if case == "tiny" else alive
+    val = rng.integers(-5, 5, len(key)).astype(np.int32)
+    pkey = np.concatenate([key, rng.integers(-10, 2_200, 1000),
+                           [big.max, big.min, 0, 42]])
+    pkey = pkey[rng.permutation(len(pkey))]
+    palive = rng.random(len(pkey)) < 0.9
+    pval = rng.integers(-6, 6, len(pkey)).astype(np.int32)
+    _k8_same(card, op, *[torch.from_numpy(np.asarray(a)).to(card)
+                         for a in (key, alive, val, pkey, palive, pval)])
+
+
+@pytest.mark.cuda
+def test_run_stats_probe_with_no_probe_rows(card):
+    """A build under an empty probe side launches nothing."""
+    bkey, balive, bval, pkey, palive, pval = _k8_build(card, 1000, 4)
+    TC.reset_launches()
+    got = TJ.merge_stats_probe(bkey, balive, bval, pkey[:0], palive[:0])
+    want = TJ.merge_stats_probe_plain(bkey, balive, bval, pkey[:0],
+                                      palive[:0])
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+    assert not any(TC.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys", (1, 3, 5))
+def test_order_permutation_redesign_matches_plain(card, n_keys):
+    """K13 bit for bit at 1 to 5 keys of every dtype, with NaN, -0.0, +inf
+    and NULL keys, ASC and DESC, NULLS FIRST and LAST, and dead rows."""
+    rng = np.random.default_rng(n_keys)
+    n = 200_003
+    dtypes = (torch.float64, torch.int32, torch.int64, torch.float32,
+              torch.bool)[:n_keys]
+    keys = [_radix_values(dt, n, 11 + i, card) for i, dt in
+            enumerate(dtypes)]
+    valids = [torch.from_numpy(rng.random(n) < 0.8).to(card) if i % 2 == 0
+              else None for i in range(n_keys)]
+    asc = [bool(i % 2) for i in range(n_keys)]
+    nf = [(None, True, False)[i % 3] for i in range(n_keys)]
+    alive = torch.from_numpy(rng.random(n) < 0.9).to(card)
+    args = (keys, valids, asc, nf, alive)
+    _same(TS.order_permutation(*args), TS.order_permutation_plain(*args), 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("smoke", "wide", "all_null", "all_dead",
+                                  "ties"))
+def test_order_permutation_chain_cases_match_plain(card, case):
+    """K13 at the smoke's three keys (a DOUBLE DESC of 2 decimals, a
+    nullable INT of 1..50, an int64 permutation tiebreak; 95 % live), at
+    int64 keys spanning all 64 bits beside a double of every bit pattern
+    (more than 128 significant bits), with every row NULL, every row dead,
+    and one value in every row."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    n = 500_003
+    alive = torch.rand(n, device=card, generator=gen) < 0.95
+    if case == "smoke":
+        keys = [torch.randint(90_000, 10_500_000, (n,), device=card,
+                              generator=gen).double() / 100,
+                torch.randint(1, 51, (n,), device=card, generator=gen,
+                              dtype=torch.int32),
+                torch.randperm(n, device=card, generator=gen)]
+        valids = [None, torch.rand(n, device=card, generator=gen) < 0.9,
+                  None]
+        asc, nf = [False, True, True], [None, None, None]
+    elif case == "wide":
+        bits = torch.randint(-2**63, 2**63 - 1, (n,), device=card,
+                             generator=gen)
+        keys = [bits.view(torch.float64), bits.flip(0),
+                torch.randint(-2**63, 2**63 - 1, (n,), device=card,
+                              generator=gen)]
+        valids = [None, torch.rand(n, device=card, generator=gen) < 0.9,
+                  None]
+        asc, nf = [True, False, True], [None, True, False]
+    else:
+        keys = [torch.full((n,), 7, dtype=torch.int64, device=card),
+                torch.zeros(n, dtype=torch.float32, device=card)]
+        none = torch.zeros(n, dtype=torch.bool, device=card)
+        valids = [none, None] if case == "all_null" else [None, None]
+        asc, nf = [True, False], [True, None]
+        if case == "all_dead":
+            alive = none
+    args = (keys, valids, asc, nf, alive)
+    _same(TS.order_permutation(*args), TS.order_permutation_plain(*args), 0.0)
+
+
+@pytest.mark.cuda
+def test_k8_k13_on_cuda_call_no_torch_sort(card, monkeypatch):
+    """K8 and K13 on CUDA tensors run no torch.sort (nor any sort of the
+    library) and no plain version."""
+    bkey, balive, bval, pkey, palive, pval = _k8_build(card, 10_000, 4)
+    keys = [pkey, pval]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a library sort or a plain version on the "
+                             "CUDA path")
+    with monkeypatch.context() as mp:
+        for name in ("sort", "argsort", "unique", "searchsorted"):
+            mp.setattr(torch, name, refuse)
+        for name in ("merge_stats_probe_plain", "merge_cmp_probe_plain",
+                     "sorted_build"):
+            mp.setattr(TJ, name, refuse)
+        mp.setattr(TS, "order_permutation_plain", refuse)
+        got = (TJ.merge_cmp_probe(bkey, balive, bval, pkey, palive, pval,
+                                  "<>"),
+               *TJ.merge_stats_probe(bkey, balive, bval, pkey, palive),
+               TS.order_permutation(keys, [None, None], [True, False],
+                                    [None, None], palive))
+    want = (TJ.merge_cmp_probe_plain(bkey, balive, bval, pkey, palive, pval,
+                                     "<>"),
+            *TJ.merge_stats_probe_plain(bkey, balive, bval, pkey, palive),
+            TS.order_permutation_plain(keys, [None, None], [True, False],
+                                       [None, None], palive))
+    for g, w in zip(got, want):
+        _same(g, w, 0.0)
+
+
 @pytest.mark.cuda
 def test_k10_to_k13_launches_are_counted(card):
     build, probe, balive, palive = _oa_sides(torch.int64, 2, False, card)
@@ -1051,7 +1298,7 @@ def test_k10_to_k13_launches_are_counted(card):
     # open addressing hashes its keys inside its own kernels
     assert TC.LAUNCHES == dict(dict.fromkeys(TC.LAUNCHES, 0), hash_keys=1,
                                open_addressing=2, distinct_sort=1,
-                               distinct_count=1, order_permutation=2)
+                               distinct_count=1, order_permutation=1)
 
 
 def test_k10_to_k13_wrappers_reject_cpu_tensors():
@@ -1064,7 +1311,9 @@ def test_k10_to_k13_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="needs CUDA"):
         TC.run_starts(x, torch.tensor(4), True)
     with pytest.raises(ValueError, match="needs CUDA"):
-        TC.sort_key_encode(x, None, True, None, x)
+        TC.order_permutation([x], [None], [True], [None], flags)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        TC.kv_sort(x, None)
 
 
 def test_k10_to_k13_public_functions_take_plain_versions_on_cpu():
