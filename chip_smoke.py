@@ -252,12 +252,15 @@ def phase_kernels(G):
 
     def case(kernel, label, k_fn, p_fn, main=False, inputs=(),
              library=None, atol=None, plain_reps=REPS, bound_bytes=None,
-             decode=None):
+             decode=None, check=None):
         """bound_bytes (or, for the main case, the bytes of inputs and
-        outputs) gives the case its bound; library only the main case."""
+        outputs) gives the case its bound; library only the main case.
+        check maps both outputs to what is compared, outside the times."""
         got, want = k_fn(), p_fn()
         if decode is not None:     # the kernel's layout, read as the plain
             got = decode(got)
+        if check is not None:
+            got, want = check(got), check(want)
         torch.cuda.synchronize()
         err = compare(f"{kernel} {label}", got, want, atol)
         ms, plain_ms = cuda_ms(k_fn), cuda_ms(p_fn, plain_reps)
@@ -823,16 +826,6 @@ def phase_new_kernels(case, rng, dev):
     phase_window_kernels(case, dev)
 
 
-def _sorted_segments(n, n_segments, dev, gen):
-    """Flags of n sorted rows in ~n_segments random segments: (segment
-    start, the segment id of each row)."""
-    seg_id, _ = torch.sort(torch.randint(0, n_segments, (n,), device=dev,
-                                         generator=gen))
-    start = torch.ones(n, dtype=torch.bool, device=dev)
-    start[1:] = seg_id[1:] != seg_id[:-1]
-    return start, seg_id
-
-
 def phase_window_kernels(case, dev):
     """W1-W4 against their plain versions at the SF10 window queries'
     shapes: N_KERNEL_ROWS lineitem-like rows in N_SUPPLIERS partitions
@@ -843,6 +836,7 @@ def phase_window_kernels(case, dev):
     differences of a whole-array torch.cumsum, which on the card is not
     deterministic and has measured up to 7 eps x that sum from the exact
     prefix); W2, W3 and W4 bit for bit."""
+    from quickstep_tpu_torch.bench.kernel_ab import sorted_segments
     from quickstep_tpu_torch.ops import window as W
     n = N_KERNEL_ROWS
     gen = torch.Generator(device=dev)
@@ -860,19 +854,28 @@ def phase_window_kernels(case, dev):
         return 32 * torch.finfo(v.dtype).eps * float(
             contrib(v, lv=lv).abs().sum())
 
-    # W-Q1: whole-partition sums over the suppliers' partitions
-    seg, seg_id = _sorted_segments(n, N_SUPPLIERS, dev, gen)
+    # W-Q1: whole-partition sums over the suppliers' partitions (W1's
+    # whole-partition mode), twice to the same bits
+    seg, seg_id = sorted_segments(n, N_SUPPLIERS, dev, gen)
     c = contrib(price)
-    case("window_prefix", "sum f64, 60M rows, 100K partitions",
-         lambda: W.segmented_prefix("sum", c, live, seg, seg),
+    case("window_prefix", "whole-partition sum f64, 60M, 100K parts",
+         lambda: W.segment_totals("sum", c, live, seg),
          lambda: W.segmented_prefix_plain("sum", c, live, seg, seg),
          main=True, inputs=(c, live, seg), atol=w1_atol(price))
+    case("window_prefix", "whole-partition sum f64, run twice",
+         lambda: W.segment_totals("sum", c, live, seg),
+         lambda: W.segment_totals("sum", c, live, seg), atol=0, plain_reps=1)
     qty = torch.randint(100, 5_001, (n,), device=dev, generator=gen)
     cq = contrib(qty, "max")
+    case("window_prefix", "whole-partition max i64, 100K parts",
+         lambda: W.segment_totals("max", cq, live, seg),
+         lambda: W.segmented_prefix_plain("max", cq, live, seg, seg),
+         bound_bytes=nbytes((cq, live, seg)) + 16 * n)
     peer = seg | (torch.rand(n, device=dev, generator=gen) < 0.2)
     case("window_prefix", "running max i64, 100K partitions",
          lambda: W.segmented_prefix("max", cq, live, seg, peer),
-         lambda: W.segmented_prefix_plain("max", cq, live, seg, peer))
+         lambda: W.segmented_prefix_plain("max", cq, live, seg, peer),
+         bound_bytes=nbytes((cq, live, seg, peer)) + 16 * n)
     # W-Q5: RANGE +-30 over int32 date codes sorted inside each partition
     codes = torch.randint(0, 3_600, (n,), device=dev, generator=gen)
     key = (torch.sort(seg_id * 4_096 + codes)[0] - seg_id * 4_096).to(
@@ -891,7 +894,7 @@ def phase_window_kernels(case, dev):
     torch.cuda.empty_cache()
 
     # W-Q4: ROWS 3 PRECEDING .. CURRENT ROW over ~30-row partitions
-    seg, _ = _sorted_segments(n, N_PARTS, dev, gen)
+    seg, _ = sorted_segments(n, N_PARTS, dev, gen)
     case("frame_bounds", "ROWS 3 preceding, 2M partitions",
          lambda: W.frame_bounds(seg, "rows", 3, 0),
          lambda: W.frame_bounds_plain(seg, "rows", 3, 0))
@@ -917,7 +920,8 @@ def phase_window_kernels(case, dev):
     lm = torch.rand(m, device=dev, generator=gen) < 0.9
     case("window_prefix", "running count, 15M orders of 1-7 lines",
          lambda: W.segmented_prefix("count", None, lm, seg, every),
-         lambda: W.segmented_prefix_plain("count", None, lm, seg, every))
+         lambda: W.segmented_prefix_plain("count", None, lm, seg, every),
+         bound_bytes=nbytes((lm, seg, every)) + 8 * m)
     lo, hi = W.frame_bounds(seg, "rows", 1, 1)
     cmin = contrib(torch.randint(90_000, 10_500_000, (m,), device=dev,
                                  generator=gen).double() / 100, "min", lm)
@@ -937,7 +941,8 @@ def phase_window_kernels(case, dev):
     case("window_prefix", "running sum f64, one 15M-row segment",
          lambda: W.segmented_prefix("sum", c1, every, seg, peer),
          lambda: W.segmented_prefix_plain("sum", c1, every, seg, peer),
-         atol=w1_atol(c1, every))
+         atol=w1_atol(c1, every),
+         bound_bytes=nbytes((c1, every, seg, peer)) + 16 * m)
     # W4's known limit: one thread walks a whole unpartitioned frame (its
     # bit-equality at this size is a card test)
     lo, hi = W.frame_bounds(seg, "rows", 3, 0)
@@ -946,7 +951,7 @@ def phase_window_kernels(case, dev):
         f"kernel {ms:8.3f} ms")
     # frames longer than two of W2's 1,024-row tiles
     m = 6_000_000
-    seg, _ = _sorted_segments(m, 300, dev, gen)
+    seg, _ = sorted_segments(m, 300, dev, gen)
     lo, hi = W.frame_bounds(seg, "rows", 5_000, 3_000)
     cmax = contrib(price[:m], "max")
     case("frame_minmax", "MAX f64, ROWS 5000/3000, 6M rows",
@@ -961,17 +966,15 @@ def phase_operator_kernels(case, dev):
     """K10-K13 against their plain versions at SF10 shapes: three 60 M
     int32 key columns hashed; open addressing built over 60 M lineitem-like
     (part, supplier) pairs, full of duplicates, and probed by partsupp's
-    8 M pairs; COUNT(DISTINCT) over 60 M int32 values; and ORDER BY over
+    8 M pairs, the other way round, and with 10 M rows on one key;
+    COUNT(DISTINCT) over 60 M int32 values; and ORDER BY over
     60 M rows by a DOUBLE DESC key, a nullable int key and an int
     tiebreak, by five keys (a nullable bool and a float32 before those),
     and by three 64-bit keys over their whole range (more than 128
-    significant bits), each with its random-sector limit. K11's bound counts its bytes (its key columns and masks read
-    once, its table and outputs written once: it hashes in the kernel and
-    reads no hash array); its random-sector limit (one
-    32-byte sector per slot touched and per occupant key compared) is
-    logged beside it."""
+    significant bits), each with its random-sector limit. K11 runs at
+    O-Q2's and O-Q3's shapes and with a skewed build (k11_case)."""
     from quickstep_tpu_torch.ops import cuda, groupby as G
-    from quickstep_tpu_torch.ops import join as J, kernels as K
+    from quickstep_tpu_torch.ops import kernels as K
     from quickstep_tpu_torch.ops import sort as S
     n = N_KERNEL_ROWS
     gen = torch.Generator(device=dev)
@@ -984,47 +987,9 @@ def phase_operator_kernels(case, dev):
          main=True, inputs=cols, atol=0)
     del cols
 
-    # lineitem's (partkey, suppkey): each part's 4 suppliers, TPC-H's rule
-    s = N_SUPPLIERS
-    part = torch.randint(1, N_PARTS + 1, (n,), device=dev, generator=gen)
-    i = torch.randint(0, 4, (n,), device=dev, generator=gen)
-    supp = (part + i * (s // 4 + (part - 1) // s)) % s + 1
-    build = [part.to(torch.int32), supp.to(torch.int32)]
-    balive = torch.rand(n, device=dev, generator=gen) < 0.95
-    ps_part = torch.arange(1, N_PARTS + 1, device=dev).repeat_interleave(4)
-    ps_i = torch.arange(4, device=dev).repeat(N_PARTS)
-    probe = [ps_part.to(torch.int32),
-             ((ps_part + ps_i * (s // 4 + (ps_part - 1) // s)) % s + 1
-              ).to(torch.int32)]
-    palive = torch.ones(N_PARTSUPP, dtype=torch.bool, device=dev)
-    del part, i, supp, ps_part, ps_i
-    size = K.next_pow2(2 * n)
-
-    def checked(table, dup, idx, matched):
-        held = torch.ones((), dtype=torch.bool, device=dev)
-        for b, p in zip(build, probe):
-            held = held & torch.all(b[idx.long()[matched]] == p[matched])
-        return dup, matched, held
-
-    def oa_kernel():
-        table, dup = cuda.oa_build(build, balive, size)
-        return checked(table, dup, *cuda.oa_probe(table, build, probe,
-                                                   palive))
-
-    def oa_plain():
-        table, dup = J.oa_build_plain(build, balive, size)
-        return checked(table, dup, *J.oa_probe_plain(table, build, probe,
-                                                     palive))
-    out_bytes = size * 4 + N_PARTSUPP * 5
-    case("open_addressing", "build 60M pairs, probe 8M", oa_kernel, oa_plain,
-         main=True, plain_reps=2,
-         bound_bytes=nbytes(build + probe + [balive, palive]) + out_bytes)
-    live_rows = int(balive.sum())
-    sectors = live_rows * (1 + 2) + N_PARTSUPP * (1 + 2)
-    log(f"  open_addressing random-sector limit: {sectors} sectors, "
-        f"{sectors * SECTOR_BYTES / HBM_BYTES_PER_S * 1e3:.3f} ms")
-    del build, probe, balive, palive
-    torch.cuda.empty_cache()
+    for shape, label in K11_CASES:
+        k11_case(case, dev, gen, shape, label)
+        torch.cuda.empty_cache()
 
     vals = torch.randint(1, 2_000_001, (n,), device=dev, generator=gen,
                          dtype=torch.int32)
@@ -1110,6 +1075,52 @@ def phase_operator_kernels(case, dev):
     del price, qty, qvalid, tie, alive, args, flag, disc, five, wide, over
     torch.cuda.empty_cache()
     phase_shuffle_kernels(case, dev)
+
+
+K11_CASES = (("oq2", "O-Q2: build 60M pairs, probe 8M"),
+             ("oq3", "O-Q3: build 8M pairs, probe 60M"),
+             ("skewed", "O-Q2, 10M rows on one key"))
+
+
+def k11_case(case, dev, gen, shape, label):
+    """K11 at one of kernel_ab's k11_inputs shapes (O-Q2's is the main
+    case), its build and probe timed together; the check that every matched
+    row holds the probe's key runs outside the time. Its bound counts what
+    the function needs, whatever the layout: its key columns and masks read
+    once, a table of 4-byte row ids (the plain version's) filled once and
+    its outputs written once. The fill of the key-in-slot route's own
+    16-byte slots is logged beside it, as is the random-sector limit: one
+    32-byte sector for each live build row (the slot it reads or claims)
+    and each live probe row (the slot it compares)."""
+    from quickstep_tpu_torch.bench.kernel_ab import k11_inputs
+    from quickstep_tpu_torch.ops import join as J
+    build, balive, probe, palive, size = k11_inputs(shape, dev, gen)
+
+    def run(oa_build, oa_probe):
+        table, dup = oa_build(build, balive, size)
+        return (dup,) + tuple(oa_probe(table, build, probe, palive))
+
+    def check(out):
+        dup, idx, matched = out
+        held = torch.ones((), dtype=torch.bool, device=dev)
+        for b, p in zip(build, probe):
+            held = held & torch.all(b[idx.long()[matched]] == p[matched])
+        return dup, matched, held
+
+    n_probe = len(palive)
+    case("open_addressing", f"{label} (check untimed)",
+         lambda: run(J.oa_build, J.oa_probe),
+         lambda: run(J.oa_build_plain, J.oa_probe_plain),
+         main=shape == "oq2", plain_reps=2, check=check,
+         bound_bytes=nbytes(build + probe + [balive, palive]) + 4 * size +
+         5 * n_probe)
+    log(f"  open_addressing {label}: the key-in-slot table's fill, 16 B a "
+        f"slot x {size} slots, {16 * size / HBM_BYTES_PER_S * 1e3:.3f} ms at"
+        " the memory rate")
+    sectors = int(balive.sum()) + int(palive.sum())
+    log(f"  open_addressing {label}: random-sector limit {sectors} sectors,"
+        f" {sectors * SECTOR_BYTES / HBM_BYTES_PER_S * 1e3:.3f} ms at 32 B,"
+        f" {sectors / 3.128e10 * 1e3:.3f} ms at 3.128e10 sectors/s")
 
 
 def skipped_passes(v):

@@ -49,13 +49,34 @@ Cases, each timed by CUDA events (median of 10 runs after one warm-up):
   one key and made live;
 - k13: order_permutation of 60 M rows by a DOUBLE DESC of two decimals, a
   nullable INT of 1..50 and an int64 permutation tiebreak, 95 % live
-  (k13_inputs, the smoke's case); k13_split its kernels as for k8.
+  (k13_inputs, the smoke's case); k13_split its kernels as for k8;
+- k11_oq2: ops/join.py oa_build then oa_probe at O-Q2's shape: lineitem's
+  60 M (partkey, suppkey) int32 pairs, 95 % live, over partsupp's 8 M
+  pairs, into next_pow2(2 x 60 M) slots, probed by partsupp's 8 M pairs
+  (k11_inputs); k11_oq3 at O-Q3's: partsupp's 8 M unique pairs built,
+  lineitem's 60 M probed, every one matching; k11_skewed: k11_oq2 with 10 M
+  of the build rows on one key, live; k11_split: the device ms of each
+  kernel (the table's fill, the build, the probe) of one call at O-Q2's
+  and O-Q3's shapes;
+- w1_whole: ops/window.py _seg_total, SUM of float64 over 60 M rows in
+  100 K partitions, 90 % live (W-Q1's whole-partition sum); w1_running_max:
+  segmented_prefix MAX of int64 over the same partitions, a peer start at
+  a fifth of the rows; w1_count_15m: running COUNT over 15 M orders of 1-7
+  lines, every row its own peer group (W-Q2); w1_one_segment: running SUM
+  of float64 over one 15 M-row segment in ~2,400 peer groups (W-Q3)
+  (w1_inputs); w1_split: the device ms of each kernel of w1_whole.
 Prints one JSON object with the times, the checkout's root and the card's
 name and power limit. It needs a CUDA card.
+
+    python -m quickstep_tpu_torch.bench.kernel_ab --cases k11,w1
+
+runs the cases whose names start with one of the given prefixes (every
+case by default).
 """
 
 from __future__ import annotations
 
+import argparse
 import inspect
 import json
 import pathlib
@@ -168,6 +189,92 @@ def k13_inputs(n: int, dev, gen):
             [None, None, None], alive)
 
 
+N_PARTS = 2_000_000            # part rows at SF10; partsupp has 4 a part
+N_SUPPLIERS = 100_000
+N_SKEW_ROWS = 10_000_000
+
+
+def _partsupp_pairs(part, i):
+    """TPC-H's rule for a part's i-th supplier: (partkey, suppkey) int32."""
+    s = N_SUPPLIERS
+    supp = (part + i * (s // 4 + (part - 1) // s)) % s + 1
+    return [part.to(torch.int32), supp.to(torch.int32)]
+
+
+def k11_inputs(shape: str, dev, gen):
+    """(build key columns, build mask, probe key columns, probe mask, table
+    size) of K11. oq2: lineitem's N (partkey, suppkey) pairs (each line one
+    of its part's 4 suppliers), 95 % live, probed by partsupp's 8 M pairs;
+    skewed: the same with N_SKEW_ROWS build rows on one pair, live; oq3:
+    partsupp's 8 M pairs built, all live, and lineitem's N pairs probed,
+    all live."""
+    from quickstep_tpu_torch.ops import kernels as K
+    part = torch.randint(1, N_PARTS + 1, (N,), device=dev, generator=gen)
+    i = torch.randint(0, 4, (N,), device=dev, generator=gen)
+    lineitem = _partsupp_pairs(part, i)
+    del part, i
+    ps_part = torch.arange(1, N_PARTS + 1, device=dev).repeat_interleave(4)
+    partsupp = _partsupp_pairs(ps_part, torch.arange(4, device=dev).repeat(
+        N_PARTS))
+    n_ps = len(ps_part)
+    if shape == "oq3":
+        return (partsupp, torch.ones(n_ps, dtype=torch.bool, device=dev),
+                lineitem, torch.ones(N, dtype=torch.bool, device=dev),
+                K.next_pow2(2 * n_ps))
+    balive = torch.rand(N, device=dev, generator=gen) < 0.95
+    if shape == "skewed":
+        rows = torch.randperm(N, device=dev, generator=gen)[:N_SKEW_ROWS]
+        for c, p in zip(lineitem, partsupp):
+            c[rows] = p[n_ps // 2]
+        balive[rows] = True
+    return (lineitem, balive, partsupp,
+            torch.ones(n_ps, dtype=torch.bool, device=dev),
+            K.next_pow2(2 * N))
+
+
+def sorted_segments(n: int, n_segments: int, dev, gen):
+    """Flags of n sorted rows in ~n_segments random segments: (segment
+    start, the segment id of each row)."""
+    seg_id, _ = torch.sort(torch.randint(0, n_segments, (n,), device=dev,
+                                         generator=gen))
+    start = torch.ones(n, dtype=torch.bool, device=dev)
+    start[1:] = seg_id[1:] != seg_id[:-1]
+    return start, seg_id
+
+
+def w1_inputs(shape: str, dev, gen):
+    """(fn, contributions or None, live, segment starts, peer starts or
+    None for the whole-partition mode, the values before the live mask) of
+    W1 at the SF10 window queries' shapes (see the module's docstring)."""
+    if shape in ("whole", "running_max"):
+        seg, _ = sorted_segments(N, N_SUPPLIERS, dev, gen)
+        live = torch.rand(N, device=dev, generator=gen) < 0.9
+        if shape == "whole":
+            price = torch.randint(90_000, 10_500_000, (N,), device=dev,
+                                  generator=gen).double() / 100
+            return ("sum", torch.where(live, price, 0.0), live, seg, None,
+                    price)
+        qty = torch.randint(100, 5_001, (N,), device=dev, generator=gen)
+        peer = seg | (torch.rand(N, device=dev, generator=gen) < 0.2)
+        return ("max", torch.where(live, qty, torch.iinfo(torch.int64).min),
+                live, seg, peer, qty)
+    if shape == "count_15m":
+        lines = torch.randint(1, 8, (15_000_000,), device=dev, generator=gen)
+        seg = torch.zeros(int(lines.sum()), dtype=torch.bool, device=dev)
+        seg[torch.cumsum(lines, 0)[:-1]] = True
+        seg[0] = True
+        live = torch.rand(len(seg), device=dev, generator=gen) < 0.9
+        return ("count", None, live, seg, torch.ones_like(seg), None)
+    m = 15_000_000
+    seg = torch.zeros(m, dtype=torch.bool, device=dev)
+    seg[0] = True
+    peer = seg | (torch.rand(m, device=dev, generator=gen) < 1 / 6_000)
+    price = torch.randint(90_000, 10_500_000, (m,), device=dev,
+                          generator=gen).double() / 100
+    return ("sum", price, torch.ones(m, dtype=torch.bool, device=dev), seg,
+            peer, price)
+
+
 def kernel_split(fn) -> dict:
     """The device ms of each kernel of one call of fn (after a warm-up), by
     torch.profiler, summed by kernel name."""
@@ -190,15 +297,76 @@ def kernel_split(fn) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+def k11_cases(dev, gen) -> dict:
+    from quickstep_tpu_torch.ops import join as J
+
+    def both(b, ba, p, pa, size):
+        return J.oa_probe(J.oa_build(b, ba, size)[0], b, p, pa)
+
+    out = {}
+    for shape in ("oq2", "oq3", "skewed"):
+        args = k11_inputs(shape, dev, gen)
+        out[f"k11_{shape}_ms"] = _ms(lambda: both(*args))
+        if shape != "skewed":
+            out[f"k11_split_{shape}"] = kernel_split(lambda: both(*args))
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
+def w1_cases(dev, gen) -> dict:
+    from quickstep_tpu_torch.ops import window as W
+    out = {}
+    for shape in ("whole", "running_max", "count_15m", "one_segment"):
+        fn, c, live, seg, peer, v = w1_inputs(shape, dev, gen)
+        if peer is None:
+            def call():
+                return W._seg_total(fn, c, live, v, seg)
+        else:
+            def call():
+                return W.segmented_prefix(fn, c, live, seg, peer)
+        out[f"w1_{shape}_ms"] = _ms(call)
+        if shape == "whole":
+            out["w1_split"] = kernel_split(call)
+        del fn, c, live, seg, peer, v, call
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cases", default="",
+                    help="comma-separated prefixes of the cases to run")
+    prefixes = [p for p in ap.parse_args().cases.split(",") if p]
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: torch.cuda.is_available() is false")
-    from quickstep_tpu_torch.ops import cuda, groupby as G, kernels as K
-    from quickstep_tpu_torch.ops import bloom as B, join as J
+    from quickstep_tpu_torch.ops import cuda, kernels as K
     cuda.build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    out = {"root": str(pathlib.Path(K.__file__).resolve().parents[2]),
+           "card": subprocess.run(
+               ["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"], capture_output=True, text=True,
+               check=True, timeout=60).stdout.strip().splitlines()[0]}
+    groups = ((("k11",), k11_cases), (("w1",), w1_cases),
+              (("k3", "k4", "k5", "k6", "k7", "k8", "k12", "k13"),
+               earlier_cases))
+    for names, cases in groups:
+        if not prefixes or any(g.startswith(p) or p.startswith(g)
+                               for g in names for p in prefixes):
+            out.update({k: v for k, v in cases(dev, gen).items()
+                        if not prefixes or any(k.startswith(p)
+                                               for p in prefixes)})
+            torch.cuda.empty_cache()
+    print(json.dumps(out))
+
+
+def earlier_cases(dev, gen) -> dict:
+    """The cases of K3-K8, K12 and K13 (PRs 7-10)."""
+    from quickstep_tpu_torch.ops import cuda, groupby as G, kernels as K
+    from quickstep_tpu_torch.ops import bloom as B, join as J
     live = torch.rand(N, device=dev, generator=gen) < 0.5
     pkey = torch.randint(1, 1 << 30, (N,), device=dev, generator=gen,
                          dtype=torch.int32)
@@ -247,7 +415,6 @@ def main() -> None:
         "k8_split": kernel_split(lambda: J.merge_cmp_probe(*k8, "<>")),
         "k13_ms": _ms(lambda: S.order_permutation(*k13)),
         "k13_split": kernel_split(lambda: S.order_permutation(*k13)),
-        "root": str(pathlib.Path(K.__file__).resolve().parents[2]),
         "k4_q5_ms": _ms(lambda: J.merge_unique_probe(*q5)),
         "k4_q9_ms": _ms(lambda: cuda.sorted_probe(q9sk, q9order, q9p, q9pa)),
         "k5_groups_15m_ms": _ms(lambda: cuda.segment_reduce(
@@ -276,17 +443,13 @@ def main() -> None:
         "k6_random_packed": bool(random_kw),
         "k12_ms": _ms(lambda: G.distinct_count(vals, None, every)),
         "k8_skewed_ms": None,
-        "card": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True, timeout=60).stdout.strip().splitlines()[0],
     }
     if "build_key" in inspect.signature(cuda.run_stats_probe).parameters:
         # the parent's one thread a run would walk the 10 M-row run
         del k8, k13
         skewed = k8_inputs(dev, gen, skew_rows=10_000_000)
         out["k8_skewed_ms"] = _ms(lambda: J.merge_cmp_probe(*skewed, "<>"))
-    print(json.dumps(out))
+    return out
 
 
 if __name__ == "__main__":

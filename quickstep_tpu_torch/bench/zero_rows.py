@@ -16,6 +16,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from quickstep_tpu_torch.ops import bloom as B
+from quickstep_tpu_torch.ops import cuda
 from quickstep_tpu_torch.ops import groupby as G
 from quickstep_tpu_torch.ops import join as J
 from quickstep_tpu_torch.ops import kernels as K
@@ -98,8 +99,10 @@ def zero_row_cases(dev) -> Dict[str, Case]:
         "sort_groupby_compact": (lambda: (K.stable_partition(b),),
                                  lambda: (K.compact_order(b),)),
         "window_prefix": (
-            lambda: W.segmented_prefix("sum", f64, b, b, b),
-            lambda: W.segmented_prefix_plain("sum", f64, b, b, b)),
+            lambda: W.segmented_prefix("sum", f64, b, b, b) +
+            W.segment_totals("max", f64, b, b),
+            lambda: W.segmented_prefix_plain("sum", f64, b, b, b) +
+            W.segmented_prefix_plain("max", f64, b, b, b)),
         "frame_minmax": (
             lambda: (W.frame_minmax("max", f64, seg_lo, seg_hi),),
             lambda: (W.frame_minmax_plain("max", f64, seg_lo, seg_hi),)),
@@ -111,10 +114,15 @@ def zero_row_cases(dev) -> Dict[str, Case]:
             lambda: (W.sliding_sums_plain(f64, seg_lo, seg_hi, b),)),
         "hash_keys": (lambda: (K.hash_keys([i64, i32]),),
                       lambda: (K.hash_keys_plain([i64, i32]),)),
+        # an int64 key takes the key-in-slot route, a float64 key the
+        # row-id route
         "open_addressing": (
-            lambda: _oa(J.oa_build, J.oa_probe, i64, b, probe, pmask),
+            lambda: _oa(J.oa_build, J.oa_probe, i64, b, probe, pmask) +
+            _oa(J.oa_build, J.oa_probe, f64, b, probe.double(), pmask),
             lambda: _oa(J.oa_build_plain, J.oa_probe_plain, i64, b, probe,
-                        pmask)),
+                        pmask) +
+            _oa(J.oa_build_plain, J.oa_probe_plain, f64, b, probe.double(),
+                pmask)),
         "distinct_sort": (lambda: G._sorted_live(i64, i64 > 0, b),
                           lambda: G._sorted_live_plain(i64, i64 > 0, b)),
         "distinct_count": (
@@ -152,4 +160,5 @@ def _bloom(build, probe_fn, keys, keys32, alive):
 
 def _oa(build, probe_fn, keys, alive, probe, pmask):
     table, dup = build([keys], alive, 1)
-    return (table, dup) + tuple(probe_fn(table, [keys], [probe], pmask))
+    return (cuda.oa_table_rows(table), dup) + tuple(
+        probe_fn(table, [keys], [probe], pmask))

@@ -6,10 +6,10 @@
 // (partition) and of each peer group (rows with equal order keys).
 //
 // W1 qs_window_prefix replaces quickstep_tpu/ops/window.py:75
-//    _segmented_scan, :239 _prefix_to_peers and :220 _seg_total: the
-//    inclusive SUM, MIN or MAX and the COUNT of each segment up to the last
-//    row of the row's peer group (a whole-partition aggregate is the same
-//    call with the peer groups equal to the segments).
+//    _segmented_scan, :239 _prefix_to_peers and :220 _seg_total: in its
+//    running mode the inclusive SUM, MIN or MAX and the COUNT of each
+//    segment up to the last row of the row's peer group; in its
+//    whole-partition mode each segment's SUM, MIN or MAX and COUNT.
 // W2 qs_frame_minmax replaces :50 _range_query_minmax (the MIN/MAX branch of
 //    :315 _eval_frame): MIN or MAX over per-row index ranges [lo, hi].
 // W3 qs_frame_bounds replaces :30 _lex_searchsorted, the RANGE path through
@@ -25,10 +25,14 @@
 // at the segment start, a sparse table of ceil(log2 n) + 1 shifted copies of
 // the column, log2 n rounds of full gathers or a merge sort for the RANGE
 // bounds) existed because the TPU has no cheap per-row control flow. Here:
-// - W1 is a tiled segmented scan that carries across tiles (reduce, then a
-//   one-block scan of the tile summaries, then the rows again), so one long
-//   segment is as fast as many short ones; the row at the end of each peer
-//   group holds the result, which a last pass copies to the group's rows.
+// - W1 is a tiled segmented scan that carries across tiles: reduce each
+//   tile, scan the tile summaries in one block in tile order, then the rows
+//   again, so one long segment is as fast as many short ones and float sums
+//   repeat bit for bit. Tiles move between device and shared memory
+//   coalesced; a peer group (a segment, in the whole-partition mode) that
+//   ends inside its tile is resolved there, and the one-block scan gives
+//   each tile the result of the group that spans its end, so that every
+//   row's result is written once: inputs read twice, outputs written once.
 // - W3 finds each row's segment bounds with the same tile scheme (the last
 //   segment start at or before the row, the first after it) and, for RANGE
 //   frames, binary-searches the row's own segment: no (segment, value)
@@ -99,72 +103,165 @@ __device__ __forceinline__ int block_suffix_min(int x, int& total) {
 // ---------------------------------------------------------------------
 // W1: segmented prefix, read at the end of each peer group
 // ---------------------------------------------------------------------
-template <int FN, typename T, typename A>
-__device__ __forceinline__ Seg<A> seg_item(const T* __restrict__ vals,
-                                           const uint8_t* __restrict__ live,
-                                           const uint8_t* __restrict__ seg_start,
-                                           int64_t r) {
-  Seg<A> x;
-  x.f = seg_start[r] != 0;
-  if constexpr (FN == kCount) x.v = A(0);
-  else x.v = (A)vals[r];
-  x.c = live[r] != 0;
-  return x;
+// W1 works on tiles of kW1Tile rows, one block a tile, each thread owning
+// kW1Items consecutive rows. A tile's columns are copied coalesced into
+// shared memory (16-byte loads, neighbouring threads on neighbouring
+// addresses) and each thread then reads its own rows from there; results
+// go back the same way. A thread's row of items is padded by 16 bytes in
+// shared memory, so that its 16-byte accesses meet no other thread's bank.
+// "Boundary" below is where a result is read: the peer starts in the
+// running mode, the segment starts in the whole-partition mode (every
+// segment start is a peer start). The first row always starts both.
+constexpr int kW1Items = 8;
+constexpr int kW1Tile = kThreads * kW1Items;
+
+// bytes of one thread's row of kW1Items elements of b bytes
+__host__ __device__ constexpr int row_stride(int b) {
+  return b * kW1Items >= 16 ? b * kW1Items + 16 : b * kW1Items;
+}
+constexpr int kW1RowBytes = kThreads * row_stride(8);
+
+// the tile's count elements of B bytes from src (16-byte aligned) into the
+// threads' rows in smem
+template <int B>
+__device__ __forceinline__ void load_tile(const uint8_t* __restrict__ src,
+                                          int count, uint8_t* smem) {
+  constexpr int RB = B * kW1Items;
+  constexpr int RS = row_stride(B);
+  const int bytes = count * B;
+  const int full = bytes & ~15;
+  for (int o = threadIdx.x * 16; o < full; o += kThreads * 16)
+    *reinterpret_cast<uint4*>(smem + (o / RB) * RS + o % RB) =
+        __ldg(reinterpret_cast<const uint4*>(src + o));
+  for (int o = full + threadIdx.x; o < bytes; o += kThreads)
+    smem[(o / RB) * RS + o % RB] = src[o];
 }
 
-// This thread's summary of its kItems rows and its first peer start.
-template <int FN, typename T, typename A>
-__device__ __forceinline__ Seg<A> thread_summary(
-    const T* vals, const uint8_t* live, const uint8_t* seg_start,
-    const uint8_t* __restrict__ peer_start, int64_t n, int64_t base,
-    int& first_peer) {
-  const SegOp<FN, A> op;
-  Seg<A> s = {0, identity<FN, A>(), 0};
-  first_peer = kNone;
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t r = base + j;
-    if (r >= n) break;
-    s = op(s, seg_item<FN, T, A>(vals, live, seg_start, r));
-    if (peer_start[r] && first_peer == kNone) first_peer = (int)r;
+// the inverse of load_tile: the threads' rows in smem to dst
+template <int B>
+__device__ __forceinline__ void store_tile(uint8_t* __restrict__ dst,
+                                           int count,
+                                           const uint8_t* smem) {
+  constexpr int RB = B * kW1Items;
+  constexpr int RS = row_stride(B);
+  const int bytes = count * B;
+  const int full = bytes & ~15;
+  for (int o = threadIdx.x * 16; o < full; o += kThreads * 16)
+    *reinterpret_cast<uint4*>(dst + o) =
+        *reinterpret_cast<const uint4*>(smem + (o / RB) * RS + o % RB);
+  for (int o = full + threadIdx.x; o < bytes; o += kThreads)
+    dst[o] = smem[(o / RB) * RS + o % RB];
+}
+
+// element e of the tile in the row layout of its type
+template <typename E>
+__device__ __forceinline__ E& at(uint8_t* smem, int e) {
+  return reinterpret_cast<E*>(smem + (e / kW1Items) * row_stride(sizeof(E)))
+      [e % kW1Items];
+}
+
+// A tile's rows in shared memory, and this thread's items read from there.
+template <int FN, typename T, typename A, bool WHOLE>
+struct W1Rows {
+  __align__(16) uint8_t val[kW1RowBytes];
+  __align__(16) uint8_t live[kW1Tile];
+  __align__(16) uint8_t seg[kW1Tile];
+  __align__(16) uint8_t peer[WHOLE ? 16 : kW1Tile];
+
+  __device__ __forceinline__ int load(const T* vals, const uint8_t* lv,
+                                      const uint8_t* sg, const uint8_t* pr,
+                                      int64_t n, int64_t base) {
+    const int count = (int)(n - base < kW1Tile ? n - base : kW1Tile);
+    if constexpr (FN != kCount)
+      load_tile<sizeof(T)>(reinterpret_cast<const uint8_t*>(vals + base),
+                           count, val);
+    load_tile<1>(lv + base, count, live);
+    load_tile<1>(sg + base, count, seg);
+    if constexpr (!WHOLE) load_tile<1>(pr + base, count, peer);
+    __syncthreads();
+    return count;
   }
-  return s;
-}
 
-// Pass 1: one summary per tile of kTile rows.
-template <int FN, typename T, typename A>
+  // this thread's item j as a segmented element (the identity past count);
+  // b: the row is a boundary
+  __device__ __forceinline__ Seg<A> item(int j, int count, bool first_tile,
+                                         bool& b) {
+    const int i = threadIdx.x * kW1Items + j;
+    Seg<A> x = {0, identity<FN, A>(), 0};
+    b = false;
+    if (i >= count) return x;
+    x.f = seg[i] != 0 || (first_tile && i == 0);
+    if constexpr (FN != kCount) x.v = (A)at<T>(val, i);
+    x.c = live[i] != 0;
+    b = x.f || (!WHOLE && peer[i] != 0);
+    return x;
+  }
+};
+
+// Pass 1: each tile's summary (tile_f, tile_v, tile_c), whether it holds a
+// boundary (tile_b), and its head: the combination of its rows before its
+// first boundary (head_v, head_c), the whole tile where it has none.
+template <int FN, typename T, typename A, bool WHOLE>
 __global__ void __launch_bounds__(kThreads)
-prefix_tiles(const T* __restrict__ vals, const uint8_t* __restrict__ live,
-             const uint8_t* __restrict__ seg_start,
-             const uint8_t* __restrict__ peer_start, int64_t n,
-             int* __restrict__ tile_f, A* __restrict__ tile_v,
-             long long* __restrict__ tile_c, int* __restrict__ tile_peer) {
-  const int64_t base = (int64_t)blockIdx.x * kTile +
-                       (int64_t)threadIdx.x * kItems;
-  int first_peer;
-  const Seg<A> s = thread_summary<FN, T, A>(vals, live, seg_start, peer_start,
-                                            n, base, first_peer);
+w1_tiles(const T* __restrict__ vals, const uint8_t* __restrict__ live,
+         const uint8_t* __restrict__ seg_start,
+         const uint8_t* __restrict__ peer_start, int64_t n,
+         int* __restrict__ tile_f, int* __restrict__ tile_b,
+         A* __restrict__ tile_v, long long* __restrict__ tile_c,
+         A* __restrict__ head_v, long long* __restrict__ head_c) {
+  __shared__ W1Rows<FN, T, A, WHOLE> rows;
+  const SegOp<FN, A> op;
   const Seg<A> id = {0, identity<FN, A>(), 0};
+  const int64_t base = (int64_t)blockIdx.x * kW1Tile;
+  const int count = rows.load(vals, live, seg_start, peer_start, n, base);
+  Seg<A> s = id, head = id;
+  int first_b = kNone;
+  for (int j = 0; j < kW1Items; ++j) {
+    bool b;
+    const Seg<A> x = rows.item(j, count, base == 0, b);
+    s = op(s, x);
+    if (first_b == kNone) {
+      if (b) first_b = threadIdx.x * kW1Items + j;
+      else head = op(head, x);
+    }
+  }
   Seg<A> total;
-  block_exclusive_scan<kThreads>(s, id, SegOp<FN, A>(), total);
-  int peer_total;
-  block_suffix_min<kThreads>(first_peer, peer_total);
+  const Seg<A> ex = block_exclusive_scan<kThreads>(s, id, op, total);
+  int tile_first;
+  block_suffix_min<kThreads>(first_b, tile_first);
+  // no segment starts before the first boundary, so the head is a plain
+  // combination: the threads before the first one with a boundary, then
+  // that thread's items before it
+  if (tile_first != kNone && first_b == tile_first) {
+    const Seg<A> h = op(ex, head);
+    head_v[blockIdx.x] = h.v;
+    head_c[blockIdx.x] = h.c;
+  }
   if (threadIdx.x == 0) {
     tile_f[blockIdx.x] = total.f;
     tile_v[blockIdx.x] = total.v;
     tile_c[blockIdx.x] = total.c;
-    tile_peer[blockIdx.x] = peer_total;
+    tile_b[blockIdx.x] = tile_first != kNone;
+    if (tile_first == kNone) {
+      head_v[blockIdx.x] = total.v;
+      head_c[blockIdx.x] = total.c;
+    }
   }
 }
 
-// Pass 2, one block: each tile's carry (the value and count since the last
-// segment start before it) and the first peer start after it.
+// Pass 2, one block, tiles in order: each tile's carry (the value and count
+// since the last segment start before it: carry_v, carry_c); for a tile
+// with a boundary, the result of the peer group its head closes (written
+// over head_v, head_c); then, over tile_v and tile_c, each tile's open
+// result: that of the peer group holding its last row, closed by the next
+// tile with a boundary or by the end of the rows.
 template <int FN, typename A>
 __global__ void __launch_bounds__(kScanThreads)
-prefix_scan(const int* __restrict__ tile_f, const A* __restrict__ tile_v,
-            const long long* __restrict__ tile_c,
-            const int* __restrict__ tile_peer, int64_t ntiles,
-            A* __restrict__ carry_v, long long* __restrict__ carry_c,
-            int* __restrict__ next_peer) {
+w1_scan(const int* __restrict__ tile_f, const int* __restrict__ tile_b,
+        A* __restrict__ tile_v, long long* __restrict__ tile_c,
+        A* __restrict__ head_v, long long* __restrict__ head_c,
+        int64_t ntiles, A* __restrict__ carry_v,
+        long long* __restrict__ carry_c) {
   const SegOp<FN, A> op;
   const Seg<A> id = {0, identity<FN, A>(), 0};
   Seg<A> carry = id;
@@ -178,76 +275,101 @@ prefix_scan(const int* __restrict__ tile_f, const A* __restrict__ tile_v,
       const Seg<A> in = op(carry, ex);
       carry_v[t] = in.v;
       carry_c[t] = in.c;
+      if (tile_b[t]) {
+        const Seg<A> close = op(in, Seg<A>{0, head_v[t], head_c[t]});
+        head_v[t] = close.v;
+        head_c[t] = close.c;
+      }
     }
     carry = op(carry, total);
   }
+  __syncthreads();
   int after = kNone;
   const int64_t chunks = (ntiles + kScanThreads - 1) / kScanThreads;
   for (int64_t k = chunks - 1; k >= 0; --k) {
     const int64_t t = k * kScanThreads + threadIdx.x;
     int total;
     const int ex = block_suffix_min<kScanThreads>(
-        t < ntiles ? tile_peer[t] : kNone, total);
-    if (t < ntiles) next_peer[t] = min(ex, after);
+        t < ntiles && tile_b[t] ? (int)t : kNone, total);
+    const int next = min(ex, after);
+    if (t < ntiles) {
+      tile_v[t] = next == kNone ? carry.v : head_v[next];
+      tile_c[t] = next == kNone ? carry.c : head_c[next];
+    }
     after = min(after, total);
   }
 }
 
-// Pass 3: each row's inclusive prefix (written to out) and the last row of
-// its peer group (peer_last).
-template <int FN, typename T, typename A, typename O>
+// Pass 3: each row's result, written once. A row whose peer group ends in
+// its tile reads the inclusive prefix at the group's last row, kept in
+// shared memory; the rows before the tile's first boundary take the open
+// result of the tile before, those after its last boundary the tile's own.
+template <int FN, typename T, typename A, typename O, bool WHOLE>
 __global__ void __launch_bounds__(kThreads)
-prefix_rows(const T* __restrict__ vals, const uint8_t* __restrict__ live,
-            const uint8_t* __restrict__ seg_start,
-            const uint8_t* __restrict__ peer_start, int64_t n,
-            const A* __restrict__ carry_v, const long long* __restrict__ carry_c,
-            const int* __restrict__ next_peer, O* __restrict__ out_val,
-            long long* __restrict__ out_cnt, int* __restrict__ peer_last) {
+w1_rows(const T* __restrict__ vals, const uint8_t* __restrict__ live,
+        const uint8_t* __restrict__ seg_start,
+        const uint8_t* __restrict__ peer_start, int64_t n,
+        const A* __restrict__ carry_v, const long long* __restrict__ carry_c,
+        const A* __restrict__ open_v, const long long* __restrict__ open_c,
+        O* __restrict__ out_val, long long* __restrict__ out_cnt) {
+  __shared__ W1Rows<FN, T, A, WHOLE> rows;
+  __shared__ __align__(16) uint8_t cnt[kW1RowBytes];
   const SegOp<FN, A> op;
-  const int64_t base = (int64_t)blockIdx.x * kTile +
-                       (int64_t)threadIdx.x * kItems;
-  int first_peer;
-  const Seg<A> s = thread_summary<FN, T, A>(vals, live, seg_start, peer_start,
-                                            n, base, first_peer);
   const Seg<A> id = {0, identity<FN, A>(), 0};
+  const int64_t base = (int64_t)blockIdx.x * kW1Tile;
+  const int count = rows.load(vals, live, seg_start, peer_start, n, base);
+  Seg<A> x[kW1Items];
+  bool b[kW1Items];
+  Seg<A> s = id;
+  int first_b = kNone;
+  for (int j = 0; j < kW1Items; ++j) {
+    x[j] = rows.item(j, count, base == 0, b[j]);
+    s = op(s, x[j]);
+    if (b[j] && first_b == kNone) first_b = threadIdx.x * kW1Items + j;
+  }
   Seg<A> total;
   const Seg<A> ex = block_exclusive_scan<kThreads>(s, id, op, total);
-  const Seg<A> tile_carry = {0, carry_v[blockIdx.x], carry_c[blockIdx.x]};
-  Seg<A> cur = op(tile_carry, ex);
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t r = base + j;
-    if (r >= n) break;
-    cur = op(cur, seg_item<FN, T, A>(vals, live, seg_start, r));
-    if constexpr (FN != kCount) out_val[r] = (O)cur.v;
-    out_cnt[r] = cur.c;
+  // every thread has read its items (the scan synchronised): the value
+  // rows now take the inclusive prefixes
+  Seg<A> cur = op(Seg<A>{0, carry_v[blockIdx.x], carry_c[blockIdx.x]}, ex);
+  for (int j = 0; j < kW1Items; ++j) {
+    cur = op(cur, x[j]);
+    const int i = threadIdx.x * kW1Items + j;
+    at<A>(rows.val, i) = cur.v;
+    at<long long>(cnt, i) = cur.c;
   }
-  int peer_total;
-  int next = min(block_suffix_min<kThreads>(first_peer, peer_total),
-                 next_peer[blockIdx.x]);
-  if (next == kNone) next = (int)n;
-  for (int j = kItems - 1; j >= 0; --j) {
-    const int64_t r = base + j;
-    if (r >= n) continue;
-    peer_last[r] = next - 1;
-    if (peer_start[r]) next = (int)r;
+  int tile_first;
+  int next = block_suffix_min<kThreads>(first_b, tile_first);
+  const A prev_v = blockIdx.x > 0 ? open_v[blockIdx.x - 1] : id.v;
+  const long long prev_c = blockIdx.x > 0 ? open_c[blockIdx.x - 1] : 0;
+  A rv[kW1Items];
+  long long rc[kW1Items];
+  for (int j = kW1Items - 1; j >= 0; --j) {
+    const int i = threadIdx.x * kW1Items + j;
+    const int end = next;                 // the next boundary after row i
+    if (b[j]) next = i;
+    if (tile_first == kNone || i < tile_first) {
+      rv[j] = prev_v;
+      rc[j] = prev_c;
+    } else if (end == kNone) {
+      rv[j] = open_v[blockIdx.x];
+      rc[j] = open_c[blockIdx.x];
+    } else {
+      rv[j] = at<A>(rows.val, end - 1);
+      rc[j] = at<long long>(cnt, end - 1);
+    }
   }
-}
-
-// Pass 4: every row takes the result of its peer group's last row. Those
-// rows are never written (their peer_last is themselves), so the copy is in
-// place.
-template <int FN, typename O>
-__global__ void __launch_bounds__(kThreads)
-take_peer_last(const int* __restrict__ peer_last, int64_t n,
-               O* __restrict__ out_val, long long* __restrict__ out_cnt) {
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    const int p = peer_last[i];
-    if (p == i) continue;
-    if constexpr (FN != kCount) out_val[i] = out_val[p];
-    out_cnt[i] = out_cnt[p];
+  __syncthreads();
+  for (int j = 0; j < kW1Items; ++j) {
+    const int i = threadIdx.x * kW1Items + j;
+    if constexpr (FN != kCount) at<O>(rows.val, i) = (O)rv[j];
+    at<long long>(cnt, i) = rc[j];
   }
+  __syncthreads();
+  if constexpr (FN != kCount)
+    store_tile<sizeof(O)>(reinterpret_cast<uint8_t*>(out_val + base), count,
+                          rows.val);
+  store_tile<8>(reinterpret_cast<uint8_t*>(out_cnt + base), count, cnt);
 }
 
 int grid_stride_blocks(int64_t n) {
@@ -259,37 +381,52 @@ int grid_stride_blocks(int64_t n) {
   return (int)(want < cap ? (want > 0 ? want : 1) : cap);
 }
 
-template <int FN, typename T, typename A, typename O>
-cudaError_t launch_window_prefix(const void* vals, const void* live,
-                                 const void* seg_start, const void* peer_start,
-                                 int64_t n, void* tile_f, void* tile_v,
-                                 void* tile_c, void* tile_peer, void* carry_v,
-                                 void* carry_c, void* next_peer,
-                                 void* peer_last, void* out_val,
-                                 void* out_cnt, cudaStream_t s) {
-  const int64_t ntiles = (n + kTile - 1) / kTile;
-  prefix_tiles<FN, T, A><<<(unsigned)ntiles, kThreads, 0, s>>>(
+// scratch: 7 x ntiles int64 words (tile_v, tile_c, head_v, head_c, carry_v,
+// carry_c, then tile_f and tile_b as int32)
+template <int FN, typename T, typename A, typename O, bool WHOLE>
+cudaError_t launch_w1(const void* vals, const void* live,
+                      const void* seg_start, const void* peer_start,
+                      int64_t n, void* scratch, void* out_val, void* out_cnt,
+                      cudaStream_t s) {
+  const int64_t ntiles = (n + kW1Tile - 1) / kW1Tile;
+  long long* w = (long long*)scratch;
+  A* tile_v = (A*)w;
+  long long* tile_c = w + ntiles;
+  A* head_v = (A*)(w + 2 * ntiles);
+  long long* head_c = w + 3 * ntiles;
+  A* carry_v = (A*)(w + 4 * ntiles);
+  long long* carry_c = w + 5 * ntiles;
+  int* tile_f = (int*)(w + 6 * ntiles);
+  int* tile_b = tile_f + ntiles;
+  w1_tiles<FN, T, A, WHOLE><<<(unsigned)ntiles, kThreads, 0, s>>>(
       (const T*)vals, (const uint8_t*)live, (const uint8_t*)seg_start,
-      (const uint8_t*)peer_start, n, (int*)tile_f, (A*)tile_v,
-      (long long*)tile_c, (int*)tile_peer);
+      (const uint8_t*)peer_start, n, tile_f, tile_b, tile_v, tile_c, head_v,
+      head_c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  prefix_scan<FN, A><<<1, kScanThreads, 0, s>>>(
-      (const int*)tile_f, (const A*)tile_v, (const long long*)tile_c,
-      (const int*)tile_peer, ntiles, (A*)carry_v, (long long*)carry_c,
-      (int*)next_peer);
+  w1_scan<FN, A><<<1, kScanThreads, 0, s>>>(tile_f, tile_b, tile_v, tile_c,
+                                            head_v, head_c, ntiles, carry_v,
+                                            carry_c);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  prefix_rows<FN, T, A, O><<<(unsigned)ntiles, kThreads, 0, s>>>(
+  w1_rows<FN, T, A, O, WHOLE><<<(unsigned)ntiles, kThreads, 0, s>>>(
       (const T*)vals, (const uint8_t*)live, (const uint8_t*)seg_start,
-      (const uint8_t*)peer_start, n, (const A*)carry_v,
-      (const long long*)carry_c, (const int*)next_peer, (O*)out_val,
-      (long long*)out_cnt, (int*)peer_last);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  take_peer_last<FN, O><<<grid_stride_blocks(n), kThreads, 0, s>>>(
-      (const int*)peer_last, n, (O*)out_val, (long long*)out_cnt);
+      (const uint8_t*)peer_start, n, carry_v, carry_c, tile_v, tile_c,
+      (O*)out_val, (long long*)out_cnt);
   return cudaGetLastError();
+}
+
+template <int FN, typename T, typename A, typename O>
+cudaError_t launch_window_prefix(bool whole, const void* vals,
+                                 const void* live, const void* seg_start,
+                                 const void* peer_start, int64_t n,
+                                 void* scratch, void* out_val, void* out_cnt,
+                                 cudaStream_t s) {
+  if (whole)
+    return launch_w1<FN, T, A, O, true>(vals, live, seg_start, peer_start, n,
+                                        scratch, out_val, out_cnt, s);
+  return launch_w1<FN, T, A, O, false>(vals, live, seg_start, peer_start, n,
+                                       scratch, out_val, out_cnt, s);
 }
 
 // ---------------------------------------------------------------------
@@ -610,21 +747,21 @@ extern "C" {
 // W1. fn: 0 sum, 1 count, 2 min, 3 max; dtype of vals: 0 int32, 1 int64,
 // 2 float32, 3 float64 (vals may be null for count). vals holds each row's
 // contribution (0 or the MIN/MAX sentinel where a row is dead or NULL) and
-// live its count (0 or 1). Sums accumulate in int64 (integers) or float64
-// (floats) and are written in the input's type; out_cnt is int64. Scratch:
-// with ntiles = ceil(n / 4096), tile_f, tile_peer, next_peer int32[ntiles],
-// tile_v, tile_c, carry_v, carry_c 8-byte[ntiles], peer_last int32[n].
-int qs_window_prefix(int fn, int dtype, const void* vals, const void* live,
-                     const void* seg_start, const void* peer_start, int64_t n,
-                     void* tile_f, void* tile_v, void* tile_c, void* tile_peer,
-                     void* carry_v, void* carry_c, void* next_peer,
-                     void* peer_last, void* out_val, void* out_cnt,
-                     void* stream) {
+// live its count (0 or 1). whole: the whole-partition mode (each row takes
+// its segment's result; peer_start is not read), else the running mode
+// (each row takes the prefix at the last row of its peer group). Sums
+// accumulate in int64 (integers) or float64 (floats) and are written in the
+// input's type; out_cnt is int64. vals, live, the flags and the outputs
+// start on 16 bytes. Scratch: 7 x ceil(n / 2048) int64 words.
+int qs_window_prefix(int fn, int dtype, int whole, const void* vals,
+                     const void* live, const void* seg_start,
+                     const void* peer_start, int64_t n, void* scratch,
+                     void* out_val, void* out_cnt, void* stream) {
   if (n == 0) return cudaSuccess;
   if (n >= INT32_MAX) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define W1_ARGS vals, live, seg_start, peer_start, n, tile_f, tile_v, tile_c, \
-    tile_peer, carry_v, carry_c, next_peer, peer_last, out_val, out_cnt, s
+#define W1_ARGS whole != 0, vals, live, seg_start, peer_start, n, scratch, \
+    out_val, out_cnt, s
   switch (fn) {
     case kSum:
       switch (dtype) {

@@ -45,6 +45,7 @@ from quickstep_tpu_torch.exec.runner import JoinOverride, PlanRunner
 from quickstep_tpu_torch.exec.result import QueryResult
 from quickstep_tpu_torch.expressions.scalar import EvalContext, Lit
 from quickstep_tpu_torch.ops import kernels as K
+from quickstep_tpu_torch.ops.sort import order_permutation
 from quickstep_tpu_torch.parallel.mesh import make_mesh, pad_to_multiple
 
 # Plan runs per statement before the retry gives up (each run installs at
@@ -323,34 +324,18 @@ class Executor:
 
     @staticmethod
     def _device_sort_order(sort_node: L.Sort, chunk) -> torch.Tensor:
-        """The chunk's live rows in ORDER BY order, then its dead rows: one
-        stable sort per key, last key first, then the live mask; ties keep
-        row order. Keys are encoded as in _host_sort_order."""
+        """The chunk's live rows in ORDER BY order, then its dead rows; ties
+        keep row order: ops/sort.py order_permutation (K13 on the card),
+        whose keys are encoded as in _host_sort_order, with -0.0 equal to
+        0.0 and every NaN after +inf whatever its sign."""
         chunk.ensure([key.expr_id for key in sort_node.keys])
-        cols = []
-        for key, asc, nf in zip(sort_node.keys, sort_node.ascending,
-                                sort_node.nulls_first):
+        keys, valids = [], []
+        for key in sort_node.keys:
             d, v = chunk.broadcast(*chunk.slots[key.expr_id])
-            col = d
-            if not asc:
-                col = -col if col.dtype.is_floating_point else ~col
-            if v is not None:
-                first = nf if nf is not None else (not asc)
-                if col.dtype.is_floating_point:
-                    sentinel = float("-inf") if first else float("inf")
-                else:
-                    info = torch.iinfo(col.dtype)
-                    sentinel = info.min if first else info.max
-                col = torch.where(v, col, torch.full((), sentinel,
-                                                     dtype=col.dtype,
-                                                     device=col.device))
-            cols.append(col.to(torch.uint8) if col.dtype == torch.bool
-                        else col)
-        perm = torch.arange(chunk.capacity, device=chunk.device)
-        for col in reversed([(~chunk.alive).to(torch.uint8)] + cols):
-            _, p = torch.sort(col.index_select(0, perm), stable=True)
-            perm = perm.index_select(0, p)
-        return perm
+            keys.append(d)
+            valids.append(v)
+        return order_permutation(keys, valids, list(sort_node.ascending),
+                                 list(sort_node.nulls_first), chunk.alive)
 
     def _queue_copy(self, t: Optional[torch.Tensor]):
         """A host copy of t, queued on the current stream (CPU tensors are

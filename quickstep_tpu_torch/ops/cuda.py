@@ -23,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -171,7 +171,7 @@ def build() -> ctypes.CDLL:
                                    p, p, p, p, p, p, p, i32, i32, i32, i32,
                                    p],
             "qs_stable_partition": [p, i64, p, p, p, p],
-            "qs_window_prefix": [i32, i32, p, p, p, p, i64, *[p] * 11],
+            "qs_window_prefix": [i32, i32, i32, p, p, p, p, i64, p, p, p, p],
             "qs_frame_bounds": [i32, i32, p, p, i64, i64, i64, i32, i32,
                                 *[p] * 7],
             "qs_frame_minmax": [i32, i32, p, p, p, i64, p, i64, i32, p, p],
@@ -179,6 +179,9 @@ def build() -> ctypes.CDLL:
             "qs_hash_keys": [i32, p, p, i64, p, i32, p],
             "qs_oa_build": [i32, p, p, p, i64, p, i64, p, i32, p],
             "qs_oa_probe": [p, i64, i32, p, p, p, p, i64, p, p, i32, p],
+            "qs_oa_word_build": [i32, p, p, p, i64, p, i64, p, p, i32, p],
+            "qs_oa_word_probe": [p, i64, p, i32, p, p, p, i64, p, p, i32,
+                                 p],
             "qs_run_starts": [i32, p, i64, p, p, p, i32, p],
             "qs_radix_sort_live": [i32, p, p, p, i64, p, p, p, p, i32, i32,
                                    p],
@@ -845,7 +848,8 @@ def stable_partition(mask: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------
 # W1-W4: the window kernels (csrc/window_kernels.cu)
 # ---------------------------------------------------------------------
-_WIN_TILE = 256 * 16            # kTile in csrc/window_kernels.cu
+_WIN_TILE = 256 * 16            # kTile in csrc/window_kernels.cu (W3)
+_W1_TILE = 256 * 8              # kW1Tile in csrc/window_kernels.cu
 _WIN_SPAN = 1024                # kSpan in csrc/window_kernels.cu
 
 
@@ -855,14 +859,16 @@ def _flags(device, n: int, **flags) -> None:
 
 
 def window_prefix(fn: str, vals: Optional[torch.Tensor], live: torch.Tensor,
-                  seg_start: torch.Tensor, peer_start: torch.Tensor):
+                  seg_start: torch.Tensor,
+                  peer_start: Optional[torch.Tensor]):
     """W1: over rows sorted by (segment, order keys), each row's inclusive
     fn in {sum, min, max} of vals and count of live rows within its segment,
     read at the last row of its peer group (peer_start marks the first row
-    of each; peer groups never cross a segment start). vals holds each row's
-    contribution (0, or the MIN/MAX sentinel, at dead and NULL rows) and may
-    be None for fn == count. Returns (values in vals' dtype or None, int64
-    counts)."""
+    of each; peer groups never cross a segment start). peer_start None is
+    the whole-partition mode: each row's segment total. vals holds each
+    row's contribution (0, or the MIN/MAX sentinel, at dead and NULL rows)
+    and may be None for fn == count. Returns (values in vals' dtype or
+    None, int64 counts). Three launches, counted as one."""
     if fn not in _FN:
         raise ValueError(f"unknown aggregate {fn!r}")
     device = _cuda_device(live, "live")
@@ -874,24 +880,21 @@ def window_prefix(fn: str, vals: Optional[torch.Tensor], live: torch.Tensor,
         _require(vals, "vals", device, n, tuple(_DTYPE))
     _rows(n, "window_prefix")
     lib = build()
-    ntiles = -(-n // _WIN_TILE)
     out_val = None if fn == "count" else torch.empty(n, dtype=vals.dtype,
                                                      device=device)
     out_cnt = torch.empty(n, dtype=torch.int64, device=device)
     if n == 0:
         return out_val, out_cnt
-
-    # tile_f, tile_v, tile_c, tile_peer, carry_v, carry_c, next_peer (the
-    # 8-byte ones hold any value type), then peer_last
-    scratch = [torch.empty(m, dtype=dt, device=device) for dt, m in (
-        (torch.int32, ntiles), (torch.int64, ntiles), (torch.int64, ntiles),
-        (torch.int32, ntiles), (torch.int64, ntiles), (torch.int64, ntiles),
-        (torch.int32, ntiles), (torch.int32, n))]
+    # the kernel reads by 16-byte vectors; copies stay referenced here
+    # until the launch is queued
+    ins = [None if t is None else _aligned16(t) for t in (
+        None if fn == "count" else vals, live, seg_start, peer_start)]
+    scratch = torch.empty(7 * -(-n // _W1_TILE), dtype=torch.int64,
+                          device=device)
     err = lib.qs_window_prefix(
         _FN[fn], _DTYPE[vals.dtype] if fn != "count" else 0,
-        _ptr(vals if fn != "count" else None), _ptr(live), _ptr(seg_start),
-        _ptr(peer_start), n, *[_ptr(t) for t in scratch], _ptr(out_val),
-        _ptr(out_cnt), _stream(device))
+        int(peer_start is None), *[_ptr(t) for t in ins], n, _ptr(scratch),
+        _ptr(out_val), _ptr(out_cnt), _stream(device))
     _check(lib, err, "window_prefix")
     LAUNCHES["window_prefix"] += 1
     return out_val, out_cnt
@@ -1029,44 +1032,140 @@ def hash_keys(cols: List[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+# K11's key-in-slot route: the bits each integer key dtype takes in the
+# packed word (csrc/hash_kernels.cu pack_word); keys of at most 64 bits in
+# all take it, every other key the row-id route
+OA_WORD_BITS = {torch.int32: 32, torch.int64: 64, torch.uint8: 8,
+                torch.bool: 8}
+
+
+class OATable(NamedTuple):
+    """K11's key-in-slot table: slots holds two int64 words a slot (the
+    packed key, all ones where empty; the row id in the low 32 bits of the
+    second), special the row of the one key that packs to all ones (-1 for
+    none), and dtypes the build key columns' dtypes, which fix the
+    packing."""
+    slots: torch.Tensor
+    special: torch.Tensor
+    dtypes: Tuple[torch.dtype, ...]
+
+
+def oa_word_route(dtypes) -> bool:
+    """Whether key columns of these dtypes take K11's key-in-slot route:
+    integer columns of at most 64 bits in all."""
+    return all(d in OA_WORD_BITS for d in dtypes) and \
+        sum(OA_WORD_BITS[d] for d in dtypes) <= 64
+
+
 def oa_build(cols: List[torch.Tensor], alive: torch.Tensor,
              table_size: int):
-    """K11 build: the live rows' ids, placed by the hash of their key
-    columns (K10's, computed in the kernel) and compared on those columns,
-    in a linear-probing table of table_size (a power of two above the live
-    rows) int32 slots, -1 where empty. Returns (table, 0-d bool dup flag:
-    two live rows share a key)."""
+    """K11 build of the live rows into a linear-probing table of table_size
+    slots (a power of two above the live rows). Returns (table, 0-d bool
+    dup flag: two live rows share a key). Keys that oa_word_route takes
+    give an OATable (one fill of the slots, one launch); any other key an
+    int32 table of row ids, -1 where empty, hashed with K10's device
+    functions and compared on the key columns."""
     device = _cuda_device(alive, "alive")
     n = int(alive.shape[0]) if alive.dim() == 1 else -1
     _require(alive, "alive", device, n, (torch.bool,))
+    cols = [c.view(torch.uint8) if c.dtype == torch.bool else c
+            for c in cols]
     ptrs, codes = _key_arrays(cols, device, n, tuple(_KEY_DTYPE))
     if table_size < 1 or table_size & (table_size - 1) or \
             table_size > 2 ** 40:
         raise ValueError(f"table size {table_size} is not a power of two")
     _rows(n, "oa_build")
     lib = build()
-    table = torch.full((table_size,), -1, dtype=torch.int32, device=device)
     dup = torch.zeros((), dtype=torch.int32, device=device)
-    if n == 0:
-        return table, dup != 0
-    err = lib.qs_oa_build(len(cols), ctypes.cast(ptrs, ctypes.c_void_p),
-                          ctypes.cast(codes, ctypes.c_void_p), _ptr(alive), n,
-                          _ptr(table), table_size, _ptr(dup),
-                          _blocks(n, device), _stream(device))
+    if oa_word_route([c.dtype for c in cols]):
+        table = OATable(
+            torch.full((2 * table_size,), -1, dtype=torch.int64,
+                       device=device),
+            torch.full((1,), -1, dtype=torch.int32, device=device),
+            tuple(c.dtype for c in cols))
+        if n == 0:
+            return table, dup != 0
+        err = lib.qs_oa_word_build(
+            len(cols), ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(codes, ctypes.c_void_p), _ptr(alive), n,
+            _ptr(table.slots), table_size, _ptr(table.special), _ptr(dup),
+            _blocks(n, device), _stream(device))
+    else:
+        table = torch.full((table_size,), -1, dtype=torch.int32,
+                           device=device)
+        if n == 0:
+            return table, dup != 0
+        err = lib.qs_oa_build(len(cols), ctypes.cast(ptrs, ctypes.c_void_p),
+                              ctypes.cast(codes, ctypes.c_void_p),
+                              _ptr(alive), n, _ptr(table), table_size,
+                              _ptr(dup), _blocks(n, device), _stream(device))
     _check(lib, err, "oa_build")
     LAUNCHES["open_addressing"] += 1
     return table, dup != 0
 
 
-def oa_probe(table: torch.Tensor, bcols: List[torch.Tensor],
-             pcols: List[torch.Tensor], alive: torch.Tensor):
+def oa_table_rows(table) -> torch.Tensor:
+    """The build row of each slot, -1 where empty: an int32 table as it is,
+    an OATable's row ids (its special key's row is not in a slot)."""
+    if not isinstance(table, OATable):
+        return table
+    words = table.slots.view(-1, 2)
+    return torch.where(words[:, 0] == -1, -1, words[:, 1].to(torch.int32))
+
+
+def _as_build_dtypes(pcols: List[torch.Tensor], dtypes, alive):
+    """The probe key columns cast to the build's dtypes, with the rows whose
+    value the cast does not keep (out of range, a fraction, NaN: no build
+    key equals them) taken out of alive. The comparison is then exact,
+    where one at the promoted dtype rounds an integer that the float type
+    cannot hold (beyond 2^24 against float32, 2^53 against float64)."""
+    out = []
+    for c, d in zip(pcols, dtypes):
+        if c.dtype == torch.bool:
+            c = c.view(torch.uint8)
+        if c.dtype != d:
+            cast = c.to(d)
+            alive = alive & (cast.to(c.dtype) == c)
+            c = cast
+        out.append(c.contiguous())
+    return out, alive
+
+
+def oa_probe(table, bcols: List[torch.Tensor], pcols: List[torch.Tensor],
+             alive: torch.Tensor):
     """K11 probe: each live probe row's build row (int32, -1 for none) and
-    bool matched, walking from the slot of its keys' hash (K10's, computed
-    in the kernel). Build and probe key columns pair up with equal
-    dtypes."""
+    bool matched. An OATable is probed by the packed words alone (the probe
+    columns cast to the build's dtypes; bcols give only the build side's
+    rows, and are not read); an int32 table
+    by walking from the slot of K10's hash, comparing key columns (build and
+    probe columns pair up with equal dtypes)."""
     device = _cuda_device(alive, "alive")
     n = int(alive.shape[0]) if alive.dim() == 1 else -1
     _require(alive, "alive", device, n, (torch.bool,))
+    if isinstance(table, OATable):
+        size = int(table.slots.shape[0]) // 2
+        _require(table.slots, "table.slots", device, 2 * size,
+                 (torch.int64,))
+        if size < 1 or size & (size - 1):
+            raise ValueError(f"table size {size} is not a power of two")
+        if len(bcols) != len(table.dtypes) or \
+                len(pcols) != len(table.dtypes):
+            raise TypeError("key columns differ in number from the table's")
+        pcols, alive = _as_build_dtypes(pcols, table.dtypes, alive)
+        pptrs, codes = _key_arrays(pcols, device, n, tuple(_KEY_DTYPE))
+        lib = build()
+        out = torch.full((n,), -1, dtype=torch.int32, device=device)
+        matched = torch.zeros(n, dtype=torch.bool, device=device)
+        if n == 0 or int(bcols[0].shape[0]) == 0:
+            return out, matched
+        err = lib.qs_oa_word_probe(
+            _ptr(table.slots), size, _ptr(table.special), len(pcols),
+            ctypes.cast(pptrs, ctypes.c_void_p),
+            ctypes.cast(codes, ctypes.c_void_p), _ptr(alive), n, _ptr(out),
+            _ptr(matched), _blocks(n, device), _stream(device))
+        _check(lib, err, "oa_probe")
+        LAUNCHES["open_addressing"] += 1
+        return out, matched
     size = int(table.shape[0]) if table.dim() == 1 else -1
     _require(table, "table", device, size, (torch.int32,))
     if size < 1 or size & (size - 1):

@@ -24,8 +24,8 @@ from typing import List, Optional, Tuple
 import torch
 
 from quickstep_tpu_torch.ops.kernels import (
-    compact_order, max_sentinel, min_sentinel, multi_gather,
-    multi_gather_plain, stable_partition)
+    canonical_sort_key, compact_order, max_sentinel, min_sentinel,
+    multi_gather, multi_gather_plain, stable_partition)
 
 AggIn = Tuple[str, Optional[torch.Tensor], Optional[torch.Tensor]]  # (fn, vals, valid)
 
@@ -192,7 +192,10 @@ def _sort_groupby(key_cols, key_valids, agg_specs, alive, packed_key,
                     torch.iinfo(col.dtype).max
                 col = torch.where(valid, col, torch.full(
                     (), top, dtype=col.dtype, device=dev))
-            sort_keys.append(col)
+            # a canonical copy of a float key: equal zeros stay one group
+            # and NaNs sort last on the card as well; the keys returned
+            # are gathered from key_cols and keep their own bits
+            sort_keys.append(canonical_sort_key(col))
         # least significant key first; the live mask last, so dead rows
         # sort after every live row
         perm = pos
@@ -387,10 +390,7 @@ def _sorted_live_plain(vals: torch.Tensor, valid: Optional[torch.Tensor],
     if not k.dtype.is_floating_point:
         return torch.sort(k, stable=True)[0], torch.sum(live,
                                                         dtype=torch.int64)
-    zero = torch.zeros((), dtype=k.dtype, device=k.device)
-    key = torch.where(torch.isnan(k), torch.full_like(zero, float("nan")),
-                      torch.where(k == 0, zero, k))
-    order = torch.sort(key, stable=True)[1]
+    order = torch.sort(canonical_sort_key(k), stable=True)[1]
     return k.index_select(0, order), torch.sum(live, dtype=torch.int64)
 
 

@@ -281,12 +281,15 @@ def _oa_slots(cols: List[torch.Tensor], table_size: int) -> torch.Tensor:
 
 def oa_build(key_cols: List[torch.Tensor], alive: torch.Tensor,
              table_size: int):
-    """Insert the live build rows into a linear-probing table of row ids.
-    table_size is a power of two above the number of live rows. Returns
-    (int32 table[table_size] of build rows or -1, 0-d bool dup flag: two
-    live rows share a key). No row evicts one that has settled; which of
-    two equal keys settles may differ between the two versions. On CUDA
-    one K11 launch, which hashes the keys itself."""
+    """Insert the live build rows into a linear-probing table. table_size
+    is a power of two above the number of live rows. Returns (table, 0-d
+    bool dup flag: two live rows share a key). No row evicts one that has
+    settled; which of two equal keys settles may differ between the two
+    versions. The table is opaque to the callers, who hand it to oa_probe:
+    on the CPU an int32 table[table_size] of build rows or -1; on CUDA one
+    K11 launch, whose table holds the packed key beside the row id where
+    the key columns are integers of at most 64 bits in all
+    (cuda.oa_word_route, cuda.OATable), else the int32 row table."""
     if alive.device.type == "cpu":
         return oa_build_plain(key_cols, alive, table_size)
     from quickstep_tpu_torch.ops import cuda
@@ -332,14 +335,20 @@ def oa_build_plain(key_cols: List[torch.Tensor], alive: torch.Tensor,
     return table, dup
 
 
-def oa_probe(table: torch.Tensor, build_key_cols: List[torch.Tensor],
+def oa_probe(table, build_key_cols: List[torch.Tensor],
              probe_key_cols: List[torch.Tensor], alive: torch.Tensor):
     """Walk from each live probe row's slot to an equal key or an empty
     slot. Returns (int32 build row or -1, bool matched). On CUDA one K11
-    launch, which hashes the keys itself (none over an empty build side)."""
+    launch (none over an empty build side): a key-in-slot table compares
+    packed words, the probe columns cast to the build's dtypes; an int32
+    table hashes the keys in the kernel and compares key columns."""
     if alive.device.type == "cpu":
         return oa_probe_plain(table, build_key_cols, probe_key_cols, alive)
     from quickstep_tpu_torch.ops import cuda
+    if isinstance(table, cuda.OATable):
+        return cuda.oa_probe(table, list(build_key_cols),
+                             list(probe_key_cols),
+                             alive.contiguous())
     # the kernel compares like dtypes: each pair at its promoted dtype (the
     # hash reads both as int64, so equal values hash alike)
     pairs = [(b, p) if b.dtype == p.dtype else

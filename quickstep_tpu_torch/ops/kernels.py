@@ -226,3 +226,16 @@ def max_sentinel(dtype) -> object:
 
 def min_sentinel(dtype) -> object:
     return _MIN_SENTINELS[torch_dtype(dtype)]
+
+
+def canonical_sort_key(t: torch.Tensor) -> torch.Tensor:
+    """A float sort key as lax.sort compares it: a copy in which -0.0 is
+    +0.0 and every NaN the one positive NaN, so that a stable torch.sort
+    keeps equal zeros in row order and puts every NaN last on any device
+    (the card's torch.sort orders floats by their bits: a negative NaN
+    before -inf). Only the sort key is canonical; other dtypes are returned
+    as they are."""
+    if not t.dtype.is_floating_point:
+        return t
+    nan = torch.full((), float("nan"), dtype=t.dtype, device=t.device)
+    return torch.where(torch.isnan(t), nan, t + 0.0)

@@ -10,7 +10,9 @@ CPU tensors:
 
 - W1 `segmented_prefix`: the inclusive SUM/MIN/MAX and COUNT of each
   segment read at the last row of each peer group (the reference's
-  `_segmented_scan` :75, `_prefix_to_peers` :239 and `_seg_total` :220);
+  `_segmented_scan` :75 and `_prefix_to_peers` :239), and in its
+  whole-partition mode `segment_totals`, each segment's total
+  (`_seg_total` :220);
 - W3 `frame_bounds`: each row's ROWS or RANGE frame inside its segment
   (`_lex_searchsorted` :30, the `merge_starts` path :166-196 and
   seg_first/seg_last :147-150);
@@ -35,7 +37,8 @@ import numpy as np
 import torch
 
 from quickstep_tpu_torch.ops.kernels import (
-    max_sentinel, min_sentinel, multi_gather, multi_gather_plain)
+    canonical_sort_key, max_sentinel, min_sentinel, multi_gather,
+    multi_gather_plain)
 
 _DEAD = torch.iinfo(torch.int64).max   # the dead rows' packed sort key
 # segments longer than this slide in a scalar loop in the plain W4
@@ -106,8 +109,11 @@ def _sort_rows(part_keys, okeys, alive, ranges, plain):
         seg = first | _roll_ne(s_key // order_span) | \
             (~s_alive & torch.roll(s_alive, 1))
         return perm, s_alive, seg, seg | _roll_ne(s_key)
-    keys = [k.to(torch.uint8) if k.dtype == torch.bool else k
-            for k in list(part_keys) + list(okeys)]
+    # float keys sort by a canonical copy (-0.0 is 0.0, every NaN the one
+    # positive NaN), so equal zeros share a partition or peer group and
+    # NaNs sort last on the card as on the CPU
+    keys = [k.to(torch.uint8) if k.dtype == torch.bool else
+            canonical_sort_key(k) for k in list(part_keys) + list(okeys)]
     # least significant key first; the dead mask last, so that dead rows
     # sort after every live row
     perm = pos
@@ -234,12 +240,12 @@ def _finish(fn, res, cnt):
 
 
 def _seg_total(fn, contrib_sum, live, s_vals, seg_start):
-    """Whole-partition aggregates: on CUDA one W1 call whose peer groups
-    are the segments; on the CPU `_seg_total_plain`."""
+    """Whole-partition aggregates: on CUDA one W1 call in its
+    whole-partition mode (segment_totals); on the CPU `_seg_total_plain`."""
     if _on_cpu(live):
         return _seg_total_plain(fn, contrib_sum, live, s_vals, seg_start)
-    return _prefix_to_peers(fn, contrib_sum, live, s_vals, seg_start,
-                            seg_start)
+    return _prefix_to_peers_impl(fn, contrib_sum, live, s_vals, seg_start,
+                                 None, plain=False)
 
 
 def _seg_total_plain(fn, contrib_sum, live, s_vals, seg_start):
@@ -279,11 +285,15 @@ def _prefix_to_peers_plain(fn, contrib_sum, live, s_vals, seg_start,
 
 def _prefix_to_peers_impl(fn, contrib_sum, live, s_vals, seg_start,
                           peer_start, plain):
+    """peer_start None is the whole-partition mode (segment_totals)."""
     kfn = "sum" if fn == "avg" else fn
     vals = None if fn == "count" else (
         contrib_sum if kfn == "sum" else _sentinel_fill(kfn, s_vals, live))
-    res, cnt = (segmented_prefix_plain if plain else segmented_prefix)(
-        kfn, vals, live, seg_start, peer_start)
+    if peer_start is None:
+        res, cnt = segment_totals(kfn, vals, live, seg_start)
+    else:
+        res, cnt = (segmented_prefix_plain if plain else segmented_prefix)(
+            kfn, vals, live, seg_start, peer_start)
     return _finish(fn, res, cnt)
 
 
@@ -345,6 +355,20 @@ def segmented_prefix(fn: str, vals: Optional[torch.Tensor],
     return cuda.window_prefix(fn, None if vals is None else vals.contiguous(),
                               live.contiguous(), seg_start.contiguous(),
                               peer_start.contiguous())
+
+
+def segment_totals(fn: str, vals: Optional[torch.Tensor],
+                   live: torch.Tensor, seg_start: torch.Tensor):
+    """Each sorted row's segment total: fn (sum, min or max of the
+    contributions vals; None for count) and the count of live rows over its
+    whole segment. Returns (values in vals' dtype or None, int64 counts).
+    On CUDA W1 in its whole-partition mode; on the CPU segmented_prefix's
+    plain version with the peer groups equal to the segments."""
+    if _on_cpu(live):
+        return segmented_prefix_plain(fn, vals, live, seg_start, seg_start)
+    from quickstep_tpu_torch.ops import cuda
+    return cuda.window_prefix(fn, None if vals is None else vals.contiguous(),
+                              live.contiguous(), seg_start.contiguous(), None)
 
 
 def _segmented_scan_plain(vals, seg_start, fn):

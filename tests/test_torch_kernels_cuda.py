@@ -610,16 +610,23 @@ def _close(got, want, atol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ("segments", "whole_partition",
-                                    "one_segment"))
+                                    "one_segment", "whole_mode",
+                                    "whole_mode_one_segment"))
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("fn", WIN_FNS)
 def test_window_prefix_kernel_matches_plain(card, fn, dtype, layout):
+    """The running mode, and the whole-partition mode (segment_totals)
+    against the plain version with the peer groups equal to the
+    segments."""
     (seg, peer, live, _key), vals = _window_rows(
-        card, seg_len=None if layout == "one_segment" else 30)
-    if layout == "whole_partition":
+        card, seg_len=None if layout.endswith("one_segment") else 30)
+    if layout.startswith("whole"):
         peer = seg
     v = None if fn == "count" else _contrib(fn, vals[dtype], live)
-    got = TW.segmented_prefix(fn, v, live, seg, peer)
+    if layout.startswith("whole_mode"):
+        got = TW.segment_totals(fn, v, live, seg)
+    else:
+        got = TW.segmented_prefix(fn, v, live, seg, peer)
     want = TW.segmented_prefix_plain(fn, v, live, seg, peer)
     _close(got[1], want[1], 0.0)
     if fn == "count":
@@ -629,18 +636,23 @@ def test_window_prefix_kernel_matches_plain(card, fn, dtype, layout):
 
 
 @pytest.mark.cuda
-def test_window_prefix_kernel_one_15m_row_segment(card):
-    """W-Q3's shape: one segment of 15 M rows in ~2,400 peer groups."""
+@pytest.mark.parametrize("mode", ("running", "whole"))
+def test_window_prefix_kernel_one_15m_row_segment(card, mode):
+    """W-Q3's shape: one segment of 15 M rows in ~2,400 peer groups (in the
+    whole-partition mode, every row its total)."""
     n = 15_000_000
     rng = np.random.default_rng(53)
     seg = torch.zeros(n, dtype=torch.bool, device=card)
     seg[0] = True
     peer = torch.from_numpy(rng.random(n) < 1 / 6000).to(card) | seg
+    if mode == "whole":
+        peer = seg
     live = torch.ones(n, dtype=torch.bool, device=card)
     price = torch.from_numpy(rng.integers(100_000, 50_000_000, n) / 100).to(
         card)
     for fn, v in (("sum", price), ("max", price), ("count", None)):
-        got = TW.segmented_prefix(fn, v, live, seg, peer)
+        got = TW.segmented_prefix(fn, v, live, seg, peer) \
+            if mode == "running" else TW.segment_totals(fn, v, live, seg)
         want = TW.segmented_prefix_plain(fn, v, live, seg, peer)
         _close(got[1], want[1], 0.0)
         if v is not None:
