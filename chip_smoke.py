@@ -69,23 +69,36 @@ Q20_ROWS_PREFIX = "green"
 LARGE_QUERIES = {
     1: ("dense_groupby",),
     6: ("scalar_agg",),
-    3: ("direct_join", "sort_groupby", "multi_gather"),
-    4: ("direct_join", "dense_groupby", "multi_gather"),
-    5: ("direct_join", "merge_unique_probe", "dense_groupby", "multi_gather"),
-    10: ("direct_join", "sort_groupby", "multi_gather"),
+    3: ("direct_join", "sort_groupby", "multi_gather", "sort_groupby_compact"),
+    4: ("direct_join", "dense_groupby", "multi_gather",
+        "sort_groupby_compact"),
+    5: ("direct_join", "merge_unique_probe", "dense_groupby", "multi_gather",
+        "sort_groupby_compact"),
+    10: ("direct_join", "sort_groupby", "multi_gather",
+         "sort_groupby_compact"),
     # a two-key group-by: its key gathers take K6's row-packed route
-    7: ("direct_join", "sort_groupby", "multi_gather", "multi_gather_packed"),
-    12: ("direct_join", "dense_groupby", "multi_gather"),
-    14: ("direct_join", "scalar_agg", "multi_gather"),
-    19: ("direct_join", "scalar_agg", "multi_gather"),
+    7: ("direct_join", "sort_groupby", "multi_gather", "multi_gather_packed",
+        "sort_groupby_compact"),
+    12: ("direct_join", "dense_groupby", "multi_gather",
+         "sort_groupby_compact"),
+    14: ("direct_join", "scalar_agg", "multi_gather", "sort_groupby_compact"),
+    19: ("direct_join", "scalar_agg", "multi_gather", "sort_groupby_compact"),
     # exact statistics prove (ps_partkey, ps_suppkey) unique: a K4 probe
     9: ("direct_join", "merge_unique_probe", "sort_groupby", "multi_gather",
-        "multi_gather_packed"),
+        "multi_gather_packed", "sort_groupby_compact"),
     16: ("direct_join", "sort_groupby", "sort_groupby_compact",
          "multi_gather", "multi_gather_packed"),
-    18: ("direct_join", "sort_groupby", "multi_gather"),
-    21: ("direct_join", "merge_cmp_probe", "multi_gather"),
+    18: ("direct_join", "sort_groupby", "multi_gather",
+         "sort_groupby_compact"),
+    21: ("direct_join", "merge_cmp_probe", "multi_gather",
+         "sort_groupby_compact"),
 }
+# the SF10 queries whose joins compact their inputs (PlanRunner._compact_chunk,
+# K9 with a limit; every query of LARGE_QUERIES but Q1 and Q6): no library
+# sort may run inside a compaction
+COMPACTING = (3, 4, 5, 10, 7, 12, 14, 19, 9, 16, 18, 21)
+# Q1's dense GROUP BY: one K2 launch a run
+Q1_PER_RUN = {"dense_groupby": 1}
 # Q9 after partsupp is reloaded without statistics: its build side can no
 # longer be proven unique, and the join expands
 STALE_PARTSUPP_Q9 = ("direct_join", "expand_probe", "sort_groupby",
@@ -299,16 +312,16 @@ def phase_kernels(G):
 
     for domain in (6, 128):
         idx = G.pack_dense_index([keys % domain], [0], [1], domain, alive)
-        specs = [("sum", vals[torch.int64], None, True),
-                 ("count", None, None, False),
-                 ("sum", vals[torch.float64], None, False),
-                 ("sum", vals[torch.float32], valid, False),
-                 ("avg", vals[torch.int64], None, False),
-                 ("min", vals[torch.int32], valid, False),
-                 ("max", vals[torch.int64], None, False),
-                 ("min", vals[torch.float64], None, False),
-                 ("max", vals[torch.float32], None, False)]
-        for fn, v, vv, main in specs:
+        specs = [("sum", vals[torch.int64], None),
+                 ("count", None, None),
+                 ("sum", vals[torch.float64], None),
+                 ("sum", vals[torch.float32], valid),
+                 ("avg", vals[torch.int64], None),
+                 ("min", vals[torch.int32], valid),
+                 ("max", vals[torch.int64], None),
+                 ("min", vals[torch.float64], None),
+                 ("max", vals[torch.float32], None)]
+        for fn, v, vv in specs:
             label = f"d{domain} {fn} " + ("" if v is None else str(v.dtype)[6:]) \
                 + (" nullable" if vv is not None else "")
 
@@ -321,16 +334,58 @@ def phase_kernels(G):
                 occ, [(d, nn)] = G.dense_groupby_plain(idx, domain,
                                                        [(fn, v, vv)], alive)
                 return occ, d, nn
-            case("dense_groupby", label, k, p, main=(main and domain == 6),
-                 inputs=(idx, v, alive),
-                 library=lambda idx=idx, v=v, domain=domain: torch.zeros(
-                     domain + 1, dtype=v.dtype, device=dev).index_add_(
-                         0, idx, v))
+            # the single int64 SUM of the kernel table's first row, with its
+            # bound
+            single = domain == 6 and fn == "sum" and v.dtype == torch.int64
+            case("dense_groupby", label, k, p,
+                 bound_bytes=(nbytes((idx, v, alive)) + 13 * domain)
+                 if single else None)
+        for dt in (torch.float64, torch.float32):
+            runs = [G.dense_groupby(idx, domain, [("sum", vals[dt], valid)],
+                                    alive)[1][0][0] for _ in range(2)]
+            if not torch.equal(runs[0], runs[1]):
+                raise AssertionError(f"dense_groupby d{domain} float SUM "
+                                     f"of {dt}: two runs differ")
+        log(f"  dense_groupby d{domain} float64 and float32 SUM: two runs "
+            "give the same bits")
+    phase_dense_q1(case, dev)
     del vals, alive, valid, keys
     torch.cuda.empty_cache()
     phase_join_kernels(case, rng, dev)
     phase_zero_rows()
     return rows
+
+
+def phase_dense_q1(case, dev):
+    """K2's main case: Q1's dense GROUP BY as the runner hands it over (two
+    int32 keys, domain 6, five int64 SUMs and COUNT(*), 98 % live; inputs
+    from bench/kernel_ab.py k2_inputs) in one launch, the packing inside;
+    its bound from the bytes read (the keys, the mask, each distinct value
+    column once) and written. No single PyTorch call computes it."""
+    from quickstep_tpu_torch.bench.kernel_ab import k2_inputs
+    from quickstep_tpu_torch.ops import cuda, groupby as G
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    keys, offs, strides, domain, specs, alive = k2_inputs(dev, gen,
+                                                          N_KERNEL_ROWS)
+
+    def flat(out):
+        occ, res = out
+        return [occ] + [t for r in res for t in r]
+    cuda.reset_launches()
+    G.dense_aggregate(keys, offs, strides, domain, specs, alive)
+    if cuda.LAUNCHES["dense_groupby"] != 1:
+        raise AssertionError(f"Q1's dense GROUP BY launched "
+                             f"{cuda.LAUNCHES['dense_groupby']} times")
+    values = list({id(v): v for _, v, _ in specs if v is not None}.values())
+    case("dense_groupby", "Q1: 2 int32 keys, 5 SUM int64 + COUNT",
+         lambda: flat(G.dense_aggregate(keys, offs, strides, domain, specs,
+                                        alive)),
+         lambda: flat(G.dense_aggregate_plain(keys, offs, strides, domain,
+                                              specs, alive)),
+         main=True, inputs=(*keys, alive, *values), plain_reps=3)
+    del keys, specs, alive, values
+    torch.cuda.empty_cache()
 
 
 def phase_join_kernels(case, rng, dev):
@@ -479,6 +534,38 @@ def phase_join_kernels(case, rng, dev):
     del money, price, pkey, palive
     torch.cuda.empty_cache()
     phase_new_kernels(case, rng, dev)
+
+
+def k9_limits(case, n, dev):
+    """K9 with `limit`: the head of a half-live mask's order as long as its
+    live rows (the bytes: the mask, then 8 a position written); the join
+    compaction's shape (n rows, 3.5 M live at random, the target 2^22, with
+    the mask gathered: 9 bytes a position); one tile of 4,096 rows, which
+    is one launch."""
+    from quickstep_tpu_torch.bench.kernel_ab import (
+        COMPACT_TARGET, N_COMPACT_LIVE, k9_inputs)
+    from quickstep_tpu_torch.ops import kernels as K
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    mask, sparse = k9_inputs(dev, gen, n)
+    live = int(mask.sum())
+    case("sort_groupby_compact", f"limit = the {live} live rows",
+         lambda: (K.stable_partition(mask, limit=live),),
+         lambda: (K.compact_order(mask)[:live],),
+         bound_bytes=n + 8 * live)
+    def plain_head():
+        order = K.compact_order(sparse)[:COMPACT_TARGET]
+        return order, sparse[order]
+    case("sort_groupby_compact",
+         f"compaction: {N_COMPACT_LIVE} live to 2^22, with the mask",
+         lambda: K.stable_partition(sparse, limit=COMPACT_TARGET,
+                                    with_mask=True),
+         plain_head, bound_bytes=n + 9 * COMPACT_TARGET)
+    small = mask[:4096].clone()
+    case("sort_groupby_compact", "4,096 rows: one launch",
+         lambda: (K.stable_partition(small),),
+         lambda: (K.compact_order(small),), bound_bytes=9 * 4096)
+    del mask, sparse, small
 
 
 def k4_limit(label, bkey, balive, pkey, palive):
@@ -808,6 +895,7 @@ def phase_new_kernels(case, rng, dev):
              main=main, inputs=(mask,),
              library=lambda mask=mask: torch.argsort(~mask, stable=True))
     del mask
+    k9_limits(case, n, dev)
     # the whole compacted group-by: 60M rows into ~15M groups
     gkey = torch.from_numpy(rng.integers(0, N_SEGMENTS, n)).to(dev)
     alive = torch.from_numpy(rng.random(n) < 0.5).to(dev)
@@ -1377,11 +1465,12 @@ def phase_golden(cuda):
 
 
 def run_query(db, cuda, oracle, total, label, q, must, sql=None,
-              rel_tol=None, warm=WARM_RUNS):
+              rel_tol=None, warm=WARM_RUNS, per_run=None):
     """One query cold and `warm` times warm against the exact oracle, its
-    launches counted from 0 (they must include `must`) and added to total;
-    warm runs must take one host sync and no retry. Returns (times in ms,
-    peak device memory in GiB)."""
+    launches counted from 0 (they must include `must`, and per_run's
+    kernels exactly that many times a run) and added to total; warm runs
+    must take one host sync and no retry. Returns (times in ms, peak device
+    memory in GiB)."""
     from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES, with_tiebreak
     from quickstep_tpu_torch.bench.tpch_fullgen import (
         ORACLE_REL_TOL, check_rows)
@@ -1401,6 +1490,10 @@ def run_query(db, cuda, oracle, total, label, q, must, sql=None,
     missing = [k for k in must if not launches[k]]
     if missing:
         raise AssertionError(f"{label} never launched {missing}")
+    for k, v in (per_run or {}).items():
+        if launches[k] != v * (1 + warm):
+            raise AssertionError(f"{label} launched {k} {launches[k]} times "
+                                 f"in {1 + warm} runs, not {v} a run")
     if any(r != 0 or s != 1 for r, s in zip(retries[1:], syncs[1:])):
         raise AssertionError(f"{label} warm runs: host syncs "
                              f"{syncs[1:]}, retries {retries[1:]}")
@@ -1415,6 +1508,43 @@ def run_query(db, cuda, oracle, total, label, q, must, sql=None,
         "launches " + ", ".join(f"{k} {v}" for k, v in
                                  launches.items() if v))
     return times, peak
+
+
+class watch_compactions:
+    """Counts the calls of PlanRunner._compact_chunk on the card and the
+    torch.sort and torch.argsort calls made inside them (into the dict it
+    yields: calls, sorts)."""
+
+    def __enter__(self):
+        from quickstep_tpu_torch.exec.runner import PlanRunner
+        self.seen = {"calls": 0, "sorts": []}
+        self.real = (PlanRunner._compact_chunk, torch.sort, torch.argsort)
+        inside = [False]
+        seen, (compact, sort, argsort) = self.seen, self.real
+
+        def watched(runner, chunk, target):
+            if chunk.alive.is_cuda:
+                seen["calls"] += 1
+            inside[0] = True
+            try:
+                return compact(runner, chunk, target)
+            finally:
+                inside[0] = False
+
+        def spy(name, fn):
+            def call(*args, **kwargs):
+                if inside[0]:
+                    seen["sorts"].append(name)
+                return fn(*args, **kwargs)
+            return call
+        PlanRunner._compact_chunk = watched
+        torch.sort, torch.argsort = spy("sort", sort), spy("argsort", argsort)
+        return self.seen
+
+    def __exit__(self, *exc):
+        from quickstep_tpu_torch.exec.runner import PlanRunner
+        PlanRunner._compact_chunk, torch.sort, torch.argsort = self.real
+        return False
 
 
 def phase_large(cuda):
@@ -1443,14 +1573,23 @@ def phase_large(cuda):
         total = dict.fromkeys(cuda.LAUNCHES, 0)
         single = {}
 
-        def run(label, q, must, sql=None, rel_tol=None):
+        def run(label, q, must, sql=None, rel_tol=None, per_run=None):
             return run_query(db, cuda, oracle, total, label, q, must, sql,
-                             rel_tol)
+                             rel_tol, per_run=per_run)
 
-        for q, must in LARGE_QUERIES.items():
-            times = run(f"Q{q}", q, must)
-            if q in MESH_QUERIES:
-                single[q] = times
+        with watch_compactions() as seen:
+            for q, must in LARGE_QUERIES.items():
+                seen.update(calls=0, sorts=[])
+                times = run(f"Q{q}", q, must,
+                            per_run=Q1_PER_RUN if q == 1 else None)
+                if q in MESH_QUERIES:
+                    single[q] = times
+                if seen["sorts"] or (q in COMPACTING) != (seen["calls"] > 0):
+                    raise AssertionError(
+                        f"Q{q}: {seen['calls']} compactions, library sorts "
+                        f"inside them {seen['sorts']}")
+                log(f"    {seen['calls']} compactions through K9, no "
+                    "library sort inside")
         cols = [t for key, (cs, _m) in db.executor._device_cache.items()
                 for name, pair in cs.items()
                 if name != "__num_rows__" for t in pair if t is not None]

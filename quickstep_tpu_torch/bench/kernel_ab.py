@@ -64,11 +64,33 @@ Cases, each timed by CUDA events (median of 10 runs after one warm-up):
   a fifth of the rows; w1_count_15m: running COUNT over 15 M orders of 1-7
   lines, every row its own peer group (W-Q2); w1_one_segment: running SUM
   of float64 over one 15 M-row segment in ~2,400 peer groups (W-Q3)
-  (w1_inputs); w1_split: the device ms of each kernel of w1_whole.
+  (w1_inputs); w1_split: the device ms of each kernel of w1_whole;
+- k9: ops/kernels.py stable_partition of a 60 M-row mask, 50 % live, the
+  whole permutation; k9_limit (where the checkout's K9 takes `limit`):
+  the same with limit = the live count; k9_4096: one tile of 4,096 rows,
+  half live; k9_split, k9_limit_split: the device ms of each kernel of k9
+  and k9_limit;
+- compact_60m: exec/runner.py PlanRunner._compact_chunk of a 60 M-row chunk
+  with 3.5 M live rows (a selective filter over lineitem) to a target of
+  2^22 rows, the order and the live mask's gather (k9_inputs); its split
+  compact_60m_split (the events also time the host's work between the
+  kernels, which a call this short exposes);
+- k2_q1: Q1's dense GROUP BY as the runner hands it over: two int32 key
+  columns (l_returnflag's 3 codes, l_linestatus's 2; offsets 0, strides
+  2 and 1, domain 6), 60 M rows, 98 % live, SUM over its 5 distinct int64
+  value columns and COUNT(*) (the planner folds Q1's AVGs into them),
+  packing included: ops/groupby.py dense_aggregate where the checkout has
+  it, else pack_dense_index then dense_groupby (k2_inputs);
+  k2_split: its kernels as for k8 (the launches of one kernel summed, their
+  number after the name); k2_single: dense_groupby of one int64 SUM over a
+  packed index of domain 6, 60 M rows, half live (the smoke's single-SUM
+  case), with its split k2_single_split; k2_d128: the same SUM over an
+  index of domain 128; k2_q1_warp_path (where the checkout has it): k2_q1
+  on K2's path of a table a warp, which larger domains take.
 Prints one JSON object with the times, the checkout's root and the card's
 name and power limit. It needs a CUDA card.
 
-    python -m quickstep_tpu_torch.bench.kernel_ab --cases k11,w1
+    python -m quickstep_tpu_torch.bench.kernel_ab --cases k9,k2,compact
 
 runs the cases whose names start with one of the given prefixes (every
 case by default).
@@ -277,7 +299,8 @@ def w1_inputs(shape: str, dev, gen):
 
 def kernel_split(fn) -> dict:
     """The device ms of each kernel of one call of fn (after a warm-up), by
-    torch.profiler, summed by kernel name."""
+    torch.profiler, summed by kernel name; a name that launched more than
+    once carries its count (" x3")."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -293,6 +316,8 @@ def kernel_split(fn) -> dict:
             if "<" in name:
                 head, args = name.split("<", 1)
                 name = f"{head.split('::')[-1]}<{args[:30]}"
+            if e.count > 1:
+                name = f"{name} x{e.count}"
             out[name] = out.get(name, 0.0) + e.self_device_time_total / 1000
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
@@ -333,6 +358,100 @@ def w1_cases(dev, gen) -> dict:
     return out
 
 
+N_COMPACT_LIVE = 3_500_000     # compact_60m's live rows
+COMPACT_TARGET = 1 << 22
+
+
+def k9_inputs(dev, gen, n: int = N):
+    """(a mask of n rows, 50 % live; compact_60m's mask, N_COMPACT_LIVE
+    rows live at random)."""
+    half = torch.rand(n, device=dev, generator=gen) < 0.5
+    sparse = torch.zeros(n, dtype=torch.bool, device=dev)
+    sparse[torch.randperm(n, device=dev, generator=gen)[:N_COMPACT_LIVE]] = True
+    return half, sparse
+
+
+def k2_inputs(dev, gen, n: int = N):
+    """(key columns, offsets, strides, domain, aggregate specs, alive) of
+    Q1's dense GROUP BY at n rows (see the module's docstring): int64
+    values of DECIMAL(15,2) magnitudes."""
+    flag = torch.randint(0, 3, (n,), device=dev, generator=gen,
+                         dtype=torch.int32)
+    status = torch.randint(0, 2, (n,), device=dev, generator=gen,
+                           dtype=torch.int32)
+    qty = torch.randint(100, 5_001, (n,), device=dev, generator=gen)
+    price = torch.randint(90_000, 10_500_000, (n,), device=dev,
+                          generator=gen)
+    disc = torch.randint(0, 11, (n,), device=dev, generator=gen)
+    disc_price = price * (100 - disc)
+    charge = disc_price * torch.randint(100, 109, (n,), device=dev,
+                                        generator=gen)
+    alive = torch.rand(n, device=dev, generator=gen) < 0.98
+    specs = [("sum", qty, None), ("sum", price, None),
+             ("sum", disc_price, None), ("sum", charge, None),
+             ("count", None, None), ("sum", disc, None)]
+    return [flag, status], [0, 0], [2, 1], 6, specs, alive
+
+
+def k9k2_cases(dev, gen) -> dict:
+    """The cases of K9, the runner's compaction and K2."""
+    from quickstep_tpu_torch.exec.chunk import Chunk
+    from quickstep_tpu_torch.exec.runner import PlanRunner
+    from quickstep_tpu_torch.ops import groupby as G, kernels as K
+    half, sparse = k9_inputs(dev, gen)
+    small = half[:4096].clone()
+    out = {"k9_ms": _ms(lambda: K.stable_partition(half)),
+           "k9_4096_ms": _ms(lambda: K.stable_partition(small)),
+           "k9_split": kernel_split(lambda: K.stable_partition(half)),
+           "k9_limit_ms": None}
+    if "limit" in inspect.signature(K.stable_partition).parameters:
+        live = int(half.sum())
+        out["k9_limit_ms"] = _ms(lambda: K.stable_partition(half,
+                                                            limit=live))
+        out["k9_limit_split"] = kernel_split(
+            lambda: K.stable_partition(half, limit=live))
+
+    class Runner:               # what _compact_chunk reads of its runner
+        mesh = None
+    chunk = Chunk(attrs=[], slots={}, alive=sparse, capacity=N)
+    out["compact_60m_ms"] = _ms(lambda: PlanRunner._compact_chunk(
+        Runner(), chunk, COMPACT_TARGET))
+    out["compact_60m_split"] = kernel_split(lambda: PlanRunner._compact_chunk(
+        Runner(), chunk, COMPACT_TARGET))
+    del half, sparse, small, chunk
+    torch.cuda.empty_cache()
+    keys, offs, strides, domain, specs, alive = k2_inputs(dev, gen)
+    if hasattr(G, "dense_aggregate"):
+        def q1():
+            return G.dense_aggregate(keys, offs, strides, domain, specs,
+                                     alive)
+    else:
+        def q1():
+            idx = G.pack_dense_index(keys, offs, strides, domain, alive)
+            return G.dense_groupby(idx, domain, specs, alive)
+    out["k2_q1_ms"] = _ms(q1)
+    out["k2_split"] = kernel_split(q1)
+    from quickstep_tpu_torch.ops import cuda
+    if hasattr(cuda, "DENSE_LANE_BYTES"):     # K2's warp path at Q1's shape
+        lane_bytes = cuda.DENSE_LANE_BYTES
+        cuda.DENSE_LANE_BYTES = 0
+        try:
+            out["k2_q1_warp_path_ms"] = _ms(q1)
+        finally:
+            cuda.DENSE_LANE_BYTES = lane_bytes
+    half = alive & (torch.rand(N, device=dev, generator=gen) < 0.51)
+    idx = G.pack_dense_index([keys[0] * 2 + keys[1]], [0], [1], domain, half)
+    money = specs[1][1]
+    out["k2_single_ms"] = _ms(lambda: G.dense_groupby(
+        idx, domain, [("sum", money, None)], half))
+    out["k2_single_split"] = kernel_split(lambda: G.dense_groupby(
+        idx, domain, [("sum", money, None)], half))
+    wide = torch.randint(0, 128, (N,), device=dev, generator=gen)
+    out["k2_d128_ms"] = _ms(lambda: G.dense_groupby(
+        wide, 128, [("sum", money, None)], half))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cases", default="",
@@ -350,7 +469,8 @@ def main() -> None:
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True, text=True,
                check=True, timeout=60).stdout.strip().splitlines()[0]}
-    groups = ((("k11",), k11_cases), (("w1",), w1_cases),
+    groups = ((("k9", "k2", "compact"), k9k2_cases),
+              (("k11",), k11_cases), (("w1",), w1_cases),
               (("k3", "k4", "k5", "k6", "k7", "k8", "k12", "k13"),
                earlier_cases))
     for names, cases in groups:

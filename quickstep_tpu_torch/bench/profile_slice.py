@@ -3,7 +3,7 @@ operator queries goes on one CUDA card, with their tables resident in
 device memory.
 
     python -m quickstep_tpu_torch.bench.profile_slice [--scale 10] [--runs 5]
-        [--queries 6,1] [--trace-dir DIR] [--mesh-shards N]
+        [--queries 6,1] [--trace-dir DIR] [--mesh-shards N] [--compactions]
 
 --queries takes TPC-H query numbers and the names of bench/tpch_fullgen.py's
 WINDOW_QUERIES (w1 to w6) and OPERATOR_QUERIES (o1 to o5). Q1 and Q6 alone run on lineitem's 7 columns from
@@ -20,6 +20,10 @@ top of the profiler's table, and the device time of each of the port's own
 kernels (csrc/*.cu). With --trace-dir it also writes a Chrome trace
 per query there. With --mesh-shards the tables live on a mesh of N shards of
 the card (Config.distributed), where the large joins shuffle.
+
+With --compactions it profiles nothing: it runs each query cold, then once
+warm, and prints each call of `PlanRunner._compact_chunk` in the warm run
+(the chunk's capacity, the target it was given and the capacity it left).
 """
 
 from __future__ import annotations
@@ -115,6 +119,38 @@ def profile_query(db, q, runs, trace_dir=None):
             trace_dir, f"trace_{label.lower()}.json"))
 
 
+def compaction_census(db, queries):
+    """Each query cold, then warm with PlanRunner._compact_chunk
+    watched: prints its calls in the warm run."""
+    from quickstep_tpu_torch.exec.runner import PlanRunner
+    real = PlanRunner._compact_chunk
+    calls = []
+
+    def watched(self, chunk, target):
+        out = real(self, chunk, target)
+        calls.append((chunk.capacity, target, out.capacity))
+        return out
+    PlanRunner._compact_chunk = watched
+    try:
+        for q in queries:
+            sql = NAMED_QUERIES[q] if isinstance(q, str) else TPCH_QUERIES[q]
+            label = q.upper() if isinstance(q, str) else f"Q{q}"
+            try:
+                db.execute(sql)
+                calls.clear()
+                db.execute(sql)
+            except Exception as e:      # a query the port cannot run here
+                print(f"{label}: failed: {type(e).__name__}: {e}", flush=True)
+                continue
+            done = [c for c in calls if c[2] < c[0]]
+            print(f"{label}: _compact_chunk calls {len(calls)}, compacting "
+                  f"{len(done)}: " + ", ".join(
+                      f"{cap} -> {out} (target {t})" for cap, t, out in calls),
+                  flush=True)
+    finally:
+        PlanRunner._compact_chunk = real
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -125,6 +161,8 @@ def main(argv=None):
                          "to o5)")
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("--mesh-shards", type=int, default=None)
+    ap.add_argument("--compactions", action="store_true",
+                    help="print each query's compactions; no profile")
     args = ap.parse_args(argv)
     queries = [q if q in NAMED_QUERIES else int(q)
                for q in args.queries.split(",")]
@@ -144,6 +182,9 @@ def main(argv=None):
             f", on {args.mesh_shards} shards"
         print(f"{what} SF{args.scale:g}{where}: {oracle['rows']} rows "
               f"generated in {time.perf_counter() - t0:.1f} s", flush=True)
+        if args.compactions:
+            compaction_census(db, queries)
+            return
         for q in queries:
             profile_query(db, q, args.runs, args.trace_dir)
     finally:

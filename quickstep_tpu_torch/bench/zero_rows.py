@@ -44,10 +44,13 @@ def zero_row_cases(dev) -> Dict[str, Case]:
         return tuple(t for fn in ("sum", "count", "min", "max", "avg")
                      for t in agg(fn, f64, None, b))
 
-    def dense(agg):
-        occ, res = agg(i64, 6, [("sum", f64, None), ("min", i64, None),
-                                ("count", None, None)], b)
-        return (occ,) + tuple(t for r in res for t in r)
+    def dense(agg, packed):
+        specs = [("sum", f64, None), ("min", i64, None), ("avg", i32, b),
+                 ("count", None, None)]
+        occ, res = agg(i64, 6, specs, b)
+        occ2, res2 = packed([i32, b, e(torch.int8)], [1, 0, -2], [2, 1, 1],
+                            6, specs, b)
+        return (occ, occ2) + tuple(t for r in res + res2 for t in r)
 
     def direct(build, probe_fn):
         # the table of an empty build is not empty: the probe side is
@@ -65,8 +68,9 @@ def zero_row_cases(dev) -> Dict[str, Case]:
     return {
         "scalar_agg": (lambda: scalar(G.scalar_agg),
                        lambda: scalar(G.scalar_agg_plain)),
-        "dense_groupby": (lambda: dense(G.dense_groupby),
-                          lambda: dense(G.dense_groupby_plain)),
+        "dense_groupby": (lambda: dense(G.dense_groupby, G.dense_aggregate),
+                          lambda: dense(G.dense_groupby_plain,
+                                        G.dense_aggregate_plain)),
         "direct_join": (lambda: direct(J.direct_build, J.direct_probe),
                         lambda: direct(J.direct_build_plain,
                                        J.direct_probe_plain)),
@@ -96,8 +100,12 @@ def zero_row_cases(dev) -> Dict[str, Case]:
                      *J.merge_stats_probe_plain(i64, b, i32, probe, pmask),
                      *J.merge_stats_probe_plain(probe, pmask, probe32, i64,
                                                 b))),
-        "sort_groupby_compact": (lambda: (K.stable_partition(b),),
-                                 lambda: (K.compact_order(b),)),
+        # and a head of no rows of a mask that has some
+        "sort_groupby_compact": (
+            lambda: (K.stable_partition(b), K.stable_partition(b, limit=3),
+                     K.stable_partition(pmask, limit=0)),
+            lambda: (K.compact_order(b), K.compact_order(b)[:3],
+                     K.compact_order(pmask)[:0])),
         "window_prefix": (
             lambda: W.segmented_prefix("sum", f64, b, b, b) +
             W.segment_totals("max", f64, b, b),

@@ -406,6 +406,8 @@ class PlanRunner:
             return False
         if any(v is not None for v in key_valid):
             return False   # nullable keys: use sort path (null group)
+        if len(key_ranges) > G.MAX_DENSE_KEYS:
+            return False   # more key columns than the dense kernel packs
         domain = 1
         for r in key_ranges:
             if r is None:
@@ -428,10 +430,8 @@ class PlanRunner:
 
     def _dense_aggregate(self, node, chunk, key_data, key_ranges, agg_inputs):
         offsets, sizes, strides, domain = self._dense_layout(key_ranges)
-        idx = G.pack_dense_index(key_data, offsets, strides, domain,
-                                 chunk.alive)
-        occupied, results = G.dense_groupby(idx, domain, agg_inputs,
-                                            chunk.alive)
+        occupied, results = G.dense_aggregate(key_data, offsets, strides,
+                                              domain, agg_inputs, chunk.alive)
         # reconstruct group keys by unpacking the dense index
         gidx = torch.arange(domain, dtype=torch.int64, device=chunk.device)
         slots = {}
@@ -600,7 +600,7 @@ class PlanRunner:
                 [cut(v, sl) for v in key_valid],
                 [(fn, cut(v, sl), cut(vd, sl)) for fn, v, vd in p_specs],
                 alive[sl], packed_key=packed[sl], sort_subset=sort_subset)
-            order = K.stable_partition(occ)[:cap_p]
+            order = K.stable_partition(occ, limit=cap_p)
             # re-pack the sorted key columns (out_k and out_v line up with
             # occ; the input's packed key does not)
             pk_sorted = self._pack_sort_key(
@@ -1409,10 +1409,12 @@ class PlanRunner:
         target = max(K.round_up(target, quantum), quantum)
         if target >= chunk.capacity:
             return chunk
-        order = K.compact_order(chunk.alive)[:target]
+        # K9 on the card writes only the target's head of the order, and
+        # the mask gathered by it
+        order, alive = K.stable_partition(chunk.alive, limit=target,
+                                          with_mask=True)
         slots = compose_slots(chunk, order, None)
-        return dataclasses.replace(chunk, slots=slots,
-                                   alive=chunk.alive[order],
+        return dataclasses.replace(chunk, slots=slots, alive=alive,
                                    capacity=target, bound=target)
 
     # ----------------------------------------------------------------

@@ -19,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 import time
@@ -153,8 +154,7 @@ def build() -> ctypes.CDLL:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         signatures = {
             "qs_masked_reduce": [i32, i32, p, p, p, i64, p, p, i32, p, p, p],
-            "qs_dense_group_reduce": [i32, i32, p, p, p, p, i64, i32, p, p, p,
-                                      i32, p, p, p, p],
+            "qs_dense_aggregate": [p, i32, i32, i32, p],
             "qs_segment_reduce": [i32, i32, p, p, p, i64, p, p, p, p, p, p],
             "qs_direct_build": [i32, i32, p, p, i64, i64, i64, p, p, p, i32,
                                 p],
@@ -170,7 +170,7 @@ def build() -> ctypes.CDLL:
             "qs_run_stats_probe": [p, p, p, i64, p, p, p, i64, i32, p, p, p,
                                    p, p, p, p, p, p, p, i32, i32, i32, i32,
                                    p],
-            "qs_stable_partition": [p, i64, p, p, p, p],
+            "qs_stable_partition": [p, i64, i64, p, p, p, i32, p],
             "qs_window_prefix": [i32, i32, i32, p, p, p, p, i64, p, p, p, p],
             "qs_frame_bounds": [i32, i32, p, p, i64, i64, i64, i32, i32,
                                 *[p] * 7],
@@ -207,6 +207,13 @@ def build() -> ctypes.CDLL:
             getattr(lib, name).restype = i64
         lib.qs_span_words.argtypes = []
         lib.qs_span_words.restype = i64
+        lib.qs_dense_args_bytes.argtypes = []
+        lib.qs_dense_args_bytes.restype = i64
+        lib.qs_dense_blocks_per_sm.argtypes = [i32, i32]
+        lib.qs_dense_blocks_per_sm.restype = i32
+        if lib.qs_dense_args_bytes() != ctypes.sizeof(_DenseArgs):
+            raise RuntimeError("_DenseArgs does not match the kernel's "
+                               "DenseArgs")
         lib.qs_error_string.argtypes = [i32]
         lib.qs_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -316,49 +323,230 @@ def masked_reduce(fn: str, vals: Optional[torch.Tensor],
     return out_val, out_cnt
 
 
-def dense_group_reduce(fn: str, idx: torch.Tensor,
-                       vals: Optional[torch.Tensor],
-                       valid: Optional[torch.Tensor], alive: torch.Tensor,
-                       domain: int):
-    """K2: per group g in [0, domain) of the rows with alive and idx == g:
-    (fn's result [domain], live non-null count int32 [domain], occupied
-    bool [domain]). For fn == count the result is the count itself."""
+# K2's limits (csrc/agg_kernels.cu kMaxKeys, kMaxAccs, kMaxCounts): key
+# columns, accumulators and non-null counts a launch
+MAX_DENSE_KEYS = 8
+DENSE_ACCS = 8
+DENSE_COUNTS = DENSE_ACCS + 1
+_DENSE_ROWS = 8                 # kDenseRows: rows a thread a tile
+_KEY_TYPES = {torch.bool: 0, torch.uint8: 0, torch.int8: 1, torch.int16: 2,
+              torch.int32: 3, torch.int64: 4}
+
+
+class _DenseKey(ctypes.Structure):
+    _fields_ = [("col", ctypes.c_void_p), ("offset", ctypes.c_int64),
+                ("stride", ctypes.c_int64), ("type", ctypes.c_int)]
+
+
+class _DenseAcc(ctypes.Structure):
+    _fields_ = [("vals", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("init", ctypes.c_int64),
+                ("kind", ctypes.c_int), ("type", ctypes.c_int),
+                ("out_type", ctypes.c_int)]
+
+
+class _DenseArgs(ctypes.Structure):
+    """csrc/agg_kernels.cu DenseArgs, field for field."""
+    _fields_ = [("keys", _DenseKey * MAX_DENSE_KEYS),
+                ("accs", _DenseAcc * DENSE_ACCS),
+                ("valids", ctypes.c_void_p * DENSE_COUNTS),
+                ("counts", ctypes.c_void_p * DENSE_COUNTS),
+                ("occupied", ctypes.c_void_p), ("alive", ctypes.c_void_p),
+                ("part_acc", ctypes.c_void_p), ("part_cnt", ctypes.c_void_p),
+                ("n", ctypes.c_int64), ("domain", ctypes.c_int),
+                ("n_keys", ctypes.c_int), ("n_accs", ctypes.c_int),
+                ("n_counts", ctypes.c_int)]
+
+
+# K2 takes its lane path (a table for each thread) where the block's
+# tables take at most this many bytes of shared memory, else one table a
+# warp
+DENSE_LANE_BYTES = 80 * 1024
+
+
+def dense_smem_bytes(domain: int, n_accs: int,
+                     n_counts: int) -> Tuple[bool, int]:
+    """(whether K2 takes its lane path, its shared memory a block): the
+    tables of 8-byte accumulators and 4-byte counts of each of its 256
+    threads where they fit in DENSE_LANE_BYTES, else of each of its 8
+    warps."""
+    per_owner = domain * (8 * n_accs + 4 * n_counts)
+    lane = _THREADS * per_owner <= DENSE_LANE_BYTES
+    return lane, (_THREADS if lane else 8) * per_owner
+
+
+_dense_per_sm = {}
+
+
+def dense_grid(n: int, domain: int, n_accs: int, n_counts: int,
+               device: torch.device) -> Tuple[bool, int, int]:
+    """(lane path, shared memory a block, blocks) of one K2 launch: as many
+    blocks as fit on the card at once (the kernel's occupancy), fewer where
+    the rows do not fill them."""
+    lane, smem = dense_smem_bytes(domain, n_accs, n_counts)
+    key = (lane, smem)
+    if key not in _dense_per_sm:
+        per_sm = build().qs_dense_blocks_per_sm(int(lane), smem)
+        if per_sm < 1:
+            raise RuntimeError(f"dense_aggregate: no block of {smem} bytes "
+                               "of shared memory fits an SM")
+        _dense_per_sm[key] = per_sm
+    return lane, smem, max(1, min(-(-n // (_THREADS * _DENSE_ROWS)),
+                                  _dense_per_sm[key] * _sms(device)))
+
+
+def _acc_kind(fn: str, dtype: torch.dtype) -> int:
+    """csrc/agg_kernels.cu AccKind of (fn, the values' dtype)."""
+    flt = dtype.is_floating_point
+    return {"sum": 1 if flt else 0, "min": 4 if flt else 2,
+            "max": 5 if flt else 3}[fn]
+
+
+def _acc_init(fn: str, dtype: torch.dtype) -> int:
+    """The bits of fn's identity as its accumulator holds it: an int64, or
+    a float64's bits."""
+    v = _neutral(fn, dtype)
+    if dtype.is_floating_point:
+        return struct.unpack("<q", struct.pack("<d", float(v)))[0]
+    return int(v)
+
+
+def dense_aggregate(key_cols: List[torch.Tensor], key_offsets: List[int],
+                    key_strides: List[int], domain: int, specs,
+                    alive: torch.Tensor):
+    """K2: one dense GROUP BY. Each row's group is the sum over the key
+    columns of (key - offset) * stride in int64; a row is kept where alive
+    and 0 <= group < domain. specs are (fn in {sum, count, min, max},
+    vals, valid). Returns (occupied bool [domain], [(fn's result [domain],
+    live non-null count int32 [domain]) for each spec]); for fn == count
+    the result is the count itself. Specs over the same (fn, vals, valid)
+    tensors share one accumulator, and each distinct validity one count.
+    One launch (its row pass, then the fold of the blocks' partials) takes
+    up to DENSE_ACCS accumulators and DENSE_COUNTS - 1 validities; more
+    are split over several launches, each counted."""
     if not 1 <= domain <= MAX_DOMAIN:
         raise ValueError(f"dense group-by domain {domain} is outside "
                          f"[1, {MAX_DOMAIN}]")
-    device = _check_inputs(fn, vals, valid, alive)
-    n = int(alive.shape[0])
-    _require(idx, "idx", device, n, (torch.int64,))
+    if not 1 <= len(key_cols) <= MAX_DENSE_KEYS:
+        raise ValueError(f"dense group-by of {len(key_cols)} key columns: "
+                         f"the kernel takes 1 to {MAX_DENSE_KEYS}")
+    device = _cuda_device(alive, "alive")
+    n = int(alive.shape[0]) if alive.dim() == 1 else -1
+    _require(alive, "alive", device, n, (torch.bool,))
+    for k in key_cols:
+        _require(k, "key", device, n, tuple(_KEY_TYPES))
+    for fn, vals, valid in specs:
+        if fn not in _FN:
+            raise ValueError(f"unknown aggregate {fn!r}")
+        _require(valid, "valid", device, n, (torch.bool,))
+        if fn != "count":
+            if vals is None:
+                raise ValueError(f"{fn} needs values")
+            _require(vals, "vals", device, n, tuple(_DTYPE))
     if n >= 2 ** 31:
         raise ValueError(f"{n} rows overflow the int32 group counts")
     lib = build()
-    dtype = vals.dtype if fn != "count" else torch.int64
-    acc_dt, out_dt = _acc_out_dtypes(fn, dtype)
+    plan = dense_plan(specs)
+    valids, accs = plan.valids, plan.accs
     if n == 0:
-        out_nn = torch.zeros(domain, dtype=torch.int32, device=device)
-        out_occ = torch.zeros(domain, dtype=torch.bool, device=device)
+        counts = [torch.zeros(domain, dtype=torch.int32, device=device)
+                  for _ in valids]
+        occupied = torch.zeros(domain, dtype=torch.bool, device=device)
+        outs = [torch.full((domain,), _neutral(fn, v.dtype),
+                           dtype=_acc_out_dtypes(fn, v.dtype)[1],
+                           device=device) for fn, v, _ in accs]
+    else:
+        counts = [torch.empty(domain, dtype=torch.int32, device=device)
+                  for _ in valids]
+        occupied = torch.empty(domain, dtype=torch.bool, device=device)
+        outs = [torch.empty(domain, dtype=_acc_out_dtypes(fn, v.dtype)[1],
+                            device=device) for fn, v, _ in accs]
+        _dense_launches(lib, key_cols, key_offsets, key_strides, domain,
+                        alive, n, plan, outs, counts, occupied)
+    results = [(counts[c] if a is None else outs[a], counts[c])
+               for a, c in plan.slots]
+    return occupied, results
+
+
+class DensePlan(NamedTuple):
+    """How K2 computes a list of specs: the distinct validities (None, the
+    kept rows, first) and the distinct (fn, vals, valid) accumulators; for
+    each spec its accumulator (None for a count) and its count; for each
+    launch its accumulators (at most DENSE_ACCS) and its counts (the kept
+    rows' and at most DENSE_COUNTS - 1 validities)."""
+    valids: list
+    accs: list
+    slots: List[Tuple[Optional[int], int]]
+    launches: List[Tuple[List[int], List[int]]]
+
+
+def dense_plan(specs) -> DensePlan:
+    """K2's plan of specs (fn, vals, valid): tensors are told apart by
+    identity, so specs over the same tensors share their work."""
+    valids, vslot, accs, aslot, slots = [None], {None: 0}, [], {}, []
+    for fn, vals, valid in specs:
+        vk = None if valid is None else id(valid)
+        if vk not in vslot:
+            vslot[vk] = len(valids)
+            valids.append(valid)
         if fn == "count":
-            return out_nn, out_nn, out_occ
-        return torch.full((domain,), _neutral(fn, dtype), dtype=out_dt,
-                          device=device), out_nn, out_occ
-    blocks = _blocks(n, device)
-    part_val = torch.empty((blocks, domain), dtype=acc_dt, device=device)
-    part_nn = torch.empty((blocks, domain), dtype=torch.int32, device=device)
-    part_occ = torch.empty((blocks, domain), dtype=torch.int32, device=device)
-    out_val = torch.empty(domain, dtype=out_dt, device=device)
-    out_nn = torch.empty(domain, dtype=torch.int32, device=device)
-    out_occ = torch.empty(domain, dtype=torch.bool, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.qs_dense_group_reduce(
-        _FN[fn], _DTYPE[dtype], _ptr(idx),
-        _ptr(vals if fn != "count" else None), _ptr(valid), _ptr(alive), n,
-        domain, _ptr(part_val), _ptr(part_nn), _ptr(part_occ), blocks,
-        _ptr(out_val), _ptr(out_nn), _ptr(out_occ), stream)
-    _check(lib, err, "dense_group_reduce")
-    LAUNCHES["dense_groupby"] += 1
-    if fn == "count":
-        return out_nn, out_nn, out_occ
-    return out_val, out_nn, out_occ
+            slots.append((None, vslot[vk]))
+            continue
+        ak = (fn, id(vals), vk)
+        if ak not in aslot:
+            aslot[ak] = len(accs)
+            accs.append((fn, vals, valid))
+        slots.append((aslot[ak], vslot[vk]))
+    rest = list(range(1, len(valids)))
+    per = DENSE_COUNTS - 1
+    n_launches = max(-(-len(accs) // DENSE_ACCS), -(-len(rest) // per), 1)
+    launches = [(list(range(i * DENSE_ACCS,
+                            min(len(accs), (i + 1) * DENSE_ACCS))),
+                 [0] + rest[i * per:(i + 1) * per])
+                for i in range(n_launches)]
+    return DensePlan(valids, accs, slots, launches)
+
+
+def _dense_launches(lib, key_cols, key_offsets, key_strides, domain, alive,
+                    n, plan: DensePlan, outs, counts, occupied) -> None:
+    """K2's launches, as the plan cuts them; every launch also counts the
+    kept rows (into counts[0] and occupied, the same values each time)."""
+    device = alive.device
+    accs, valids = plan.accs, plan.valids
+    args = _DenseArgs()
+    for i, (k, off, stride) in enumerate(zip(key_cols, key_offsets,
+                                             key_strides)):
+        args.keys[i] = _DenseKey(k.data_ptr(), int(off), int(stride),
+                                 _KEY_TYPES[k.dtype])
+    args.n_keys = len(key_cols)
+    args.alive = alive.data_ptr()
+    args.occupied = occupied.data_ptr()
+    args.n = n
+    args.domain = domain
+    stream = _stream(device)
+    for chunk, slots in plan.launches:
+        for j, a in enumerate(chunk):
+            fn, vals, valid = accs[a]
+            args.accs[j] = _DenseAcc(
+                vals.data_ptr(), _ptr(valid), outs[a].data_ptr(),
+                _acc_init(fn, vals.dtype), _acc_kind(fn, vals.dtype),
+                _DTYPE[vals.dtype], _DTYPE[outs[a].dtype])
+        for j, c in enumerate(slots):
+            args.valids[j] = _ptr(valids[c])
+            args.counts[j] = counts[c].data_ptr()
+        args.n_accs, args.n_counts = len(chunk), len(slots)
+        lane, smem, blocks = dense_grid(n, domain, len(chunk), len(slots),
+                                        device)
+        part_acc = torch.empty(blocks * len(chunk) * domain,
+                               dtype=torch.int64, device=device)
+        part_cnt = torch.empty(blocks * len(slots) * domain,
+                               dtype=torch.int32, device=device)
+        args.part_acc = part_acc.data_ptr()
+        args.part_cnt = part_cnt.data_ptr()
+        err = lib.qs_dense_aggregate(ctypes.byref(args), blocks, smem,
+                                     int(lane), stream)
+        _check(lib, err, "dense_aggregate")
+        LAUNCHES["dense_groupby"] += 1
 
 
 def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
@@ -821,28 +1009,48 @@ def run_stats_probe(build_key: torch.Tensor, bmask: torch.Tensor,
 
 
 _TILE = 256 * 16                # kTile in csrc/compact_kernels.cu
+_COUNT_TILES = 16               # kCountTiles: tiles a count block
 
 
-def stable_partition(mask: torch.Tensor) -> torch.Tensor:
-    """K9: the int64 permutation that puts the positions of the live rows
-    first and the dead rows after them, each in order; equal to
-    torch.argsort(~mask, stable=True)."""
+def partition_scratch_words(n: int) -> int:
+    """int64 words of K9's scratch: its ticket, a status word a count
+    block, the live rows before each tile and the live total."""
+    tiles = -(-n // _TILE)
+    return tiles + -(-tiles // _COUNT_TILES) + 2
+
+
+_SCATTER_BLOCKS_PER_SM = 8
+
+
+def stable_partition(mask: torch.Tensor, limit: Optional[int] = None,
+                     with_mask: bool = False):
+    """K9: the first `limit` entries (all n where None) of the int64
+    permutation that puts the positions of the live rows first and the dead
+    rows after them, each in order; equal to torch.argsort(~mask,
+    stable=True)[:limit]. Only those entries are allocated and written.
+    with_mask: (the permutation, mask[permutation]), both written by the
+    kernel. Two launches (the tile counts with their look-back, then the
+    scatter), one where n fits one tile of 4,096 rows; counted as one."""
     device = _cuda_device(mask, "mask")
     n = int(mask.shape[0]) if mask.dim() == 1 else -1
     _require(mask, "mask", device, n, (torch.bool,))
+    if limit is not None and limit < 0:
+        raise ValueError(f"stable_partition: limit {limit} is negative")
+    m = n if limit is None else min(int(limit), n)
     lib = build()
-    out = torch.empty(n, dtype=torch.int64, device=device)
-    if n == 0:
-        return out
-    ntiles = (n + _TILE - 1) // _TILE
-    tile_counts = torch.empty(ntiles, dtype=torch.int32, device=device)
-    tile_offsets = torch.empty(ntiles + 1, dtype=torch.int64, device=device)
-    err = lib.qs_stable_partition(_ptr(mask), n, _ptr(tile_counts),
-                                  _ptr(tile_offsets), _ptr(out),
-                                  _stream(device))
-    _check(lib, err, "stable_partition")
-    LAUNCHES["sort_groupby_compact"] += 1
-    return out
+    out = torch.empty(m, dtype=torch.int64, device=device)
+    out_mask = torch.empty(m, dtype=torch.bool, device=device) \
+        if with_mask else None
+    if m:
+        src = _aligned16(mask)
+        scratch = torch.empty(partition_scratch_words(n) if n > _TILE else 0,
+                              dtype=torch.int64, device=device)
+        err = lib.qs_stable_partition(
+            _ptr(src), n, m, _ptr(scratch), _ptr(out), _ptr(out_mask),
+            _SCATTER_BLOCKS_PER_SM * _sms(device), _stream(device))
+        _check(lib, err, "stable_partition")
+        LAUNCHES["sort_groupby_compact"] += 1
+    return (out, out_mask) if with_mask else out
 
 
 # ---------------------------------------------------------------------

@@ -2,7 +2,8 @@
 sort group-by and its compacted form, and scalar DISTINCT.
 
 Counterparts of quickstep_tpu/ops/groupby.py `scalar_agg` (:435),
-`pack_dense_index` (:39), `dense_groupby` (:56), `sort_groupby` (:204),
+`pack_dense_index` (:39) and `dense_groupby` (:56), which `dense_aggregate`
+composes, `sort_groupby` (:204),
 `sort_groupby_compact` (:405) and `distinct_count` (:455), with the
 reference runner's `_dedup_values` (quickstep_tpu/exec/runner.py:837).
 Each aggregate has a plain torch version (`*_plain`) and a hand-written CUDA
@@ -23,13 +24,15 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from quickstep_tpu_torch.ops.cuda import MAX_DENSE_KEYS  # noqa: F401
 from quickstep_tpu_torch.ops.kernels import (
     canonical_sort_key, compact_order, max_sentinel, min_sentinel,
     multi_gather, multi_gather_plain, stable_partition)
 
 AggIn = Tuple[str, Optional[torch.Tensor], Optional[torch.Tensor]]  # (fn, vals, valid)
 
-# The runner routes larger dense domains to the sort path (runner._dense_ok).
+# The runner routes larger dense domains, and more key columns than the
+# dense kernel packs, to the sort path (runner._dense_ok).
 BROADCAST_DOMAIN_LIMIT = 128
 
 
@@ -63,26 +66,58 @@ def pack_dense_index(key_cols: List[torch.Tensor], key_offsets: List[int],
     return torch.where(keep, idx, torch.full_like(idx, domain))
 
 
+def dense_aggregate(key_cols: List[torch.Tensor], key_offsets: List[int],
+                    key_strides: List[int], domain: int,
+                    agg_specs: List[AggIn], alive: torch.Tensor):
+    """One dense GROUP BY: exactly dense_groupby(pack_dense_index(key_cols,
+    key_offsets, key_strides, domain, alive), domain, agg_specs, alive).
+    Returns (occupied bool[domain], [(data[domain], nn_count
+    int32[domain])...]). On CUDA one K2 launch packs the keys in registers
+    and computes every aggregate (ops/cuda.py dense_aggregate); on the CPU
+    the plain version."""
+    if _on_cpu(alive):
+        return dense_aggregate_plain(key_cols, key_offsets, key_strides,
+                                     domain, agg_specs, alive)
+    return _dense_kernel([k.contiguous() for k in key_cols], key_offsets,
+                         key_strides, domain, agg_specs, alive)
+
+
+def dense_aggregate_plain(key_cols: List[torch.Tensor],
+                          key_offsets: List[int], key_strides: List[int],
+                          domain: int, agg_specs: List[AggIn],
+                          alive: torch.Tensor):
+    """Plain torch version of dense_aggregate: the composition it names."""
+    idx = pack_dense_index(key_cols, key_offsets, key_strides, domain, alive)
+    return dense_groupby_plain(idx, domain, agg_specs, alive)
+
+
 def dense_groupby(idx: torch.Tensor, domain: int, agg_specs: List[AggIn],
                   alive: torch.Tensor):
     """Collision-free aggregation: idx from pack_dense_index. Returns
-    (occupied bool[domain], [(data[domain], nn_count int32[domain])...])."""
+    (occupied bool[domain], [(data[domain], nn_count int32[domain])...]).
+    On CUDA the K2 kernel of dense_aggregate with idx as its one key column
+    (offset 0, stride 1); on the CPU the plain version."""
     if _on_cpu(idx):
         return dense_groupby_plain(idx, domain, agg_specs, alive)
+    return _dense_kernel([idx.contiguous()], [0], [1], domain, agg_specs,
+                         alive)
+
+
+def _dense_kernel(key_cols, key_offsets, key_strides, domain, agg_specs,
+                  alive):
+    """K2 on CUDA tensors: AVG is its SUM and count, divided here."""
     from quickstep_tpu_torch.ops import cuda
-    occupied = None
+    specs = [("sum" if fn == "avg" else fn,
+              None if vals is None else vals.contiguous(),
+              None if valid is None else valid.contiguous())
+             for fn, vals, valid in agg_specs]
+    occupied, res = cuda.dense_aggregate(key_cols, key_offsets, key_strides,
+                                         domain, specs, alive.contiguous())
     results = []
-    for fn, vals, valid in agg_specs:
-        kfn = "sum" if fn == "avg" else fn
-        data, nn, occ = cuda.dense_group_reduce(kfn, idx, vals, valid, alive,
-                                                domain)
+    for (fn, _v, _vv), (data, nn) in zip(agg_specs, res):
         if fn == "avg":
             data = data.to(torch.float64) / torch.clamp(nn, min=1)
         results.append((data, nn))
-        occupied = occ
-    if occupied is None:
-        _, _, occupied = cuda.dense_group_reduce("count", idx, None, None,
-                                                 alive, domain)
     return occupied, results
 
 

@@ -54,16 +54,22 @@ def compact_order(alive: torch.Tensor) -> torch.Tensor:
     return torch.argsort((~alive).to(torch.int8), stable=True)
 
 
-def stable_partition(mask: torch.Tensor) -> torch.Tensor:
+def stable_partition(mask: torch.Tensor, limit: Optional[int] = None,
+                     with_mask: bool = False):
     """compact_order's function (quickstep_tpu/ops/kernels.py:132, with the
     destinations of :35 compact_indices): the int64 positions of the rows
-    where mask holds, in order, then the others, in order. On CUDA one K9
-    call (ops/cuda.py stable_partition); compact_order, a stable sort, is
-    its plain version and runs on the CPU."""
+    where mask holds, in order, then the others, in order; with `limit`,
+    only the first `limit` of them (compact_order(mask)[:limit]). with_mask
+    returns (that order, mask[order]). On CUDA one K9 call (ops/cuda.py
+    stable_partition), which writes only those; compact_order, a stable
+    sort, is its plain version and runs on the CPU."""
     if mask.device.type == "cpu":
-        return compact_order(mask)
+        order = compact_order(mask)
+        if limit is not None:
+            order = order[:limit]
+        return (order, mask[order]) if with_mask else order
     from quickstep_tpu_torch.ops import cuda
-    return cuda.stable_partition(mask.contiguous())
+    return cuda.stable_partition(mask.contiguous(), limit, with_mask)
 
 
 def scatter_compact(col: torch.Tensor, dest: torch.Tensor, capacity: int,

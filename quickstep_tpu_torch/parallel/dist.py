@@ -35,10 +35,9 @@ def distributed_agg_join_step(mesh: Mesh, axis: str = "x"):
         table, _ = J.direct_build(b_key, b_alive, 0, DOMAIN)
         _bidx, matched = J.direct_probe(table, l_key, l_alive, 0, DOMAIN)
         alive = l_alive & matched
-        idx = G.pack_dense_index([l_grp], [0], [1], N_GROUPS, alive)
-        _, results = G.dense_groupby(
-            idx, N_GROUPS, [("sum", l_val, None), ("count", None, None)],
-            alive)
+        _, results = G.dense_aggregate(
+            [l_grp], [0], [1], N_GROUPS,
+            [("sum", l_val, None), ("count", None, None)], alive)
         (sums, _), (counts, _) = results
         return sums, counts.to(torch.int64)
 

@@ -85,6 +85,130 @@ def test_dense_kernel_matches_plain(card, dtype, mode, domain):
         _same(gn, wn, 0.0)
 
 
+# K2's one-pass form: key columns of each width packed in the kernel
+DENSE_KEY_LAYOUTS = {
+    "1 int8": ((torch.int8,), (6,)),
+    "2 int32": ((torch.int32, torch.int32), (3, 2)),
+    "3 int64 bool int32": ((torch.int64, torch.bool, torch.int32), (4, 2, 16)),
+    "4 int8 int32 int64 bool": ((torch.int8, torch.int32, torch.int64,
+                                 torch.bool), (2, 4, 2, 2)),
+    "2 bool domain 1": ((torch.bool, torch.int16), (1, 1)),
+}
+
+
+def _dense_keys(dtypes, sizes, n, seed, device):
+    """Key columns with values a little outside their ranges (negative
+    ones too), their offsets and strides, and the domain."""
+    rng = np.random.default_rng(seed)
+    cols, offs = [], []
+    for k, (dt, size) in enumerate(zip(dtypes, sizes)):
+        off = 0 if dt == torch.bool else k - 2
+        if dt == torch.bool:
+            c = rng.random(n) < 0.7
+        else:
+            c = rng.integers(off - 2, off + size + 2, n)
+        cols.append(torch.from_numpy(np.asarray(c)).to(dt).to(device))
+        offs.append(off)
+    strides, acc = [], 1
+    for size in reversed(sizes):
+        strides.append(acc)
+        acc *= size
+    return cols, offs, list(reversed(strides)), acc
+
+
+def _dense_specs(n, device, seed, nan=False):
+    """Every fn over every value dtype, NULLs in half of them, the same
+    tensor in two aggregates, counts with and without validity: more
+    accumulators than one launch takes."""
+    specs = []
+    for i, dt in enumerate(DTYPES):
+        vals, valid, _, _ = _inputs(dt, "nulls", device, n=n, seed=seed + i)
+        if nan and dt.is_floating_point:
+            vals[::97] = float("nan")
+        v = valid if i % 2 else None
+        specs += [("sum", vals, v), ("avg", vals, v), ("min", vals, v),
+                  ("max", vals, None), ("count", None, valid)]
+    return specs + [("count", None, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nan", (False, True), ids=("finite", "nan"))
+@pytest.mark.parametrize("layout", sorted(DENSE_KEY_LAYOUTS))
+def test_dense_aggregate_kernel_matches_plain(card, layout, nan):
+    dtypes, sizes = DENSE_KEY_LAYOUTS[layout]
+    n = 100_003
+    keys, offs, strides, domain = _dense_keys(dtypes, sizes, n, 71, card)
+    specs = _dense_specs(n, card, 73, nan)
+    _, _, alive, _ = _inputs(torch.int64, "nulls", card, n=n, seed=79)
+    TC.reset_launches()
+    got_occ, got = TG.dense_aggregate(keys, offs, strides, domain, specs,
+                                      alive)
+    # 12 accumulators (SUM, MIN and MAX of each dtype; AVG shares its SUM)
+    # take two launches of at most 8
+    assert TC.LAUNCHES["dense_groupby"] == 2
+    cpu = [t.cpu() if isinstance(t, torch.Tensor) else t
+           for t in (*keys, alive)]
+    want_occ, want = TG.dense_aggregate_plain(
+        cpu[:len(keys)], offs, strides, domain,
+        [(fn, None if v is None else v.cpu(), None if vv is None else vv.cpu())
+         for fn, v, vv in specs], cpu[-1])
+    _same(got_occ, want_occ, 0.0)
+    for (fn, v, _), (gd, gn), (wd, wn) in zip(specs, got, want):
+        dt = None if v is None else v.dtype
+        rtol = RTOL.get(dt, 0.0) if fn in ("sum", "avg") else 0.0
+        assert gd.dtype == wd.dtype
+        torch.testing.assert_close(gd.cpu(), wd, rtol=rtol, atol=0,
+                                   equal_nan=True)
+        _same(gn, wn, 0.0)
+
+
+@pytest.mark.cuda
+def test_dense_aggregate_at_q1_shape(card):
+    """Q1's dense GROUP BY (two int32 keys, domain 6, five int64 SUMs and
+    COUNT(*)) in one launch, exactly the plain version."""
+    from quickstep_tpu_torch.bench.kernel_ab import k2_inputs
+    gen = torch.Generator(device=card)
+    gen.manual_seed(83)
+    keys, offs, strides, domain, specs, alive = k2_inputs(card, gen,
+                                                          n=2_000_000)
+    TC.reset_launches()
+    got_occ, got = TG.dense_aggregate(keys, offs, strides, domain, specs,
+                                      alive)
+    assert TC.LAUNCHES["dense_groupby"] == 1
+    want_occ, want = TG.dense_aggregate_plain(keys, offs, strides, domain,
+                                              specs, alive)
+    _same(got_occ, want_occ, 0.0)
+    for (gd, gn), (wd, wn) in zip(got, want):
+        _same(gd, wd, 0.0)
+        _same(gn, wn, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", (1, 6, 128))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64), ids=str)
+def test_dense_float_sums_repeat_bit_for_bit(card, dtype, domain):
+    """K2 folds lanes, warps and blocks in a fixed order: the same bits in
+    two runs, within the float tolerance of the plain version."""
+    vals, valid, alive, keys = _inputs(dtype, "nulls", card, n=1_000_003)
+    specs = [("sum", vals, valid), ("avg", vals, None)]
+    runs = [TG.dense_aggregate([keys], [0], [1], domain, specs, alive)
+            for _ in range(2)]
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    for (d1, _), (d2, _) in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(d1.view(torch.int64 if d1.dtype == torch.float64
+                                   else bits),
+                           d2.view(torch.int64 if d2.dtype == torch.float64
+                                   else bits))
+    want_occ, want = TG.dense_aggregate_plain([keys], [0], [1], domain,
+                                              specs, alive)
+    _same(runs[0][0], want_occ, 0.0)
+    # the values' tolerance: AVG divides the float32 SUM, as the reference
+    # does, where the plain version divides its float64 accumulator
+    for (gd, gn), (wd, wn) in zip(runs[0][1], want):
+        _same(gd, wd, RTOL[dtype])
+        _same(gn, wn, 0.0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", (torch.float32, torch.float64), ids=str)
 def test_kernels_let_nan_win_like_plain(card, dtype):
@@ -124,8 +248,9 @@ def test_launches_are_counted(card):
     TG.dense_groupby(idx, 6, [("sum", vals, None), ("count", None, None)],
                      alive)
     TG.scalar_agg_plain("sum", vals, valid, alive)
+    # K2 computes both aggregates of one dense GROUP BY in one launch
     assert TC.LAUNCHES == dict(dict.fromkeys(TC.LAUNCHES, 0), scalar_agg=1,
-                               dense_groupby=2)
+                               dense_groupby=1)
 
 
 @pytest.mark.cuda
@@ -149,14 +274,18 @@ def test_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="needs CUDA"):
         TC.masked_reduce("sum", vals, None, alive)
     with pytest.raises(ValueError, match="needs CUDA"):
-        TC.dense_group_reduce("sum", vals, vals, None, alive, 4)
+        TC.dense_aggregate([vals], [0], [1], 4, [("sum", vals, None)], alive)
 
 
 def test_dense_wrapper_rejects_large_domain():
     alive = torch.ones(4, dtype=torch.bool)
     idx = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError, match="domain 129"):
-        TC.dense_group_reduce("count", idx, None, None, alive, 129)
+        TC.dense_aggregate([idx], [0], [1], 129, [("count", None, None)],
+                           alive)
+    with pytest.raises(ValueError, match="9 key columns"):
+        TC.dense_aggregate([idx] * 9, [0] * 9, [1] * 9, 4,
+                           [("count", None, None)], alive)
 
 
 def test_public_functions_take_plain_versions_on_cpu():
@@ -489,6 +618,63 @@ def test_stable_partition_kernel_matches_plain(card, n, live):
     _same(TK.stable_partition(mask), TK.compact_order(mask), 0.0)
 
 
+def _k9_limits(live: int, n: int):
+    return sorted({0, 1, max(live - 1, 0), live, min(live + 1, n), n})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (0, 1, 4095, 4096, 100_003))
+@pytest.mark.parametrize("live", (0.0, 0.01, 0.5, 1.0))
+def test_stable_partition_limit_matches_plain(card, n, live):
+    """K9 with `limit` is the plain order's head, for limits about the
+    live count; only that many positions come back, and with_mask the
+    mask gathered by them."""
+    rng = np.random.default_rng(53)
+    mask = torch.from_numpy(rng.random(n) < live).to(card)
+    want = TK.compact_order(mask)
+    for limit in _k9_limits(int(mask.sum()), n):
+        got = TK.stable_partition(mask, limit=limit)
+        _same(got, want[:limit], 0.0)
+        order, taken = TK.stable_partition(mask, limit=limit, with_mask=True)
+        _same(order, want[:limit], 0.0)
+        _same(taken, mask[want[:limit]], 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, kernels", ((1, 1), (4096, 1), (4097, 2),
+                                        (100_003, 2)))
+def test_stable_partition_launches_one_kernel_under_one_tile(card, n,
+                                                              kernels):
+    """At most 4,096 rows K9 is one kernel; past one tile two (the counts
+    with their look-back, then the scatter)."""
+    from torch.profiler import ProfilerActivity, profile
+    mask = torch.arange(n, device=card) % 3 == 0
+    TK.stable_partition(mask, limit=n // 2 + 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = TK.stable_partition(mask, limit=n // 2 + 1)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.self_device_time_total > 0 and "emset" not in e.key]
+    counts = sum(e.count for e in prof.key_averages()
+                 if e.key in names)
+    assert counts == kernels, names
+    _same(got, TK.compact_order(mask)[:n // 2 + 1], 0.0)
+
+
+@pytest.mark.cuda
+def test_stable_partition_unaligned_view(card):
+    """A mask view that does not start on 16 bytes (the kernel's vector
+    loads) gives the same order."""
+    rng = np.random.default_rng(59)
+    base = torch.from_numpy(rng.random(100_013) < 0.3).to(card)
+    mask = base[3:]
+    for limit in (None, 5_000, int(mask.sum())):
+        want = TK.compact_order(mask)
+        _same(TK.stable_partition(mask, limit=limit),
+              want if limit is None else want[:limit], 0.0)
+
+
 @pytest.mark.cuda
 def test_sort_groupby_compact_kernel_matches_plain(card):
     vals, valid, alive, _ = _inputs(torch.int64, "nulls", card)
@@ -518,10 +704,11 @@ def test_new_kernel_launches_are_counted(card):
     TJ.merge_cmp_probe(bkey, balive, val, pkey, palive, pval, "<>")
     TJ.merge_stats_probe(bkey, balive, val, pkey, palive)
     TK.stable_partition(palive)
+    TK.stable_partition(palive, limit=7)
     TJ.expand_probe_plain(sorted_key, order, pkey, palive, 4)
     TK.compact_order(palive)
     assert TC.LAUNCHES == dict(dict.fromkeys(TC.LAUNCHES, 0), expand_probe=1,
-                               merge_cmp_probe=2, sort_groupby_compact=1)
+                               merge_cmp_probe=2, sort_groupby_compact=2)
 
 
 def test_new_wrappers_reject_cpu_tensors():
