@@ -117,6 +117,9 @@ WINDOW_RUNS = {
 }
 N_SUPPLIERS = 100_000           # W-Q1's and W-Q5's partitions at SF10
 N_WINDOW_ONE_SEGMENT = 15_000_000   # W-Q3's single segment (orders)
+N_W4_CHECKED_ROWS = 1_000_000   # W4's long route against the plain walk
+ADD_CHAIN_STEPS = 1 << 24       # the dependent-add probe's chain
+N_W3_FLOAT_ROWS = 6_000_000     # W3's float-key RANGE case
 N_PARTSUPP = 8_000_000          # partsupp rows at SF10
 SECTOR_BYTES = 32               # one random DRAM access on an H100
 N_L2_ROWS = 1_500_000           # a gather source whose packed rows fit the L2
@@ -919,7 +922,10 @@ def phase_window_kernels(case, dev):
     shapes: N_KERNEL_ROWS lineitem-like rows in N_SUPPLIERS partitions
     (W-Q1, W-Q5), in N_PARTS partitions of ~30 rows (W-Q4) and in
     N_SEGMENTS orders of 1-7 lines (W-Q2, W-Q6), and W-Q3's single segment
-    of N_WINDOW_ONE_SEGMENT orders. Float sums of W1 are held within 32 eps
+    of N_WINDOW_ONE_SEGMENT orders; W3 also over float keys with NaNs, and
+    W4's long route (one segment) checked at N_W4_CHECKED_ROWS rows and
+    timed at W-Q3's against its chain bound, which the dependent-add probe
+    (cuda.add_chain) measures. Float sums of W1 are held within 32 eps
     x the sum of the values' magnitudes (the plain version takes
     differences of a whole-array torch.cumsum, which on the card is not
     deterministic and has measured up to 7 eps x that sum from the exact
@@ -981,11 +987,29 @@ def phase_window_kernels(case, dev):
     del seg, seg_id, cq, peer, key, lo, hi, qty
     torch.cuda.empty_cache()
 
-    # W-Q4: ROWS 3 PRECEDING .. CURRENT ROW over ~30-row partitions
+    # W-Q5's partitions, RANGE +-3 over float64 keys a twentieth NaN
+    # (sorted last in each partition): a NaN row's frame is empty at its
+    # partition's first row, and the row after it searches afresh
+    m = N_W3_FLOAT_ROWS
+    seg, seg_id = sorted_segments(m, N_SUPPLIERS * m // n, dev, gen)
+    fkey = torch.randint(0, 3_600, (m,), device=dev, generator=gen).double()
+    fkey[torch.rand(m, device=dev, generator=gen) < 0.05] = math.nan
+    nan = torch.isnan(fkey)
+    fkey = fkey[torch.sort(seg_id * 8_192 + torch.where(
+        nan, 4_096, fkey.nan_to_num().long()))[1]]
+    case("frame_bounds", "RANGE +-3, f64 keys with NaN",
+         lambda: W.frame_bounds(seg, "range", 3, 3, fkey),
+         lambda: W.frame_bounds_plain(seg, "range", 3, 3, fkey), plain_reps=2)
+    del seg, seg_id, fkey, nan
+    torch.cuda.empty_cache()
+
+    # W-Q4: ROWS 3 PRECEDING .. CURRENT ROW over ~30-row partitions; W3
+    # reads the flags and writes lo and hi
     seg, _ = sorted_segments(n, N_PARTS, dev, gen)
     case("frame_bounds", "ROWS 3 preceding, 2M partitions",
          lambda: W.frame_bounds(seg, "rows", 3, 0),
-         lambda: W.frame_bounds_plain(seg, "rows", 3, 0))
+         lambda: W.frame_bounds_plain(seg, "rows", 3, 0),
+         bound_bytes=nbytes((seg,)) + 8 * n)
     lo, hi = W.frame_bounds(seg, "rows", 3, 0)
     case("sliding_sum", "f64, ROWS 3 preceding, 2M partitions",
          lambda: (W.sliding_sums(c, lo, hi, seg),),
@@ -1031,12 +1055,12 @@ def phase_window_kernels(case, dev):
          lambda: W.segmented_prefix_plain("sum", c1, every, seg, peer),
          atol=w1_atol(c1, every),
          bound_bytes=nbytes((c1, every, seg, peer)) + 16 * m)
-    # W4's known limit: one thread walks a whole unpartitioned frame (its
-    # bit-equality at this size is a card test)
-    lo, hi = W.frame_bounds(seg, "rows", 3, 0)
-    ms = cuda_ms(lambda: W.sliding_sums(c1, lo, hi, seg), reps=2)
-    log(f"  sliding_sum   f64, ROWS 3 preceding, one 15M-row segment: "
-        f"kernel {ms:8.3f} ms")
+    # W4's long route: one segment walked by one thread, its values
+    # streamed ahead of it. Bit for bit against the plain version's scalar
+    # walk at N_W4_CHECKED_ROWS rows, timed at 15 M rows against its chain
+    # bound: the walk's subtract and add steps x the latency of one
+    # dependent add, measured here
+    w4_long_route(case, c1, seg, dev)
     # frames longer than two of W2's 1,024-row tiles
     m = 6_000_000
     seg, _ = sorted_segments(m, 300, dev, gen)
@@ -1048,6 +1072,34 @@ def phase_window_kernels(case, dev):
     del seg, peer, c1, every, lo, hi, cmax, price, live, c
     torch.cuda.empty_cache()
     phase_operator_kernels(case, dev)
+
+
+def w4_long_route(case, c1, seg, dev):
+    from quickstep_tpu_torch.bench.kernel_ab import w4_steps
+    from quickstep_tpu_torch.ops import cuda, window as W
+    k = N_W4_CHECKED_ROWS
+    lo, hi = W.frame_bounds(seg[:k], "rows", 3, 0)
+    for c in (c1[:k], c1[:k].float()):
+        case("sliding_sum", f"{str(c.dtype)[6:]}, one {k // 10**6}M-row "
+             "segment (long route)",
+             lambda c=c: (W.sliding_sums(c, lo, hi, seg[:k]),),
+             lambda c=c: (W.sliding_sums_plain(c, lo, hi, seg[:k]),),
+             atol=0, plain_reps=1)
+    lo, hi = W.frame_bounds(seg, "rows", 3, 0)
+    ns = {}
+    for dt in (torch.float64, torch.float32):
+        x = torch.tensor([0.1, 1e-9], dtype=dt, device=dev)
+        ns[dt] = cuda_ms(lambda: cuda.add_chain(x, ADD_CHAIN_STEPS),
+                         reps=3) * 1e6 / ADD_CHAIN_STEPS
+    log(f"  dependent add latency (one thread, {ADD_CHAIN_STEPS} adds): "
+        f"f64 {ns[torch.float64]:.3f} ns, f32 {ns[torch.float32]:.3f} ns")
+    steps = w4_steps(lo, hi, seg)
+    ms = cuda_ms(lambda: W.sliding_sums(c1, lo, hi, seg), reps=2)
+    bound = steps * ns[torch.float64] / 1e6
+    log(f"  sliding_sum   f64, ROWS 3 preceding, one {len(seg) // 10**6}M-row "
+        f"segment: kernel {ms:8.3f} ms  chain bound {bound:8.3f} ms "
+        f"({steps} steps)  bytes bound "
+        f"{(nbytes((c1, lo, hi, seg)) + 8 * len(seg)) / HBM_BYTES_PER_S * 1e3:.3f} ms")
 
 
 def phase_operator_kernels(case, dev):

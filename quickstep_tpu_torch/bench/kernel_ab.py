@@ -1,4 +1,4 @@
-"""K3-K8, K12 and K13 at chip_smoke.py's SF10 shapes, timed in the
+"""K2-K13, W1, W3 and W4 at chip_smoke.py's SF10 shapes, timed in the
 checkout it runs from, so that two checkouts can be compared on one card in
 one call: run this file from each checkout's root in turn, parent, change,
 change, parent, parent, change. It uses only the public functions both
@@ -6,7 +6,8 @@ sides have: ops/join.py direct_build and direct_probe, sorted_build,
 merge_unique_probe, expand_probe and merge_cmp_probe, ops/cuda.py
 sorted_probe and segment_reduce, ops/bloom.py exact_filter_build,
 ops/kernels.py multi_gather (with random=True where the checkout takes
-it), ops/groupby.py distinct_count and ops/sort.py order_permutation. Its
+it), ops/groupby.py distinct_count, ops/sort.py order_permutation and
+ops/window.py frame_bounds and sliding_sums. Its
 input makers, segment_inputs and unique_probe_inputs, also feed
 chip_smoke.py and the card tests.
 
@@ -87,6 +88,18 @@ Cases, each timed by CUDA events (median of 10 runs after one warm-up):
   case), with its split k2_single_split; k2_d128: the same SUM over an
   index of domain 128; k2_q1_warp_path (where the checkout has it): k2_q1
   on K2's path of a table a warp, which larger domains take.
+- w3w4 (PR 13): w4_wq4_f64 and w4_wq4_f32: ops/window.py sliding_sums
+  of a ROWS 3 PRECEDING .. CURRENT ROW frame over 60 M rows in 2 M
+  partitions (W-Q4's shape, float64 and float32, 90 % live); w4_one_segment:
+  the same frame over one 15 M-row segment, float64 (two timed runs: the
+  parent takes seconds), with w4_one_segment_steps, its subtract and add
+  steps, and, where the checkout has cuda.add_chain (the dependent-add
+  probe), w4_add_ns_f64 and w4_add_ns_f32, the latency of one add in a
+  chain, and w4_chain_bound_ms, steps x that latency; w3_range_wq5:
+  frame_bounds of RANGE +-30 over int32 date codes, 60 M rows in 100 K
+  partitions (W-Q5's shape); w3_rows_wq4: frame_bounds of ROWS 3 PRECEDING
+  over W-Q4's partitions; w4_split and w3_split: the device ms of each
+  kernel of w4_wq4_f64 and of w3_range_wq5 (w3w4_inputs).
 Prints one JSON object with the times, the checkout's root and the card's
 name and power limit. It needs a CUDA card.
 
@@ -358,6 +371,84 @@ def w1_cases(dev, gen) -> dict:
     return out
 
 
+N_ONE_SEGMENT = 15_000_000      # W-Q3's single segment (orders at SF10)
+
+
+def w3w4_inputs(shape: str, dev, gen):
+    """(segment starts, frame_bounds' arguments after the flags, and for
+    W4 the float64 contributions) at the window queries' shapes: "wq4",
+    N rows in ~N_PARTS partitions, ROWS 3 PRECEDING; "wq5", N rows in
+    ~N_SUPPLIERS partitions, RANGE +-30 over int32 date codes (0 to 3,599)
+    sorted within each; "one_segment", N_ONE_SEGMENT rows in one segment,
+    ROWS 3 PRECEDING. Values are DECIMAL(15,2) prices, 90 % live."""
+    if shape == "one_segment":
+        seg = torch.zeros(N_ONE_SEGMENT, dtype=torch.bool, device=dev)
+        seg[0] = True
+        args = ("rows", 3, 0)
+    elif shape == "wq4":
+        seg, _ = sorted_segments(N, N_PARTS, dev, gen)
+        args = ("rows", 3, 0)
+    else:
+        seg, seg_id = sorted_segments(N, N_SUPPLIERS, dev, gen)
+        codes = torch.randint(0, 3_600, (N,), device=dev, generator=gen)
+        key = (torch.sort(seg_id * 4_096 + codes)[0] - seg_id * 4_096).to(
+            torch.int32)
+        return seg, ("range", 30, 30, key), None
+    n = len(seg)
+    price = torch.randint(90_000, 10_500_000, (n,), device=dev,
+                          generator=gen).double() / 100
+    live = torch.rand(n, device=dev, generator=gen) < 0.9
+    return seg, args, torch.where(live, price, 0.0)
+
+
+def w4_steps(lo, hi, is_start) -> int:
+    """The subtract and add steps of W4's walks over these frames (the
+    reference's step: subtract from the previous lo to this lo - 1, then
+    add from max(previous end, lo) to this end - 1)."""
+    lo64, end = lo.long(), hi.long() + 1
+    plo = torch.cat([lo64[:1], lo64[:-1]])
+    pend = torch.cat([lo64[:1], end[:-1]])
+    plo = torch.where(is_start, lo64, plo)
+    pend = torch.where(is_start, lo64, pend)
+    subs = torch.clamp(lo64 - plo, min=0)
+    adds = torch.clamp(end - torch.maximum(pend, lo64), min=0)
+    return int((subs + adds).sum())
+
+
+def w3w4_cases(dev, gen) -> dict:
+    """The cases of W3 and W4 (PR 13)."""
+    from quickstep_tpu_torch.ops import cuda, window as W
+    out = {}
+    seg, args, c = w3w4_inputs("wq4", dev, gen)
+    lo, hi = W.frame_bounds(seg, *args)
+    out["w3_rows_wq4_ms"] = _ms(lambda: W.frame_bounds(seg, *args))
+    c32 = c.float()
+    out["w4_wq4_f64_ms"] = _ms(lambda: W.sliding_sums(c, lo, hi, seg))
+    out["w4_wq4_f32_ms"] = _ms(lambda: W.sliding_sums(c32, lo, hi, seg))
+    out["w4_split"] = kernel_split(lambda: W.sliding_sums(c, lo, hi, seg))
+    del seg, c, c32, lo, hi
+    torch.cuda.empty_cache()
+    seg, args, _ = w3w4_inputs("wq5", dev, gen)
+    out["w3_range_wq5_ms"] = _ms(lambda: W.frame_bounds(seg, *args))
+    out["w3_split"] = kernel_split(lambda: W.frame_bounds(seg, *args))
+    del seg, args
+    torch.cuda.empty_cache()
+    seg, args, c = w3w4_inputs("one_segment", dev, gen)
+    lo, hi = W.frame_bounds(seg, *args)
+    out["w4_one_segment_ms"] = _ms(lambda: W.sliding_sums(c, lo, hi, seg),
+                                   reps=2)
+    steps = w4_steps(lo, hi, seg)
+    out["w4_one_segment_steps"] = steps
+    if hasattr(cuda, "add_chain"):
+        chain = 1 << 24
+        for dt, name in ((torch.float64, "f64"), (torch.float32, "f32")):
+            x = torch.tensor([0.1, 1e-9], dtype=dt, device=dev)
+            out[f"w4_add_ns_{name}"] = _ms(lambda: cuda.add_chain(x, chain),
+                                           reps=3) * 1e6 / chain
+        out["w4_chain_bound_ms"] = steps * out["w4_add_ns_f64"] / 1e6
+    return out
+
+
 N_COMPACT_LIVE = 3_500_000     # compact_60m's live rows
 COMPACT_TARGET = 1 << 22
 
@@ -471,6 +562,7 @@ def main() -> None:
                check=True, timeout=60).stdout.strip().splitlines()[0]}
     groups = ((("k9", "k2", "compact"), k9k2_cases),
               (("k11",), k11_cases), (("w1",), w1_cases),
+              (("w3", "w4"), w3w4_cases),
               (("k3", "k4", "k5", "k6", "k7", "k8", "k12", "k13"),
                earlier_cases))
     for names, cases in groups:

@@ -58,6 +58,10 @@ __device__ __forceinline__ int shfl_up(int x, int d) {
   return __shfl_up_sync(kFull, x, d);
 }
 
+__device__ __forceinline__ long long shfl_up(long long x, int d) {
+  return __shfl_up_sync(kFull, x, d);
+}
+
 // A segmented-scan element: f says a segment starts inside it; v and c are
 // the value and the count since its last segment start (or since its first
 // row when f is 0). SegOp(earlier, later) is associative.

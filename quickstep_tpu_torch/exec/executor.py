@@ -78,6 +78,14 @@ class Executor:
         self.host_syncs = 0
         # plan re-runs of the last statement, after a runtime flag fired
         self.retries = 0
+        # where the last SELECT's rows were put in ORDER BY order: "device"
+        # (ops/sort.py order_permutation, K13 on the card, under a root
+        # ORDER BY ... LIMIT) or "host" (a numpy lexsort after the pull, or
+        # no root ORDER BY); the reference's attribute of the same name.
+        # The port decides by the LIMIT, before its one host sync, and reads
+        # no device_sort_threshold_rows: the reference decides by the
+        # pulled row count.
+        self.last_sort_path: Optional[str] = None
         # (plan fingerprint, table versions) -> {node index: JoinOverride}
         self._learned_overrides: Dict[tuple, Dict[int, JoinOverride]] = {}
 
@@ -202,6 +210,7 @@ class Executor:
         else:
             raise ExecutionError("join fallback did not converge")
         datas, valids, n, sorted_on_device = pulled
+        self.last_sort_path = "device" if sorted_on_device else "host"
         by_id = {a.expr_id: (a, d, v)
                  for a, d, v in zip(out_attrs, datas, valids)}
         if host_sort is None:

@@ -173,9 +173,10 @@ def build() -> ctypes.CDLL:
             "qs_stable_partition": [p, i64, i64, p, p, p, i32, p],
             "qs_window_prefix": [i32, i32, i32, p, p, p, p, i64, p, p, p, p],
             "qs_frame_bounds": [i32, i32, p, p, i64, i64, i64, i32, i32,
-                                *[p] * 7],
+                                p, p, p, p],
             "qs_frame_minmax": [i32, i32, p, p, p, i64, p, i64, i32, p, p],
-            "qs_sliding_sum": [i32, p, p, p, p, i64, p, p],
+            "qs_sliding_sum": [i32, p, p, p, p, i64, p, p, p],
+            "qs_add_chain": [i32, p, i64, p, p],
             "qs_hash_keys": [i32, p, p, i64, p, i32, p],
             "qs_oa_build": [i32, p, p, p, i64, p, i64, p, i32, p],
             "qs_oa_probe": [p, i64, i32, p, p, p, p, i64, p, p, i32, p],
@@ -1059,6 +1060,7 @@ def stable_partition(mask: torch.Tensor, limit: Optional[int] = None,
 _WIN_TILE = 256 * 16            # kTile in csrc/window_kernels.cu (W3)
 _W1_TILE = 256 * 8              # kW1Tile in csrc/window_kernels.cu
 _WIN_SPAN = 1024                # kSpan in csrc/window_kernels.cu
+_W4_TILE = 1024                 # kW4Tile in csrc/window_kernels.cu
 
 
 def _flags(device, n: int, **flags) -> None:
@@ -1134,15 +1136,19 @@ def frame_bounds(seg_start: torch.Tensor, mode: str, start: Optional[int],
     hi = torch.empty(n, dtype=torch.int32, device=device)
     if n == 0:
         return lo, hi
-    ntiles = max(1, -(-n // _WIN_TILE))
-    scratch = [torch.empty(ntiles, dtype=torch.int32, device=device)
-               for _ in range(4)]
+    ntiles = -(-n // _WIN_TILE)
+    scratch = torch.empty(1 + 2 * ntiles + -(-ntiles // 2), dtype=torch.int64,
+                          device=device)
+    # the kernel reads flags and keys by 16-byte vectors; copies stay
+    # referenced here until the launch is queued
+    seg_start = _aligned16(seg_start)
+    keys = _aligned16(keys) if mode == "range" else None
     err = lib.qs_frame_bounds(
         _FRAME_MODE[mode], _DTYPE[keys.dtype] if mode == "range" else 0,
-        _ptr(seg_start), _ptr(keys if mode == "range" else None), n,
+        _ptr(seg_start), _ptr(keys), n,
         0 if start is None else int(start), 0 if end is None else int(end),
-        int(start is None), int(end is None), *[_ptr(t) for t in scratch],
-        _ptr(lo), _ptr(hi), _stream(device))
+        int(start is None), int(end is None), _ptr(scratch), _ptr(lo),
+        _ptr(hi), _stream(device))
     _check(lib, err, "frame_bounds")
     LAUNCHES["frame_bounds"] += 1
     return lo, hi
@@ -1180,7 +1186,10 @@ def sliding_sum(c: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                 is_start: torch.Tensor) -> torch.Tensor:
     """W4: each row's float sum of c over [lo, hi], in c's own dtype, slid
     over each segment (is_start marks its first row) in the reference's
-    order: equal bit for bit to quickstep_tpu/ops/window.py:273."""
+    order: equal bit for bit to quickstep_tpu/ops/window.py:273. Two
+    launches, counted as one: the short route (segments that fit a tile's
+    staged rows, a thread each), then the long route (a block each, over
+    the list the first launch wrote on the device)."""
     device = _cuda_device(c, "c")
     n = int(c.shape[0]) if c.dim() == 1 else -1
     _require(c, "c", device, n, (torch.float32, torch.float64))
@@ -1192,10 +1201,30 @@ def sliding_sum(c: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     out = torch.empty(n, dtype=c.dtype, device=device)
     if n == 0:
         return out
-    err = lib.qs_sliding_sum(_DTYPE[c.dtype], _ptr(c), _ptr(lo), _ptr(hi),
-                             _ptr(is_start), n, _ptr(out), _stream(device))
+    ins = [_aligned16(t) for t in (c, lo, hi, is_start)]
+    scratch = torch.empty(1 + -(-n // _W4_TILE), dtype=torch.int32,
+                          device=device)
+    err = lib.qs_sliding_sum(_DTYPE[c.dtype], *[_ptr(t) for t in ins], n,
+                             _ptr(scratch), _ptr(out), _stream(device))
     _check(lib, err, "sliding_sum")
     LAUNCHES["sliding_sum"] += 1
+    return out
+
+
+def add_chain(x: torch.Tensor, steps: int) -> torch.Tensor:
+    """x[0] plus x[1], steps times, each add rounded and dependent on the
+    one before, by one thread on the card (steps a multiple of 16): timed,
+    steps x the latency of one add, the bound of a W4 walk. Counts
+    nothing."""
+    device = _cuda_device(x, "x")
+    _require(x, "x", device, 2, (torch.float32, torch.float64))
+    if steps < 0 or steps % 16:
+        raise ValueError(f"steps = {steps}: a multiple of 16 is needed")
+    lib = build()
+    out = torch.empty(1, dtype=x.dtype, device=device)
+    err = lib.qs_add_chain(_DTYPE[x.dtype], _ptr(x), steps, _ptr(out),
+                           _stream(device))
+    _check(lib, err, "add_chain")
     return out
 
 

@@ -203,12 +203,13 @@ def _window_aggregate(part_keys, order_keys, order_desc, fn, vals, valid,
         lo, hi = (frame_bounds_plain if plain else frame_bounds)(
             seg_start, mode, frame[1], frame[2], s_key)
         # dead rows (sorted last, their keys in any order) get empty frames:
-        # no one reads their results, and W2/W4 then do no work for them
+        # no one reads their results, and W2/W4 then do no work for them;
+        # each is its own segment for W4, whose walks are then all short
         pos = torch.arange(n, dtype=torch.int32, device=dev)
         lo = torch.where(s_alive, lo, pos)
         hi = torch.where(s_alive, hi, pos - 1)
         res, nn = (_eval_frame_plain if plain else _eval_frame)(
-            fn, contrib_sum, live, s_vals, lo, hi, seg_start)
+            fn, contrib_sum, live, s_vals, lo, hi, seg_start | ~s_alive)
     else:
         raise NotImplementedError(f"window frame {frame}")
 

@@ -909,6 +909,209 @@ def test_sliding_sum_kernel_one_15m_row_segment(card):
                                                                   seg), 0.0)
 
 
+def _same_bits(got, want):
+    """Equal bit for bit, except that any NaN equals any NaN (the card and
+    the host make NaNs of other signs and payloads)."""
+    g, w = got.cpu(), want.cpu()
+    assert g.dtype == w.dtype and g.shape == w.shape
+    gn, wn = torch.isnan(g), torch.isnan(w)
+    assert torch.equal(gn, wn)
+    bits = torch.int32 if g.dtype == torch.float32 else torch.int64
+    assert torch.equal(g[~gn].view(bits), w[~wn].view(bits))
+
+
+def _w4_case(name, dtype, device, seed=61):
+    """(values, lo, hi, segment starts) of one of W4's route cases: segments
+    of ~30 rows (the short route); segments of 1,023-1,025, 2,047-2,049 and
+    4,095-4,097 rows at every offset of the tile (kW4Tile 1,024, staged span
+    2,048; W3's tile 4,096);
+    one 30,000-row segment that starts mid-tile between short ones (the
+    long route); frames that step back (NaN RANGE keys, then dead rows,
+    each its own segment, as ops/window.py hands them over); frames that
+    cross segments and reach 300 rows back (outside the staged rows);
+    segments of 20,000 rows framed 5,000 rows each way (outside the long
+    route's ring); and one 200,000-row segment framed from 3 preceding to
+    UNBOUNDED FOLLOWING (a first row of 200,000 steps). Values hold NaN and +-inf
+    where their name says so."""
+    rng = np.random.default_rng(seed)
+    if name == "tile_edges":
+        lens = rng.choice([1023, 1024, 1025, 2047, 2048, 2049, 4095, 4096,
+                           4097, 1, 30], 120)
+        n = int(lens.sum())
+    elif name == "unbounded_following":
+        n = 200_000
+    elif name == "outside_span":
+        n = 30_011
+    else:
+        n = 100_003
+    seg = np.zeros(n, bool)
+    if name == "tile_edges":
+        seg[np.cumsum(lens)[:-1]] = True
+    elif name.startswith("long_mid_tile"):
+        seg[rng.random(n) < 1 / 30] = True
+        seg[1_000:31_000] = False
+        seg[1_000] = seg[31_000] = True
+    elif name == "long_wide_frame":
+        seg[::20_000] = True
+    elif name != "unbounded_following":
+        seg[rng.random(n) < 1 / 30] = True
+    seg[0] = True
+    seg_t = torch.from_numpy(seg).to(device)
+    vals = rng.normal(3000, 1000, n)
+    if name.endswith("nan_inf"):
+        vals[rng.random(n) < 0.001] = np.nan
+        vals[rng.random(n) < 0.001] = np.inf
+        vals[rng.random(n) < 0.001] = -np.inf
+    c = torch.from_numpy(vals).to(dtype).to(device)
+    if name == "steps_back":
+        key = np.sort(np.cumsum(seg) * 10**6 + rng.integers(0, 3000, n))
+        key = (key - np.cumsum(seg) * 10**6).astype(np.float64)
+        key[rng.random(n) < 0.05] = np.nan       # then sorted last below
+        order = np.lexsort((np.isnan(key), np.cumsum(seg)))
+        key = key[order]
+        lo, hi = TW.frame_bounds_plain(seg_t, "range", 40, 10,
+                                       torch.from_numpy(key).to(device))
+        dead = torch.arange(n, device=device) >= n - 5_000
+        pos = torch.arange(n, dtype=torch.int32, device=device)
+        lo = torch.where(dead, pos, lo)
+        hi = torch.where(dead, pos - 1, hi)
+        return c, lo, hi, seg_t | dead
+    if name == "outside_span":
+        # frames 300 rows back across segments, and one row whose frame
+        # jumps 310 rows ahead, so that the reference's bounded step loops
+        # (and the plain version's) take every step of a segment's first
+        # row
+        lo = np.clip(np.arange(n) - 300, 0, None)
+        hi = np.clip(np.arange(n) + 7, None, n - 1)
+        jump = int(np.flatnonzero(~seg[n // 2:])[0]) + n // 2
+        lo[jump] = lo[jump - 1] + 310
+        hi[jump] = hi[jump - 1] + 310
+        return c, *[torch.from_numpy(t.astype(np.int32)).to(device)
+                    for t in (lo, hi)], seg_t
+    frame = {"unbounded_following": ("rows", 3, None),
+             "long_wide_frame": ("rows", 5000, 5000)}.get(name, ("rows", 3, 1))
+    lo, hi = TW.frame_bounds_plain(seg_t, *frame)
+    return c, lo, hi, seg_t
+
+
+W4_CASES = ("short", "short_nan_inf", "tile_edges", "long_mid_tile",
+            "long_mid_tile_nan_inf", "steps_back", "outside_span",
+            "long_wide_frame", "unbounded_following")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", W4_CASES)
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64), ids=str)
+def test_sliding_sum_routes_are_bit_equal_to_plain(card, dtype, name):
+    c, lo, hi, seg = _w4_case(name, dtype, card)
+    _same_bits(TW.sliding_sums(c, lo, hi, seg),
+               TW.sliding_sums_plain(c, lo, hi, seg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1, 4096, 4097, 60_000_000))
+@pytest.mark.parametrize("frame", (("rows", 3, 0), ("rows", None, 2),
+                                   ("range", 30, 30), ("range", None, 7)),
+                         ids=str)
+def test_frame_bounds_look_back_sizes(card, frame, n):
+    """W3's two launches at one tile, at a tile's edge and at 60 M rows:
+    segments of ~600 rows, and at 60 M one 15 M-row segment among them."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(67)
+    seg = torch.rand(n, device=card, generator=gen) < 1 / 600
+    if n == 60_000_000:
+        seg[20_000_001:35_000_001] = False
+    seg[0] = True
+    seg_id = torch.cumsum(seg.to(torch.int64), 0) - 1
+    codes = torch.randint(0, 3_600, (n,), device=card, generator=gen)
+    key = (torch.sort(seg_id * 4_096 + codes)[0] - seg_id * 4_096).to(
+        torch.int32)
+    del codes, seg_id
+    got = TW.frame_bounds(seg, *frame, key)
+    want = TW.frame_bounds_plain(seg, *frame, key)
+    for g, w in zip(got, want):
+        _close(g, w, 0.0)
+
+
+def _edge_keys(dtype, n, seg, rng):
+    """Keys sorted within each segment (NaNs last, -0.0 and 0.0 mixed, runs
+    of duplicates, +-inf) for float dtypes; for integers values at both
+    ends of the type's range."""
+    seg_id = np.cumsum(seg) - 1
+    if dtype.is_floating_point:
+        pool = np.array([-np.inf, -1e30, -3.5, -0.0, 0.0, 0.0, 1.0, 1.0, 1.0,
+                         2.5, 7.0, 1e30, np.inf, np.nan])
+        k = pool[rng.integers(0, len(pool), n)]
+        k = np.where(rng.random(n) < 0.5, k + rng.integers(1, 50, n), k)
+        k = k.astype(np.float32 if dtype == torch.float32 else np.float64)
+        canon = np.where(np.isnan(k), np.inf, k)
+        order = np.lexsort((np.isnan(k), canon, seg_id))
+        return torch.from_numpy(k[order])
+    info = np.iinfo(np.int32 if dtype == torch.int32 else np.int64)
+    k = np.concatenate([rng.integers(info.min, info.min + 100, n // 3),
+                        rng.integers(-50, 50, n // 3),
+                        rng.integers(info.max - 100, info.max, n - 2 * (n // 3),
+                                     endpoint=True)])
+    k = k.astype(np.int32 if dtype == torch.int32 else np.int64)
+    order = np.lexsort((k, seg_id))
+    return torch.from_numpy(k[order])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", (("range", 3, 2), ("range", 0, 0),
+                                   ("range", None, 5), ("range", 4, None),
+                                   ("range", 2**40, 2**40),
+                                   ("range", 2**31, 1)), ids=str)
+@pytest.mark.parametrize("key_dtype", DTYPES, ids=str)
+def test_frame_bounds_edge_keys_match_plain(card, key_dtype, frame):
+    """RANGE bounds over NaN, +-inf, -0.0 against 0.0, duplicate keys and
+    offsets past the key type's range, in segments of ~700 rows and one of
+    20,000 (a search that starts outside the staged keys)."""
+    rng = np.random.default_rng(71)
+    n = 50_021
+    seg = rng.random(n) < 1 / 700
+    seg[10_000:30_000] = False
+    seg[0] = seg[10_000] = True
+    key = _edge_keys(key_dtype, n, seg, rng).to(card)
+    seg_t = torch.from_numpy(seg).to(card)
+    got = TW.frame_bounds(seg_t, *frame, key)
+    want = TW.frame_bounds_plain(seg_t, *frame, key)
+    for g, w in zip(got, want):
+        _close(g, w, 0.0)
+
+
+@pytest.mark.cuda
+def test_w3_w4_take_no_host_sync(card):
+    """W3 and W4 decide their routes on the device: with PyTorch's sync
+    debug mode set to raise, both run (the long route included) and count
+    their launches."""
+    c, lo, hi, seg = _w4_case("long_mid_tile", torch.float64, card)
+    key = torch.arange(len(c), dtype=torch.int32, device=card)
+    torch.cuda.synchronize()
+    TC.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        TW.frame_bounds(seg, "range", 30, 30, key)
+        TW.frame_bounds(seg, "rows", 3, 0)
+        TW.sliding_sums(c, lo, hi, seg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert TC.LAUNCHES["frame_bounds"] == 2
+    assert TC.LAUNCHES["sliding_sum"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64), ids=str)
+def test_add_chain_probe(card, dtype):
+    """The dependent-add probe adds x[1] to x[0] steps times, rounding each
+    time, as the host does."""
+    x = torch.tensor([0.1, 0.3], dtype=dtype)
+    want = x[0].clone()
+    for _ in range(4096):
+        want = want + x[1]
+    _same_bits(TC.add_chain(x.to(card), 4096), want.reshape(1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("frame", (None, ("rows", 3, 0), ("range", 2, 2),
                                    ("range", None, 0)), ids=str)
