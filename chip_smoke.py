@@ -15,9 +15,11 @@ and a DML sequence (O-DML: INSERT ... SELECT, DELETE, UPDATE) whose totals
 are checked against the oracle. Then the same generated tables go to a
 second database on an 8-shard mesh of the card (Config.distributed), where
 Q3, Q5, Q9, Q10 and Q18 take the shuffle join (K14-K16) and Q9 the
-two-phase GROUP BY, against the same oracle; and the distributed
-aggregate-join step runs at 7.5 M rows per shard over 8 shards against a
-plain computation.
+two-phase GROUP BY, against the same oracle, with a census of K16's
+launches on both meshes (rows and slots of each build and probe); and the
+distributed aggregate-join step runs at 7.5 M rows per shard over 8 shards
+against a plain computation. W2 and K16 are also checked to make no host
+sync (the card's sync debug mode set to raise).
 
     python3 chip_smoke.py
 
@@ -55,6 +57,9 @@ N_SEMI_PROBE = 38_000_000       # ~ Q21's late lineitem rows at SF10
 N_SKEW_ROWS = 10_000_000        # K8's skewed build: rows on one key
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at 700 W
 N_SHARD_ROWS = 7_500_000       # one of 8 row shards of lineitem at SF10
+# K16's probe of one lineitem shard's slice on the SF10 mesh (two slices
+# a shard, Config.shuffle_overlap_chunks)
+N_K16_SLICE = N_SHARD_ROWS // 2
 MESH_SHARDS = 8
 # the SF0.01 mesh's replicate threshold: lineitem, orders, partsupp and
 # part shard, the other tables replicate (tests/test_distributed.py:22)
@@ -212,10 +217,11 @@ def cuda_ms(fn, reps=REPS) -> float:
     return statistics.median(times)
 
 
-def compare(name, got, want, atol=None):
+def compare(name, got, want, atol=None, nan_equal=False):
     """Max abs error of got vs want; raises beyond the tolerance: integers
     and bools exactly, floats within the dtype's relative tolerance, or
-    within atol where given (atol 0: bit for bit)."""
+    within atol where given (atol 0: bit for bit; with nan_equal, a NaN
+    equals a NaN whatever its bits)."""
     worst = 0.0
     for g, w in zip(got, want):
         if g is None and w is None:
@@ -227,7 +233,10 @@ def compare(name, got, want, atol=None):
         w64 = w.double().cpu()
         err = (g64 - w64).abs()
         worst = max(worst, float(err.max()) if err.numel() else 0.0)
-        if atol == 0:
+        if atol == 0 and nan_equal and g.dtype.is_floating_point:
+            g, w = g.cpu(), w.cpu()
+            ok = bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
+        elif atol == 0:
             ok = torch.equal(g.cpu(), w.cpu())
         elif atol is not None and g.dtype.is_floating_point:
             ok = torch.all(err <= atol)
@@ -268,17 +277,18 @@ def phase_kernels(G):
 
     def case(kernel, label, k_fn, p_fn, main=False, inputs=(),
              library=None, atol=None, plain_reps=REPS, bound_bytes=None,
-             decode=None, check=None):
+             decode=None, check=None, nan_equal=False):
         """bound_bytes (or, for the main case, the bytes of inputs and
         outputs) gives the case its bound; library only the main case.
-        check maps both outputs to what is compared, outside the times."""
+        check maps both outputs to what is compared, outside the times;
+        nan_equal as compare takes it."""
         got, want = k_fn(), p_fn()
         if decode is not None:     # the kernel's layout, read as the plain
             got = decode(got)
         if check is not None:
             got, want = check(got), check(want)
         torch.cuda.synchronize()
-        err = compare(f"{kernel} {label}", got, want, atol)
+        err = compare(f"{kernel} {label}", got, want, atol, nan_equal)
         ms, plain_ms = cuda_ms(k_fn), cuda_ms(p_fn, plain_reps)
         row = {"kernel": kernel, "case": label, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "main": main}
@@ -1039,7 +1049,8 @@ def phase_window_kernels(case, dev):
                                  generator=gen).double() / 100, "min", lm)
     case("frame_minmax", "MIN f64, ROWS 1/1, 15M orders",
          lambda: (W.frame_minmax("min", cmin, lo, hi),),
-         lambda: (W.frame_minmax_plain("min", cmin, lo, hi),), atol=0)
+         lambda: (W.frame_minmax_plain("min", cmin, lo, hi),),
+         atol=0, nan_equal=True)
     del lines, seg, every, lm, lo, hi, cmin
     torch.cuda.empty_cache()
 
@@ -1061,14 +1072,35 @@ def phase_window_kernels(case, dev):
     # bound: the walk's subtract and add steps x the latency of one
     # dependent add, measured here
     w4_long_route(case, c1, seg, dev)
-    # frames longer than two of W2's 1,024-row tiles
+    # W2's long frames: ROWS 1,500 PRECEDING over W-Q3's single segment,
+    # in float64 and in float32: in both, the tiles' frames leave the
+    # staged window, which holds the same rows for every dtype, and take
+    # the table's route
+    lo, hi = W.frame_bounds(seg, "rows", 1_500, 0)
+    cmax = contrib(c1, "max", every)
+    case("frame_minmax", "MAX f64, ROWS 1500 preceding, 15M",
+         lambda: (W.frame_minmax("max", cmax, lo, hi),),
+         lambda: (W.frame_minmax_plain("max", cmax, lo, hi),),
+         atol=0, nan_equal=True,
+         bound_bytes=nbytes((cmax, lo, hi)) + 8 * m)
+    c32 = cmax.float()
+    case("frame_minmax", "MAX f32, ROWS 1500 preceding, 15M",
+         lambda: (W.frame_minmax("max", c32, lo, hi),),
+         lambda: (W.frame_minmax_plain("max", c32, lo, hi),),
+         atol=0, nan_equal=True,
+         bound_bytes=nbytes((c32, lo, hi)) + 4 * m)
+    no_host_sync("W2", lambda: (W.frame_minmax("max", cmax, lo, hi),
+                                W.frame_minmax("max", c32, lo, hi)))
+    del lo, hi, cmax, c32
+    # frames longer than two of W2's 1,024-row tiles, not holding their row
     m = 6_000_000
     seg, _ = sorted_segments(m, 300, dev, gen)
     lo, hi = W.frame_bounds(seg, "rows", 5_000, 3_000)
     cmax = contrib(price[:m], "max")
     case("frame_minmax", "MAX f64, ROWS 5000/3000, 6M rows",
          lambda: (W.frame_minmax("max", cmax, lo, hi),),
-         lambda: (W.frame_minmax_plain("max", cmax, lo, hi),), atol=0)
+         lambda: (W.frame_minmax_plain("max", cmax, lo, hi),),
+         atol=0, nan_equal=True)
     del seg, peer, c1, every, lo, hi, cmax, price, live, c
     torch.cuda.empty_cache()
     phase_operator_kernels(case, dev)
@@ -1369,22 +1401,58 @@ def phase_shuffle_kernels(case, dev):
                                     device=dev).index_copy_(0, dest64, rows))
     del key, alive, dest, dest64, rows
 
+    # K16: the table is one bit a slot in int32 words on the card, read
+    # back as the plain version's bools
     nbits = 1 << 22
     okey = torch.arange(1, N_BUILD_ROWS + 1, device=dev) * 4
     oalive = torch.rand(N_BUILD_ROWS, device=dev, generator=gen) < 0.5
     case("bloom_filter", "build 15M keys, 2^22 slots",
          lambda: (B.bloom_build([okey], oalive, nbits),),
-         lambda: (B.bloom_build_plain([okey], oalive, nbits),))
-    bits = B.bloom_build([okey], oalive, nbits)
+         lambda: (B.bloom_build_plain([okey], oalive, nbits),),
+         decode=lambda got: (B.presence_bits(got[0], nbits),),
+         bound_bytes=nbytes((okey, oalive)) + nbits // 8)
+    words = B.bloom_build([okey], oalive, nbits)
+    bits = B.bloom_build_plain([okey], oalive, nbits)
     lkey = torch.randint(1, 4 * N_BUILD_ROWS + 4, (N_KERNEL_ROWS,),
                          device=dev, generator=gen)
     lalive = torch.rand(N_KERNEL_ROWS, device=dev, generator=gen) < 0.9
     case("bloom_filter", "probe 60M keys, 2^22 slots",
-         lambda: (B.bloom_probe(bits, [lkey], lalive),),
+         lambda: (B.bloom_probe(words, [lkey], lalive, nbits),),
          lambda: (B.bloom_probe_plain(bits, [lkey], lalive),), main=True,
-         inputs=(bits, lkey, lalive))
-    del okey, oalive, bits, lkey, lalive
+         inputs=(words, lkey, lalive))
+    # a mesh shard's slice, at an odd offset
+    k, a = lkey[1:N_K16_SLICE + 1], lalive[1:N_K16_SLICE + 1]
+    case("bloom_filter", "probe shard slice",
+         lambda: (B.bloom_probe(words, [k], a, nbits),),
+         lambda: (B.bloom_probe_plain(bits, [k], a),),
+         bound_bytes=nbytes((words, k, a)) + N_K16_SLICE)
+    # a table that L1 mostly holds
+    small = 1 << 20
+    swords = B.bloom_build([okey], oalive, small)
+    sbits = B.bloom_build_plain([okey], oalive, small)
+    case("bloom_filter", "probe 60M keys, 2^20 slots",
+         lambda: (B.bloom_probe(swords, [lkey], lalive, small),),
+         lambda: (B.bloom_probe_plain(sbits, [lkey], lalive),),
+         bound_bytes=nbytes((swords, lkey, lalive)) + N_KERNEL_ROWS)
+    no_host_sync("K16", lambda: [
+        B.bloom_probe(B.bloom_build([okey], oalive, slots), [lkey], lalive,
+                      slots)
+        for slots in (nbits, small)])
+    del okey, oalive, bits, words, lkey, lalive, swords, sbits
     torch.cuda.empty_cache()
+
+
+def no_host_sync(what, fn):
+    """fn's kernels run with no host sync: the card's sync debug mode
+    raises on one."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"  {what}: no host sync")
 
 
 def phase_zero_rows():
@@ -1560,6 +1628,50 @@ def run_query(db, cuda, oracle, total, label, q, must, sql=None,
         "launches " + ", ".join(f"{k} {v}" for k, v in
                                  launches.items() if v))
     return times, peak
+
+
+class bloom_census:
+    """Records the rows and slots of every K16 launch made while it is
+    entered (calls of ops/cuda.py bloom_build and bloom_probe with rows),
+    in .calls: (kind, rows, slots)."""
+
+    def __enter__(self):
+        from quickstep_tpu_torch.ops import cuda
+        self.cuda, self.calls = cuda, []
+        self.real = real_build, real_probe = cuda.bloom_build, cuda.bloom_probe
+
+        def build(cols, alive, nbits):
+            if alive.shape[0]:
+                self.calls.append(("build", int(alive.shape[0]), nbits))
+            return real_build(cols, alive, nbits)
+
+        def probe(words, cols, alive, nbits=None):
+            n = int(alive.shape[0])
+            slots = 32 * int(words.shape[0]) if nbits is None else nbits
+            if n:
+                self.calls.append(("probe", n, slots))
+            return real_probe(words, cols, alive, nbits)
+        cuda.bloom_build, cuda.bloom_probe = build, probe
+        return self
+
+    def __exit__(self, *exc):
+        self.cuda.bloom_build, self.cuda.bloom_probe = self.real
+
+    def report(self, label):
+        """Logs, for builds and probes: launches, median and largest rows,
+        the share under 1 M rows and the slots."""
+        for kind in ("build", "probe"):
+            mine = [c for c in self.calls if c[0] == kind]
+            if not mine:
+                log(f"  K16 census, {label}: no {kind}")
+                continue
+            rows = sorted(c[1] for c in mine)
+            slots = {b: sum(c[2] == b for c in mine)
+                     for b in sorted({c[2] for c in mine})}
+            log(f"  K16 census, {label}: {len(mine)} {kind} launches, rows "
+                f"median {statistics.median(rows)}, largest {rows[-1]}, "
+                f"{sum(r < 1_000_000 for r in rows) / len(rows):.3f} under "
+                f"1 M; slots {slots}")
 
 
 class watch_compactions:
@@ -1870,7 +1982,9 @@ def main():
     one_device = dict.fromkeys(cuda.LAUNCHES, 0)
     small = phase_small(cuda)
     add(small)
-    add(phase_small(cuda, mesh_shards=MESH_SHARDS))
+    with bloom_census() as small_census:
+        add(phase_small(cuda, mesh_shards=MESH_SHARDS))
+    small_census.report(f"SF{SF_SMALL} mesh")
     golden = phase_golden(cuda)
     add(golden)
     large, generated, single = phase_large(cuda)
@@ -1878,7 +1992,11 @@ def main():
     for counts in (small, golden, large):
         for k, v in counts.items():
             one_device[k] += v
-    phase_large_mesh(cuda, generated, single, launches)
+    with bloom_census() as large_census:
+        phase_large_mesh(cuda, generated, single, launches)
+    large_census.report(f"SF{SF_LARGE:g} mesh")
+    large_census.calls += small_census.calls
+    large_census.report("both meshes")
     del generated
     add(phase_dist_step(cuda))
     log("launches over the run: " + ", ".join(

@@ -6,11 +6,14 @@ RANDOM_SECTORS_PER_S), measured on the card by CUDA events:
 - random 32-byte sectors per second: K6's direct route gathering one int64
   column of N rows (a source far larger than the 50 MB L2) by a uniformly
   random index of N rows, one sector per row, after its coalesced part (the
-  index read and the output written, at the coalesced rate) is taken off.
+  index read and the output written, at the coalesced rate) is taken off;
+- the same rate from sources that sit in the L2: int64 columns of 4 MiB
+  and 512 KiB (the sizes of K16's byte table and bit table at 2^22 slots)
+  gathered by N random indices, one L2 sector per row.
 
     python -m quickstep_tpu_torch.bench.gather_rates [--rows N]
 
-Prints one JSON object with both rates, the times behind them and the card's
+Prints one JSON object with the rates, the times behind them and the card's
 name and power limit. It needs a CUDA card.
 """
 
@@ -22,6 +25,8 @@ import statistics
 import subprocess
 
 import torch
+
+L2_SOURCES = (4 << 20, 512 << 10)     # bytes of the L2-resident sources
 
 
 def _ms(fn, reps: int = 10) -> float:
@@ -54,13 +59,21 @@ def measure(rows: int) -> dict:
     gather_ms = _ms(lambda: cuda.multi_gather([col], idx))
     stream_ms = 2 * rows * 8 / coalesced * 1e3
     sectors = rows / ((gather_ms - stream_ms) / 1e3)
+    l2 = {}
+    for size in L2_SOURCES:
+        src = col[:size // 8].clone()
+        sidx = torch.randint(0, size // 8, (rows,), device=dev, generator=gen)
+        ms = _ms(lambda: cuda.multi_gather([src], sidx))
+        l2[f"l2_{size >> 10}k_gather_ms"] = ms
+        l2[f"l2_{size >> 10}k_sectors_per_s"] = rows / ((ms - stream_ms) / 1e3)
+        del src, sidx
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     return {"card": card, "copy_ms": copy_ms,
             "coalesced_bytes_per_s": coalesced, "rows": rows,
-            "gather_ms": gather_ms, "random_sectors_per_s": sectors}
+            "gather_ms": gather_ms, "random_sectors_per_s": sectors, **l2}
 
 
 def main() -> None:

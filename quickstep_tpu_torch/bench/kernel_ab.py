@@ -100,6 +100,17 @@ Cases, each timed by CUDA events (median of 10 runs after one warm-up):
   partitions (W-Q5's shape); w3_rows_wq4: frame_bounds of ROWS 3 PRECEDING
   over W-Q4's partitions; w4_split and w3_split: the device ms of each
   kernel of w4_wq4_f64 and of w3_range_wq5 (w3w4_inputs).
+- w2 and k16: w2_wq5, w2_wq6 and w2_long: ops/window.py frame_minmax
+  at W-Q5's shape (MAX int64 over RANGE +-30 frames, 60 M rows in 100 K
+  partitions), W-Q6's (MIN float64 over ROWS 1/1 in 15 M orders of 1-7
+  lines) and over ROWS 1,500 PRECEDING in one 15 M-row segment (MAX
+  float64), each with its split (w2_inputs); k16_build: ops/bloom.py
+  bloom_build of 15 M orders keys (every 4th, half live) into 2^22 slots;
+  k16_probe: bloom_probe of 60 M lineitem-like keys (90 % live) into that
+  table; k16_mesh_<rows>: the same at the mesh's probe sizes
+  (K16_MESH_ROWS), each a slice at an odd offset, by events and by the
+  profiler's device time (_device_ms); the same into 2^20 and 2^19 slots
+  (_2e20, _2e19: tables that L1 mostly holds), with splits.
 Prints one JSON object with the times, the checkout's root and the card's
 name and power limit. It needs a CUDA card.
 
@@ -449,6 +460,90 @@ def w3w4_cases(dev, gen) -> dict:
     return out
 
 
+N_ORDERS = 15_000_000           # orders rows at SF10
+K16_SLOTS = 1 << 22             # the shuffle join's largest LIP table
+# K16 probes of the mesh's sizes (chip_smoke.py's census, PERF.md)
+K16_MESH_ROWS = (4_096, 65_536, 937_500, 1_584_384, 3_750_000, 15_000_000,
+                 29_131_264)
+
+
+def w2_inputs(shape: str, dev, gen):
+    """(fn, c, lo, hi) of W2 at the SF10 window queries' shapes: "wq5",
+    MAX of int64 quantities over RANGE +-30 frames of int32 date codes,
+    60 M rows in ~N_SUPPLIERS partitions; "wq6", MIN of float64 prices over
+    ROWS 1 PRECEDING .. 1 FOLLOWING in N_ORDERS orders of 1-7 lines;
+    "long", MAX of float64 prices over ROWS 1,500 PRECEDING in one
+    N_ONE_SEGMENT-row segment. 90 % live; dead rows hold the sentinel."""
+    from quickstep_tpu_torch.ops import window as W
+    if shape == "wq5":
+        seg, args, _ = w3w4_inputs("wq5", dev, gen)
+        fn = "max"
+        vals = torch.randint(100, 5_001, (N,), device=dev, generator=gen)
+    elif shape == "wq6":
+        lines = torch.randint(1, 8, (N_ORDERS,), device=dev, generator=gen)
+        seg = torch.zeros(int(lines.sum()), dtype=torch.bool, device=dev)
+        seg[torch.cumsum(lines, 0)[:-1]] = True
+        seg[0] = True
+        args, fn = ("rows", 1, 1), "min"
+    else:
+        seg = torch.zeros(N_ONE_SEGMENT, dtype=torch.bool, device=dev)
+        seg[0] = True
+        args, fn = ("rows", 1_500, 0), "max"
+    n = len(seg)
+    if shape != "wq5":
+        vals = torch.randint(90_000, 10_500_000, (n,), device=dev,
+                             generator=gen).double() / 100
+    live = torch.rand(n, device=dev, generator=gen) < 0.9
+    lo, hi = W.frame_bounds(seg, *args)
+    return fn, W._sentinel_fill(fn, vals, live), lo, hi
+
+
+def w2_cases(dev, gen) -> dict:
+    """The cases of W2."""
+    from quickstep_tpu_torch.ops import window as W
+    out = {}
+    for shape in ("wq5", "wq6", "long"):
+        fn, c, lo, hi = w2_inputs(shape, dev, gen)
+        out[f"w2_{shape}_ms"] = _ms(lambda: W.frame_minmax(fn, c, lo, hi))
+        out[f"w2_{shape}_split"] = kernel_split(
+            lambda: W.frame_minmax(fn, c, lo, hi))
+        del c, lo, hi
+        torch.cuda.empty_cache()
+    return out
+
+
+def k16_cases(dev, gen) -> dict:
+    """The cases of K16."""
+    from quickstep_tpu_torch.ops import bloom as B
+    out = {}
+    okey = torch.arange(1, N_ORDERS + 1, device=dev) * 4
+    oalive = torch.rand(N_ORDERS, device=dev, generator=gen) < 0.5
+    out["k16_build_ms"] = _ms(lambda: B.bloom_build([okey], oalive,
+                                                     K16_SLOTS))
+    out["k16_build_split"] = kernel_split(
+        lambda: B.bloom_build([okey], oalive, K16_SLOTS))
+    table = B.bloom_build([okey], oalive, K16_SLOTS)
+    lkey = torch.randint(1, 4 * N_ORDERS + 4, (N,), device=dev,
+                         generator=gen)
+    lalive = torch.rand(N, device=dev, generator=gen) < 0.9
+    # at 2^22 slots, and at 2^20 and 2^19 (tables that L1 mostly holds)
+    for slots in (K16_SLOTS, 1 << 20, 1 << 19):
+        tag = "" if slots == K16_SLOTS else f"_2e{slots.bit_length() - 1}"
+        words = table if slots == K16_SLOTS else \
+            B.bloom_build([okey], oalive, slots)
+        out[f"k16_probe{tag}_ms"] = _ms(
+            lambda: B.bloom_probe(words, [lkey], lalive))
+        out[f"k16_probe{tag}_split"] = kernel_split(
+            lambda: B.bloom_probe(words, [lkey], lalive))
+        for m in K16_MESH_ROWS:
+            k, a = lkey[1:m + 1], lalive[1:m + 1]    # a shard's slice
+            out[f"k16_mesh_{m}{tag}_ms"] = _ms(
+                lambda: B.bloom_probe(words, [k], a))
+            out[f"k16_mesh_{m}{tag}_device_ms"] = sum(
+                kernel_split(lambda: B.bloom_probe(words, [k], a)).values())
+    return out
+
+
 N_COMPACT_LIVE = 3_500_000     # compact_60m's live rows
 COMPACT_TARGET = 1 << 22
 
@@ -562,7 +657,8 @@ def main() -> None:
                check=True, timeout=60).stdout.strip().splitlines()[0]}
     groups = ((("k9", "k2", "compact"), k9k2_cases),
               (("k11",), k11_cases), (("w1",), w1_cases),
-              (("w3", "w4"), w3w4_cases),
+              (("w3", "w4"), w3w4_cases), (("w2",), w2_cases),
+              (("k16",), k16_cases),
               (("k3", "k4", "k5", "k6", "k7", "k8", "k12", "k13"),
                earlier_cases))
     for names, cases in groups:

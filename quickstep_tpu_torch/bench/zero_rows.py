@@ -155,15 +155,24 @@ def zero_row_cases(dev) -> Dict[str, Case]:
             lambda: (K.scatter_compact_plain(f64, i32, 6, fill=-1),
                      K.scatter_compact_plain(b, i64, 3))),
         "bloom_filter": (
-            lambda: _bloom(B.bloom_build, B.bloom_probe, i64, i32, b),
+            lambda: _bloom(B.bloom_build, B.bloom_probe, i64, i32, b,
+                           sized=True),
             lambda: _bloom(B.bloom_build_plain, B.bloom_probe_plain, i64, i32,
                            b)),
     }
 
 
-def _bloom(build, probe_fn, keys, keys32, alive):
+def _bloom(build, probe_fn, keys, keys32, alive, sized=False):
+    """A 16-slot table and its probe. sized: the probe is told the table's
+    slots, and K16's int32 words (its table on the card) are read back as
+    the plain version's bools."""
     bits = build([keys, keys32], alive, 16)
-    return bits, probe_fn(bits, [keys, keys32], alive)
+    if not sized:
+        return bits, probe_fn(bits, [keys, keys32], alive)
+    hits = probe_fn(bits, [keys, keys32], alive, 16)
+    if bits.dtype == torch.int32:
+        bits = B.presence_bits(bits, 16)
+    return bits, hits
 
 
 def _oa(build, probe_fn, keys, alive, probe, pmask):

@@ -41,13 +41,18 @@
 // K16, qs_bloom_build / qs_bloom_probe, replaces quickstep_tpu/ops/bloom.py:41
 // bloom_build and :52 bloom_probe, which the shuffle join's LIP filter
 // computes (quickstep_tpu/exec/runner.py:1236-1259): slot = hash_combine of
-// hash64 of the key columns (K10's hash_row) & (nbits - 1), one byte per
-// slot, the reference's layout. The build writes 1 at the slot of each live
-// row: every writer writes the same byte, so plain stores suffice. The probe
-// reads one byte per row. On the shuffle join's path the table is at most
-// 2^22 slots (4 MiB, runner.py:1166), which sits in the 50 MB L2, so its
-// random reads and writes cost L2 accesses and not DRAM sectors: both are
-// bound by the bytes of their keys and masks read and their output written.
+// hash64 of the key columns (K10's hash_row) & (nbits - 1). The reference
+// keeps a byte a slot; here the table is one bit a slot in int32 words
+// (K3's exact-filter layout), 512 KiB at the shuffle join's largest 2^22
+// slots (runner.py:1166), so that the shards' tables OR word by word and
+// the probe's table reads hit on chip. The build sets each live row's bit
+// by atomicOr after a memset. The probe takes a row a thread and reads its
+// word through L1 (__ldg): a table of up to 2^20 slots (128 KiB) mostly
+// stays there, and a miss costs a 32-byte L2 sector, so at 2^22 slots the
+// L2's random-sector rate (bench/gather_rates.py), not the bytes of the
+// keys, mask and result, bounds the probe. Copying the table into shared
+// memory (whole, or split over a thread-block cluster) was measured no
+// faster in the engine on the H100 (PERF.md).
 
 #include <cstring>
 
@@ -191,23 +196,36 @@ int scatter_typed(const void* col, const void* dest, int dest_is64,
   return cudaGetLastError();
 }
 
+// K16's table: one bit a slot, slot s at bit s % 32 of word s / 32 (the
+// layout of ops/bloom.py presence_words), at least one word
 __global__ void __launch_bounds__(kThreads)
 bloom_build_kernel(const Keys keys, const bool* __restrict__ alive, int64_t n,
-                   unsigned long long mask, bool* bits) {
+                   unsigned long long mask, unsigned* words) {
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
        i += stride)
-    if (alive[i]) bits[hash_row(keys, i) & mask] = true;
+    if (alive[i]) {
+      const unsigned long long s = hash_row(keys, i) & mask;
+      atomicOr(words + (s >> 5), 1u << (s & 31));
+    }
 }
 
+// out[i] = alive[i] && the bit of row i's slot. A dead row's key is not
+// read: the mesh's shard slices hold many dead rows.
 __global__ void __launch_bounds__(kThreads)
 bloom_probe_kernel(const Keys keys, const bool* __restrict__ alive, int64_t n,
-                   const bool* __restrict__ bits, unsigned long long mask,
-                   bool* out) {
+                   const unsigned* __restrict__ words,
+                   unsigned long long mask, bool* __restrict__ out) {
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride)
-    out[i] = alive[i] && bits[hash_row(keys, i) & mask];
+       i += stride) {
+    bool hit = false;
+    if (alive[i]) {
+      const unsigned long long s = hash_row(keys, i) & mask;
+      hit = (__ldg(words + (s >> 5)) >> (s & 31)) & 1u;
+    }
+    out[i] = hit;
+  }
 }
 
 int part_args(const void* key, int key_is64, const void* alive, int64_t L,
@@ -286,24 +304,28 @@ int qs_scatter_compact(int width, const void* col, const void* dest,
   }
 }
 
-// bits: nbits bytes (a power of two), cleared here before the build
+// words: max(1, nbits / 32) int32 words (nbits a power of two), cleared
+// here before the build
 int qs_bloom_build(int ncols, const void* const* cols, const int* dtypes,
-                   const void* alive, int64_t n, void* bits, int64_t nbits,
+                   const void* alive, int64_t n, void* words, int64_t nbits,
                    int blocks, void* stream) {
   Keys keys;
   int err = make_keys(ncols, cols, dtypes, &keys);
   if (err != cudaSuccess) return err;
   if (nbits < 1 || (nbits & (nbits - 1)) != 0) return cudaErrorInvalidValue;
-  err = cudaMemsetAsync(bits, 0, (size_t)nbits, (cudaStream_t)stream);
+  const int64_t nwords = nbits < 32 ? 1 : nbits / 32;
+  err = cudaMemsetAsync(words, 0, (size_t)nwords * sizeof(unsigned),
+                        (cudaStream_t)stream);
   if (err != cudaSuccess || n == 0) return err;
   bloom_build_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       keys, (const bool*)alive, n, (unsigned long long)(nbits - 1),
-      (bool*)bits);
+      (unsigned*)words);
   return cudaGetLastError();
 }
 
+// words as qs_bloom_build writes them
 int qs_bloom_probe(int ncols, const void* const* cols, const int* dtypes,
-                   const void* alive, int64_t n, const void* bits,
+                   const void* alive, int64_t n, const void* words,
                    int64_t nbits, void* out, int blocks, void* stream) {
   Keys keys;
   int err = make_keys(ncols, cols, dtypes, &keys);
@@ -311,7 +333,7 @@ int qs_bloom_probe(int ncols, const void* const* cols, const int* dtypes,
   if (nbits < 1 || (nbits & (nbits - 1)) != 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   bloom_probe_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      keys, (const bool*)alive, n, (const bool*)bits,
+      keys, (const bool*)alive, n, (const unsigned*)words,
       (unsigned long long)(nbits - 1), (bool*)out);
   return cudaGetLastError();
 }

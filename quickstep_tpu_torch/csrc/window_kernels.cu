@@ -42,9 +42,11 @@
 //   inside the row's segment, over the tile's keys staged with a halo, and
 //   then stepped forward row by row: no (segment, value) packing and no
 //   sort.
-// - W2 walks short frames directly; a frame that spans more than two tiles
-//   of kSpan rows reads its two partial tiles and a sparse table over the
-//   tile minima or maxima only (n / kSpan entries per level, not n).
+// - W2 stages each 1,024-row tile's frames in shared memory and answers a
+//   frame of any length in a bounded number of on-chip reads (32-row
+//   blocks' prefix and suffix, a sparse table over the blocks); frames
+//   that leave the staged window read a table of 32-row, tile and
+//   superblock aggregates, built only when one does.
 // W4 is bound by its sequential order within a segment: its sums are a
 // chain of dependent rounded adds, in the reference's order and in the
 // values' own type, so that they equal the reference's bit for bit. Short
@@ -66,7 +68,6 @@ constexpr int kThreads = 256;
 constexpr int kItems = 16;
 constexpr int64_t kTile = (int64_t)kThreads * kItems;   // rows per tile
 constexpr int kScanThreads = 1024;
-constexpr int kSpan = 1024;                              // W2's tile
 constexpr int kNone = INT32_MAX;
 
 struct MaxOp {
@@ -920,96 +921,505 @@ cudaError_t launch_frame_bounds(const void* start, const void* keys,
   return cudaGetLastError();
 }
 
+// dst[0, to - from) = src[from, to) by cp.async where whole 16 bytes (from a
+// multiple of 16 / sizeof(T)); nothing where to <= from
+template <typename T>
+__device__ __forceinline__ void fetch(T* dst, const T* __restrict__ src,
+                                      int64_t from, int64_t to) {
+  constexpr int EV = 16 / sizeof(T);
+  if (to <= from) return;
+  const int64_t whole = from + (to - from) / EV * EV;
+  for (int64_t i = from + (int64_t)threadIdx.x * EV; i < whole;
+       i += (int64_t)kThreads * EV) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + (i - from));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src + i));
+  }
+  for (int64_t i = whole + threadIdx.x; i < to; i += kThreads)
+    dst[i - from] = src[i];
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------
 // W2: MIN/MAX over per-row [lo, hi]
 // ---------------------------------------------------------------------
+// Three launches; the last two return at once unless some frame needs
+// them, which only the device knows (no host sync).
+//
+// w2_rows, a block of kThreads a tile of kW2Tile rows: stages a window of
+// c in shared memory (the tile and kW2Halo rows on each side) by cp.async
+// while it reads the tile's lo and hi, so that a tile waits for device
+// memory once. Where the tile's non-empty frames lie inside the window, it
+// walks each frame there where none is longer than 8 rows, and else takes
+// each covered 8-row block's prefix and suffix MIN/MAX by shuffles inside
+// 8 lanes and, where a frame spans whole blocks, a sparse table
+// over the block aggregates (only the levels the tile's frames need, at
+// most kW2Levels: a tile with a frame over more than 2^kW2Levels whole
+// blocks is deferred). A frame inside one block walks at most 7 staged
+// values (none where it starts or ends on the block's edge); any other is
+// suffix[lo] (+) the whole blocks between (two sparse-table reads) (+)
+// prefix[hi] (van Herk / Gil-Werman). lo and hi are read from device
+// memory once, c once more only for the halos, and out written once; 31
+// KB of shared memory (8-byte values) leaves room for 7 blocks an SM.
+// Staging the next tile while answering this one (a persistent grid, two
+// windows) was slower, as were blocks of 128 or 512 threads. A tile
+// whose frames leave the window goes on a device list and is left to the
+// third launch.
+// w2_table (only when the list is not empty): a block a superblock of
+// kW2Super tiles builds the global aggregates in one pass over c: each
+// 32-row block's MIN/MAX and its prefix and suffix within its tile, each
+// tile's and its prefix and suffix within its superblock; the last block
+// to finish builds the sparse table over the superblocks.
+// w2_deferred (only when the list is not empty): each listed tile's rows,
+// a warp 32 consecutive rows: a frame's two partial 32-row blocks (where
+// the warp's frame ends fall in at most two blocks, a shuffle scan over
+// them; else a walk of at most 32 values) and the whole blocks between
+// from the table: at most 32 block or tile aggregates, or a suffix and a
+// prefix at each level and two reads of the sparse table. No row reads
+// more than about 100 values, whatever its frame's length. MIN/MAX is
+// associative and commutative and a NaN wins from either side
+// (seg_device.cuh combine), so the result is the value the reference's
+// sparse table gives.
+constexpr int kW2Tile = 1024;
+constexpr int kW2Items = kW2Tile / kThreads;             // rows a thread
+constexpr int kW2Halo = 64;                              // staged each side
+constexpr int kW2Super = 32;                             // tiles a superblock
 
-// Level 0 of the tile table: the MIN or MAX of each kSpan rows.
+// the staged window: the tile and kW2Halo rows on each side
+constexpr int kW2Window = kW2Tile + 2 * kW2Halo;
+// the staged window's blocks: kW2Span rows each
+constexpr int kW2Span = 8;
+constexpr int kW2Blocks = kW2Window / kW2Span;
+// levels of the staged sparse table: frames that span fewer than 2^3
+// whole blocks are answered in the window (a tile with longer ones goes to
+// w2_deferred), so that 7 blocks of 8-byte values fit an SM
+constexpr int kW2Levels = 3;
+template <typename T>
+__host__ __device__ constexpr int w2_smem() {
+  return (3 * kW2Window + kW2Levels * kW2Blocks) * (int)sizeof(T);
+}
+static_assert(kW2Halo % 32 == 0, "the window starts on a 32-row block");
+
+// inclusive prefix and suffix MIN/MAX of v over the warp's lanes
 template <int FN, typename T>
-__global__ void __launch_bounds__(kThreads)
-minmax_tiles(const T* __restrict__ c, int64_t n, T* __restrict__ level0) {
-  __shared__ T part[kThreads / 32];
-  const int64_t start = (int64_t)blockIdx.x * kSpan;
-  T acc = identity<FN, T>();
-  for (int j = threadIdx.x; j < kSpan; j += kThreads) {
-    const int64_t r = start + j;
-    if (r < n) acc = combine<FN, T>(acc, c[r]);
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    acc = combine<FN, T>(acc, __shfl_down_sync(kFull, acc, off));
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) acc = combine<FN, T>(acc, part[w]);
-    level0[blockIdx.x] = acc;
+__device__ __forceinline__ void warp_pre_suf(T v, T& pre, T& suf) {
+  const int lane = threadIdx.x & 31;
+  pre = v;
+  suf = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const T a = __shfl_up_sync(kFull, pre, d);
+    const T b = __shfl_down_sync(kFull, suf, d);
+    if (lane >= d) pre = combine<FN, T>(pre, a);
+    if (lane + d < 32) suf = combine<FN, T>(suf, b);
   }
 }
 
-// Level k from level k - 1: the MIN or MAX of 2^k tiles from each tile.
-template <int FN, typename T>
-__global__ void __launch_bounds__(kThreads)
-minmax_level(const T* __restrict__ prev, T* __restrict__ cur, int64_t ntiles,
-             int64_t half) {
-  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= ntiles) return;
-  cur[t] = t + half < ntiles ? combine<FN, T>(prev[t], prev[t + half])
-                             : prev[t];
-}
-
-template <int FN, typename T>
-__device__ __forceinline__ T walk(const T* __restrict__ c, int64_t from,
-                                  int64_t to, T acc) {
-  for (int64_t j = from; j <= to; ++j) acc = combine<FN, T>(acc, c[j]);
+// MIN/MAX of staged rows [j, k] (local indices): a walk of at most
+// kW2Span - 1 values inside one block, else at most four reads
+template <int FN, typename T, int NB>
+__device__ __forceinline__ T w2_staged(const T* sc, const T* spre,
+                                       const T* ssuf, const T* sp, int j,
+                                       int k) {
+  const int bl = j / kW2Span, bh = k / kW2Span;
+  if (bl == bh) {
+    if (j % kW2Span == 0) return spre[k];
+    if (k % kW2Span == kW2Span - 1) return ssuf[j];
+    T acc = sc[j];
+    for (int x = j + 1; x <= k; ++x) acc = combine<FN, T>(acc, sc[x]);
+    return acc;
+  }
+  T acc = combine<FN, T>(ssuf[j], spre[k]);
+  const int mid = bh - bl - 1;                // whole blocks between
+  if (mid > 0) {
+    const int lev = 31 - __clz(mid);
+    acc = combine<FN, T>(acc, sp[lev * NB + bl + 1]);
+    acc = combine<FN, T>(acc, sp[lev * NB + bh - (1 << lev)]);
+  }
   return acc;
 }
 
+// deferred: [0] the listed tiles, [1] w2_table's finished blocks, then the
+// list. Thread t takes rows t, t + kThreads, ... of the tile.
 template <int FN, typename T>
 __global__ void __launch_bounds__(kThreads)
-minmax_rows(const T* __restrict__ c, const int* __restrict__ lo,
-            const int* __restrict__ hi, int64_t n, const T* __restrict__ table,
-            int64_t ntiles, T* __restrict__ out) {
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t l = lo[i], h = hi[i];
-    T acc = identity<FN, T>();
-    if (h >= l) {
-      const int64_t tl = l / kSpan, th = h / kSpan;
-      if (th - tl <= 1) {
-        acc = walk<FN, T>(c, l, h, acc);
-      } else {
-        acc = walk<FN, T>(c, l, (tl + 1) * kSpan - 1, acc);
-        const int64_t len = th - tl - 1;          // whole tiles between
-        const int k = 63 - __clzll(len);
-        const T* level = table + (int64_t)k * ntiles;
-        acc = combine<FN, T>(acc, level[tl + 1]);
-        acc = combine<FN, T>(acc, level[th - 1 - (1LL << k) + 1]);
-        acc = walk<FN, T>(c, th * kSpan, h, acc);
+w2_rows(const T* __restrict__ c, const int* __restrict__ lo,
+        const int* __restrict__ hi, int64_t n, int* __restrict__ deferred,
+        T* __restrict__ out) {
+  constexpr int WR = kW2Window;
+  constexpr int NB = kW2Blocks;
+  extern __shared__ __align__(16) unsigned char w2_smem_raw[];
+  T* sc = reinterpret_cast<T*>(w2_smem_raw);
+  T* spre = sc + WR;
+  T* ssuf = spre + WR;
+  T* sp = ssuf + WR;                          // kW2Levels levels of NB
+  __shared__ int red[4][kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t t0 = (int64_t)blockIdx.x * kW2Tile;
+  const int cnt = n - t0 < kW2Tile ? (int)(n - t0) : kW2Tile;
+  const int64_t ws = t0 - kW2Halo;            // the window's first row
+  const T none = identity<FN, T>();
+  // the window's rows of c, by cp.async, while lo and hi are read
+  {
+    const int64_t from = ws < 0 ? 0 : ws;
+    const int64_t to = ws + WR < n ? ws + WR : n;
+    fetch<T>(sc + (from - ws), c, from, to);
+    cp_async_commit();
+    for (int j = threadIdx.x; j < WR; j += kThreads)
+      if (ws + j < from || ws + j >= to) sc[j] = none;
+  }
+  int l[kW2Items], h[kW2Items];
+#pragma unroll
+  for (int k = 0; k < kW2Items; ++k) {
+    const int r = k * kThreads + threadIdx.x;
+    l[k] = r < cnt ? lo[t0 + r] : 0;
+    h[k] = r < cnt ? hi[t0 + r] : -1;
+  }
+  // the frames' first and last rows, the most blocks one reaches past its
+  // first, and the longest
+  int mn = INT32_MAX, mx = -1, spans = 0, longest = 0;
+#pragma unroll
+  for (int k = 0; k < kW2Items; ++k)
+    if (h[k] >= l[k]) {
+      mn = min(mn, l[k]);
+      mx = max(mx, h[k]);
+      spans = max(spans, (int)((h[k] - ws) / kW2Span -
+                               (l[k] - ws) / kW2Span));
+      longest = max(longest, h[k] - l[k] + 1);
+    }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    mn = min(mn, __shfl_xor_sync(kFull, mn, d));
+    mx = max(mx, __shfl_xor_sync(kFull, mx, d));
+    spans = max(spans, __shfl_xor_sync(kFull, spans, d));
+    longest = max(longest, __shfl_xor_sync(kFull, longest, d));
+  }
+  if (lane == 0) {
+    red[0][warp] = mn;
+    red[1][warp] = mx;
+    red[2][warp] = spans;
+    red[3][warp] = longest;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    mn = min(mn, red[0][w]);
+    mx = max(mx, red[1][w]);
+    spans = max(spans, red[2][w]);
+    longest = max(longest, red[3][w]);
+  }
+  if (mx < 0) {                               // every frame is empty
+    for (int r = threadIdx.x; r < cnt; r += kThreads) out[t0 + r] = none;
+    return;
+  }
+  if (mn < ws || mx >= ws + WR ||             // for w2_deferred
+      spans > 1 << kW2Levels) {
+    if (threadIdx.x == 0) deferred[2 + atomicAdd(deferred, 1)] = blockIdx.x;
+    return;
+  }
+  if (longest <= kW2Span) {                   // short frames: walk them
+#pragma unroll
+    for (int k = 0; k < kW2Items; ++k) {
+      const int r = k * kThreads + threadIdx.x;
+      if (r < cnt) {
+        T acc = none;
+        for (int x = l[k]; x <= h[k]; ++x)
+          acc = combine<FN, T>(acc, sc[x - ws]);
+        out[t0 + r] = acc;
       }
     }
-    out[i] = acc;
+    return;
+  }
+  // the blocks the frames cover: each block's prefix and suffix by
+  // shuffles inside kW2Span lanes, a warp 32 rows at a time, and its
+  // aggregate
+  const int b0 = (int)(mn - ws) / kW2Span, b1 = (int)(mx - ws) / kW2Span;
+  for (int r = b0 * kW2Span + warp * 32; r < (b1 + 1) * kW2Span;
+       r += kThreads) {
+    const int j = r + lane;
+    T p = j < WR ? sc[j] : none, s = p;
+    const int part = lane % kW2Span;
+#pragma unroll
+    for (int d = 1; d < kW2Span; d <<= 1) {
+      const T x = __shfl_up_sync(kFull, p, d, kW2Span);
+      const T y = __shfl_down_sync(kFull, s, d, kW2Span);
+      if (part >= d) p = combine<FN, T>(p, x);
+      if (part + d < kW2Span) s = combine<FN, T>(s, y);
+    }
+    if (j < WR) {
+      spre[j] = p;
+      ssuf[j] = s;
+      if (part == 0) sp[j / kW2Span] = s;
+    }
+  }
+  __syncthreads();
+  // the levels the frames read: spans - 1 whole blocks at most
+  for (int k = 1; (1 << k) < spans; ++k) {
+    const int half = 1 << (k - 1);
+    for (int q = b0 + threadIdx.x; q + (1 << k) <= b1 + 1; q += kThreads)
+      sp[k * NB + q] = combine<FN, T>(sp[(k - 1) * NB + q],
+                                      sp[(k - 1) * NB + q + half]);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < kW2Items; ++k) {
+    const int r = k * kThreads + threadIdx.x;
+    if (r < cnt)
+      out[t0 + r] = h[k] < l[k]
+                        ? none
+                        : w2_staged<FN, T, NB>(sc, spre, ssuf, sp,
+                                               (int)(l[k] - ws),
+                                               (int)(h[k] - ws));
   }
 }
 
+// The global aggregates of w2_deferred, one table of T
+template <typename T>
+struct W2Table {
+  T* agg;       // each 32-row block's MIN/MAX, 32 a tile
+  T* pre;       // its prefix within its tile (from the tile's first block)
+  T* suf;       // its suffix within its tile
+  T* tagg;      // each tile's, kW2Super a superblock
+  T* tpre;      // its prefix within its superblock
+  T* tsuf;      // its suffix within its superblock
+  T* sp;        // levels x nsuper: the sparse table over superblocks
+  int64_t nsuper;
+  int levels;
+};
+
+// a block a superblock at a time; the last block to finish builds the
+// sparse table's upper levels
+template <int FN, typename T>
+__global__ void __launch_bounds__(kThreads)
+w2_table(const T* __restrict__ c, int64_t n, int* deferred, W2Table<T> t) {
+  constexpr int Q = 32 / (kThreads / 32);    // blocks of a tile a warp
+  if (*(volatile int*)deferred == 0) return;
+  __shared__ T blk[32];
+  __shared__ T tl[kW2Super];
+  __shared__ int last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T none = identity<FN, T>();
+  for (int64_t sb = blockIdx.x; sb < t.nsuper; sb += gridDim.x) {
+    for (int k = 0; k < kW2Super; ++k) {
+      const int64_t tile = sb * kW2Super + k;
+      const int64_t base = tile * kW2Tile;
+      if (base >= n) {
+        if (threadIdx.x == 0) tl[k] = none;
+        continue;
+      }
+      // warp w takes blocks Q * w .. Q * w + Q - 1, a row a lane
+      T v[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int64_t r = base + (warp * Q + q) * 32 + lane;
+        v[q] = r < n ? c[r] : none;
+      }
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        T a = v[q];
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1)
+          a = combine<FN, T>(a, __shfl_xor_sync(kFull, a, d));
+        if (lane == 0) {
+          blk[warp * Q + q] = a;
+          t.agg[tile * 32 + warp * Q + q] = a;
+        }
+      }
+      __syncthreads();
+      if (warp == 0) {
+        T p, s;
+        warp_pre_suf<FN, T>(blk[lane], p, s);
+        t.pre[tile * 32 + lane] = p;
+        t.suf[tile * 32 + lane] = s;
+        if (lane == 31) tl[k] = p;
+      }
+      __syncthreads();
+    }
+    __syncthreads();
+    if (warp == 0) {
+      T p, s;
+      warp_pre_suf<FN, T>(tl[lane], p, s);
+      const int64_t ti = sb * kW2Super + lane;
+      t.tagg[ti] = tl[lane];
+      t.tpre[ti] = p;
+      t.tsuf[ti] = s;
+      if (lane == 31) t.sp[sb] = p;
+    }
+    __syncthreads();
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(deferred + 1, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int k = 1; k < t.levels; ++k) {
+    const int64_t half = 1LL << (k - 1);
+    const T* prev = t.sp + (k - 1) * t.nsuper;
+    T* cur = t.sp + k * t.nsuper;
+    for (int64_t i = threadIdx.x; i + (1LL << k) <= t.nsuper; i += kThreads)
+      cur[i] = combine<FN, T>(__ldcg(prev + i), __ldcg(prev + i + half));
+    __syncthreads();
+  }
+}
+
+// MIN/MAX of p[from .. to], at most 32 values
+template <int FN, typename T>
+__device__ __forceinline__ T w2_walk(const T* __restrict__ p, int64_t from,
+                                     int64_t to) {
+  T acc = identity<FN, T>();
+  for (int64_t x = from; x <= to; ++x) acc = combine<FN, T>(acc, p[x]);
+  return acc;
+}
+
+// MIN/MAX of the whole 32-row blocks b1 .. b2 from the global table: at
+// most 32 block or tile aggregates, or a suffix and a prefix at each level
+// and two reads of the sparse table
+template <int FN, typename T>
+__device__ __forceinline__ T w2_between(const W2Table<T>& t, int64_t b1,
+                                        int64_t b2) {
+  if (b1 > b2) return identity<FN, T>();
+  if ((b1 >> 5) == (b2 >> 5)) return w2_walk<FN, T>(t.agg, b1, b2);
+  T acc = combine<FN, T>(t.suf[b1], t.pre[b2]);
+  const int64_t t1 = (b1 >> 5) + 1, t2 = (b2 >> 5) - 1;   // whole tiles
+  if (t1 > t2) return acc;
+  if ((t1 >> 5) == (t2 >> 5))
+    return combine<FN, T>(acc, w2_walk<FN, T>(t.tagg, t1, t2));
+  acc = combine<FN, T>(acc, combine<FN, T>(t.tsuf[t1], t.tpre[t2]));
+  const int64_t s1 = (t1 >> 5) + 1, s2 = (t2 >> 5) - 1;   // superblocks
+  if (s1 > s2) return acc;
+  const int k = 63 - __clzll(s2 - s1 + 1);
+  const T* level = t.sp + k * t.nsuper;
+  return combine<FN, T>(acc, combine<FN, T>(level[s1],
+                                            level[s2 - (1LL << k) + 1]));
+}
+
+__device__ __forceinline__ long long warp_min_ll(long long x) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) x = min(x, __shfl_xor_sync(kFull, x, d));
+  return x;
+}
+
+__device__ __forceinline__ long long warp_max_ll(long long x) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) x = max(x, __shfl_xor_sync(kFull, x, d));
+  return x;
+}
+
+// For each lane that uses it, MIN/MAX of c from x to the end of x's 32-row
+// block (SUFFIX) or from that block's start to x. Where the using lanes'
+// x fall in at most two blocks, as a warp's consecutive rows' frame ends
+// do, the warp loads those blocks a value a lane and scans them by
+// shuffles; else each lane walks its own (at most 32 values).
+template <int FN, typename T, bool SUFFIX>
+__device__ __forceinline__ T w2_end(const T* __restrict__ c, int64_t n,
+                                    int64_t x, bool use) {
+  const int lane = threadIdx.x & 31;
+  const int64_t b = x >> 5;
+  const long long lo_b = warp_min_ll(use ? b : INT64_MAX);
+  const long long hi_b = warp_max_ll(use ? b : -1);
+  if (hi_b < 0) return identity<FN, T>();
+  if (hi_b - lo_b > 1)
+    return !use ? identity<FN, T>()
+           : SUFFIX ? w2_walk<FN, T>(c, x, (b << 5) + 31)
+                    : w2_walk<FN, T>(c, b << 5, x);
+  const int64_t r0 = ((int64_t)lo_b << 5) + lane, r1 = r0 + 32;
+  T v0 = r0 < n ? c[r0] : identity<FN, T>();
+  T v1 = r1 < n ? c[r1] : identity<FN, T>();
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const T a0 = SUFFIX ? __shfl_down_sync(kFull, v0, d)
+                        : __shfl_up_sync(kFull, v0, d);
+    const T a1 = SUFFIX ? __shfl_down_sync(kFull, v1, d)
+                        : __shfl_up_sync(kFull, v1, d);
+    if (SUFFIX ? lane + d < 32 : lane >= d) {
+      v0 = combine<FN, T>(v0, a0);
+      v1 = combine<FN, T>(v1, a1);
+    }
+  }
+  const T e0 = __shfl_sync(kFull, v0, (int)(x & 31));
+  const T e1 = __shfl_sync(kFull, v1, (int)(x & 31));
+  return b == lo_b ? e0 : e1;
+}
+
+// a warp 32 consecutive rows of each listed tile
+template <int FN, typename T>
+__global__ void __launch_bounds__(kThreads)
+w2_deferred(const T* __restrict__ c, const int* __restrict__ lo,
+            const int* __restrict__ hi, int64_t n,
+            const int* __restrict__ deferred, const W2Table<T> t,
+            T* __restrict__ out) {
+  const int count = deferred[0];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T none = identity<FN, T>();
+  for (int i = blockIdx.x; i < count; i += gridDim.x) {
+    const int64_t t0 = (int64_t)deferred[2 + i] * kW2Tile;
+    const int cnt = n - t0 < kW2Tile ? (int)(n - t0) : kW2Tile;
+    for (int r0 = warp * 32; r0 < cnt; r0 += kThreads) {
+      const int r = r0 + lane;
+      const bool in = r < cnt;
+      const int l = in ? lo[t0 + r] : 0, h = in ? hi[t0 + r] : -1;
+      const bool cross = h >= l && (l >> 5) != (h >> 5);
+      const T left = w2_end<FN, T, true>(c, n, l, cross);
+      const T right = w2_end<FN, T, false>(c, n, h, cross);
+      T acc = none;
+      if (cross)
+        acc = combine<FN, T>(combine<FN, T>(left, right),
+                             w2_between<FN, T>(t, (l >> 5) + 1,
+                                               (h >> 5) - 1));
+      else if (h >= l)
+        acc = w2_walk<FN, T>(c, l, h);
+      if (in) out[t0 + r] = acc;
+    }
+  }
+}
+
+// scratch: 2 + ceil(n / kW2Tile) int32; table: w2 table elements of T
+// (ops/cuda.py frame_minmax)
 template <int FN, typename T>
 cudaError_t launch_frame_minmax(const void* c, const void* lo, const void* hi,
-                                int64_t n, void* table, int64_t ntiles,
-                                int levels, void* out, cudaStream_t s) {
-  T* tab = (T*)table;
-  minmax_tiles<FN, T><<<(unsigned)ntiles, kThreads, 0, s>>>((const T*)c, n,
-                                                            tab);
-  cudaError_t err = cudaGetLastError();
+                                int64_t n, void* scratch, void* table,
+                                int64_t nsuper, int levels, void* out,
+                                cudaStream_t s) {
+  const int64_t ntiles = (n + kW2Tile - 1) / kW2Tile;
+  int* deferred = (int*)scratch;
+  cudaError_t err = cudaMemsetAsync(deferred, 0, 2 * sizeof(int), s);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((ntiles + kThreads - 1) / kThreads);
-  for (int k = 1; k < levels; ++k) {
-    minmax_level<FN, T><<<blocks, kThreads, 0, s>>>(
-        tab + (int64_t)(k - 1) * ntiles, tab + (int64_t)k * ntiles, ntiles,
-        1LL << (k - 1));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+  const int smem = w2_smem<T>();
+  static bool smem_set = false;     // the attribute, once a kernel
+  if (!smem_set) {
+    if ((err = allow_smem(w2_rows<FN, T>, smem)) != cudaSuccess) return err;
+    smem_set = true;
   }
-  minmax_rows<FN, T><<<grid_stride_blocks(n), kThreads, 0, s>>>(
-      (const T*)c, (const int*)lo, (const int*)hi, n, tab, ntiles, (T*)out);
+  w2_rows<FN, T><<<(unsigned)ntiles, kThreads, smem, s>>>(
+      (const T*)c, (const int*)lo, (const int*)hi, n, deferred, (T*)out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  W2Table<T> t;
+  const int64_t blocks = nsuper * kW2Super * 32, tiles = nsuper * kW2Super;
+  t.agg = (T*)table;
+  t.pre = t.agg + blocks;
+  t.suf = t.pre + blocks;
+  t.tagg = t.suf + blocks;
+  t.tpre = t.tagg + tiles;
+  t.tsuf = t.tpre + tiles;
+  t.sp = t.tsuf + tiles;
+  t.nsuper = nsuper;
+  t.levels = levels;
+  w2_table<FN, T><<<grid_stride_blocks(nsuper * kThreads), kThreads, 0,
+                    s>>>((const T*)c, n, deferred, t);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  w2_deferred<FN, T><<<grid_stride_blocks(ntiles * kThreads), kThreads, 0,
+                       s>>>((const T*)c, (const int*)lo, (const int*)hi, n,
+                            deferred, t, (T*)out);
   return cudaGetLastError();
 }
 
@@ -1203,32 +1613,6 @@ struct W4Long {
   __align__(16) uint8_t flag[2][kChunk];
   __align__(16) T v[kCap];                     // the steps' values, then sums
 };
-
-// dst[0, to - from) = src[from, to) by cp.async where whole 16 bytes (from a
-// multiple of 16 / sizeof(T)); nothing where to <= from
-template <typename T>
-__device__ __forceinline__ void fetch(T* dst, const T* __restrict__ src,
-                                      int64_t from, int64_t to) {
-  constexpr int EV = 16 / sizeof(T);
-  if (to <= from) return;
-  const int64_t whole = from + (to - from) / EV * EV;
-  for (int64_t i = from + (int64_t)threadIdx.x * EV; i < whole;
-       i += (int64_t)kThreads * EV) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + (i - from));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src + i));
-  }
-  for (int64_t i = whole + threadIdx.x; i < to; i += kThreads)
-    dst[i - from] = src[i];
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // s after each of the groups x 8 values of v, written over them, in order:
 // one dependent rounded add a value; the next group's loads are issued
@@ -1565,21 +1949,25 @@ int qs_frame_bounds(int mode, int kdtype, const void* start, const void* keys,
   return cudaErrorInvalidValue;
 }
 
-// W2. fn: 2 min, 3 max; c holds the sentinel at dead and NULL rows. table:
-// levels x ntiles values of c's type, ntiles = ceil(n / 1024), levels =
-// floor(log2(ntiles)) + 1. Writes out[n] of c's type, the sentinel where
-// hi < lo.
+// W2. fn: 2 min, 3 max; c holds the sentinel at dead and NULL rows; c,
+// lo and hi start on 16 bytes. scratch: 2 + ceil(n / 1024) int32. table:
+// 3 * 1024 * nsuper + 3 * 32 * nsuper + levels * nsuper values of c's type,
+// nsuper = ceil(n / 32768), levels = floor(log2(nsuper)) + 1 (written only
+// where a frame leaves its tile's staged window). Writes out[n] of c's
+// type, the sentinel where hi < lo. Three launches (and an 8-byte memset).
 int qs_frame_minmax(int fn, int dtype, const void* c, const void* lo,
-                    const void* hi, int64_t n, void* table, int64_t ntiles,
-                    int levels, void* out, void* stream) {
+                    const void* hi, int64_t n, void* scratch, void* table,
+                    int64_t nsuper, int levels, void* out, void* stream) {
   if (n == 0) return cudaSuccess;
+  const int64_t per = (int64_t)kW2Tile * kW2Super;
   if ((fn != kMin && fn != kMax) || n >= INT32_MAX ||
-      ntiles != (n + kSpan - 1) / kSpan || levels < 1 ||
-      (1LL << (levels - 1)) > ntiles)
+      nsuper != (n + per - 1) / per || levels < 1 ||
+      (1LL << (levels - 1)) > nsuper || (2LL << (levels - 1)) <= nsuper)
     return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define W2_LAUNCH(FN, T) \
-  return launch_frame_minmax<FN, T>(c, lo, hi, n, table, ntiles, levels, out, s)
+  return launch_frame_minmax<FN, T>(c, lo, hi, n, scratch, table, nsuper, \
+                                    levels, out, s)
   switch (dtype) {
     case kI32: if (fn == kMin) W2_LAUNCH(kMin, int); W2_LAUNCH(kMax, int);
     case kI64: if (fn == kMin) W2_LAUNCH(kMin, long long); W2_LAUNCH(kMax, long long);

@@ -1034,7 +1034,7 @@ class PlanRunner:
             keys_c = [p_sh[0][i][sl] for i in range(n)]
             alive_c = [p_sh[-1][i][sl] for i in range(n)]
             if lip is not None:
-                alive_c = [B.bloom_probe(lip, [k], a)
+                alive_c = [B.bloom_probe(lip, [k], a, lip_bits)
                            for k, a in zip(keys_c, alive_c)]
             pays = [[col[i][sl] for col in p_sh[:-1]] for i in range(n)]
             p_ex, p_alive, p_over = SH.radix_exchange(

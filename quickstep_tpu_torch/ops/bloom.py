@@ -8,15 +8,17 @@ mode (ops/cuda.py direct_build/direct_probe, csrc/join_kernels.cu), which
 keeps one bit per value in int32 words (value i at bit i % 32 of word
 i // 32: `presence_words`, `presence_bits`); on CPU tensors the plain
 versions, one bool per value. `bloom_build` (:41) and `bloom_probe`
-(:52), the SingleIdentityHashFilter analog over composite keys: one byte
-per slot of a power-of-two table, the slot the low bits of K10's hash. On
-CUDA tensors they run K16 (ops/cuda.py bloom_build/bloom_probe,
-csrc/shuffle_kernels.cu); on CPU tensors the plain versions.
+(:52), the SingleIdentityHashFilter analog over composite keys: a
+power-of-two table, the slot the low bits of K10's hash. On CUDA tensors
+they run K16 (ops/cuda.py bloom_build/bloom_probe,
+csrc/shuffle_kernels.cu), whose table is one bit a slot in the int32 words
+of `presence_words`; on CPU tensors the plain versions, one bool a slot,
+the reference's layout. Either table ORs with another of its size.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -83,8 +85,9 @@ def presence_bits(words: torch.Tensor, domain: int) -> torch.Tensor:
 
 def bloom_build(key_cols: List[torch.Tensor], alive: torch.Tensor,
                 nbits: int) -> torch.Tensor:
-    """One-hash bloom over (composite) keys; nbits a power of two:
-    bool[nbits], set at the slot of each live row."""
+    """One-hash bloom over (composite) keys; nbits a power of two, set at
+    the slot of each live row: bool[nbits] on the CPU, the int32 words of
+    presence_words on CUDA."""
     if alive.device.type == "cpu":
         return bloom_build_plain(key_cols, alive, nbits)
     from quickstep_tpu_torch.ops import cuda
@@ -107,13 +110,18 @@ def bloom_build_plain(key_cols: List[torch.Tensor], alive: torch.Tensor,
 
 
 def bloom_probe(bits: torch.Tensor, key_cols: List[torch.Tensor],
-                alive: torch.Tensor) -> torch.Tensor:
-    """alive & the bit at each row's slot."""
+                alive: torch.Tensor, nbits: Optional[int] = None
+                ) -> torch.Tensor:
+    """alive & the bit at each row's slot, in a table as bloom_build makes
+    it on the same device; nbits (checked against the table where given)
+    names the slots of a table of words."""
     if alive.device.type == "cpu":
+        if nbits is not None and nbits != bits.shape[0]:
+            raise ValueError(f"a table of {bits.shape[0]} slots, not {nbits}")
         return bloom_probe_plain(bits, key_cols, alive)
     from quickstep_tpu_torch.ops import cuda
     return cuda.bloom_probe(bits, [c.contiguous() for c in key_cols],
-                            alive.contiguous())
+                            alive.contiguous(), nbits)
 
 
 def bloom_probe_plain(bits: torch.Tensor, key_cols: List[torch.Tensor],

@@ -174,7 +174,8 @@ def build() -> ctypes.CDLL:
             "qs_window_prefix": [i32, i32, i32, p, p, p, p, i64, p, p, p, p],
             "qs_frame_bounds": [i32, i32, p, p, i64, i64, i64, i32, i32,
                                 p, p, p, p],
-            "qs_frame_minmax": [i32, i32, p, p, p, i64, p, i64, i32, p, p],
+            "qs_frame_minmax": [i32, i32, p, p, p, i64, p, p, i64, i32, p,
+                                p],
             "qs_sliding_sum": [i32, p, p, p, p, i64, p, p, p],
             "qs_add_chain": [i32, p, i64, p, p],
             "qs_hash_keys": [i32, p, p, i64, p, i32, p],
@@ -1059,7 +1060,8 @@ def stable_partition(mask: torch.Tensor, limit: Optional[int] = None,
 # ---------------------------------------------------------------------
 _WIN_TILE = 256 * 16            # kTile in csrc/window_kernels.cu (W3)
 _W1_TILE = 256 * 8              # kW1Tile in csrc/window_kernels.cu
-_WIN_SPAN = 1024                # kSpan in csrc/window_kernels.cu
+_W2_TILE = 1024                 # kW2Tile in csrc/window_kernels.cu
+_W2_SUPER = 32                  # kW2Super: tiles a superblock
 _W4_TILE = 1024                 # kW4Tile in csrc/window_kernels.cu
 
 
@@ -1158,7 +1160,10 @@ def frame_minmax(fn: str, c: torch.Tensor, lo: torch.Tensor,
                  hi: torch.Tensor) -> torch.Tensor:
     """W2: for each row i the MIN (fn == min) or MAX of c over rows
     [lo[i], hi[i]], and the sentinel (the dtype's max for MIN, its min for
-    MAX) where hi < lo. c holds the sentinel at dead and NULL rows."""
+    MAX) where hi < lo. c holds the sentinel at dead and NULL rows. Three
+    launches, counted as one: the tiles whose frames fit their staged
+    window, then (only where some tile's do not, decided on the device) the
+    table of 32-row, tile and superblock aggregates and those tiles."""
     if fn not in ("min", "max"):
         raise ValueError(f"frame_minmax takes min or max, not {fn!r}")
     device = _cuda_device(c, "c")
@@ -1171,12 +1176,19 @@ def frame_minmax(fn: str, c: torch.Tensor, lo: torch.Tensor,
     out = torch.empty(n, dtype=c.dtype, device=device)
     if n == 0:
         return out
-    ntiles = -(-n // _WIN_SPAN)
-    levels = ntiles.bit_length()
-    table = torch.empty(levels * ntiles, dtype=c.dtype, device=device)
-    err = lib.qs_frame_minmax(_FN[fn], _DTYPE[c.dtype], _ptr(c), _ptr(lo),
-                              _ptr(hi), n, _ptr(table), ntiles, levels,
-                              _ptr(out), _stream(device))
+    ntiles = -(-n // _W2_TILE)
+    nsuper = -(-ntiles // _W2_SUPER)
+    levels = nsuper.bit_length()
+    scratch = torch.empty(2 + ntiles, dtype=torch.int32, device=device)
+    per_super = 3 * _W2_SUPER * 32 + 3 * _W2_SUPER + levels
+    table = torch.empty(nsuper * per_super, dtype=c.dtype, device=device)
+    # the kernel reads by 16-byte vectors; copies stay referenced here
+    # until the launch is queued
+    ins = [_aligned16(t) for t in (c, lo, hi)]
+    err = lib.qs_frame_minmax(_FN[fn], _DTYPE[c.dtype],
+                              *[_ptr(t) for t in ins], n, _ptr(scratch),
+                              _ptr(table), nsuper, levels, _ptr(out),
+                              _stream(device))
     _check(lib, err, "frame_minmax")
     LAUNCHES["frame_minmax"] += 1
     return out
@@ -1654,10 +1666,17 @@ def _check_nbits(nbits: int) -> None:
         raise ValueError(f"bloom filter of {nbits} slots: not a power of two")
 
 
+def bloom_words(nbits: int) -> int:
+    """int32 words of a K16 table of nbits slots: a bit a slot."""
+    return -(-nbits // 32)
+
+
 def bloom_build(cols: List[torch.Tensor], alive: torch.Tensor,
                 nbits: int) -> torch.Tensor:
-    """K16 build: bool[nbits] with a 1 at the slot of each live row, the
-    hash of its key columns (K10's) & (nbits - 1)."""
+    """K16 build: the int32 words of an nbits-slot table (slot s at bit
+    s % 32 of word s // 32, ops/bloom.py presence_words), with a 1 at the
+    slot of each live row, the hash of its key columns (K10's) &
+    (nbits - 1)."""
     device = _cuda_device(alive, "alive")
     n = int(alive.shape[0]) if alive.dim() == 1 else -1
     _require(alive, "alive", device, n, (torch.bool,))
@@ -1665,26 +1684,30 @@ def bloom_build(cols: List[torch.Tensor], alive: torch.Tensor,
     _check_nbits(nbits)
     lib = build()
     if n == 0:
-        return torch.zeros(nbits, dtype=torch.bool, device=device)
-    bits = torch.empty(nbits, dtype=torch.bool, device=device)
+        return torch.zeros(bloom_words(nbits), dtype=torch.int32,
+                           device=device)
+    words = torch.empty(bloom_words(nbits), dtype=torch.int32, device=device)
     err = lib.qs_bloom_build(len(cols), ctypes.cast(ptrs, ctypes.c_void_p),
                              ctypes.cast(codes, ctypes.c_void_p), _ptr(alive),
-                             n, _ptr(bits), nbits, _blocks(n, device),
+                             n, _ptr(words), nbits, _blocks(n, device),
                              _stream(device))
     _check(lib, err, "bloom_build")
     LAUNCHES["bloom_filter"] += 1
-    return bits
+    return words
 
 
-def bloom_probe(bits: torch.Tensor, cols: List[torch.Tensor],
-                alive: torch.Tensor) -> torch.Tensor:
-    """K16 probe: alive & bits[the slot of each row's key columns]."""
+def bloom_probe(words: torch.Tensor, cols: List[torch.Tensor],
+                alive: torch.Tensor, nbits: Optional[int] = None
+                ) -> torch.Tensor:
+    """K16 probe: alive & the bit of each row's slot in the words of an
+    nbits-slot table (32 x its words where None)."""
     device = _cuda_device(alive, "alive")
     n = int(alive.shape[0]) if alive.dim() == 1 else -1
     _require(alive, "alive", device, n, (torch.bool,))
-    nbits = int(bits.shape[0]) if bits.dim() == 1 else -1
-    _require(bits, "bits", device, nbits, (torch.bool,))
+    if nbits is None:
+        nbits = 32 * int(words.shape[0]) if words.dim() == 1 else -1
     _check_nbits(nbits)
+    _require(words, "words", device, bloom_words(nbits), (torch.int32,))
     ptrs, codes = _key_arrays(cols, device, n, tuple(_KEY_DTYPE))
     lib = build()
     out = torch.empty(n, dtype=torch.bool, device=device)
@@ -1692,7 +1715,7 @@ def bloom_probe(bits: torch.Tensor, cols: List[torch.Tensor],
         return out
     err = lib.qs_bloom_probe(len(cols), ctypes.cast(ptrs, ctypes.c_void_p),
                              ctypes.cast(codes, ctypes.c_void_p), _ptr(alive),
-                             n, _ptr(bits), nbits, _ptr(out),
+                             n, _ptr(words), nbits, _ptr(out),
                              _blocks(n, device), _stream(device))
     _check(lib, err, "bloom_probe")
     LAUNCHES["bloom_filter"] += 1

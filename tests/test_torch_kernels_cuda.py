@@ -1824,9 +1824,11 @@ def test_bloom_kernels_match_plain(card, ncols):
     balive = torch.from_numpy(rng.random(50_000) < 0.7).to(card)
     palive = torch.from_numpy(rng.random(200_003) < 0.9).to(card)
     for nbits in (1024, 1 << 22):
-        bits = TB.bloom_build(build, balive, nbits)
-        _same(bits, TB.bloom_build_plain(build, balive, nbits), 0.0)
-        _same(TB.bloom_probe(bits, probe, palive),
+        # on the card the table is K16's int32 words, a bit a slot
+        words = TB.bloom_build(build, balive, nbits)
+        bits = TB.bloom_build_plain(build, balive, nbits)
+        _same(TB.presence_bits(words, nbits), bits, 0.0)
+        _same(TB.bloom_probe(words, probe, palive, nbits),
               TB.bloom_probe_plain(bits, probe, palive), 0.0)
 
 

@@ -154,10 +154,13 @@ def test_bloom_filter_matches_reference(ncols):
         bits = TB.bloom_build([torch.from_numpy(c) for c in build],
                               torch.from_numpy(balive), nbits)
         np.testing.assert_array_equal(bits.numpy(), np.asarray(want_bits))
+        # the table's words (K16's layout on the card) hold the same bits
+        assert torch.equal(TB.presence_bits(TB.presence_words(bits), nbits),
+                           bits)
         want = JB.bloom_probe(want_bits, [jnp.asarray(c) for c in probe],
                               jnp.asarray(palive))
         got = TB.bloom_probe(bits, [torch.from_numpy(c) for c in probe],
-                             torch.from_numpy(palive))
+                             torch.from_numpy(palive), nbits)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
