@@ -18,7 +18,7 @@ Q3, Q5, Q9, Q10 and Q18 take the shuffle join (K14-K16) and Q9 the
 two-phase GROUP BY, against the same oracle, with a census of K16's
 launches on both meshes (rows and slots of each build and probe); and the
 distributed aggregate-join step runs at 7.5 M rows per shard over 8 shards
-against a plain computation. W2 and K16 are also checked to make no host
+against a plain computation. W2, K14, K15 and K16 are also checked to make no host
 sync (the card's sync debug mode set to raise).
 
     python3 chip_smoke.py
@@ -60,6 +60,9 @@ N_SHARD_ROWS = 7_500_000       # one of 8 row shards of lineitem at SF10
 # K16's probe of one lineitem shard's slice on the SF10 mesh (two slices
 # a shard, Config.shuffle_overlap_chunks)
 N_K16_SLICE = N_SHARD_ROWS // 2
+# the shuffle census's median probe slice on the SF10 mesh (profile_slice
+# --shuffle-census): K14's and K15's most common size
+N_MEDIAN_SLICE = 1_584_384
 MESH_SHARDS = 8
 # the SF0.01 mesh's replicate threshold: lineitem, orders, partsupp and
 # part shard, the other tables replicate (tests/test_distributed.py:22)
@@ -279,7 +282,8 @@ def phase_kernels(G):
              library=None, atol=None, plain_reps=REPS, bound_bytes=None,
              decode=None, check=None, nan_equal=False):
         """bound_bytes (or, for the main case, the bytes of inputs and
-        outputs) gives the case its bound; library only the main case.
+        outputs) gives the case its bound; library its PyTorch call's time
+        (the main case's goes into the JSON line).
         check maps both outputs to what is compared, outside the times;
         nan_equal as compare takes it."""
         got, want = k_fn(), p_fn()
@@ -298,7 +302,7 @@ def phase_kernels(G):
         if bound_bytes is not None:
             row["bound_ms"] = bound_bytes / HBM_BYTES_PER_S * 1e3
             extra = f"  bound {row['bound_ms']:.3f} ms"
-        if main:
+        if main or library is not None:
             row["library_ms"] = None if library is None else cuda_ms(library)
             extra += "" if library is None else \
                 f"  library {row['library_ms']:.3f} ms"
@@ -347,12 +351,16 @@ def phase_kernels(G):
                 occ, [(d, nn)] = G.dense_groupby_plain(idx, domain,
                                                        [(fn, v, vv)], alive)
                 return occ, d, nn
-            # the single int64 SUM of the kernel table's first row, with its
-            # bound
-            single = domain == 6 and fn == "sum" and v.dtype == torch.int64
+            # the single int64 SUM of the kernel table's K2 rows, with its
+            # bound; at domain 128 also one index_add_ of it
+            single = fn == "sum" and v is not None and \
+                v.dtype == torch.int64 and vv is None
             case("dense_groupby", label, k, p,
                  bound_bytes=(nbytes((idx, v, alive)) + 13 * domain)
-                 if single else None)
+                 if single else None,
+                 library=(lambda idx=idx, v=v, domain=domain: torch.zeros(
+                     domain + 1, dtype=torch.int64, device=dev).index_add_(
+                         0, idx, v)) if single and domain == 128 else None)
         for dt in (torch.float64, torch.float32):
             runs = [G.dense_groupby(idx, domain, [("sum", vals[dt], valid)],
                                     alive)[1][0][0] for _ in range(2)]
@@ -1050,7 +1058,8 @@ def phase_window_kernels(case, dev):
     case("frame_minmax", "MIN f64, ROWS 1/1, 15M orders",
          lambda: (W.frame_minmax("min", cmin, lo, hi),),
          lambda: (W.frame_minmax_plain("min", cmin, lo, hi),),
-         atol=0, nan_equal=True)
+         atol=0, nan_equal=True,
+         bound_bytes=nbytes((cmin, lo, hi)) + 8 * m)
     del lines, seg, every, lm, lo, hi, cmin
     torch.cuda.empty_cache()
 
@@ -1363,9 +1372,12 @@ def phase_shuffle_kernels(case, dev):
     """K14-K16 against their plain versions at the mesh path's SF10 shapes:
     the radix partition of one lineitem shard (N_SHARD_ROWS int64 keys, 95 %
     live) into MESH_SHARDS buckets of twice the mean share, a salted build
-    side and buckets that overflow; the scatter of those row ids into the
-    buckets; a bloom filter of 2^22 slots built over N_BUILD_ROWS orders
-    keys and probed by N_KERNEL_ROWS lineitem keys."""
+    side, buckets that overflow and the shuffle census's median probe
+    slice; K15's bucket route on those destinations and counts (the main
+    case: the gather index and occupied mask of every slot) and its
+    generic scatter of row ids into the buckets; a bloom filter of 2^22
+    slots built over N_BUILD_ROWS orders keys and probed by N_KERNEL_ROWS
+    lineitem keys."""
     from quickstep_tpu_torch.ops import bloom as B, kernels as K
     from quickstep_tpu_torch.parallel import shuffle as SH
     n, parts = N_SHARD_ROWS, MESH_SHARDS
@@ -1381,25 +1393,42 @@ def phase_shuffle_kernels(case, dev):
     case("partition_dest", "build side, salt 4",
          lambda: SH.partition_dest(key, alive, parts, 4 * cap, 4, False),
          lambda: SH.partition_dest_plain(key, alive, parts, 4 * cap, 4,
-                                         False), plain_reps=2)
+                                         False), plain_reps=2,
+         bound_bytes=nbytes((key, alive)) + 4 * 4 * n)
     small = n // parts * 9 // 10
     case("partition_dest", "buckets that overflow",
-         lambda: SH.partition_dest(key, alive, parts, small),
-         lambda: SH.partition_dest_plain(key, alive, parts, small),
-         plain_reps=2)
+         lambda: SH.partition_dest(key, alive, parts, small, with_counts=True),
+         lambda: SH.partition_dest_plain(key, alive, parts, small,
+                                         with_counts=True), plain_reps=2)
     if not bool(SH.partition_dest(key, alive, parts, small)[1]):
         raise AssertionError("partition_dest: no overflow past the buckets")
-    dest, _ = SH.partition_dest(key, alive, parts, cap)
-    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    # the shuffle census's median probe slice, at an odd offset
+    m = N_MEDIAN_SLICE
+    k, a = key[1:m + 1], alive[1:m + 1]
+    case("partition_dest", "census median slice",
+         lambda: SH.partition_dest(k, a, parts, 2 * m // parts,
+                                   with_counts=True),
+         lambda: SH.partition_dest_plain(k, a, parts, 2 * m // parts,
+                                         with_counts=True), plain_reps=3,
+         bound_bytes=nbytes((k, a)) + 4 * m)
+    dest, _, counts = SH.partition_dest(key, alive, parts, cap,
+                                        with_counts=True)
     slots = parts * cap
-    dest64 = dest.long()
-    case("scatter_compact", "7.5M row ids into 8 buckets",
+    # K15's route: dest read once, each slot's index and flag written once
+    case("scatter_compact", "bucket route, 8 buckets",
+         lambda: SH.bucket_rows(dest, counts, n, cap),
+         lambda: SH.bucket_rows_plain(dest, counts, n, cap), main=True,
+         bound_bytes=nbytes((dest, counts)) + 5 * slots)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    case("scatter_compact", "generic, 7.5M row ids",
          lambda: (K.scatter_compact(rows, dest, slots, fill=-1),),
          lambda: (K.scatter_compact_plain(rows, dest, slots, fill=-1),),
-         main=True, inputs=(rows, dest),
-         library=lambda: torch.full((slots + 1,), -1, dtype=torch.int32,
-                                    device=dev).index_copy_(0, dest64, rows))
-    del key, alive, dest, dest64, rows
+         bound_bytes=nbytes((rows, dest)) + 4 * slots)
+    no_host_sync("K14, K15", lambda: [
+        SH.bucket_rows(*SH.partition_dest(key, alive, parts, c, salt, side,
+                                          with_counts=True)[::2], n, c)
+        for c, salt, side in ((cap, 1, True), (4 * cap, 4, False))])
+    del key, alive, dest, counts, rows, k, a
 
     # K16: the table is one bit a slot in int32 words on the card, read
     # back as the plain version's bools

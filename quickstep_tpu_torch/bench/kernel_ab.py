@@ -1,4 +1,4 @@
-"""K2-K13, W1, W3 and W4 at chip_smoke.py's SF10 shapes, timed in the
+"""K2-K16, W1-W4 at chip_smoke.py's SF10 shapes, timed in the
 checkout it runs from, so that two checkouts can be compared on one card in
 one call: run this file from each checkout's root in turn, parent, change,
 change, parent, parent, change. It uses only the public functions both
@@ -7,7 +7,8 @@ merge_unique_probe, expand_probe and merge_cmp_probe, ops/cuda.py
 sorted_probe and segment_reduce, ops/bloom.py exact_filter_build,
 ops/kernels.py multi_gather (with random=True where the checkout takes
 it), ops/groupby.py distinct_count, ops/sort.py order_permutation and
-ops/window.py frame_bounds and sliding_sums. Its
+ops/window.py frame_bounds and sliding_sums, parallel/shuffle.py
+partition_dest and radix_bucket. Its
 input makers, segment_inputs and unique_probe_inputs, also feed
 chip_smoke.py and the card tests.
 
@@ -111,6 +112,14 @@ Cases, each timed by CUDA events (median of 10 runs after one warm-up):
   (K16_MESH_ROWS), each a slice at an odd offset, by events and by the
   profiler's device time (_device_ms); the same into 2^20 and 2^19 slots
   (_2e20, _2e19: tables that L1 mostly holds), with splits.
+- k14 and k15 (PR 15): k14_<shape>: parallel/shuffle.py partition_dest at
+  k14_inputs' shapes (the smoke's: 7.5 M int64 keys, 95 % live, 8 buckets
+  of twice the mean share, "main"; its salt-4 build side, "salt4"; buckets
+  that overflow; the shuffle census's median slice of 1,584,384 rows, at
+  an odd offset, "median"); k15_bucket_<shape>: radix_bucket (K14, K15's
+  scatter, K6's gather of the key, an int32 and a float64 column, the
+  masking) at the same shapes; each by events, with its split and its
+  device ms (the split's sum).
 Prints one JSON object with the times, the checkout's root and the card's
 name and power limit. It needs a CUDA card.
 
@@ -544,6 +553,61 @@ def k16_cases(dev, gen) -> dict:
     return out
 
 
+N_SHARD_ROWS = 7_500_000       # one of 8 row shards of lineitem at SF10
+MESH_SHARDS = 8
+# the shuffle census's median probe slice (profile_slice --shuffle-census)
+N_MEDIAN_SLICE = 1_584_384
+
+
+def k14_inputs(dev, gen):
+    """The smoke's mesh shard: (N_SHARD_ROWS int64 keys, 95 % live; the
+    shapes as (name, n rows of them, n_parts, cap, salt, probe_side)):
+    "main" into MESH_SHARDS buckets of twice the mean share, "salt4" the
+    salt-4 build side, "overflow" buckets a tenth short of the mean
+    share, "median" the census's median slice (at an odd offset)."""
+    n, parts = N_SHARD_ROWS, MESH_SHARDS
+    key = torch.randint(1, 4 * N_ORDERS, (n + 1,), device=dev, generator=gen)
+    alive = torch.rand(n + 1, device=dev, generator=gen) < 0.95
+    cap = 2 * n // parts
+    m = N_MEDIAN_SLICE
+    return key, alive, (("main", n, parts, cap, 1, True),
+                        ("salt4", n, parts, 4 * cap, 4, False),
+                        ("overflow", n, parts, n // parts * 9 // 10, 1, True),
+                        ("median", m, parts, 2 * m // parts, 1, True))
+
+
+def k14k15_cases(dev, gen) -> dict:
+    """K14 (shuffle.py partition_dest) and the shuffle's bucket step
+    (shuffle.py radix_bucket: K14, K15's scatter, K6's gather) at each of
+    k14_inputs' shapes, by events and by device time with its split; K15's
+    own kernels are in the radix_bucket splits. The payload is the key, an
+    int32 and a float64 column."""
+    from quickstep_tpu_torch.parallel import shuffle as SH
+    out = {}
+    key, alive, shapes = k14_inputs(dev, gen)
+    i32 = torch.randint(0, 2 ** 31 - 1, key.shape, device=dev, generator=gen,
+                        dtype=torch.int32)
+    f64 = torch.rand(key.shape, device=dev, generator=gen,
+                     dtype=torch.float64)
+    for name, n, parts, cap, salt, probe in shapes:
+        off = 1 if name == "median" else 0
+        k, a = key[off:off + n], alive[off:off + n]
+        cols = [k, i32[off:off + n], f64[off:off + n]]
+
+        def k14(k=k, a=a, parts=parts, cap=cap, salt=salt, probe=probe):
+            return SH.partition_dest(k, a, parts, cap, salt, probe)
+
+        def bucket(k=k, a=a, cols=cols, parts=parts, cap=cap, salt=salt,
+                   probe=probe):
+            return SH.radix_bucket(k, cols, a, parts, cap, salt, probe)
+        for tag, fn in (("k14", k14), ("k15_bucket", bucket)):
+            out[f"{tag}_{name}_ms"] = _ms(fn)
+            split = kernel_split(fn)
+            out[f"{tag}_{name}_split"] = split
+            out[f"{tag}_{name}_device_ms"] = sum(split.values())
+    return out
+
+
 N_COMPACT_LIVE = 3_500_000     # compact_60m's live rows
 COMPACT_TARGET = 1 << 22
 
@@ -658,7 +722,7 @@ def main() -> None:
     groups = ((("k9", "k2", "compact"), k9k2_cases),
               (("k11",), k11_cases), (("w1",), w1_cases),
               (("w3", "w4"), w3w4_cases), (("w2",), w2_cases),
-              (("k16",), k16_cases),
+              (("k16",), k16_cases), (("k14", "k15"), k14k15_cases),
               (("k3", "k4", "k5", "k6", "k7", "k8", "k12", "k13"),
                earlier_cases))
     for names, cases in groups:

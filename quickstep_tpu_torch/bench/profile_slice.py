@@ -4,6 +4,7 @@ device memory.
 
     python -m quickstep_tpu_torch.bench.profile_slice [--scale 10] [--runs 5]
         [--queries 6,1] [--trace-dir DIR] [--mesh-shards N] [--compactions]
+        [--shuffle-census]
 
 --queries takes TPC-H query numbers and the names of bench/tpch_fullgen.py's
 WINDOW_QUERIES (w1 to w6) and OPERATOR_QUERIES (o1 to o5). Q1 and Q6 alone run on lineitem's 7 columns from
@@ -24,6 +25,11 @@ the card (Config.distributed), where the large joins shuffle.
 With --compactions it profiles nothing: it runs each query cold, then once
 warm, and prints each call of `PlanRunner._compact_chunk` in the warm run
 (the chunk's capacity, the target it was given and the capacity it left).
+With --shuffle-census (on a mesh: --mesh-shards) it first runs each query
+cold, then once warm, and prints the K14 calls of the warm run
+(parallel/shuffle.py partition_dest: the rows of each, its partitions,
+salt and side), then the medians over all the queries' calls, which are
+K14's and K15's most common shapes; then it profiles as above.
 """
 
 from __future__ import annotations
@@ -151,6 +157,56 @@ def compaction_census(db, queries):
         PlanRunner._compact_chunk = real
 
 
+def shuffle_census(db, queries):
+    """Each query cold, then warm with shuffle.partition_dest watched:
+    prints its calls in the warm run and the medians over all of them."""
+    from quickstep_tpu_torch.parallel import shuffle as SH
+    real = SH.partition_dest
+    calls = []
+
+    def watched(key, alive, n_parts, cap, salt=1, probe_side=True,
+                with_counts=False):
+        rows = int(alive.shape[0])
+        calls.append((rows, n_parts, salt, probe_side,
+                      rows * (salt if salt > 1 and not probe_side else 1)))
+        return real(key, alive, n_parts, cap, salt, probe_side, with_counts)
+    SH.partition_dest = watched
+    every = []
+    try:
+        for q in queries:
+            sql = NAMED_QUERIES[q] if isinstance(q, str) else TPCH_QUERIES[q]
+            label = q.upper() if isinstance(q, str) else f"Q{q}"
+            db.execute(sql)
+            calls.clear()
+            db.execute(sql)
+            every += calls
+            probe = [c[0] for c in calls if c[3]]
+            build = [c[0] for c in calls if not c[3]]
+            print(f"{label}: K14 calls {len(calls)} (probe {len(probe)}, "
+                  f"build {len(build)}); partitions "
+                  f"{sorted({c[1] for c in calls})}, salts "
+                  f"{sorted({c[2] for c in calls})}; probe rows "
+                  f"{sorted(probe)}; build rows {sorted(build)}", flush=True)
+    finally:
+        SH.partition_dest = real
+    if not every:
+        print("shuffle census: no K14 call (no mesh, or no shuffle join)",
+              flush=True)
+        return
+
+    def med(xs):
+        return statistics.median(xs) if xs else None
+    probe = [c[0] for c in every if c[3]]
+    build = [c[0] for c in every if not c[3]]
+    print(f"shuffle census: {len(every)} K14 calls; median rows "
+          f"{med([c[0] for c in every])} (probe {med(probe)} of "
+          f"{len(probe)}, build {med(build)} of {len(build)}); median "
+          f"destinations (K15's rows) {med([c[4] for c in every])}; median "
+          f"partitions {med([c[1] for c in every])}; salts "
+          f"{sorted({c[2] for c in every})}; under 1 M rows "
+          f"{sum(c[0] < 1_000_000 for c in every)}", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -163,6 +219,8 @@ def main(argv=None):
     ap.add_argument("--mesh-shards", type=int, default=None)
     ap.add_argument("--compactions", action="store_true",
                     help="print each query's compactions; no profile")
+    ap.add_argument("--shuffle-census", action="store_true",
+                    help="print each query's K14 calls before the profile")
     args = ap.parse_args(argv)
     queries = [q if q in NAMED_QUERIES else int(q)
                for q in args.queries.split(",")]
@@ -185,6 +243,8 @@ def main(argv=None):
         if args.compactions:
             compaction_census(db, queries)
             return
+        if args.shuffle_census:
+            shuffle_census(db, queries)
         for q in queries:
             profile_query(db, q, args.runs, args.trace_dir)
     finally:

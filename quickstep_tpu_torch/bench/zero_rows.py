@@ -146,14 +146,20 @@ def zero_row_cases(dev) -> Dict[str, Case]:
                                                b),)),
         "partition_dest": (
             lambda: (*SH.partition_dest(i64, b, 8, 4),
-                     *SH.partition_dest(i32, b, 8, 4, 2, False)),
+                     *SH.partition_dest(i32, b, 8, 4, 2, False,
+                                        with_counts=True)),
             lambda: (*SH.partition_dest_plain(i64, b, 8, 4),
-                     *SH.partition_dest_plain(i32, b, 8, 4, 2, False))),
+                     *SH.partition_dest_plain(i32, b, 8, 4, 2, False,
+                                              with_counts=True))),
+        # the generic route and the shuffle's bucket route
         "scatter_compact": (
             lambda: (K.scatter_compact(f64, i32, 6, fill=-1),
-                     K.scatter_compact(b, i64, 3)),
+                     K.scatter_compact(b, i64, 3),
+                     *SH.bucket_rows(i32, i32[:0].new_zeros(8), 0, 4)),
             lambda: (K.scatter_compact_plain(f64, i32, 6, fill=-1),
-                     K.scatter_compact_plain(b, i64, 3))),
+                     K.scatter_compact_plain(b, i64, 3),
+                     *SH.bucket_rows_plain(i32, i32[:0].new_zeros(8), 0,
+                                           4))),
         "bloom_filter": (
             lambda: _bloom(B.bloom_build, B.bloom_probe, i64, i32, b,
                            sized=True),

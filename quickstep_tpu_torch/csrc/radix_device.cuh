@@ -121,18 +121,21 @@ plan_kernel(const unsigned long long* __restrict__ hist, int passes,
 // from one ballot per digit bit and one for the rows past n; the lowest
 // peer adds the peers to the warp's count of the digit and hands the old
 // count on. The rounds' peers first, then their atomics back to back, then
-// the ranks: no round waits on the one before.
-template <int N>
+// the ranks: no round waits on the one before. kBits and limit serve
+// digits of fewer bits (K14's bins): every dg[j] fits kBits bits, and only
+// digits below limit are counted.
+template <int N, int kBits = 9>
 __device__ __forceinline__ void warp_ranks(const unsigned (&dg)[N],
                                            unsigned* warp_count, int lane,
-                                           unsigned (&rank)[N]) {
+                                           unsigned (&rank)[N],
+                                           unsigned limit = kBins) {
   const unsigned lower = (1u << lane) - 1u;
   unsigned peers[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     peers[j] = 0xffffffffu;
 #pragma unroll
-    for (int bit = 0; bit < 9; ++bit) {
+    for (int bit = 0; bit < kBits; ++bit) {
       const bool set = (dg[j] >> bit) & 1u;
       const unsigned vote = __ballot_sync(0xffffffffu, set);
       peers[j] &= set ? vote : ~vote;
@@ -141,7 +144,7 @@ __device__ __forceinline__ void warp_ranks(const unsigned (&dg)[N],
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     rank[j] = 0;
-    if (lane == __ffs(peers[j]) - 1 && dg[j] < kBins)
+    if (lane == __ffs(peers[j]) - 1 && dg[j] < limit)
       rank[j] = atomicAdd(&warp_count[dg[j]], (unsigned)__popc(peers[j]));
   }
 #pragma unroll
@@ -155,10 +158,12 @@ __device__ __forceinline__ void warp_ranks(const unsigned (&dg)[N],
 // prefix; a word not yet published starts the next window there, after a
 // pause that doubles while it waits, so that waiting tiles do not crowd the
 // L2 with reads. A word's tag (above its count) names the pass that wrote
-// it, so a word of an earlier pass reads as not yet published.
+// it, so a word of an earlier pass reads as not yet published. A tile's
+// words lie `stride` apart (kBins: a word for every digit).
 __device__ __forceinline__ long long look_back(
     const unsigned long long* status, int tile, int b,
-    unsigned long long agg_tag, unsigned long long pre_tag) {
+    unsigned long long agg_tag, unsigned long long pre_tag,
+    int64_t stride = kBins) {
   long long before_tile = 0;
   unsigned pause = 32;
   for (int t = tile - 1;;) {
@@ -166,7 +171,7 @@ __device__ __forceinline__ long long look_back(
 #pragma unroll
     for (int i = 0; i < kLookBack; ++i)
       w[i] = t - i >= 0 ? *(volatile const unsigned long long*)(
-                              status + (int64_t)(t - i) * kBins + b)
+                              status + (int64_t)(t - i) * stride + b)
                         : 0ull;
     int i = 0;
     bool done = false;

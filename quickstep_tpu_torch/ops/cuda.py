@@ -46,7 +46,8 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # counted or flagged), K13 order_permutation (one call: the whole chain of
 # key-value sorts), and
 # the mesh path's K14 partition_dest (the radix partition), K15
-# scatter_compact (the bucket scatter) and K16 bloom_filter (its build and
+# scatter_compact (the bucket scatter: its generic route and the shuffle's
+# bucket_rows) and K16 bloom_filter (its build and
 # probe). K6's two routes count apart: multi_gather is the direct route,
 # multi_gather_packed the row-packed one; and K12's radix sort counts as
 # distinct_sort. K8 and K13 run the key-value radix sort inside their one
@@ -152,6 +153,7 @@ def build() -> ctypes.CDLL:
             BUILD_SECONDS = time.perf_counter() - t0
         lib = ctypes.CDLL(str(lib_path))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        u64, u32 = ctypes.c_uint64, ctypes.c_uint
         signatures = {
             "qs_masked_reduce": [i32, i32, p, p, p, i64, p, p, i32, p, p, p],
             "qs_dense_aggregate": [p, i32, i32, i32, p],
@@ -190,12 +192,16 @@ def build() -> ctypes.CDLL:
             "qs_kv_sort": [i32, p, p, i64, p, p, p, p, p, i32, i32, p],
             "qs_order_permutation": [i32, p, p, p, p, p, p, i64, p, p, p, p,
                                      p, i32, i32, p],
-            "qs_partition_count": [p, i32, p, i64, i32, i32, i32, i64, i32, p,
+            "qs_partition_sweep": [p, i32, p, i32, i32, u64, u32, u32, u64,
+                                   i64, i32, p, p, p, p, u64, u32, p],
+            "qs_partition_count": [p, i32, p, i32, i32, u64, u32, u32, u64,
+                                   i64, i32, p, p],
+            "qs_partition_dest": [p, i32, p, i32, i32, u64, u32, u32, u64,
+                                  i64, i32, p, i32, p, p, p, p],
+            "qs_bucket_rows": [p, i64, i32, u32, u64, i32, i32, u64, p, p,
+                               p, i32, p],
+            "qs_scatter_compact": [i32, p, p, i32, i64, i64, u64, p, i32,
                                    p],
-            "qs_partition_dest": [p, i32, p, i64, i32, i32, i32, i64, i32, p,
-                                  i32, p, p, p],
-            "qs_scatter_compact": [i32, p, p, i32, i64, i64,
-                                   ctypes.c_uint64, p, i32, p],
             "qs_bloom_build": [i32, p, p, p, i64, p, i64, i32, p],
             "qs_bloom_probe": [i32, p, p, p, i64, p, i64, p, i32, p],
         }
@@ -1579,16 +1585,82 @@ def order_permutation(keys: List[torch.Tensor],
 # ---------------------------------------------------------------------
 _PART_TILE = 256 * 16           # kTile in csrc/shuffle_kernels.cu
 MAX_PARTS = 1024                # kMaxParts in csrc/shuffle_kernels.cu
+SWEEP_PARTS = 255               # kSweepParts: K14's one-launch route
+
+
+def reciprocal(d: int) -> int:
+    """ceil(2^64 / d), with which csrc/shuffle_kernels.cu divides by d
+    with no divide instruction (its Divisor); 0 for d = 1, which the
+    kernels take apart."""
+    return 0 if d == 1 else -(-(1 << 64) // d)
+
+
+def mod_constants(n_parts: int) -> Tuple[int, int]:
+    """(m, c) with which K14 takes (h + s) mod n_parts of a 64-bit hash h
+    and a salt s < 2^31 by one multiply-high (part_of in
+    csrc/shuffle_kernels.cu): m = reciprocal(n_parts), c = 2^32 mod
+    n_parts, x = (h >> 32) * c + (h mod 2^32) + s and (h + s) mod n_parts
+    = ((m * x mod 2^64) * n_parts) >> 64. (0, 0) for a power of two,
+    which the kernel masks."""
+    if n_parts & (n_parts - 1) == 0:
+        return 0, 0
+    return reciprocal(n_parts), (1 << 32) % n_parts
+
+
+class _Sweep:
+    """K14's one-launch look-back state on one stream: a 64-bit ticket,
+    then the status words. It is never cleared: `tag` names the call
+    (its words read as unpublished to later calls) and `base` is the
+    ticket's count before the next launch. A larger buffer, or a tag near
+    the kernel's limit, starts a new zeroed state."""
+
+    def __init__(self, words: int, device: torch.device):
+        self.buf = torch.zeros(1 + words, dtype=torch.int64, device=device)
+        self.base = 0
+        self.tag = 0
+
+
+_SWEEPS = {}
+_SWEEP_MIN_WORDS = 1 << 16
+_SWEEP_MAX_TAG = 1 << 30
+_sweep_lock = threading.Lock()
+
+
+def _sweep_state(device: torch.device, words: int) -> _Sweep:
+    """The state of the current stream, with room for `words` status words
+    and the next call's tag (called under _sweep_lock)."""
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), _stream(device))
+    st = _SWEEPS.get(key)
+    if st is None or st.buf.shape[0] - 1 < words or \
+            st.tag >= _SWEEP_MAX_TAG:
+        room = max(words, _SWEEP_MIN_WORDS,
+                   0 if st is None else 2 * (st.buf.shape[0] - 1))
+        st = _SWEEPS[key] = _Sweep(room, device)
+    st.tag += 1
+    return st
 
 
 def partition_dest(key: torch.Tensor, alive: torch.Tensor, n_parts: int,
-                   cap: int, salt: int = 1, probe_side: bool = True):
+                   cap: int, salt: int = 1, probe_side: bool = True,
+                   with_counts: bool = False):
     """K14: each row's slot in n_parts buckets of cap rows: p * cap + its
     stable rank among the live rows of partition p, where p is the hash
     partition of its key (int32 or int64) plus its salt; n_parts * cap for
     a dead row and for a live row past its bucket's capacity. A salted build
     side (salt > 1, probe_side False) has salt * L rows, row s * L + i being
-    row i with salt s. Returns (int32 dest, 0-d bool overflow)."""
+    row i with salt s. Returns (int32 dest, 0-d bool overflow), and with
+    with_counts each bucket's occupied count min(its live rows, cap) as
+    int32[n_parts] (K15's bucket_rows reads it).
+
+    Up to SWEEP_PARTS partitions one launch (a onesweep pass whose tiles
+    rank their rows and find each bucket's rows in the earlier tiles by a
+    decoupled look-back; the last tile writes the counts and the flag);
+    beyond, a count launch, one torch.cumsum over the tiles' counts and a
+    rank launch. No division per row: the modulo is a mask or a
+    multiply-high by mod_constants, a salted row's salt and source row an
+    increment. The key bytes and the mask are read once, dest written once:
+    those bytes bound it."""
     device = _cuda_device(alive, "alive")
     n = int(alive.shape[0]) if alive.dim() == 1 else -1
     _require(alive, "alive", device, n, (torch.bool,))
@@ -1603,24 +1675,82 @@ def partition_dest(key: torch.Tensor, alive: torch.Tensor, n_parts: int,
     _rows(lx, "partition_dest")
     lib = build()
     dest = torch.empty(lx, dtype=torch.int32, device=device)
-    overflow = torch.zeros((), dtype=torch.int32, device=device)
     if lx == 0:
-        return dest, overflow != 0
+        overflow = torch.zeros((), dtype=torch.bool, device=device)
+        counts = torch.zeros(n_parts, dtype=torch.int32, device=device)
+        return (dest, overflow, counts) if with_counts else (dest, overflow)
+    overflow = torch.empty((), dtype=torch.bool, device=device)
+    counts = torch.empty(n_parts, dtype=torch.int32, device=device)
+    walk = n if tiled else salt
+    args = (_ptr(key), int(key.dtype == torch.int64), _ptr(alive),
+            int(tiled), n_parts, *mod_constants(n_parts), walk,
+            reciprocal(walk), lx)
     n_tiles = -(-lx // _PART_TILE)
-    counts = torch.empty((n_parts + 1, n_tiles), dtype=torch.int32,
-                         device=device)
-    args = (_ptr(key), int(key.dtype == torch.int64), _ptr(alive), n, salt,
-            int(tiled), n_parts, lx, n_tiles)
-    _check(lib, lib.qs_partition_count(*args, _ptr(counts), _stream(device)),
-           "partition_dest")
-    # each bin's ranks in the earlier tiles
-    first = (torch.cumsum(counts, dim=1, dtype=torch.int32) - counts) \
-        .contiguous()
-    _check(lib, lib.qs_partition_dest(*args, _ptr(first), cap, _ptr(dest),
-                                      _ptr(overflow), _stream(device)),
-           "partition_dest")
+    stream = _stream(device)
+    if n_parts <= SWEEP_PARTS:
+        with _sweep_lock:
+            st = _sweep_state(device, n_tiles * n_parts)
+            err = lib.qs_partition_sweep(
+                *args, cap, _ptr(dest), _ptr(counts), _ptr(overflow),
+                _ptr(st.buf), st.base, st.tag, stream)
+            st.base += n_tiles
+            if err != 0:
+                _SWEEPS.clear()
+        _check(lib, err, "partition_dest")
+    else:
+        tile_counts = torch.empty((n_parts + 1, n_tiles), dtype=torch.int32,
+                                  device=device)
+        _check(lib, lib.qs_partition_count(*args, n_tiles, _ptr(tile_counts),
+                                           stream), "partition_dest")
+        # each bin's ranks in the earlier tiles
+        first = (torch.cumsum(tile_counts, dim=1, dtype=torch.int32)
+                 - tile_counts).contiguous()
+        _check(lib, lib.qs_partition_dest(*args, n_tiles, _ptr(first), cap,
+                                          _ptr(dest), _ptr(counts),
+                                          _ptr(overflow), stream),
+               "partition_dest")
     LAUNCHES["partition_dest"] += 1
-    return dest, overflow != 0
+    return (dest, overflow, counts) if with_counts else (dest, overflow)
+
+
+def bucket_rows(dest: torch.Tensor, counts: torch.Tensor, rows: int,
+                cap: int):
+    """K15's route for K14's destinations: from partition_dest's int32
+    dest and counts (n_parts buckets of cap slots) over an input of `rows`
+    rows (dest has rows, or rows * salt on a salted build side), the int32
+    gather index of every slot, the id mod rows of the row in an occupied
+    slot and 0 in an empty one, and the bool occupied mask. One launch,
+    each slot written once: the mask and the empty tails' zeros from the
+    counts, each tile's rows staged by slot in shared memory and stored a
+    bucket's run at a time. Counted as scatter_compact."""
+    device = _cuda_device(dest, "dest")
+    lx = int(dest.shape[0]) if dest.dim() == 1 else -1
+    _require(dest, "dest", device, lx, (torch.int32,))
+    n_parts = int(counts.shape[0]) if counts.dim() == 1 else -1
+    _require(counts, "counts", device, n_parts, (torch.int32,))
+    if not 1 <= n_parts <= MAX_PARTS or cap < 1 or n_parts * cap >= 2 ** 31:
+        raise ValueError(f"{n_parts} buckets of {cap} slots: out of range")
+    if lx and (rows < 1 or lx % rows):
+        raise ValueError(f"{lx} destinations over {rows} rows")
+    _rows(lx, "bucket_rows")
+    lib = build()
+    slots = n_parts * cap
+    if lx == 0:
+        # no row: every slot empty, as the plain version gives it
+        return (torch.zeros(slots, dtype=torch.int32, device=device),
+                torch.zeros(slots, dtype=torch.bool, device=device))
+    idx = torch.empty(slots, dtype=torch.int32, device=device)
+    occ = torch.empty(slots, dtype=torch.bool, device=device)
+    n_tiles = -(-lx // _PART_TILE)
+    grid = max(n_tiles, min(-(-slots // (4 * _THREADS)),
+                            _BLOCKS_PER_SM * _sms(device)))
+    err = lib.qs_bucket_rows(_ptr(dest), lx, int(lx > rows), rows,
+                             reciprocal(rows), n_parts, cap,
+                             reciprocal(cap), _ptr(counts), _ptr(idx),
+                             _ptr(occ), grid, _stream(device))
+    _check(lib, err, "bucket_rows")
+    LAUNCHES["scatter_compact"] += 1
+    return idx, occ
 
 
 def _fill_bits(fill, dtype: torch.dtype) -> int:
