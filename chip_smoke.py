@@ -3,10 +3,12 @@ holds each against its plain torch version at SF10 shapes and at zero rows,
 checks all 22 TPC-H queries (and a Q20 variant that returns rows) at SF0.01
 against sqlite, on one device and on an 8-shard mesh of the card, runs the
 reference's golden corpus (16 reference and 3
-execute files) on the card, and runs Q1, Q6, Q3, Q4, Q5, Q10, Q7, Q12, Q14,
-Q19, Q9, Q16, Q18 and Q21 at SF10 with all 8 tables generated in the
-process and resident on the card, against the generator's exact oracle,
-then Q9 once more after partsupp is reloaded without statistics, which
+execute files) on the card, and runs all 22 TPC-H queries, and Q11 with the
+specification's fraction (0.0001 / SF), at SF10 with all 8 tables generated
+in the process and resident on the card, against the generator's exact
+oracles, with their row counts beside the reference's SF10 run against
+sqlite (SF10_VERIFY.json), then Q9 once more after partsupp is reloaded
+without statistics, which
 takes the expansion join, the six window queries of bench/tpch_fullgen.py
 (W-Q1 to W-Q6) and its five operator queries (O-Q1 to O-Q5: scalar
 DISTINCT, EXCEPT, INTERSECT, a join on hashed keys, ORDER BY ... LIMIT
@@ -19,7 +21,10 @@ two-phase GROUP BY, against the same oracle, with a census of K16's
 launches on both meshes (rows and slots of each build and probe); and the
 distributed aggregate-join step runs at 7.5 M rows per shard over 8 shards
 against a plain computation. W2, K14, K15 and K16 are also checked to make no host
-sync (the card's sync debug mode set to raise).
+sync (the card's sync debug mode set to raise), and every operator over
+inputs of zero rows in SQL against sqlite (bench/zero_rows.py). Each
+SF10 query runs cold and then warm, and each warm run takes its plan from
+the executor's logical-plan cache.
 
     python3 chip_smoke.py
 
@@ -37,6 +42,7 @@ import resource
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -73,6 +79,9 @@ SHUFFLE_KERNELS = ("partition_dest", "scatter_compact", "bloom_filter")
 MESH_QUERIES = (3, 5, 9, 10, 18)
 # a Q20 whose p_name prefix has rows at SF0.01 (the spec's 'forest%' has none)
 Q20_ROWS_PREFIX = "green"
+# Q11's HAVING fraction as the specification sets it, 0.0001 / SF, at SF10:
+# the bench text keeps 0.0001, which no part passes at SF10
+Q11_SPEC_FRACTION = "0.00001"
 # SF10 queries and the kernels each must launch
 LARGE_QUERIES = {
     1: ("dense_groupby",),
@@ -100,11 +109,34 @@ LARGE_QUERIES = {
          "sort_groupby_compact"),
     21: ("direct_join", "merge_cmp_probe", "multi_gather",
          "sort_groupby_compact"),
+    # the correlated MIN per part, then ORDER BY ... LIMIT 100 on the root
+    2: ("direct_join", "merge_unique_probe", "sort_groupby", "multi_gather",
+        "sort_groupby_compact", "order_permutation"),
+    8: ("direct_join", "dense_groupby", "multi_gather",
+        "sort_groupby_compact"),
+    # HAVING against a scalar subquery: K1 for the total
+    11: ("direct_join", "scalar_agg", "sort_groupby", "multi_gather",
+         "sort_groupby_compact"),
+    # the left outer join's counts per customer, then per count
+    13: ("direct_join", "sort_groupby", "multi_gather", "multi_gather_packed",
+         "sort_groupby_compact"),
+    15: ("direct_join", "scalar_agg", "sort_groupby", "multi_gather",
+         "sort_groupby_compact"),
+    17: ("direct_join", "scalar_agg", "sort_groupby", "multi_gather",
+         "sort_groupby_compact"),
+    # the (partkey, suppkey) pairs of 1994's lines against partsupp's: K4
+    20: ("direct_join", "merge_unique_probe", "sort_groupby", "multi_gather",
+         "multi_gather_packed", "sort_groupby_compact"),
+    22: ("direct_join", "scalar_agg", "dense_groupby", "multi_gather",
+         "sort_groupby_compact"),
 }
+# Q11 with Q11_SPEC_FRACTION: Q11's kernels
+Q11_SPEC_KERNELS = LARGE_QUERIES[11]
 # the SF10 queries whose joins compact their inputs (PlanRunner._compact_chunk,
 # K9 with a limit; every query of LARGE_QUERIES but Q1 and Q6): no library
 # sort may run inside a compaction
-COMPACTING = (3, 4, 5, 10, 7, 12, 14, 19, 9, 16, 18, 21)
+COMPACTING = (3, 4, 5, 10, 7, 12, 14, 19, 9, 16, 18, 21, 2, 8, 11, 13, 15,
+              17, 20, 22, "q11_spec")
 # Q1's dense GROUP BY: one K2 launch a run
 Q1_PER_RUN = {"dense_groupby": 1}
 # Q9 after partsupp is reloaded without statistics: its build side can no
@@ -1487,8 +1519,11 @@ def no_host_sync(what, fn):
 def phase_zero_rows():
     """Every kernel's public function on an empty input (an empty build
     side under a few probe rows for the join kernels): no launch, and the
-    plain version's result."""
-    from quickstep_tpu_torch.bench.zero_rows import zero_row_cases
+    plain version's result. Then every operator over inputs of zero rows in
+    SQL on the card (bench/zero_rows.py, an empty table's VARCHAR column
+    among them) against sqlite."""
+    from quickstep_tpu_torch.bench.zero_rows import (
+        ZERO_ROW_QUERIES, zero_row_cases, zero_row_sql_mismatches)
     from quickstep_tpu_torch.ops import cuda
     cases = zero_row_cases(torch.device("cuda"))
     if set(cases) != set(KERNELS):
@@ -1502,6 +1537,10 @@ def phase_zero_rows():
             raise AssertionError(f"{name} at zero rows launched {launched}")
         compare(f"{name} n = 0", got, p_fn(), atol=0)
     log(f"  n = 0: all {len(cases)} kernels launch nothing and agree")
+    bad = zero_row_sql_mismatches("cuda")
+    if bad:
+        raise AssertionError("zero-row SQL on the card: " + "; ".join(bad))
+    log(f"  zero-row SQL: {len(ZERO_ROW_QUERIES)} statements match sqlite")
 
 
 def row_eq(a, b):
@@ -1618,23 +1657,33 @@ def run_query(db, cuda, oracle, total, label, q, must, sql=None,
     """One query cold and `warm` times warm against the exact oracle, its
     launches counted from 0 (they must include `must`, and per_run's
     kernels exactly that many times a run) and added to total; warm runs
-    must take one host sync and no retry. Returns (times in ms, peak device
-    memory in GiB)."""
+    must take one host sync and no retry, and their plans from the
+    logical-plan cache (the cold run's entries, unchanged). Returns (times
+    in ms, peak device memory in GiB)."""
     from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES, with_tiebreak
     from quickstep_tpu_torch.bench.tpch_fullgen import (
         ORACLE_REL_TOL, check_rows)
     sql = sql or with_tiebreak(q, TPCH_QUERIES[q])
     rel_tol = ORACLE_REL_TOL if rel_tol is None else rel_tol
     times, syncs, retries = [], [], []
+    plans = db.executor._logical_plan_cache
     torch.cuda.reset_peak_memory_stats()
     cuda.reset_launches()
-    for _ in range(1 + warm):
+    for run in range(1 + warm):
         t0 = time.perf_counter()
         rows = db.execute(sql).rows
         times.append((time.perf_counter() - t0) * 1000)
         syncs.append(db.executor.host_syncs)
         retries.append(db.executor.retries)
         check_rows(q, rows, oracle, rel_tol)
+        if run == 0:
+            cached = dict(plans)
+            if not cached:
+                raise AssertionError(f"{label}: no plan cached")
+        elif plans.keys() != cached.keys() or \
+                any(plans[k] is not v for k, v in cached.items()):
+            raise AssertionError(f"{label} warm run {run} planned anew: "
+                                 "its plan was not taken from the cache")
     launches = dict(cuda.LAUNCHES)
     missing = [k for k in must if not launches[k]]
     if missing:
@@ -1740,29 +1789,76 @@ class watch_compactions:
         return False
 
 
-def phase_large(cuda):
-    """All 8 tables at SF_LARGE, each query cold and WARM_RUNS warm against
-    the exact oracle: the TPC-H queries, then the window queries. Each
+def generate_large():
+    """All 8 TPC-H tables at SF_LARGE in host memory with every exact
+    oracle the SF_LARGE phases check: (tables, stats, oracle, a line that
+    says what it took)."""
+    from quickstep_tpu_torch.bench.tpch_fullgen import (
+        extra_oracles, generate, operator_oracles, window_oracles)
+    t0 = time.perf_counter()
+    tables, stats, oracle = generate(SF_LARGE, log=lambda msg: None)
+    t1 = time.perf_counter()
+    oracle.update(extra_oracles(tables, Q11_SPEC_FRACTION))
+    for more in (window_oracles, operator_oracles):
+        oracle.update(more(tables))
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    return tables, stats, oracle, (
+        f"generated {oracle['rows']} in {t1 - t0:.1f} s, the oracles in "
+        f"{time.perf_counter() - t1:.1f} s; peak host RSS {rss:.2f} GiB")
+
+
+def build_while(work):
+    """ops/cuda.py build() in a thread while work() runs in this one (nvcc's
+    processes and the host generator share the machine's cores); returns
+    work()'s result, or raises the build's error."""
+    from quickstep_tpu_torch.ops import cuda
+    failed = []
+
+    def build():
+        try:
+            cuda.build()
+        except BaseException as e:     # raised again below, in this thread
+            failed.append(e)
+    thread = threading.Thread(target=build)
+    thread.start()
+    try:
+        out = work()
+    finally:
+        thread.join()
+    if failed:
+        raise failed[0]
+    return out
+
+
+def phase_large(cuda, generated):
+    """The generated tables (generate_large) in a database on the card,
+    each query cold and WARM_RUNS warm against the exact oracle: the 22
+    TPC-H queries and the Q11 variant, then the window queries. Each
     query's launches are counted from 0 and must include the kernels
-    LARGE_QUERIES, STALE_PARTSUPP_Q9 or WINDOW_RUNS names. Returns their
-    sum, the generated (tables, stats, oracle) and the times and peak
-    memory of the MESH_QUERIES; the database's device copies are dropped
-    before it returns."""
+    LARGE_QUERIES, Q11_SPEC_KERNELS, STALE_PARTSUPP_Q9 or WINDOW_RUNS
+    names. Returns their sum and the times and peak memory of the
+    MESH_QUERIES; the database's device copies are dropped before it
+    returns."""
+    import pathlib
     from quickstep_tpu_torch import Database
     from quickstep_tpu_torch.bench.tpch_fullgen import (
-        OPERATOR_QUERIES, WINDOW_QUERIES, WINDOW_REL_TOL, extra_oracles,
-        generate, load_tables, operator_oracles, window_oracles)
+        OPERATOR_QUERIES, WINDOW_QUERIES, WINDOW_REL_TOL, load_tables,
+        q11_with_fraction)
     log(f"phase 3: all 8 TPC-H tables at SF{SF_LARGE:g} on the card")
+    tables, stats, oracle, made = generated
+    log(f"  {made} (while nvcc built the kernels)")
     db = Database(device="cuda")
     try:
-        t0 = time.perf_counter()
-        tables, stats, oracle = generate(SF_LARGE, log=lambda msg: None)
         load_tables(db, tables, stats)
-        for more in (extra_oracles, window_oracles, operator_oracles):
-            oracle.update(more(tables))
-        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-        log(f"  generated {oracle['rows']} in {time.perf_counter() - t0:.1f}"
-            f" s; peak host RSS {rss:.2f} GiB")
+        ties = oracle["ties"]
+        log("  rows whose comparison with a computed value ties in exact "
+            "integers (kept by the engine's comparison): " + ", ".join(
+                f"{name} {t['rows']} ({t['kept']})" for name, t in
+                ties.items() if name != "q15_top2"))
+        top, second = ties["q15_top2"]
+        if top == second:
+            raise AssertionError(f"Q15's two largest revenues tie: {top}")
+        log(f"  Q15's two largest revenues (scale 4): {top}, {second}")
         total = dict.fromkeys(cuda.LAUNCHES, 0)
         single = {}
 
@@ -1770,19 +1866,30 @@ def phase_large(cuda):
             return run_query(db, cuda, oracle, total, label, q, must, sql,
                              rel_tol, per_run=per_run)
 
+        runs = [(f"Q{q}", q, must, None) for q, must in LARGE_QUERIES.items()]
+        runs.append((f"Q11, fraction {Q11_SPEC_FRACTION}", "q11_spec",
+                     Q11_SPEC_KERNELS, q11_with_fraction(Q11_SPEC_FRACTION)))
         with watch_compactions() as seen:
-            for q, must in LARGE_QUERIES.items():
+            for label, q, must, sql in runs:
                 seen.update(calls=0, sorts=[])
-                times = run(f"Q{q}", q, must,
+                times = run(label, q, must, sql,
                             per_run=Q1_PER_RUN if q == 1 else None)
                 if q in MESH_QUERIES:
                     single[q] = times
                 if seen["sorts"] or (q in COMPACTING) != (seen["calls"] > 0):
                     raise AssertionError(
-                        f"Q{q}: {seen['calls']} compactions, library sorts "
-                        f"inside them {seen['sorts']}")
+                        f"{label}: {seen['calls']} compactions, library "
+                        f"sorts inside them {seen['sorts']}")
                 log(f"    {seen['calls']} compactions through K9, no "
                     "library sort inside")
+        root = pathlib.Path(__file__).resolve().parent
+        with open(root / "SF10_VERIFY.json") as f:
+            reference = json.load(f)["queries"]
+        log("  rows of each query, beside the reference's SF10 run against "
+            "sqlite (SF10_VERIFY.json): " + ", ".join(
+                f"Q{q} {len(oracle[f'q{q}'])}/{reference[str(q)]['rows']}"
+                for q in range(1, 23)) +
+            f"; Q11 at {Q11_SPEC_FRACTION} {len(oracle['q11_spec'])}")
         cols = [t for key, (cs, _m) in db.executor._device_cache.items()
                 for name, pair in cs.items()
                 if name != "__num_rows__" for t in pair if t is not None]
@@ -1811,7 +1918,7 @@ def phase_large(cuda):
         launches = phase_dml(db, oracle, cuda)
         for k, v in launches.items():
             total[k] += v
-        return total, (tables, stats, oracle), single
+        return total, single
     finally:
         db.executor._device_cache.clear()
         db.close()
@@ -1831,7 +1938,7 @@ def phase_large_mesh(cuda, generated, single, total):
     from quickstep_tpu_torch.bench.tpch_fullgen import load_tables
     from quickstep_tpu_torch.config import Config
     from quickstep_tpu_torch.exec.runner import PlanRunner
-    tables, stats, oracle = generated
+    tables, stats, oracle, _made = generated
     log(f"phase 6: TPC-H SF{SF_LARGE:g} on an {MESH_SHARDS}-shard mesh of "
         "the card")
     cfg = Config()
@@ -1993,10 +2100,12 @@ def main():
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     from quickstep_tpu_torch.ops import cuda, groupby as G
     t0 = time.perf_counter()
-    cuda.build()
-    log(f"phase 0: kernels built in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {cuda.BUILD_SECONDS:.1f} s)" if cuda.BUILD_SECONDS is not None
-        else f"phase 0: kernels loaded from an earlier build")
+    generated = build_while(generate_large)
+    log(f"phase 0: kernels built (nvcc {cuda.BUILD_SECONDS:.1f} s)"
+        if cuda.BUILD_SECONDS is not None
+        else "phase 0: kernels loaded from an earlier build")
+    log(f"  and the SF{SF_LARGE:g} tables and oracles made meanwhile, "
+        f"{time.perf_counter() - t0:.1f} s in all")
 
     rows = phase_kernels(G)
     torch.cuda.empty_cache()
@@ -2016,7 +2125,7 @@ def main():
     small_census.report(f"SF{SF_SMALL} mesh")
     golden = phase_golden(cuda)
     add(golden)
-    large, generated, single = phase_large(cuda)
+    large, single = phase_large(cuda, generated)
     add(large)
     for counts in (small, golden, large):
         for k, v in counts.items():

@@ -12,13 +12,15 @@ bench/lineitem_gen.py; any other query in the list loads all 8 tables from
 bench/tpch_fullgen.py.
 
 For each query it prints, on the host clock, the median time of planning
-(parse, resolve, optimize), of `Executor.run_plan` and of `Database.execute`
-over `2 * runs` warm runs. Then it traces `runs` calls of `run_plan` with
-torch.profiler and prints the device time per run (the kernels and copies
-that ran on the card), the share of run_plan's wall time under the profiler
-in which the card was busy, the number of device operations per run, the
-top of the profiler's table, and the device time of each of the port's own
-kernels (csrc/*.cu). With --trace-dir it also writes a Chrome trace
+(parse, resolve, optimize), of planning as `Database.execute` does it on a
+warm run (parse, then the plan from the executor's logical-plan cache), of
+`Executor.run_plan` and of `Database.execute` over `2 * runs` warm runs.
+Then it traces `runs` calls of `run_plan` with torch.profiler and prints
+the device time per run (the kernels and copies that ran on the card), the
+share of run_plan's wall time under the profiler in which the card was
+busy, the number of device operations per run, the top of the profiler's
+table, and the device time of each of the port's own kernels
+(csrc/*.cu). With --trace-dir it also writes a Chrome trace
 per query there. With --mesh-shards the tables live on a mesh of N shards of
 the card (Config.distributed), where the large joins shuffle.
 
@@ -80,9 +82,12 @@ def profile_query(db, q, runs, trace_dir=None):
     db.execute(sql)                     # cold run: uploads the columns
     plan = _plan(db, sql)
     plan_ms = _ms(lambda: _plan(db, sql), 2 * runs)
+    cached_ms = _ms(lambda: ex.plan_select(parse_statements(sql)[0]),
+                    2 * runs)
     run_ms = _ms(lambda: ex.run_plan(plan), 2 * runs)
     exec_ms = _ms(lambda: db.execute(sql), 2 * runs)
-    print(f"{label}: parse+resolve+optimize median {plan_ms:.3f} ms; run_plan "
+    print(f"{label}: parse+resolve+optimize median {plan_ms:.3f} ms; "
+          f"parse+plan cache {cached_ms:.3f} ms; run_plan "
           f"(enqueue+device+pull) {run_ms:.3f} ms; Database.execute "
           f"{exec_ms:.3f} ms", flush=True)
 

@@ -1,7 +1,8 @@
-# Copied from tools/sf100_fullgen.py; imports renamed, tables built in host memory instead of an on-disk store, oracles of Q9, Q16 and Q21 added.
+# Copied from tools/sf100_fullgen.py; imports renamed, tables built in host memory instead of an on-disk store, oracles of the other 11 queries added.
 """All 8 TPC-H tables at a given scale, in host memory, with an exact
 integer oracle for Q1, Q3, Q4, Q5, Q6, Q7, Q10, Q12, Q14, Q18 and Q19, and
-for Q9, Q16 and Q21 (`extra_oracles`, computed from the generated columns).
+for Q2, Q8, Q9, Q11, Q13, Q15, Q16, Q17, Q20, Q21 and Q22 (`extra_oracles`,
+computed from the generated columns and the dictionaries' vocabularies).
 
 The same distributions, formulas, seeds and text-pool policy as
 tools/sf100_fullgen.py: per-row-identity strings (c_name, s_name, o_clerk)
@@ -639,9 +640,20 @@ def generate(scale, log=None):
     return tables, stats, oracle
 
 
+def pairs_unique(table, a, b):
+    """Whether no two rows of `table` hold the same (a, b)."""
+    x = table.arrays[a].astype(np.int64)
+    y = table.arrays[b].astype(np.int64)
+    y -= y.min()
+    return np.unique(x * (int(y.max()) + 1) + y).size == table.n
+
+
 def load_tables(db, tables, stats):
     """Create the 8 TPC-H tables in `db` and load `generate`'s tables into
-    them with its exact statistics."""
+    them with its exact statistics, less a declared unique column pair that
+    the table repeats: `generate` (as the tool) declares partsupp's
+    (ps_partkey, ps_suppkey) unique at every scale, and below SF0.01 a
+    part's supplier stride wraps onto a supplier it already has."""
     from quickstep_tpu_torch.bench.tpch import _ddl_type
     for name, schema in TPCH_SCHEMAS.items():
         cols = ", ".join(
@@ -649,18 +661,316 @@ def load_tables(db, tables, stats):
         db.execute(f"CREATE TABLE {name} ({cols})")
         rel = db.catalog.default_database.get_relation(name)
         rel.set_data(tables[name].table_data())
-        rel.statistics = _stats_from_json(stats[name])
+        st = dict(stats[name])
+        st["unique_pairs"] = [p for p in st["unique_pairs"]
+                              if pairs_unique(tables[name], *p)]
+        rel.statistics = _stats_from_json(st)
 
 
-def extra_oracles(tables):
-    """Exact oracles of Q9, Q16 and Q21 (the tool's oracle has none), from
-    the columns of `generate`'s tables with numpy integer arithmetic, in
-    the form of `generate`'s oracle."""
+def extra_oracles(tables, q11_fraction=None):
+    """Exact oracles of the queries the tool's oracle lacks: Q2, Q8, Q9,
+    Q11, Q13, Q15, Q16, Q17, Q20, Q21 and Q22, and with `q11_fraction` (a
+    decimal literal) of Q11 with that fraction ("q11_spec", the SQL of
+    `q11_with_fraction`), from the columns of `generate`'s tables and the
+    dictionaries' vocabularies with numpy integer arithmetic, lineitem in
+    chunks, in the form of `generate`'s oracle. Where a row is decided by a
+    comparison with a computed value, it is decided as the engine's types
+    decide it (exact decimals, or DOUBLE where the engine has a DOUBLE);
+    "ties" holds, for each such query, the rows whose two sides are equal in
+    exact integers and how many of them the comparison kept."""
     nat = tables["nation"]
     nation_of_key = [nat.dicts["n_name"][c] for c in nat.arrays["n_name"]]
-    return {"q9": _oracle_q9(tables, nation_of_key),
-            "q16": _oracle_q16(tables),
-            "q21": _oracle_q21(tables, nation_of_key)}
+    ties = {}
+    out = {"q2": _oracle_q2(tables, nation_of_key),
+           "q8": _oracle_q8(tables, nation_of_key),
+           "q9": _oracle_q9(tables, nation_of_key),
+           "q11": _oracle_q11(tables, nation_of_key, "0.0001", ties, "q11"),
+           "q13": _oracle_q13(tables),
+           "q15": _oracle_q15(tables, ties),
+           "q16": _oracle_q16(tables),
+           "q17": _oracle_q17(tables, ties),
+           "q20": _oracle_q20(tables, nation_of_key, ties),
+           "q21": _oracle_q21(tables, nation_of_key),
+           "q22": _oracle_q22(tables, ties)}
+    if q11_fraction is not None:
+        out["q11_spec"] = _oracle_q11(tables, nation_of_key, q11_fraction,
+                                      ties, "q11_spec")
+    out["ties"] = ties
+    return out
+
+
+def q11_with_fraction(fraction: str) -> str:
+    """Q11 of bench/tpch.py with the HAVING fraction `fraction` (a decimal
+    literal; the specification's is 0.0001 / SF, where the bench text keeps
+    0.0001 at every scale) and the part key after the value in its ORDER
+    BY, since parts can tie on the value."""
+    from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES
+    sql = TPCH_QUERIES[11]
+    assert sql.count("* 0.0001") == 1 and "order by value desc" in sql
+    return sql.replace("* 0.0001", f"* {fraction}").replace(
+        "order by value desc", "order by value desc, ps_partkey")
+
+
+# lineitem rows an oracle reads at a time
+_ORACLE_CHUNK = 10_000_000
+
+
+def _chunks(n):
+    for start in range(0, n, _ORACLE_CHUNK):
+        yield slice(start, min(start + _ORACLE_CHUNK, n))
+
+
+def _date_code(iso):
+    """The DATE column code of an ISO date (packed year, month, day: codes
+    keep the dates' order)."""
+    return int(_dates_from_daynum(np.array([day(iso)]))[0])
+
+
+def _vocab_mask(t, col, pred):
+    """bool per dictionary code of t's column `col`: pred(string)."""
+    return np.array([bool(pred(v)) for v in t.dicts[col]], dtype=bool)
+
+
+def _to_double(units, scale):
+    """DecimalToDouble as the engine evaluates it: units * 10.0 ** -scale
+    in float64."""
+    return np.asarray(units, dtype=np.int64).astype(np.float64) * (
+        10.0 ** -scale)
+
+
+def _oracle_q2(tables, nation_of_key):
+    """Suppliers of EUROPE offering a part of size 15 and a BRASS type at
+    the minimum supply cost of the part among EUROPE's suppliers; the first
+    100 by account balance descending, then nation, supplier and part
+    names' order, part key, address and phone (the bench's tiebreak)."""
+    part, ps, supp = tables["part"], tables["partsupp"], tables["supplier"]
+    region = REGIONS.index("EUROPE")
+    europe = np.array([r == region for _, r in NATIONS])[
+        supp.arrays["s_nationkey"]]                      # by suppkey - 1
+    brass = _vocab_mask(part, "p_type", lambda v: v.endswith("BRASS"))
+    part_ok = (part.arrays["p_size"] == 15) & brass[part.arrays["p_type"]]
+    sk = ps.arrays["ps_suppkey"].astype(np.int64)
+    cost = ps.arrays["ps_supplycost"].astype(np.int64)
+    # the correlated MIN over every part's EUROPE suppliers: partsupp holds
+    # 4 rows per part, rows 4 (partkey - 1) + j
+    eu_cost = np.where(europe[sk - 1], cost, np.iinfo(np.int64).max)
+    min_cost = eu_cost.reshape(-1, 4).min(axis=1)
+    pk = ps.arrays["ps_partkey"].astype(np.int64)
+    hit = np.flatnonzero(part_ok[pk - 1] & europe[sk - 1] &
+                         (cost == min_cost[pk - 1]))
+    d = supp.dicts
+    rows = []
+    for i in hit.tolist():
+        s, p = int(sk[i]) - 1, int(pk[i]) - 1
+        rows.append([int(supp.arrays["s_acctbal"][s]),
+                     d["s_name"][supp.arrays["s_name"][s]],
+                     nation_of_key[supp.arrays["s_nationkey"][s]], p + 1,
+                     part.dicts["p_mfgr"][part.arrays["p_mfgr"][p]],
+                     d["s_address"][supp.arrays["s_address"][s]],
+                     d["s_phone"][supp.arrays["s_phone"][s]],
+                     d["s_comment"][supp.arrays["s_comment"][s]]])
+    rows.sort(key=lambda r: (-r[0], r[2], r[1], r[3], r[5], r[6]))
+    return [[r[0] / 100] + r[1:] for r in rows[:100]]
+
+
+def _oracle_q8(tables, nation_of_key):
+    """BRAZIL's share of the ECONOMY ANODIZED STEEL volume that AMERICA's
+    customers ordered in 1995 and 1996, by order year: two exact scale-4
+    sums a year, divided once."""
+    li, ords, cust = tables["lineitem"], tables["orders"], tables["customer"]
+    part, supp = tables["part"], tables["supplier"]
+    ptype = part.dicts["p_type"].index("ECONOMY ANODIZED STEEL")
+    part_ok = part.arrays["p_type"] == ptype              # by partkey - 1
+    america = np.array([r == REGIONS.index("AMERICA") for _, r in NATIONS])
+    brazil = nation_of_key.index("BRAZIL")
+    lo, hi = _date_code("1995-01-01"), _date_code("1996-12-31")
+    totals = {}
+    for sl in _chunks(li.n):
+        m = part_ok[li.arrays["l_partkey"][sl] - 1]
+        orow = li.arrays["l_orderkey"][sl][m] // 4 - 1
+        odate = ords.arrays["o_orderdate"][orow]
+        keep = (odate >= lo) & (odate <= hi) & america[
+            cust.arrays["c_nationkey"][ords.arrays["o_custkey"][orow] - 1]]
+        vol = (li.arrays["l_extendedprice"][sl][m][keep].astype(np.int64) *
+               (100 - li.arrays["l_discount"][sl][m][keep].astype(np.int64)))
+        year = odate[keep] >> 9
+        nat = supp.arrays["s_nationkey"][li.arrays["l_suppkey"][sl][m][keep]
+                                         - 1]
+        for y in np.unique(year).tolist():
+            t = totals.setdefault(y, [0, 0])
+            t[0] += exact_sum(vol[(year == y) & (nat == brazil)])
+            t[1] += exact_sum(vol[year == y])
+    return [[y, t[0] / t[1]] for y, t in sorted(totals.items())]
+
+
+def _oracle_q11(tables, nation_of_key, fraction, ties, name):
+    """GERMANY's parts whose stock value (supply cost times available
+    quantity, summed over the part's GERMANY suppliers) exceeds `fraction`
+    (a decimal literal) of the total, by value descending, then part key.
+    The engine compares exact decimals: the value cast to the product's
+    scale against the total times the literal's units."""
+    ps, supp = tables["partsupp"], tables["supplier"]
+    germany = nation_of_key.index("GERMANY")
+    ok = supp.arrays["s_nationkey"][ps.arrays["ps_suppkey"] - 1] == germany
+    value = (ps.arrays["ps_supplycost"][ok].astype(np.int64) *
+             ps.arrays["ps_availqty"][ok].astype(np.int64))   # cents
+    keys, inv = np.unique(ps.arrays["ps_partkey"][ok], return_inverse=True)
+    per_part = np.zeros(len(keys), np.int64)
+    np.add.at(per_part, inv, value)
+    total = exact_sum(value)
+    digits = fraction.split(".")[1] if "." in fraction else ""
+    units = int(fraction.replace(".", ""))
+    lhs = [v * 10 ** len(digits) for v in per_part.tolist()]
+    rhs = total * units
+    ties[name] = {"rows": sum(v == rhs for v in lhs), "kept": 0}
+    hit = [i for i, v in enumerate(lhs) if v > rhs]
+    hit.sort(key=lambda i: (-int(per_part[i]), int(keys[i])))
+    return [[int(keys[i]), int(per_part[i]) / 100] for i in hit]
+
+
+def _comment_like_special_requests(v):
+    i = v.find("special")
+    return i >= 0 and v.find("requests", i + len("special")) >= 0
+
+
+def _oracle_q13(tables):
+    """The number of customers by their number of orders whose comment is
+    not LIKE '%special%requests%' (customers without such an order count
+    0), by that number of customers descending, then the count
+    descending. The pattern is decided over o_comment's vocabulary."""
+    ords, cust = tables["orders"], tables["customer"]
+    special = _vocab_mask(ords, "o_comment", _comment_like_special_requests)
+    ok = ~special[ords.arrays["o_comment"]]
+    per_cust = np.bincount(ords.arrays["o_custkey"][ok],
+                           minlength=cust.n + 1)[1:]
+    counts, dist = np.unique(per_cust, return_counts=True)
+    order = np.lexsort((-counts, -dist))
+    return [[int(counts[i]), int(dist[i])] for i in order]
+
+
+def _oracle_q15(tables, ties):
+    """The supplier(s) of the largest revenue shipped in 1996's first
+    quarter: scale-4 revenue (price times one minus discount) in exact
+    integers, compared by = with its own maximum. ties["q15_top2"] holds
+    the two largest revenues."""
+    li, supp = tables["lineitem"], tables["supplier"]
+    lo, hi = _date_code("1996-01-01"), _date_code("1996-04-01")
+    rev = np.zeros(supp.n + 1, np.int64)
+    for sl in _chunks(li.n):
+        ship = li.arrays["l_shipdate"][sl]
+        m = (ship >= lo) & (ship < hi)
+        np.add.at(rev, li.arrays["l_suppkey"][sl][m],
+                  li.arrays["l_extendedprice"][sl][m].astype(np.int64) *
+                  (100 - li.arrays["l_discount"][sl][m].astype(np.int64)))
+    top = np.sort(rev)[-2:][::-1]
+    ties["q15_top2"] = [int(v) for v in top]
+    d = supp.dicts
+    return [[int(k), d["s_name"][supp.arrays["s_name"][k - 1]],
+             d["s_address"][supp.arrays["s_address"][k - 1]],
+             d["s_phone"][supp.arrays["s_phone"][k - 1]],
+             int(rev[k]) / 10000]
+            for k in np.flatnonzero(rev == top[0]).tolist()]
+
+
+def _oracle_q17(tables, ties):
+    """The yearly average price of the lines of Brand#23's MED BOX parts
+    whose quantity is under 0.2 times the part's average quantity over all
+    its lines. The engine compares DOUBLEs: DecimalToDouble(l_quantity) <
+    0.2 * (DecimalToDouble(sum) / count), evaluated here with the same
+    float64 operations; the exact tie is 5 * quantity * count == sum."""
+    li, part = tables["lineitem"], tables["part"]
+    brand = part.dicts["p_brand"].index("Brand#23")
+    cont = part.dicts["p_container"].index("MED BOX")
+    part_ok = (part.arrays["p_brand"] == brand) & \
+        (part.arrays["p_container"] == cont)
+    pks, qtys, prices = [], [], []
+    for sl in _chunks(li.n):
+        m = part_ok[li.arrays["l_partkey"][sl] - 1]
+        pks.append(li.arrays["l_partkey"][sl][m].astype(np.int64))
+        qtys.append(li.arrays["l_quantity"][sl][m].astype(np.int64))
+        prices.append(li.arrays["l_extendedprice"][sl][m].astype(np.int64))
+    pk, qty, price = (np.concatenate(a) for a in (pks, qtys, prices))
+    keys, inv = np.unique(pk, return_inverse=True)
+    n = np.bincount(inv, minlength=len(keys)).astype(np.int64)
+    s = np.zeros(len(keys), np.int64)
+    np.add.at(s, inv, qty)
+    threshold = 0.2 * (_to_double(s, 2) / n.astype(np.float64))
+    keep = _to_double(qty, 2) < threshold[inv]
+    tie = 5 * qty * n[inv] == s[inv]
+    ties["q17"] = {"rows": int(tie.sum()), "kept": int((tie & keep).sum())}
+    if not keep.any():
+        return [[None]]
+    return [[float(_to_double(exact_sum(price[keep]), 2)) / 7.0]]
+
+
+def _oracle_q20(tables, nation_of_key, ties):
+    """CANADA's suppliers, by name, that hold a part named 'forest%' with
+    more available than half the quantity of its lines shipped in 1994
+    (a pair with no such line compares with NULL and is not kept). The
+    engine compares exact decimals at scale 3: availqty * 1000 > 5 * the
+    quantity's sum in cents."""
+    li, ps, part, supp = (tables[t] for t in ("lineitem", "partsupp", "part",
+                                               "supplier"))
+    forest = _vocab_mask(part, "p_name", lambda v: v.startswith("forest"))
+    part_ok = forest[part.arrays["p_name"]]                # by partkey - 1
+    lo, hi = _date_code("1994-01-01"), _date_code("1995-01-01")
+    qsum = np.zeros(ps.n, np.int64)             # by partsupp row
+    seen = np.zeros(ps.n, bool)
+    for sl in _chunks(li.n):
+        ship = li.arrays["l_shipdate"][sl]
+        pk = li.arrays["l_partkey"][sl]
+        m = part_ok[pk - 1] & (ship >= lo) & (ship < hi)
+        pk = pk[m].astype(np.int64)
+        sk = li.arrays["l_suppkey"][sl][m]
+        qty = li.arrays["l_quantity"][sl][m].astype(np.int64)
+        # partsupp holds 4 rows per part, rows 4 (partkey - 1) + j
+        for j in range(4):
+            row = (pk - 1) * 4 + j
+            hit = ps.arrays["ps_suppkey"][row] == sk
+            np.add.at(qsum, row[hit], qty[hit])
+            seen[row[hit]] = True
+    avail = ps.arrays["ps_availqty"].astype(np.int64) * 1000
+    tie = seen & (avail == 5 * qsum)
+    ok = seen & (avail > 5 * qsum)
+    ties["q20"] = {"rows": int(tie.sum()), "kept": 0}
+    canada = nation_of_key.index("CANADA")
+    sks = np.unique(ps.arrays["ps_suppkey"][ok])
+    sks = sks[supp.arrays["s_nationkey"][sks - 1] == canada]
+    d = supp.dicts
+    rows = [[d["s_name"][supp.arrays["s_name"][k - 1]],
+             d["s_address"][supp.arrays["s_address"][k - 1]]]
+            for k in sks.tolist()]
+    rows.sort(key=lambda r: r[0])
+    return rows
+
+
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+
+
+def _oracle_q22(tables, ties):
+    """Customers whose phone's country code is one of Q22's, with a balance
+    above the average positive balance of those codes and no order: their
+    number and total balance by code. The engine compares DOUBLEs:
+    DecimalToDouble(c_acctbal) > DecimalToDouble(sum) / count; the exact
+    tie is balance * count == sum."""
+    cust, ords = tables["customer"], tables["orders"]
+    code_of = np.array([v[:2] for v in cust.dicts["c_phone"]], dtype=object)
+    in_codes = np.isin(code_of, Q22_CODES)[cust.arrays["c_phone"]]
+    bal = cust.arrays["c_acctbal"].astype(np.int64)
+    pos = in_codes & (bal > 0)
+    s, n = exact_sum(bal[pos]), int(pos.sum())
+    above = _to_double(bal, 2) > _to_double(s, 2) / np.float64(n)
+    has_order = np.bincount(ords.arrays["o_custkey"],
+                            minlength=cust.n + 1)[1:] > 0
+    keep = in_codes & above & ~has_order
+    tie = in_codes & ~has_order & (bal * n == s)
+    ties["q22"] = {"rows": int(tie.sum()), "kept": int((tie & keep).sum())}
+    codes = code_of[cust.arrays["c_phone"][keep]]
+    rows = []
+    for c in sorted(set(codes.tolist())):
+        m = codes == c
+        rows.append([c, int(m.sum()), exact_sum(bal[keep][m]) / 100])
+    return rows
 
 
 def _oracle_q9(tables, nation_of_key):

@@ -7,11 +7,16 @@ chip_smoke.py and tests/test_torch_kernels_cuda.py hold them so.
 
     cases = zero_row_cases(torch.device("cuda"))
     kernel_fn, plain_fn = cases["multi_gather"]
+
+And every operator over an input of zero rows in SQL (ZERO_ROW_SCRIPT, then
+each of ZERO_ROW_QUERIES), which tests/test_torch_operators.py holds
+against sqlite and quickstep_tpu on the CPU and chip_smoke.py against
+sqlite on the card (zero_row_sql_mismatches).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -25,6 +30,115 @@ from quickstep_tpu_torch.ops import window as W
 from quickstep_tpu_torch.parallel import shuffle as SH
 
 Case = Tuple[Callable[[], tuple], Callable[[], tuple]]
+
+ZERO_ROW_SCRIPT = [
+    "CREATE TABLE full_t (id INT, score DOUBLE, tag VARCHAR(4))",
+    "CREATE TABLE empty_t (id INT, score DOUBLE, tag VARCHAR(4))",
+    "INSERT INTO full_t VALUES (1, 1.5, 'a'), (2, NULL, 'b'), (NULL, 3.5, "
+    "'c'), (4, 4.5, NULL)",
+]
+ZERO_ROW_QUERIES = {
+    # the statement that crashed the port before the repair
+    "inner_empty_build_or_filter":
+        "SELECT e.id, f.tag FROM full_t f JOIN empty_t e ON f.id = e.id "
+        "WHERE f.id > 0 OR f.id < 0",
+    "inner_empty_probe": "SELECT f.id FROM empty_t e JOIN full_t f "
+                         "ON e.id = f.id",
+    "left_empty_build": "SELECT f.id, e.score, e.tag FROM full_t f LEFT JOIN "
+                        "empty_t e ON f.id = e.id",
+    "left_empty_build_residual": "SELECT f.id, e.tag FROM full_t f LEFT JOIN "
+                                 "empty_t e ON f.id = e.id AND e.score > 1",
+    "full_empty_side": "SELECT f.id, e.id FROM full_t f FULL JOIN empty_t e "
+                       "ON f.id = e.id",
+    "semi_empty": "SELECT id FROM full_t WHERE EXISTS (SELECT * FROM empty_t "
+                  "WHERE empty_t.id = full_t.id)",
+    "anti_empty": "SELECT id FROM full_t WHERE NOT EXISTS (SELECT * FROM "
+                  "empty_t WHERE empty_t.id = full_t.id)",
+    "not_in_empty": "SELECT id FROM full_t WHERE id NOT IN (SELECT id FROM "
+                    "empty_t)",
+    "in_empty": "SELECT id FROM full_t WHERE id IN (SELECT id FROM empty_t)",
+    "anti_residual_empty": "SELECT id FROM full_t WHERE NOT EXISTS (SELECT * "
+                           "FROM empty_t WHERE empty_t.id = full_t.id AND "
+                           "empty_t.score <> full_t.score)",
+    "nested_loops_left_empty": "SELECT f.id, e.id FROM full_t f LEFT JOIN "
+                               "empty_t e ON f.score < e.score",
+    "cross_empty": "SELECT count(*) FROM full_t, empty_t",
+    "scalar_aggs_empty": "SELECT count(*), sum(score), min(id), max(tag), "
+                         "avg(score), count(distinct id), sum(distinct score) "
+                         "FROM empty_t",
+    "group_by_empty": "SELECT tag, count(*), sum(score) FROM empty_t "
+                      "GROUP BY tag",
+    "distinct_empty": "SELECT DISTINCT tag FROM empty_t",
+    "window_empty": "SELECT id, sum(score) OVER (PARTITION BY tag ORDER BY "
+                    "id) FROM empty_t",
+    "order_limit_empty": "SELECT id, score FROM empty_t ORDER BY score DESC, "
+                         "id LIMIT 3",
+    "subquery_sort_limit_empty": "SELECT count(*) FROM (SELECT id FROM "
+                                 "empty_t ORDER BY score LIMIT 2) t",
+    "union_empty": "SELECT id, tag FROM full_t UNION SELECT id, tag "
+                   "FROM empty_t",
+    "intersect_empty": "SELECT id FROM full_t INTERSECT SELECT id FROM "
+                       "empty_t",
+    "except_empty": "SELECT id, tag FROM full_t EXCEPT SELECT id, tag "
+                    "FROM empty_t",
+    "scalar_subquery_empty": "SELECT id FROM full_t WHERE id > (SELECT "
+                             "max(id) FROM empty_t)",
+    "join_after_empty_filter": "SELECT f.id, g.tag FROM full_t f JOIN "
+                               "full_t g ON f.id = g.id WHERE g.id > 100",
+    # the empty table's VARCHAR column as a LIKE operand, a join key, a
+    # subquery's key and a set operation's column
+    "like_varchar_empty": "SELECT id FROM empty_t WHERE tag LIKE '%a%'",
+    "join_varchar_empty": "SELECT f.id, e.id FROM full_t f JOIN empty_t e "
+                          "ON f.tag = e.tag",
+    "exists_varchar_empty": "SELECT id FROM full_t WHERE EXISTS (SELECT * "
+                            "FROM empty_t WHERE empty_t.tag = full_t.tag)",
+    "not_exists_varchar_empty": "SELECT id FROM full_t WHERE NOT EXISTS "
+                                "(SELECT * FROM empty_t WHERE empty_t.tag = "
+                                "full_t.tag)",
+    "not_in_varchar_empty": "SELECT id FROM full_t WHERE tag NOT IN (SELECT "
+                            "tag FROM empty_t)",
+    "left_join_varchar_empty": "SELECT f.id, e.tag FROM full_t f LEFT JOIN "
+                               "empty_t e ON f.tag = e.tag",
+    "union_all_varchar_empty": "SELECT id, tag FROM full_t UNION ALL SELECT "
+                               "id, tag FROM empty_t",
+    "intersect_varchar_empty": "SELECT tag FROM full_t INTERSECT SELECT tag "
+                               "FROM empty_t",
+}
+
+
+def zero_row_sql_mismatches(device) -> List[str]:
+    """Each of ZERO_ROW_QUERIES through the port on `device` after
+    ZERO_ROW_SCRIPT, against sqlite after the same script: the cases whose
+    rows differ (as multisets, in order under an ORDER BY; floats within
+    rel 1e-9)."""
+    import math
+    import sqlite3
+    from quickstep_tpu_torch import Database
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            x == y or (isinstance(x, float) and isinstance(y, float) and
+                       math.isclose(x, y, rel_tol=1e-9))
+            for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+
+    def key(row):
+        return tuple((v is None, v) for v in row)
+    db, conn = Database(device=device), sqlite3.connect(":memory:")
+    bad = []
+    try:
+        for stmt in ZERO_ROW_SCRIPT:
+            db.execute(stmt)
+            conn.execute(stmt)
+        for name, sql in ZERO_ROW_QUERIES.items():
+            ours = [tuple(r) for r in db.execute(sql).rows]
+            want = [tuple(r) for r in conn.execute(sql).fetchall()]
+            if "ORDER BY" not in sql:
+                ours, want = sorted(ours, key=key), sorted(want, key=key)
+            if not same(ours, want):
+                bad.append(f"{name}: {ours} != sqlite {want}")
+    finally:
+        db.close()
+    return bad
 
 
 def zero_row_cases(dev) -> Dict[str, Case]:

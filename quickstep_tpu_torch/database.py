@@ -44,6 +44,10 @@ class Database:
         self.mesh_shards = mesh_shards
         self.catalog = Catalog.load(self.config.storage_path) \
             if storage_path else Catalog()
+        # the store this database was opened on or saved to: the executor
+        # keeps its learned overrides there, and a database on no store
+        # reads and writes none (config.storage_path has a default)
+        self.store: Optional[str] = storage_path or None
         self._executor = None
         if self.config.distributed or self.config.hbm_budget_bytes > 0:
             # the executor refuses what it cannot honour: say so now
@@ -56,7 +60,7 @@ class Database:
         if self._executor is None:
             from quickstep_tpu_torch.exec.executor import Executor
             self._executor = Executor(self.catalog, self.config, self.device,
-                                      self.mesh_shards)
+                                      self.mesh_shards, store=self.store)
         return self._executor
 
     @property
@@ -99,6 +103,9 @@ class Database:
 
     def save(self) -> None:
         self.catalog.save(self.config.storage_path)
+        self.store = self.config.storage_path
+        if self._executor is not None:
+            self._executor.store = self.store
 
     def close(self) -> None:
         """Stop the PolicyEnforcer's dispatcher thread."""

@@ -6,10 +6,14 @@ operator on torch tensors by PlanRunner, and pulled to the host with one
 synchronisation for the live count, the runner's flags and the result. A
 set flag (a duplicate build key, an expansion overflow, a compaction
 under-estimate) re-runs the plan with an override, which is remembered per
-plan shape and table versions (the kOutOfSpace retry of the reference).
-Scalar subqueries run inside the plan, not as programs of their own as the
-reference's XLA split has them. There is no compile cache and no logical
-plan cache: torch runs eagerly, and every SELECT is planned anew.
+plan shape and table versions (the kOutOfSpace retry of the reference)
+and written to the store as learned_overrides.json, so that a new process
+takes the corrected plan in one pass. Scalar subqueries run inside the
+plan, not as programs of their own as the reference's XLA split has them.
+There is no compile cache: torch runs eagerly. The optimized plan of a
+SELECT is kept in _logical_plan_cache, keyed by the statement's structure
+without positions, the planning config and every relation's version, and
+the cache is emptied after every statement that is not a SELECT.
 
 DDL, DML and commands run against the catalog on the host, as in the
 reference. INSERT ... SELECT runs its SELECT through run_plan and appends
@@ -22,6 +26,9 @@ drops its device copy, so the next query uploads the new data once.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -53,14 +60,22 @@ from quickstep_tpu_torch.parallel.mesh import make_mesh, pad_to_multiple
 MAX_ATTEMPTS = 8
 # Plan shapes whose learned overrides are kept (oldest dropped first).
 LEARNED_LIMIT = 256
+# Optimized plans kept in the logical-plan cache (oldest dropped first).
+PLAN_CACHE_LIMIT = 256
+# The learned overrides' file in the store directory (Executor.store).
+OVERRIDES_FILE = "learned_overrides.json"
 
 
 class Executor:
     def __init__(self, catalog: Catalog, config: Config, device: torch.device,
-                 mesh_shards: Optional[int] = None):
+                 mesh_shards: Optional[int] = None,
+                 store: Optional[str] = None):
         self.catalog = catalog
         self.config = config
         self.device = device
+        # the catalog store's directory, where the learned overrides are
+        # kept; None for a database on no store
+        self.store = store
         # Config.distributed: a mesh of mesh_shards row shards on the device
         # (exec/executor.py:80-87 of the reference, whose mesh is every
         # device JAX sees); nothing probes the hardware for the count
@@ -86,8 +101,18 @@ class Executor:
         # no device_sort_threshold_rows: the reference decides by the
         # pulled row count.
         self.last_sort_path: Optional[str] = None
-        # (plan fingerprint, table versions) -> {node index: JoinOverride}
-        self._learned_overrides: Dict[tuple, Dict[int, JoinOverride]] = {}
+        # digest of (plan fingerprint, table versions) -> {node index:
+        # JoinOverride}; loaded from the store and written back to it
+        self._learned_overrides: Dict[str, Dict[int, JoinOverride]] = {}
+        # (config, statement structure, relation versions) -> optimized
+        # plan: a repeated SELECT skips resolve and optimize. The reference
+        # (exec/executor.py:211-227) clears its cache before a mutating
+        # statement, so the plan of INSERT ... SELECT's inner SELECT
+        # outlives the insert, and keys it on the statement's repr, line
+        # and column positions included; this one is cleared after the
+        # statement and keys on the structure alone.
+        self._logical_plan_cache: Dict[tuple, L.LogicalNode] = {}
+        self._load_overrides()
 
     def preload(self) -> None:
         """Upload every relation to the device (PreloaderThread analog,
@@ -110,7 +135,7 @@ class Executor:
             raise ExecutionError(
                 f"hbm_budget_bytes = {self.config.hbm_budget_bytes}: "
                 "out-of-core execution under a device memory budget is not "
-                "ported (ROADMAP queue 1 item 5); set it to 0 to run "
+                "ported (ROADMAP queue 1 item 3); set it to 0 to run "
                 "resident")
         if self.config.distributed and self.mesh is None:
             raise ExecutionError(
@@ -124,7 +149,20 @@ class Executor:
         self.retries = 0
         if isinstance(stmt, A.SelectStmt):
             res = self._run_select(stmt)
-        elif isinstance(stmt, A.CreateTableStmt):
+        else:
+            try:
+                res = self._run_statement(stmt)
+            finally:
+                # plans embed data-derived state (dictionary bitmaps,
+                # statistics-chosen joins, constant folds): drop them all,
+                # those made while this statement ran included
+                self._logical_plan_cache.clear()
+        res.execution_time = time.perf_counter() - t0
+        return res
+
+    def _run_statement(self, stmt: A.Statement) -> QueryResult:
+        """A statement that is not a SELECT: DDL, DML, COPY or a command."""
+        if isinstance(stmt, A.CreateTableStmt):
             res = self._create_table(stmt)
         elif isinstance(stmt, A.CreateIndexStmt):
             res = self._create_index(stmt)
@@ -146,17 +184,73 @@ class Executor:
             res = self._command(stmt)
         else:
             raise ExecutionError(f"unsupported statement {type(stmt).__name__}")
-        res.execution_time = time.perf_counter() - t0
         return res
 
     # ================================================================
     # SELECT
     # ================================================================
     def _run_select(self, stmt: A.SelectStmt) -> QueryResult:
-        plan = Resolver(self.db).resolve_select(stmt)
-        plan = optimize_plan(plan, self.config, self.db)
-        rows, names, types = self.run_plan(plan)
+        rows, names, types = self.run_plan(self.plan_select(stmt))
         return QueryResult(names, types, rows)
+
+    def plan_select(self, stmt: A.SelectStmt) -> L.LogicalNode:
+        """The optimized plan of a SELECT: from _logical_plan_cache when an
+        earlier SELECT had the same structure under the same planning
+        config (profile_device_reps left out: nothing plans with it) and
+        every relation the same version, else resolved and optimized and
+        kept there."""
+        cfg = dataclasses.replace(self.config, profile_device_reps=0)
+        key = (repr(cfg), _statement_key(stmt),
+               tuple(sorted((name, rel.version)
+                            for name, rel in self.db.relations.items())))
+        plan = self._logical_plan_cache.get(key)
+        if plan is None:
+            plan = optimize_plan(Resolver(self.db).resolve_select(stmt),
+                                 self.config, self.db)
+            while len(self._logical_plan_cache) >= PLAN_CACHE_LIMIT:
+                self._logical_plan_cache.pop(
+                    next(iter(self._logical_plan_cache)))
+            self._logical_plan_cache[key] = plan
+        return plan
+
+    # ----------------------------------------------------------------
+    # learned overrides in the store
+    # ----------------------------------------------------------------
+    def _overrides_path(self) -> Optional[str]:
+        return os.path.join(self.store, OVERRIDES_FILE) if self.store else None
+
+    def _load_overrides(self) -> None:
+        """Read the store's learned overrides (the reference's
+        _load_overrides); a file that cannot be read is ignored, and its
+        overrides are learned again."""
+        path = self._overrides_path()
+        if path is None or not os.path.exists(path):
+            return
+        try:
+            with open(path) as f:
+                raw = json.load(f)
+            loaded = {str(key): {int(nid): JoinOverride(**fields)
+                                 for nid, fields in ovs.items()}
+                      for key, ovs in raw.items()}
+        except (OSError, ValueError, TypeError, AttributeError):
+            return
+        self._learned_overrides.update(loaded)
+
+    def _save_overrides(self) -> None:
+        """Write the learned overrides into the store directory, which must
+        exist: none is created (the reference's open fails without one)."""
+        path = self._overrides_path()
+        if path is None or not os.path.isdir(os.path.dirname(path) or "."):
+            return
+        raw = {key: {str(nid): dataclasses.asdict(ov)
+                     for nid, ov in ovs.items()}
+               for key, ovs in self._learned_overrides.items()}
+        try:
+            with open(path + ".tmp", "w") as f:
+                json.dump(raw, f)
+            os.replace(path + ".tmp", path)
+        except OSError:
+            pass
 
     def run_plan(self, plan: L.LogicalNode, columns: bool = False):
         """Execute a logical plan; returns (rows, names, types), or with
@@ -187,9 +281,13 @@ class Executor:
         inputs, meta = self._collect_inputs(device_plan)
         # Runtime corrections (duplicate build keys, expansion overflows,
         # compaction under-estimates) are remembered per plan shape and table versions,
-        # so a warm re-run takes the corrected plan in one pass.
-        learn_key = (_fingerprint(device_plan),
-                     tuple(sorted((k, m["version"]) for k, m in meta.items())))
+        # so a warm re-run takes the corrected plan in one pass; the key is
+        # a digest of the two, the same in every process (versions persist
+        # with the catalog), so that the store can keep it.
+        learn_key = hashlib.sha256(repr((
+            _fingerprint(device_plan),
+            tuple(sorted((k, m["version"]) for k, m in meta.items()))
+        )).encode()).hexdigest()
         overrides = {k: dataclasses.replace(v) for k, v in
                      self._learned_overrides.get(learn_key, {}).items()}
         out_attrs = device_plan.output
@@ -207,6 +305,7 @@ class Executor:
                 self._learned_overrides.pop(next(iter(self._learned_overrides)))
             self._learned_overrides[learn_key] = {
                 k: dataclasses.replace(v) for k, v in overrides.items()}
+            self._save_overrides()
         else:
             raise ExecutionError("join fallback did not converge")
         datas, valids, n, sorted_on_device = pulled
@@ -564,9 +663,8 @@ class Executor:
         rel = self._rel(stmt.table_name)
         schema = [(a.name, a.type) for a in rel.attributes]
         if stmt.select is not None:
-            plan = Resolver(self.db).resolve_select(stmt.select)
-            plan = optimize_plan(plan, self.config, self.db)
-            cols, _names, _types = self.run_plan(plan, columns=True)
+            cols, _names, _types = self.run_plan(
+                self.plan_select(stmt.select), columns=True)
             data = TableData({
                 name: _column_for(typ, attr, d, v)
                 for (name, typ), (attr, d, v) in zip(schema, cols)})
@@ -907,6 +1005,38 @@ def _fingerprint(node: L.LogicalNode, canon: Optional[dict] = None) -> tuple:
     return tuple(parts)
 
 
+def _array_digest(e, field: str) -> str:
+    """A digest of the array in expression e's `field` (its dtype, shape
+    and bytes) that every process computes alike, where Python's hash of
+    bytes is salted per process. It is kept on e, so that the runs of a
+    cached plan hash a LIKE bitmap over a 2 M-string dictionary once."""
+    memo = e.__dict__.setdefault("_digests", {})
+    if field not in memo:
+        a = np.ascontiguousarray(np.asarray(getattr(e, field)))
+        h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode())
+        h.update(a.tobytes())
+        memo[field] = h.hexdigest()
+    return memo[field]
+
+
+def _statement_key(node):
+    """An AST node's structure as nested tuples of field names and the
+    reprs of their values, without the (line, column) positions that only
+    error messages read: the same statement written with other spacing or
+    line breaks has the same key."""
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return (type(node).__name__,) + tuple(
+            (f.name, _statement_key(getattr(node, f.name)))
+            for f in dataclasses.fields(node)
+            if f.name not in ("line", "column"))
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__,) + tuple(_statement_key(x) for x in node)
+    if isinstance(node, dict):
+        return ("dict",) + tuple(sorted(
+            (repr(k), _statement_key(v)) for k, v in node.items()))
+    return repr(node)
+
+
 def _expr_fp(e, canon: dict, cid) -> tuple:
     from quickstep_tpu_torch.expressions.subquery import SubqueryScalar
     from quickstep_tpu_torch.expressions import scalar as E
@@ -943,10 +1073,9 @@ def _expr_fp(e, canon: dict, cid) -> tuple:
     if isinstance(e, E.InSet):
         return ("inset", e.values, e.negated, _expr_fp(e.operand, canon, cid))
     if isinstance(e, E.DictBitmapProbe):
-        bm = np.asarray(e.bitmap)
-        return ("dictbitmap", hash(bm.tobytes()), e.negated,
+        return ("dictbitmap", _array_digest(e, "bitmap"), e.negated,
                 _expr_fp(e.operand, canon, cid))
     if isinstance(e, E.Substr):
-        rm = np.asarray(e.remap)
-        return ("substr", hash(rm.tobytes()), _expr_fp(e.operand, canon, cid))
+        return ("substr", _array_digest(e, "remap"),
+                _expr_fp(e.operand, canon, cid))
     return (type(e).__name__,)

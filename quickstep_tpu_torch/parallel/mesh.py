@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 DISTINCT_DEVICES = ("a mesh over distinct devices is not ported; ROADMAP "
-                    "queue 1 item 7 (distinct cards, by peer copies or "
+                    "queue 1 item 5 (distinct cards, by peer copies or "
                     "NCCL) comes next")
 
 

@@ -108,6 +108,27 @@ MESH_WITHOUT_JAX = textwrap.dedent("""
     print("MESH OK")
 """)
 
+SF_TWINS_WITHOUT_JAX = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None          # any `import jax` now fails
+    from quickstep_tpu_torch import Database
+    from quickstep_tpu_torch.bench import sf_oracle, sf_verify
+    from quickstep_tpu_torch.bench.tpch import load_tpch
+    db = Database(device="cpu")
+    data = load_tpch(db, 0.002, 0)
+    conn = sf_oracle.sqlite_from_tables(data, log=lambda msg: None)
+    oracle = sf_oracle.run_queries(conn, [1, 3, 6, 13], log=lambda msg: None)
+    report = sf_verify.verify(db, oracle, log=lambda msg: None)
+    db.close()
+    assert [q for q, r in report.items() if r["status"] == "ok"] == \
+        [1, 3, 6, 13], report
+    bad = [m for m, mod in sys.modules.items() if mod is not None and (
+           m == "jax" or m.startswith("jax.")
+           or m == "quickstep_tpu" or m.startswith("quickstep_tpu."))]
+    assert not bad, bad
+    print("SF TWINS OK")
+""")
+
 # The host modules the port copies, and the function of each copy that was
 # changed for torch (compared without it).
 COPIES = {
@@ -164,6 +185,12 @@ def test_port_runs_the_mesh_path_without_jax():
     proc = _run(["-c", MESH_WITHOUT_JAX], REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "MESH OK" in proc.stdout
+
+
+def test_scale_verification_twins_run_without_jax():
+    proc = _run(["-c", SF_TWINS_WITHOUT_JAX], REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "SF TWINS OK" in proc.stdout
 
 
 def _without_function(text, name):

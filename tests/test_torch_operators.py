@@ -16,6 +16,8 @@ import quickstep_tpu
 from quickstep_tpu.bench.tpch import load_tpch, load_sqlite, to_sqlite_sql
 from quickstep_tpu_torch import Database, from_store
 from quickstep_tpu_torch.bench.tpch import load_tpch as port_load_tpch
+from quickstep_tpu_torch.bench.zero_rows import (
+    ZERO_ROW_QUERIES, ZERO_ROW_SCRIPT)
 from quickstep_tpu_torch.bench.tpch_fullgen import (
     OPERATOR_DML, OPERATOR_DML_QUERY, OPERATOR_QUERIES, operator_dml_ddl)
 from quickstep_tpu_torch.catalog.catalog import sma_range_for
@@ -337,67 +339,26 @@ def test_hashed_composite_keys(hashed_engines, monkeypatch, case):
 # zero rows: every gather into an empty source gives invalid rows
 # ---------------------------------------------------------------------
 
-ZERO_SCRIPT = [
-    "CREATE TABLE full_t (id INT, score DOUBLE, tag VARCHAR(4))",
-    "CREATE TABLE empty_t (id INT, score DOUBLE, tag VARCHAR(4))",
-    "INSERT INTO full_t VALUES (1, 1.5, 'a'), (2, NULL, 'b'), (NULL, 3.5, "
-    "'c'), (4, 4.5, NULL)",
-]
-ZERO_QUERIES = {
-    # the statement that crashed the port before the repair
-    "inner_empty_build_or_filter":
-        "SELECT e.id, f.tag FROM full_t f JOIN empty_t e ON f.id = e.id "
-        "WHERE f.id > 0 OR f.id < 0",
-    "inner_empty_probe": "SELECT f.id FROM empty_t e JOIN full_t f "
-                         "ON e.id = f.id",
-    "left_empty_build": "SELECT f.id, e.score, e.tag FROM full_t f LEFT JOIN "
-                        "empty_t e ON f.id = e.id",
-    "left_empty_build_residual": "SELECT f.id, e.tag FROM full_t f LEFT JOIN "
-                                 "empty_t e ON f.id = e.id AND e.score > 1",
-    "full_empty_side": "SELECT f.id, e.id FROM full_t f FULL JOIN empty_t e "
-                       "ON f.id = e.id",
-    "semi_empty": "SELECT id FROM full_t WHERE EXISTS (SELECT * FROM empty_t "
-                  "WHERE empty_t.id = full_t.id)",
-    "anti_empty": "SELECT id FROM full_t WHERE NOT EXISTS (SELECT * FROM "
-                  "empty_t WHERE empty_t.id = full_t.id)",
-    "not_in_empty": "SELECT id FROM full_t WHERE id NOT IN (SELECT id FROM "
-                    "empty_t)",
-    "in_empty": "SELECT id FROM full_t WHERE id IN (SELECT id FROM empty_t)",
-    "anti_residual_empty": "SELECT id FROM full_t WHERE NOT EXISTS (SELECT * "
-                           "FROM empty_t WHERE empty_t.id = full_t.id AND "
-                           "empty_t.score <> full_t.score)",
-    "nested_loops_left_empty": "SELECT f.id, e.id FROM full_t f LEFT JOIN "
-                               "empty_t e ON f.score < e.score",
-    "cross_empty": "SELECT count(*) FROM full_t, empty_t",
-    "scalar_aggs_empty": "SELECT count(*), sum(score), min(id), max(tag), "
-                         "avg(score), count(distinct id), sum(distinct score) "
-                         "FROM empty_t",
-    "group_by_empty": "SELECT tag, count(*), sum(score) FROM empty_t "
-                      "GROUP BY tag",
-    "distinct_empty": "SELECT DISTINCT tag FROM empty_t",
-    "window_empty": "SELECT id, sum(score) OVER (PARTITION BY tag ORDER BY "
-                    "id) FROM empty_t",
-    "order_limit_empty": "SELECT id, score FROM empty_t ORDER BY score DESC, "
-                         "id LIMIT 3",
-    "subquery_sort_limit_empty": "SELECT count(*) FROM (SELECT id FROM "
-                                 "empty_t ORDER BY score LIMIT 2) t",
-    "union_empty": "SELECT id, tag FROM full_t UNION SELECT id, tag "
-                   "FROM empty_t",
-    "intersect_empty": "SELECT id FROM full_t INTERSECT SELECT id FROM "
-                       "empty_t",
-    "except_empty": "SELECT id, tag FROM full_t EXCEPT SELECT id, tag "
-                    "FROM empty_t",
-    "scalar_subquery_empty": "SELECT id FROM full_t WHERE id > (SELECT "
-                             "max(id) FROM empty_t)",
-    "join_after_empty_filter": "SELECT f.id, g.tag FROM full_t f JOIN "
-                               "full_t g ON f.id = g.id WHERE g.id > 100",
+# the zero-row statements are bench/zero_rows.py's, which chip_smoke.py runs
+# on the card
+ZERO_SCRIPT, ZERO_QUERIES = ZERO_ROW_SCRIPT, ZERO_ROW_QUERIES
+
+
+# Zero-row shapes where quickstep_tpu itself raises (a TypeError on an empty
+# table's VARCHAR column), so that sqlite alone decides.
+REFERENCE_FAULTS = {
+    # _remap_for_union indexes the column's empty code remap
+    # (quickstep_tpu/exec/runner.py:2053)
+    "union_empty", "except_empty", "union_all_varchar_empty",
+    "intersect_varchar_empty",
+    # DictBitmapProbe indexes an empty LIKE bitmap
+    # (quickstep_tpu/expressions/scalar.py:521)
+    "like_varchar_empty",
+    # the string join key's code remap is empty
+    # (quickstep_tpu/expressions/scalar.py:651, from exec/runner.py:940)
+    "join_varchar_empty", "left_join_varchar_empty", "exists_varchar_empty",
+    "not_exists_varchar_empty",
 }
-
-
-# Zero-row shapes where quickstep_tpu itself raises, so that sqlite alone
-# decides: its _remap_for_union indexes the empty code remap of an empty
-# table's VARCHAR column (quickstep_tpu/exec/runner.py:2053).
-REFERENCE_FAULTS = {"union_empty", "except_empty"}
 
 
 @pytest.fixture(scope="module")

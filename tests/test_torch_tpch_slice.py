@@ -3,9 +3,11 @@ p_name prefix has rows at this scale), single-table lineitem queries and
 join and aggregate shapes through quickstep_tpu_torch.Database against
 quickstep_tpu.Database and sqlite on the same SF0.01 data, with the path
 each new shape must take; the retries after a compaction under-estimate and
-a duplicate build key; the full generator's Q9, Q16 and Q21 oracles against
-sqlite; the exact window oracles against sqlite and the port; the
-catalog-store carrier; and the queries that were once not ported."""
+a duplicate build key; the full generator's oracles (Q2, Q8, Q9, Q11 and
+its variant with the specification's fraction, Q13, Q15, Q16, Q17, Q20,
+Q21, Q22) against sqlite; the exact window oracles against sqlite and the
+port; the catalog-store carrier; and the queries that were once not
+ported."""
 
 import dataclasses
 import math
@@ -361,26 +363,50 @@ def fullgen_small():
         extra_oracles, generate, load_tables, window_oracles)
     tables, stats, oracle = generate(SCALE, log=lambda msg: None)
     conn = port_sqlite({n: t.table_data() for n, t in tables.items()})
-    conn.execute("create index l_orderkey_idx on lineitem(l_orderkey)")
+    # sqlite runs the correlated subqueries as nested loops; key indexes
+    # make them fast and change no answer
+    for table, col in (("lineitem", "l_orderkey"), ("lineitem", "l_partkey"),
+                       ("part", "p_partkey"), ("partsupp", "ps_partkey")):
+        conn.execute(f"create index {col}_idx on {table}({col})")
     db = Database(device="cpu")
     load_tables(db, tables, stats)
-    oracle.update(extra_oracles(tables))
+    oracle.update(extra_oracles(tables, q11_fraction=Q11_SPEC_FRACTION))
     oracle.update(window_oracles(tables))
     yield db, conn, oracle
     db.close()
 
 
-@pytest.mark.parametrize("qnum", [9, 16, 21])
+# Q11 with the specification's fraction, 0.0001 / SF, at SF0.01 (the bench
+# text keeps 0.0001 at every scale): 3 rows here
+Q11_SPEC_FRACTION = "0.01"
+# rows of each full-generator oracle at SF0.01
+FULLGEN_ROWS = {2: 1, 8: 2, 9: 172, 11: 345, 13: 24, 15: 1, 16: 296, 17: 1,
+                20: 2, 21: 6, 22: 7, "q11_spec": 3}
+
+
+@pytest.mark.parametrize("qnum", [2, 8, 9, 11, 13, 15, 16, 17, 20, 21, 22,
+                                  "q11_spec"])
 def test_full_generator_oracle_matches_sqlite_and_port(fullgen_small, qnum):
-    """The exact Q9, Q16 and Q21 oracles against sqlite on the same tables
-    (sqlite sums DECIMALs as doubles: rel 1e-9) and the port's rows against
-    the oracle at its own tolerance (check_rows)."""
-    from quickstep_tpu_torch.bench.tpch_fullgen import check_rows
+    """The exact oracles of bench/tpch_fullgen.py's extra_oracles (the
+    queries its generator's oracle lacks, and Q11 with the specification's
+    fraction) against sqlite on the same tables (sqlite sums DECIMALs as
+    doubles: rel 1e-9) and the port's rows against the oracle at its own
+    tolerance (check_rows)."""
+    from quickstep_tpu_torch.bench.tpch import ORACLE_OVERRIDES
+    from quickstep_tpu_torch.bench.tpch_fullgen import (
+        check_rows, q11_with_fraction)
     db, conn, oracle = fullgen_small
-    want = oracle[f"q{qnum}"]
-    assert want, f"Q{qnum}'s oracle is empty"
-    sql = with_tiebreak(qnum, TPCH_QUERIES[qnum])
-    got = conn.execute(to_sqlite_sql(sql)).fetchall()
+    name = qnum if isinstance(qnum, str) else f"q{qnum}"
+    want = oracle[name]
+    assert want, f"{name}'s oracle is empty"
+    assert len(want) == FULLGEN_ROWS[qnum]
+    if qnum == "q11_spec":
+        sql = sqlite_sql = q11_with_fraction(Q11_SPEC_FRACTION)
+    else:
+        sql = with_tiebreak(qnum, TPCH_QUERIES[qnum])
+        sqlite_sql = with_tiebreak(qnum, ORACLE_OVERRIDES.get(
+            qnum, TPCH_QUERIES[qnum]))
+    got = conn.execute(to_sqlite_sql(sqlite_sql)).fetchall()
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert len(g) == len(w)
@@ -388,6 +414,36 @@ def test_full_generator_oracle_matches_sqlite_and_port(fullgen_small, qnum):
             assert (math.isclose(x, y, rel_tol=1e-9, abs_tol=0.0)
                     if isinstance(y, float) else x == y), (g, w)
     check_rows(qnum, db.execute(sql).rows, oracle)
+
+
+def test_full_generator_oracle_ties(fullgen_small):
+    """The oracles that compare with a computed value count the rows whose
+    two sides are equal in exact integers (and how many the engine's
+    comparison keeps); Q15's two largest revenues differ, so its = with its
+    own MAX keeps one supplier."""
+    _db, _conn, oracle = fullgen_small
+    ties = oracle["ties"]
+    print("exact-integer ties:", ties)
+    for name in ("q11", "q11_spec", "q17", "q20", "q22"):
+        assert 0 <= ties[name]["kept"] <= ties[name]["rows"], name
+    # decided by exact decimal > : a tie is never kept
+    assert ties["q11"]["kept"] == ties["q11_spec"]["kept"] == \
+        ties["q20"]["kept"] == 0
+    top, second = ties["q15_top2"]
+    assert top > second and len(oracle["q15"]) == 1
+
+
+def test_full_generator_declares_partsupp_pairs_unique(fullgen_small):
+    """At SF0.01 a part's four suppliers differ, and load_tables keeps the
+    generator's declaration that (ps_partkey, ps_suppkey) is unique; below
+    it they repeat, and it drops it (tests/test_torch_sf_verify.py)."""
+    db, conn, _oracle = fullgen_small
+    ps = db.catalog.default_database.get_relation("partsupp")
+    assert ps.statistics.unique_pairs == [["ps_partkey", "ps_suppkey"]]
+    (n,), = conn.execute("select count(*) from partsupp").fetchall()
+    (pairs,), = conn.execute("select count(*) from (select distinct "
+                             "ps_partkey, ps_suppkey from partsupp)").fetchall()
+    assert pairs == n
 
 
 @pytest.mark.parametrize("name", ["w1", "w2", "w3", "w4", "w5", "w6"])
