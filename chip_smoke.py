@@ -14,7 +14,14 @@ takes the expansion join, the six window queries of bench/tpch_fullgen.py
 DISTINCT, EXCEPT, INTERSECT, a join on hashed keys, ORDER BY ... LIMIT
 below the root) on the same resident tables against their exact oracles,
 and a DML sequence (O-DML: INSERT ... SELECT, DELETE, UPDATE) whose totals
-are checked against the oracle. Then the same generated tables go to a
+are checked against the oracle. Then the same tables go to a database with
+a device memory budget of 10^9 bytes: the 14 queries that stream lineitem
+through the card in segments run cold and warm against the oracles (each
+in more than one segment, with its kernels and its peak memory), the six
+whose tables fit run resident with tables evicted, Q17 and Q21 raise
+under strict_hbm_budget and match resident without it, a scan skips
+segments by l_orderkey's min/max, and two clients of a network server on
+that database get Q6's answer. Then the same generated tables go to a
 second database on an 8-shard mesh of the card (Config.distributed), where
 Q3, Q5, Q9, Q10 and Q18 take the shuffle join (K14-K16) and Q9 the
 two-phase GROUP BY, against the same oracle, with a census of K16's
@@ -130,6 +137,17 @@ LARGE_QUERIES = {
     22: ("direct_join", "scalar_agg", "dense_groupby", "multi_gather",
          "sort_groupby_compact"),
 }
+# the device memory budget of the streamed phase: lineitem's columns that
+# each of STREAMED_QUERIES reads at SF_LARGE are about 1 to 1.7 times it,
+# all of lineitem about 5 times
+STREAM_BUDGET = 10**9
+STREAM_WARM_RUNS = 1
+# the queries that stream lineitem under it; those whose tables are all
+# under half of it (resident); those that read lineitem over half of it
+# twice (no streamable shape)
+STREAMED_QUERIES = (1, 6, 3, 4, 5, 7, 8, 9, 10, 12, 14, 15, 19, 20)
+RESIDENT_UNDER_BUDGET = (2, 11, 13, 16, 18, 22)
+UNSTREAMABLE = (17, 21)
 # Q11 with Q11_SPEC_FRACTION: Q11's kernels
 Q11_SPEC_KERNELS = LARGE_QUERIES[11]
 # the SF10 queries whose joins compact their inputs (PlanRunner._compact_chunk,
@@ -1927,6 +1945,256 @@ def phase_large(cuda, generated):
         torch.cuda.empty_cache()
 
 
+def stream_line(label, info, times, peak, start):
+    """One streamed query's line: segments run of all, bytes uploaded and
+    upload rate per run, seconds per segment, times, peak memory."""
+    segs = info["per_segment"]
+    up = sum(s["bytes"] for s in segs)
+    up_s = sum(s["upload_s"] for s in segs if s["bytes"])
+    rate = f"{up / up_s / 1e9:.2f} GB/s" if up_s > 0 else "no upload"
+    cached = sum(1 for s in segs if not s["bytes"])
+    return (f"  {label}: segments {info['segments_run']}/{info['segments']} "
+            f"of {info['seg_rows']} rows; last run uploaded {up / 2**20:.1f}"
+            f" MiB ({rate}; {cached} segments from the segment cache); "
+            f"{statistics.mean(s['seconds'] for s in segs) * 1000:.1f} ms a "
+            f"segment; cold {times[0]:.1f} ms, warm "
+            + ", ".join(f"{t:.1f}" for t in times[1:]) +
+            f" ms; peak device memory {peak / 2**30:.3f} GiB "
+            f"({start / 2**30:.3f} held at its start) under a budget of "
+            f"{STREAM_BUDGET / 2**30:.3f} GiB")
+
+
+def phase_streamed(cuda, generated):
+    """The generated tables in a database with a device memory budget of
+    STREAM_BUDGET bytes (lineitem's columns at SF_LARGE are many times
+    it): STREAMED_QUERIES cold and STREAM_WARM_RUNS warm against the exact
+    oracles, each streaming lineitem in more than one segment and launching
+    the kernels LARGE_QUERIES names for it, with the peak device memory of
+    each beside the budget (Q1's and Q6's, above what they found held,
+    below the bytes of lineitem's columns they read); RESIDENT_UNDER_BUDGET
+    resident under the budget;
+    every query leaving at most the budget plus one segment allocated,
+    with tables evicted on the way; Q17 and Q21 refused under
+    strict_hbm_budget, and right resident without it; a scan whose
+    segments SMA skips on lineitem's ordered l_orderkey against numpy; and
+    a network server on the same database, two of whose clients get Q6's
+    answer. Returns the kernels' launches."""
+    from quickstep_tpu_torch import Database
+    from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES, with_tiebreak
+    from quickstep_tpu_torch.bench.tpch_fullgen import (
+        check_rows, load_tables)
+    from quickstep_tpu_torch.cli.network import QueryClient, QueryServer
+    from quickstep_tpu_torch.config import Config
+    from quickstep_tpu_torch.errors import ExecutionError
+    from quickstep_tpu_torch.exec import streaming as S
+    from quickstep_tpu_torch.parser import parse_one
+    log(f"phase 3s: TPC-H SF{SF_LARGE:g} under a device memory budget of "
+        f"{STREAM_BUDGET} bytes, lineitem streamed")
+    tables, stats, oracle, _made = generated
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    db = Database(config=Config(hbm_budget_bytes=STREAM_BUDGET),
+                  device="cuda")
+    ex = db.executor
+    total = dict.fromkeys(cuda.LAUNCHES, 0)
+    try:
+        load_tables(db, tables, stats)
+        lineitem = db.catalog.default_database.get_relation("lineitem")
+        evicted = []
+        policy = ex._policy()
+        real_evicted = policy.block_evicted
+
+        def count_evictions(key):
+            evicted.append(key)
+            real_evicted(key)
+        policy.block_evicted = count_evictions
+        largest_segment = [0]
+
+        def after(label):
+            """memory_allocated after a query: within the budget plus one
+            segment."""
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - base
+            if held > STREAM_BUDGET + largest_segment[0]:
+                raise AssertionError(
+                    f"{label}: {held} bytes allocated after it, more than "
+                    f"the budget {STREAM_BUDGET} plus a segment "
+                    f"{largest_segment[0]}")
+            return held
+
+        for q in STREAMED_QUERIES:
+            sql = with_tiebreak(q, TPCH_QUERIES[q])
+            plan = ex.plan_select(parse_one(sql))
+            needed = S._table_bytes(lineitem,
+                                    S._needed_columns(plan)["lineitem"])
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            cuda.reset_launches()
+            times = []
+            for run in range(1 + STREAM_WARM_RUNS):
+                t0 = time.perf_counter()
+                rows = db.execute(sql).rows
+                times.append((time.perf_counter() - t0) * 1000)
+                check_rows(q, rows, oracle)
+                info = ex.last_stream_info
+                if info is None or info["segments_run"] < 2:
+                    raise AssertionError(f"Q{q} under the budget did not "
+                                         f"stream: {info}")
+                largest_segment[0] = max(
+                    [largest_segment[0]] + [s["bytes"] for s in
+                                            info["per_segment"]])
+            peak = torch.cuda.max_memory_allocated()
+            launches = dict(cuda.LAUNCHES)
+            missing = [k for k in LARGE_QUERIES[q] if not launches[k]]
+            if missing:
+                raise AssertionError(f"streamed Q{q} never launched "
+                                     f"{missing}: {launches}")
+            for k, v in launches.items():
+                total[k] += v
+            log(stream_line(f"Q{q}", info, times, peak, start))
+            if q in (1, 6):
+                # what the query itself allocated at its peak, above what it
+                # found held (the segment cache and resident tables of the
+                # queries before it, within the budget)
+                if peak - start >= needed:
+                    raise AssertionError(
+                        f"streamed Q{q}'s peak {peak - start} bytes above "
+                        f"its start is not below the {needed} bytes of the "
+                        "lineitem columns it reads")
+                log(f"    {(peak - start) / 2**30:.3f} GiB above its start, "
+                    f"below the {needed / 2**30:.3f} GiB of lineitem's "
+                    "columns it reads")
+            held = after(f"Q{q}")
+            log(f"    then {held / 2**30:.3f} GiB allocated: resident "
+                f"{ex._resident_bytes() / 2**30:.3f} GiB "
+                f"({len(ex._device_cache)} tables), segment cache "
+                f"{ex._seg_cache_bytes / 2**30:.3f} GiB; launches "
+                + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+        for q in RESIDENT_UNDER_BUDGET:
+            torch.cuda.reset_peak_memory_stats()
+            cuda.reset_launches()
+            t0 = time.perf_counter()
+            rows = db.execute(with_tiebreak(q, TPCH_QUERIES[q])).rows
+            ms = (time.perf_counter() - t0) * 1000
+            check_rows(q, rows, oracle)
+            if ex.last_stream_info is not None:
+                raise AssertionError(f"Q{q} streamed under the budget")
+            for k, v in cuda.LAUNCHES.items():
+                total[k] += v
+            held = after(f"Q{q}")
+            log(f"  Q{q} resident under the budget: {ms:.1f} ms, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, then "
+                f"{held / 2**30:.3f} GiB allocated")
+        log(f"  {len(evicted)} evictions so far, of "
+            f"{len(set(evicted))} table versions; memory after every query "
+            "within the budget plus one segment "
+            f"({largest_segment[0] / 2**20:.1f} MiB)")
+        if not evicted:
+            raise AssertionError("the budget never evicted a table")
+
+        db.config.strict_hbm_budget = True
+        for q in UNSTREAMABLE:
+            sql = with_tiebreak(q, TPCH_QUERIES[q])
+            try:
+                db.execute(sql)
+            except ExecutionError as e:
+                if "streamable" not in str(e):
+                    raise
+                log(f"  Q{q} under strict_hbm_budget: ExecutionError "
+                    f"({str(e)[:60]}...)")
+            else:
+                raise AssertionError(f"Q{q} ran under strict_hbm_budget")
+        db.config.strict_hbm_budget = False
+        for q in UNSTREAMABLE:
+            torch.cuda.reset_peak_memory_stats()
+            cuda.reset_launches()
+            t0 = time.perf_counter()
+            rows = db.execute(with_tiebreak(q, TPCH_QUERIES[q])).rows
+            ms = (time.perf_counter() - t0) * 1000
+            check_rows(q, rows, oracle)
+            if ex.last_stream_info is not None:
+                raise AssertionError(f"Q{q} streamed")
+            launches = dict(cuda.LAUNCHES)
+            missing = [k for k in LARGE_QUERIES[q] if not launches[k]]
+            if missing:
+                raise AssertionError(f"Q{q} never launched {missing}")
+            for k, v in launches.items():
+                total[k] += v
+            log(f"  Q{q} without strict_hbm_budget: resident, {ms:.1f} ms, "
+                f"{len(rows)} rows match the exact oracle; peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+        # segment skipping on l_orderkey, whose segments' ranges are ordered
+        sql = ("SELECT COUNT(*), MIN(l_orderkey), MAX(l_orderkey), "
+               "MAX(l_partkey), MIN(l_suppkey) FROM lineitem "
+               "WHERE l_orderkey < {}")
+        sp = S.plan_streaming(ex.plan_select(parse_one(sql.format(0))),
+                              db.catalog.default_database, db.config)
+        ranges = S.segment_minmax(lineitem, "l_orderkey", sp.seg_rows,
+                                  sp.n_segments)
+        if any(hi > lo for (_a, hi), (lo, _b) in zip(ranges, ranges[1:])):
+            raise AssertionError(f"l_orderkey's segments overlap: {ranges}")
+        # segments 0 and 1 hold keys below it, the rest none
+        bound = int(ranges[1][0]) + 1
+        cols = {c: np.asarray(lineitem.data.columns[c].data)
+                for c in ("l_orderkey", "l_partkey", "l_suppkey")}
+        keep = cols["l_orderkey"] < bound
+        want = [(int(keep.sum()), int(cols["l_orderkey"][keep].min()),
+                 int(cols["l_orderkey"][keep].max()),
+                 int(cols["l_partkey"][keep].max()),
+                 int(cols["l_suppkey"][keep].min()))]
+        cuda.reset_launches()
+        rows = db.execute(sql.format(bound)).rows
+        for k, v in cuda.LAUNCHES.items():
+            total[k] += v
+        info = ex.last_stream_info
+        if rows != want or info is None or \
+                not 1 < info["segments_run"] < info["segments"]:
+            raise AssertionError(f"SMA skip: {rows} != {want}, {info}")
+        log(f"  l_orderkey < {bound}: segments {info['segments_run']}/"
+            f"{info['segments']} run (SMA skipped the rest, ranges ordered), "
+            f"{rows[0][0]} rows match numpy")
+        after("the SMA scan")
+
+        server = QueryServer(db, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        answers = [None, None]
+        try:
+            def client(i):
+                c = QueryClient("127.0.0.1", server.port)
+                try:
+                    answers[i] = c.query(with_tiebreak(6, TPCH_QUERIES[6]))
+                finally:
+                    c.close()
+            clients = [threading.Thread(target=client, args=(i,))
+                       for i in range(2)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(120)
+        finally:
+            server.shutdown()
+            thread.join(10)
+        for a in answers:
+            if a is None or a["stderr"]:
+                raise AssertionError(f"network client: {a}")
+            check_rows(6, [tuple(r) for r in a["rows"]], oracle)
+        log(f"  network server on 127.0.0.1:{server.port} (device cuda): two "
+            f"clients got Q6's answer {answers[0]['rows'][0]} in "
+            + ", ".join(f"{a['time_ms']:.1f}" for a in answers) + " ms, "
+            f"streamed ({ex.last_stream_info['segments_run']} segments)")
+        return total
+    finally:
+        ex._device_cache.clear()
+        ex._seg_cache.clear()
+        db.close()
+        del db
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_large_mesh(cuda, generated, single, total):
     """The generated SF_LARGE tables in a second database, on a mesh of
     MESH_SHARDS shards of the card at the default replicate threshold
@@ -2127,7 +2395,9 @@ def main():
     add(golden)
     large, single = phase_large(cuda, generated)
     add(large)
-    for counts in (small, golden, large):
+    streamed = phase_streamed(cuda, generated)
+    add(streamed)
+    for counts in (small, golden, large, streamed):
         for k, v in counts.items():
             one_device[k] += v
     with bloom_census() as large_census:

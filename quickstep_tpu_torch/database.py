@@ -49,8 +49,8 @@ class Database:
         # reads and writes none (config.storage_path has a default)
         self.store: Optional[str] = storage_path or None
         self._executor = None
-        if self.config.distributed or self.config.hbm_budget_bytes > 0:
-            # the executor refuses what it cannot honour: say so now
+        if self.config.distributed:
+            # the executor refuses a mesh without its shard count: say so now
             self.executor
         if self.config.preload_buffer_pool:
             self.executor.preload()
@@ -69,12 +69,14 @@ class Database:
         matching the reference where the Foreman/PolicyEnforcer sees every
         AdmitRequestMessage (query_execution/PolicyEnforcerSingleNode.cpp:42-56).
         Queries run on its dispatcher thread, on that thread's current CUDA
-        stream."""
+        stream; a streamed query lets the others run between its segments
+        (the executor's segment_yield)."""
         if getattr(self, "_enforcer", None) is None:
             from quickstep_tpu_torch.exec.scheduler import PolicyEnforcer
             self._enforcer = PolicyEnforcer(
                 self._execute_one,
-                max_concurrent_queries=self.config.max_concurrent_queries)
+                max_concurrent_queries=self.config.max_concurrent_queries,
+                executor=self.executor)
         return self._enforcer
 
     def _execute_one(self, stmt):
@@ -115,8 +117,8 @@ class Database:
             self._enforcer = None
 
 
-def from_store(path: str, device) -> Database:
+def from_store(path: str, device, config: Optional[Config] = None) -> Database:
     """Open a catalog store (the .npy columns, JSON dictionaries and metadata
     that quickstep_tpu.Database.save() or this package's save() writes) with
-    its tables on `device`."""
-    return Database(storage_path=path, device=device)
+    its tables on `device`, under `config` (a device memory budget, say)."""
+    return Database(config=config, storage_path=path, device=device)

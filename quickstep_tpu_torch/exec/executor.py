@@ -9,11 +9,23 @@ under-estimate) re-runs the plan with an override, which is remembered per
 plan shape and table versions (the kOutOfSpace retry of the reference)
 and written to the store as learned_overrides.json, so that a new process
 takes the corrected plan in one pass. Scalar subqueries run inside the
-plan, not as programs of their own as the reference's XLA split has them.
+plan, not as programs of their own as the reference's XLA split has them,
+except one over a table larger than half the device memory budget, which
+runs first as a plan of its own (and streams).
 There is no compile cache: torch runs eagerly. The optimized plan of a
 SELECT is kept in _logical_plan_cache, keyed by the statement's structure
 without positions, the planning config and every relation's version, and
 the cache is emptied after every statement that is not a SELECT.
+
+Under a device memory budget (Config.hbm_budget_bytes) the resident tables
+are evicted by the configured policy (storage/eviction.py) to keep them and
+the segment cache within the budget, and a plan whose one large table is
+over half the budget streams it through the device in row segments
+(exec/streaming.py plan_streaming, _run_streamed): each segment's slice of
+the host columns is uploaded and runs the plan's partial program on the
+same kernels as a resident run, and the partial rows merge on the host or
+in one resident run over them. Segments whose min/max rule out a scan
+predicate never leave the host.
 
 DDL, DML and commands run against the catalog on the host, as in the
 reference. INSERT ... SELECT runs its SELECT through run_plan and appends
@@ -25,11 +37,13 @@ drops its device copy, so the next query uploads the new data once.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
 import json
 import os
 import time
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -54,6 +68,7 @@ from quickstep_tpu_torch.expressions.scalar import EvalContext, Lit
 from quickstep_tpu_torch.ops import kernels as K
 from quickstep_tpu_torch.ops.sort import order_permutation
 from quickstep_tpu_torch.parallel.mesh import make_mesh, pad_to_multiple
+from quickstep_tpu_torch.storage.eviction import make_policy
 
 # Plan runs per statement before the retry gives up (each run installs at
 # least one override, and there are few of them per plan).
@@ -83,12 +98,33 @@ class Executor:
         if config.distributed and mesh_shards is not None:
             self.mesh = make_mesh(mesh_shards, device,
                                   config.default_mesh_axis)
-        self._check_config()
         # the runtime flags the last plan run produced, by name, with their
         # values (the reference's last_flags)
         self.last_flags: Dict[str, bool] = {}
-        # (relation, version) -> (columns on the device, metadata)
+        # (relation, version) -> (columns on the device, metadata); the
+        # metadata's "bytes" are those of the columns uploaded
         self._device_cache: Dict[Tuple[str, int], Tuple[dict, dict]] = {}
+        # the eviction policy over _device_cache and the (policy, K) of the
+        # config it was made for: _policy makes it anew when they change
+        self._eviction = None
+        self._eviction_spec: Optional[tuple] = None
+        # streamed segments kept on the device under half the budget, the
+        # first that fit (the reference's _seg_cache):
+        # (relation, version, column, segment, segment rows) ->
+        # (data, valid, bytes)
+        self._seg_cache: "collections.OrderedDict[tuple, tuple]" = \
+            collections.OrderedDict()
+        self._seg_cache_bytes = 0
+        self._seg_cache_hits = 0
+        self._seg_cache_misses = 0
+        # the last streamed plan's segments, bytes and times (None when the
+        # last plan ran resident), and the bytes of the columns it read
+        self.last_stream_info: Optional[dict] = None
+        self.last_scan_bytes = 0
+        # called between streamed segments (the PolicyEnforcer's
+        # _yield_between_segments), so that other sessions' queries run
+        self.segment_yield = None
+        self._check_config()
         # device->host synchronisations of the last statement
         self.host_syncs = 0
         # plan re-runs of the last statement, after a runtime flag fired
@@ -128,15 +164,9 @@ class Executor:
     # statement dispatch
     # ================================================================
     def _check_config(self) -> None:
-        """Refuse the settings the port would otherwise ignore: a device
-        memory budget (out-of-core execution is not ported) and a
-        distributed run without its shard count."""
-        if self.config.hbm_budget_bytes > 0:
-            raise ExecutionError(
-                f"hbm_budget_bytes = {self.config.hbm_budget_bytes}: "
-                "out-of-core execution under a device memory budget is not "
-                "ported (ROADMAP queue 1 item 3); set it to 0 to run "
-                "resident")
+        """Refuse a distributed run without its shard count, and take the
+        eviction policy the config names now (an unknown one raises)."""
+        self._policy()
         if self.config.distributed and self.mesh is None:
             raise ExecutionError(
                 "distributed = True needs the mesh's shard count: "
@@ -255,7 +285,44 @@ class Executor:
     def run_plan(self, plan: L.LogicalNode, columns: bool = False):
         """Execute a logical plan; returns (rows, names, types), or with
         columns=True (host columns, names, types): one (attr, data, valid)
-        numpy triple per output column, in output order, undecoded."""
+        numpy triple per output column, in output order, undecoded. Under a
+        device memory budget a plan whose one large table is over half the
+        budget streams it (_run_streamed); a plan with such a table and no
+        streamable shape raises under strict_hbm_budget, mesh or not, and
+        otherwise runs resident."""
+        from quickstep_tpu_torch.exec import streaming as S
+        self.last_stream_info = None
+        sp = S.plan_streaming(plan, self.db, self.config, self.mesh)
+        if sp is not None:
+            return self._run_streamed(sp, columns)
+        budget = self.config.hbm_budget_bytes
+        if budget > 0 and self.config.strict_hbm_budget:
+            over = [name for name, cols in S._needed_columns(plan).items()
+                    if self._over_half_budget(name, cols)]
+            if over:
+                raise ExecutionError(
+                    f"table(s) {', '.join(sorted(over))} exceed half the "
+                    f"device memory budget ({budget} bytes) and the plan has "
+                    "no streamable shape (the big table must be reachable "
+                    "through Filter/Project/Distinct/probe-side join edges "
+                    "and be scanned exactly once); raise hbm_budget_bytes, "
+                    "set strict_hbm_budget=False to attempt resident "
+                    "execution, or restructure the query")
+        return self._run_plan_resident(plan, columns)
+
+    def _over_half_budget(self, name: str, cols) -> bool:
+        from quickstep_tpu_torch.exec import streaming as S
+        rel = self.db.get_relation(name)
+        return rel is not None and rel.data is not None and \
+            S._table_bytes(rel, cols) > self.config.hbm_budget_bytes // 2
+
+    def _run_plan_resident(self, plan: L.LogicalNode, columns: bool = False,
+                           subqueries: Optional[dict] = None,
+                           learn: bool = True):
+        """Run a plan with its tables resident. subqueries: the values of
+        scalar subqueries already run (_stream_subqueries; found here when
+        None). learn=False neither reads nor writes learned overrides (a
+        merge plan over the temporary partials relation)."""
         # Peel a root-level presentation Sort off the device plan: encoded
         # column values (dict codes, packed dates) are order-preserving, so a
         # stable sort of the codes is exact. Under ORDER BY ... LIMIT it runs
@@ -278,7 +345,9 @@ class Executor:
             trim_ids = [a.expr_id for a in final_attrs]
             device_plan = device_plan.input
 
-        inputs, meta = self._collect_inputs(device_plan)
+        if subqueries is None:
+            subqueries = self._stream_subqueries(device_plan)
+        inputs, meta = self._collect_inputs(device_plan, subqueries)
         # Runtime corrections (duplicate build keys, expansion overflows,
         # compaction under-estimates) are remembered per plan shape and table versions,
         # so a warm re-run takes the corrected plan in one pass; the key is
@@ -287,29 +356,14 @@ class Executor:
         learn_key = hashlib.sha256(repr((
             _fingerprint(device_plan),
             tuple(sorted((k, m["version"]) for k, m in meta.items()))
-        )).encode()).hexdigest()
+        )).encode()).hexdigest() if learn else None
         overrides = {k: dataclasses.replace(v) for k, v in
                      self._learned_overrides.get(learn_key, {}).items()}
-        out_attrs = device_plan.output
-        for attempt in range(MAX_ATTEMPTS):
-            self.retries = attempt
-            runner = PlanRunner(device_plan, inputs, meta, self.config,
-                                self.device, overrides, mesh=self.mesh)
-            chunk = runner.exec(device_plan)
-            fired, pulled = self._pull_outputs(device_plan, chunk, out_attrs,
-                                               runner.flags, host_sort)
-            if not fired:
-                break
-            self._install_overrides(fired, overrides)
-            while len(self._learned_overrides) >= LEARNED_LIMIT:
-                self._learned_overrides.pop(next(iter(self._learned_overrides)))
-            self._learned_overrides[learn_key] = {
-                k: dataclasses.replace(v) for k, v in overrides.items()}
-            self._save_overrides()
-        else:
-            raise ExecutionError("join fallback did not converge")
-        datas, valids, n, sorted_on_device = pulled
+        datas, valids, n, sorted_on_device = self._run_attempts(
+            device_plan, inputs, meta, overrides, host_sort, learn_key,
+            subqueries)
         self.last_sort_path = "device" if sorted_on_device else "host"
+        out_attrs = device_plan.output
         by_id = {a.expr_id: (a, d, v)
                  for a, d, v in zip(out_attrs, datas, valids)}
         if host_sort is None:
@@ -319,6 +373,39 @@ class Executor:
             order = np.arange(n)
         else:
             order = _host_sort_order(host_sort, by_id, n)
+        return self._finish(by_id, order, final_attrs, trim_ids, columns)
+
+    def _run_attempts(self, device_plan, inputs, meta, overrides,
+                      host_sort=None, learn_key=None, subqueries=None):
+        """Run the plan and pull its result, re-running it with the
+        overrides that answer each runtime flag that fired (they stay in
+        `overrides`, so the next segment of a stream starts with them);
+        with a learn_key they are also learned, and written to the store.
+        Returns _pull_outputs' (datas, valids, n, sorted_on_device)."""
+        out_attrs = device_plan.output
+        for _attempt in range(MAX_ATTEMPTS):
+            runner = PlanRunner(device_plan, inputs, meta, self.config,
+                                self.device, overrides, mesh=self.mesh,
+                                subqueries=subqueries)
+            chunk = runner.exec(device_plan)
+            fired, pulled = self._pull_outputs(device_plan, chunk, out_attrs,
+                                               runner.flags, host_sort)
+            if not fired:
+                return pulled
+            self.retries += 1
+            self._install_overrides(fired, overrides)
+            if learn_key is None:
+                continue
+            while len(self._learned_overrides) >= LEARNED_LIMIT:
+                self._learned_overrides.pop(next(iter(self._learned_overrides)))
+            self._learned_overrides[learn_key] = {
+                k: dataclasses.replace(v) for k, v in overrides.items()}
+            self._save_overrides()
+        raise ExecutionError("join fallback did not converge")
+
+    def _finish(self, by_id, order, final_attrs, trim_ids, columns):
+        """The result in `order`: decoded rows (_trim_rows), or with
+        columns=True the undecoded host columns."""
         if columns:
             cols = []
             for fa, tid in zip(final_attrs, trim_ids):
@@ -327,6 +414,302 @@ class Executor:
             return cols, [a.name for a in final_attrs], \
                 [a.type for a in final_attrs]
         return self._trim_rows(by_id, order, final_attrs, trim_ids)
+
+    def _stream_subqueries(self, plan, streams: Optional[list] = None
+                           ) -> Dict[tuple, tuple]:
+        """Run first, as plans of their own, the uncorrelated scalar
+        subqueries under `plan` that read a table over half the device
+        memory budget, so that run_plan streams them (or refuses them)
+        instead of the runner uploading that table whole. Returns the
+        runner's subquery slots for them: ("subquery", id(subplan)) ->
+        (value, present), 0-d device tensors of the raw encoding. Their
+        last_stream_info go to `streams`."""
+        from quickstep_tpu_torch.expressions.subquery import SubqueryScalar
+        bound: Dict[tuple, tuple] = {}
+        if self.config.hbm_budget_bytes <= 0:
+            return bound
+        stack = [plan]
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children())
+            exprs = list(_node_exprs(node))
+            while exprs:
+                x = exprs.pop()
+                exprs.extend(x.children())
+                if not isinstance(x, SubqueryScalar) or \
+                        ("subquery", id(x.plan)) in bound:
+                    continue
+                if not any(self._over_half_budget(name, cols) for name, cols
+                           in _tables_read(x.plan).items()):
+                    stack.append(x.plan)
+                    continue
+                saved = self.last_stream_info
+                cols, _names, _types = self.run_plan(x.plan, columns=True)
+                if streams is not None and self.last_stream_info is not None:
+                    streams.append(self.last_stream_info)
+                self.last_stream_info = saved
+                attr, d, v = cols[0]
+                dtype = K.torch_dtype(attr.type.device_dtype)
+                if len(d):
+                    value = torch.from_numpy(np.asarray(d[:1])).to(
+                        self.device)[0]
+                    present = v is None or bool(v[0])
+                else:
+                    value = torch.zeros((), dtype=dtype, device=self.device)
+                    present = False
+                bound[("subquery", id(x.plan))] = (value, torch.tensor(
+                    present, dtype=torch.bool, device=self.device))
+        return bound
+
+    # ----------------------------------------------------------------
+    # out-of-core segment streaming (see exec/streaming.py)
+    # ----------------------------------------------------------------
+    def _run_streamed(self, sp, columns: bool = False):
+        """Stream sp.big_table through the device in segments of sp.seg_rows
+        rows: its build sides resident, each segment's columns uploaded (or
+        taken from the segment cache) and run through sp.partial_plan with
+        one pull; the overrides a segment's flags install carry to the next.
+        The partial rows are then sorted on the host (_try_stream_sort) or
+        become the temporary relation PARTIALS_REL, which sp.merge_plan
+        reads in one resident run and which is dropped with its device copy
+        after it. The relation is read as it stood when the stream began,
+        whatever a statement run between segments (segment_yield) does."""
+        from quickstep_tpu_torch.exec import streaming as S
+        rel = self.db.get_relation(sp.big_table)
+        snap = _Snapshot(rel)
+        needed = S._needed_columns(sp.partial_plan)
+        big_cols = sorted(needed[sp.big_table])
+
+        # resident (build-side) tables: the normal cached path
+        res_inputs, res_meta = {}, {}
+        for name, cols in needed.items():
+            if name == sp.big_table:
+                continue
+            c, m = self._device_table(self.db.get_relation(name), cols)
+            sub = {x: c[x] for x in cols}
+            sub["__num_rows__"] = c["__num_rows__"]
+            res_inputs[name], res_meta[name] = sub, m
+
+        seg_meta = self._segment_meta(rel, big_cols)
+        overrides: Dict[int, JoinOverride] = {}
+        nattrs = len(sp.partial_attrs)
+        partial_np: List[List[np.ndarray]] = [[] for _ in range(nattrs)]
+        partial_valid: List[List[Optional[np.ndarray]]] = \
+            [[] for _ in range(nattrs)]
+        segments: List[dict] = []
+        prober = S.AdaptiveProber(len(sp.scan_filters))
+        for seg in range(sp.n_segments):
+            if self.segment_yield is not None:
+                # other sessions' queries run here; this statement's counts
+                # are its own
+                counts = (self.host_syncs, self.retries)
+                self.segment_yield()
+                self.host_syncs, self.retries = counts
+            if not S.segment_survives(sp.scan_filters, sp.scan_attr_cols,
+                                      snap, seg, sp.seg_rows, sp.n_segments,
+                                      prober=prober):
+                continue   # SMA skip: bytes never leave the host
+            t0 = time.perf_counter()
+            seg_inputs, seg_bytes, upload_s = self._segment_inputs(
+                snap, big_cols, seg, sp.seg_rows)
+            rows = seg_inputs["__num_rows__"]
+            inputs = dict(res_inputs)
+            inputs[sp.big_table] = seg_inputs
+            meta = dict(res_meta)
+            meta[sp.big_table] = dict(seg_meta, capacity=rows, rows=rows)
+            datas, valids, n, _ = self._run_attempts(
+                sp.partial_plan, inputs, meta, overrides)
+            # free this segment's columns before the next one is uploaded
+            del inputs, seg_inputs
+            for i in range(nattrs):
+                partial_np[i].append(datas[i])
+                partial_valid[i].append(valids[i])
+            segments.append({"segment": seg, "rows": rows, "bytes": seg_bytes,
+                             "upload_s": upload_s, "partial_rows": n,
+                             "seconds": time.perf_counter() - t0})
+
+        bytes_streamed = sum(s["bytes"] for s in segments)
+        info = {"segments": sp.n_segments, "segments_run": len(segments),
+                "seg_rows": sp.seg_rows, "bytes_streamed": bytes_streamed,
+                "seg_cache_hits": self._seg_cache_hits,
+                "seg_cache_misses": self._seg_cache_misses,
+                "probe_order": prober.order(),
+                "probe_evaluations": prober.evaluations,
+                "probe_rejects": list(prober.rejects),
+                "per_segment": segments}
+        # sort-only merge: a host merge of the streamed runs (the external
+        # sort: no device run at the whole table's size)
+        sorted_out = self._try_stream_sort(sp, partial_np, partial_valid,
+                                           columns)
+        if sorted_out is not None:
+            self.last_scan_bytes = bytes_streamed
+            self.last_stream_info = dict(info, mode="stream_sort")
+            return sorted_out
+
+        # the scalar subqueries over a large table run before the partials
+        # relation exists (they may stream too, through their own)
+        subquery_streams: List[dict] = []
+        bound = self._stream_subqueries(sp.merge_plan, subquery_streams)
+        cols = {}
+        for a, segs, vsegs in zip(sp.partial_attrs, partial_np,
+                                  partial_valid):
+            data, valid = _concat_segments(a, segs, vsegs)
+            cols[a.name] = Column(a.type, data, valid, a.dictionary)
+        del partial_np, partial_valid
+        tmp = CatalogRelation(S.PARTIALS_REL, [
+            CatalogAttribute(a.name, a.type) for a in sp.partial_attrs])
+        tmp.set_data(TableData(cols))
+        if self.db.get_relation(S.PARTIALS_REL) is not None:
+            self.db.drop_relation(S.PARTIALS_REL)
+        self.db.add_relation(tmp)
+        try:
+            result = self._run_plan_resident(sp.merge_plan, columns,
+                                             subqueries=bound, learn=False)
+        finally:
+            self.db.drop_relation(S.PARTIALS_REL)
+            self._drop_device_copy(S.PARTIALS_REL)
+        # bytes actually streamed + the resident tables
+        self.last_scan_bytes = bytes_streamed + sum(
+            S._table_bytes(self.db.get_relation(nm), cs)
+            for nm, cs in needed.items() if nm != sp.big_table)
+        self.last_stream_info = dict(info, mode="merge",
+                                     subqueries=subquery_streams)
+        return result
+
+    def _column_meta(self, rel, cname: str, ranges: dict,
+                     unique_cols: set) -> None:
+        """Add column cname's value range (integer columns: from exact
+        statistics, a dictionary's code range, else the whole column's live
+        values) and uniqueness to ranges and unique_cols."""
+        st = rel.statistics
+        attr = rel.attribute_by_name(cname)
+        col = rel.data.columns[cname]
+        arr = np.asarray(col.data)
+        if np.issubdtype(arr.dtype, np.integer):
+            if st.exact and cname in st.min_values and \
+                    not col.type.is_string:
+                ranges[cname] = (int(st.min_values[cname]),
+                                 int(st.max_values[cname]))
+            elif col.type.is_string and col.dictionary is not None:
+                # dict codes live in [0, |dict|): a conservative range
+                ranges[cname] = (0, max(len(col.dictionary) - 1, 0))
+            elif arr.size:
+                lv = arr if col.valid is None else arr[np.asarray(col.valid)]
+                if lv.size:
+                    ranges[cname] = (int(lv.min()), int(lv.max()))
+        if attr.unique or (st.exact and st.num_tuples and
+                           st.num_distinct.get(cname) == st.num_tuples):
+            unique_cols.add(cname)
+
+    def _segment_meta(self, rel, colnames) -> dict:
+        """The metadata every segment shares (the caller adds each one's
+        capacity and rows): the whole relation's ranges, uniqueness, unique
+        pairs and heaviest-value counts, which hold for any subset of its
+        rows, so that every segment takes the same join and GROUP BY
+        routes."""
+        st = rel.statistics
+        ranges: dict = {}
+        unique_cols: set = set()
+        for cname in colnames:
+            self._column_meta(rel, cname, ranges, unique_cols)
+        return {"ranges": ranges, "unique_cols": unique_cols,
+                "version": rel.version, "bytes": 0,
+                "unique_pairs": [tuple(p) for p in st.unique_pairs]
+                if st.exact else [],
+                "max_counts": dict(st.max_counts) if st.exact else {}}
+
+    def _segment_inputs(self, snap, colnames, seg: int, seg_rows: int):
+        """Host-to-device upload of one row segment, a slice of each host
+        column (no padded copy). Segments are kept on the device under half
+        the budget, less what the resident tables hold, the first that fit
+        (streamed access is cyclic, where LRU would evict each segment just
+        before its next use), so a warm run starts with cache hits; only a
+        snapshot of the relation's current version is kept. Returns (the
+        segment's inputs, bytes uploaded, seconds of the upload)."""
+        start = seg * seg_rows
+        end = min(start + seg_rows, snap.data.num_rows)
+        budget = self.config.hbm_budget_bytes
+        current = snap.version == snap.rel.version
+        dev = {}
+        nbytes = 0
+        t0 = time.perf_counter()
+        for c in colnames:
+            key = (snap.name, snap.version, c, seg, seg_rows)
+            hit = self._seg_cache.get(key)
+            if hit is not None:
+                self._seg_cache.move_to_end(key)
+                dev[c] = hit[:2]
+                self._seg_cache_hits += 1
+                continue
+            col = snap.data.columns[c]
+            data = _upload(np.asarray(col.data)[start:end], self.device)
+            valid = None if col.valid is None else _upload(
+                np.asarray(col.valid, dtype=bool)[start:end], self.device)
+            entry = _nbytes(data) + _nbytes(valid)
+            nbytes += entry
+            dev[c] = (data, valid)
+            self._seg_cache_misses += 1
+            if not budget or not current:
+                continue
+            for k in [k for k in self._seg_cache if k[0] == snap.name and
+                      k[2] == c and k[1] != snap.version]:
+                self._seg_cache_bytes -= self._seg_cache.pop(k)[2]
+            room = min(budget // 2, budget - self._resident_bytes())
+            if self._seg_cache_bytes + entry <= room:
+                self._seg_cache[key] = (data, valid, entry)
+                self._seg_cache_bytes += entry
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        dev["__num_rows__"] = end - start
+        return dev, nbytes, time.perf_counter() - t0
+
+    def _try_stream_sort(self, sp, partial_np, partial_valid,
+                         columns: bool = False):
+        """Out-of-core ORDER BY (the reference's _try_stream_sort,
+        SortMergeRunOperator analog): when a row-streamed plan's merge is
+        nothing but Sort (and a trim Project) over the streamed partials,
+        the host lexsort of the partial rows replaces a temporary relation
+        and a device run at the whole result's size. Returns run_plan's
+        result, or None when the merge is not sort-only."""
+        from quickstep_tpu_torch.exec import streaming as S
+        from quickstep_tpu_torch.expressions.scalar import Attr
+        plan = sp.merge_plan
+        trim = None
+        if isinstance(plan, L.Project) and isinstance(plan.input, L.Sort) \
+                and all(isinstance(e, Attr) for e in plan.exprs):
+            trim = plan
+            plan = plan.input
+        if not isinstance(plan, L.Sort):
+            return None
+        restore = plan.input
+        if not (isinstance(restore, L.Project) and
+                isinstance(restore.input, L.TableScan) and
+                restore.input.relation_name == S.PARTIALS_REL and
+                all(isinstance(e, Attr) for e in restore.exprs)):
+            return None
+        if not all(isinstance(k, Attr) for k in plan.keys):
+            return None
+        by_id = {}
+        for a, segs, vsegs in zip(sp.partial_attrs, partial_np,
+                                  partial_valid):
+            data, valid = _concat_segments(a, segs, vsegs)
+            by_id[a.expr_id] = (a, data, valid)
+        # restore's attrs carry the display names/dictionaries under the
+        # same expr_ids as the partials
+        for ra, re in zip(restore.attrs, restore.exprs):
+            if re.expr_id in by_id:
+                _, d, v = by_id[re.expr_id]
+                by_id[ra.expr_id] = (ra, d, v)
+        n = next((len(d) for _, d, _ in by_id.values()), 0)
+        order = _host_sort_order(plan, by_id, n)
+        self.last_sort_path = "host"
+        if trim is not None:
+            final_attrs = trim.attrs
+            trim_ids = [e.expr_id for e in trim.exprs]
+        else:
+            final_attrs = list(plan.output)
+            trim_ids = [a.expr_id for a in final_attrs]
+        return self._finish(by_id, order, final_attrs, trim_ids, columns)
 
     @staticmethod
     def _install_overrides(fired: List[str], overrides) -> None:
@@ -476,34 +859,26 @@ class Executor:
     # ----------------------------------------------------------------
     # input preparation (StorageManager role: host -> device memory)
     # ----------------------------------------------------------------
-    def _collect_inputs(self, plan: L.LogicalNode):
-        from quickstep_tpu_torch.expressions.subquery import SubqueryScalar
-        needed: Dict[str, set] = {}
-
-        def walk(node):
-            if isinstance(node, L.TableScan):
-                s = needed.setdefault(node.relation_name, set())
-                s.update(a.name for a in node.attrs)
-            for c in node.children():
-                walk(c)
-            # subplans hold nested plans in expressions too
-            for e in _node_exprs(node):
-                stack = [e]
-                while stack:
-                    x = stack.pop()
-                    if isinstance(x, SubqueryScalar):
-                        walk(x.plan)
-                    stack.extend(x.children())
-        walk(plan)
+    def _collect_inputs(self, plan: L.LogicalNode, subqueries=()):
+        """The device columns and metadata of every table the plan reads,
+        in its scalar subqueries too, but for those already run (the keys
+        of `subqueries`). Sets last_scan_bytes to the host bytes of those
+        columns."""
+        skip = {key[1] for key in subqueries}
         inputs = {}
         meta = {}
-        for name, colnames in needed.items():
+        scan_bytes = 0
+        for name, colnames in _tables_read(plan, skip).items():
             rel = self.db.get_relation(name)
             cols, m = self._device_table(rel, colnames)
             sub = {c: cols[c] for c in colnames}
             sub["__num_rows__"] = cols["__num_rows__"]
             inputs[name] = sub
             meta[name] = m
+            for c in colnames:
+                col = rel.data.columns[c]
+                scan_bytes += _nbytes(col.data) + _nbytes(col.valid)
+        self.last_scan_bytes = scan_bytes
         return inputs, meta
 
     def _device_table(self, rel: CatalogRelation, needed):
@@ -512,20 +887,23 @@ class Executor:
         only their missing columns. needed=None means all columns. Rows are
         not padded: capacity is the row count, rounded up under a mesh to a
         multiple of its shards with dead rows (the reference's _bucket,
-        executor.py:1188), so that each shard holds an equal row range."""
+        executor.py:1188), so that each shard holds an equal row range.
+        Under a device memory budget the eviction policy makes room first
+        (_evict_for), and the entry's "bytes" count what was uploaded."""
         key = (rel.name, rel.version)
         names = [a.name for a in rel.attributes
                  if needed is None or a.name in needed]
+        policy = self._policy()
         hit = self._device_cache.get(key)
         if hit is not None:
             cols, m = hit
             missing = [c for c in names if c not in cols]
             if not missing:
+                policy.block_referenced(key)
                 return cols, m
         else:
             # drop stale versions of this relation
-            for k in [k for k in self._device_cache if k[0] == rel.name]:
-                del self._device_cache[k]
+            self._drop_device_copy(rel.name)
             cols, m = None, None
             missing = names
 
@@ -535,38 +913,27 @@ class Executor:
         st = rel.statistics
         ranges = dict(m["ranges"]) if m is not None else {}
         unique_cols = set(m["unique_cols"]) if m is not None else set()
-        new_cols = {}
+        host_cols = {}
         for cname in missing:
-            attr = rel.attribute_by_name(cname)
             col = rel.data.columns[cname]
-            arr = np.asarray(col.data)
-            valid = None
-            if col.valid is not None:
-                valid = torch.tensor(pad_to_multiple(
-                    np.asarray(col.valid, dtype=bool), shards),
-                    device=self.device)
-            new_cols[cname] = (torch.tensor(pad_to_multiple(arr, shards),
-                                            device=self.device), valid)
-            if np.issubdtype(arr.dtype, np.integer):
-                if st.exact and cname in st.min_values and \
-                        not col.type.is_string:
-                    ranges[cname] = (int(st.min_values[cname]),
-                                     int(st.max_values[cname]))
-                elif col.type.is_string and col.dictionary is not None:
-                    # dict codes live in [0, |dict|): a conservative range
-                    ranges[cname] = (0, max(len(col.dictionary) - 1, 0))
-                elif arr.size:
-                    lv = arr if col.valid is None else arr[np.asarray(col.valid)]
-                    if lv.size:
-                        ranges[cname] = (int(lv.min()), int(lv.max()))
-            if attr.unique or (st.exact and st.num_tuples and
-                               st.num_distinct.get(cname) == st.num_tuples):
-                unique_cols.add(cname)
+            valid = None if col.valid is None else pad_to_multiple(
+                np.asarray(col.valid, dtype=bool), shards)
+            host_cols[cname] = (pad_to_multiple(np.asarray(col.data), shards),
+                                valid)
+            self._column_meta(rel, cname, ranges, unique_cols)
+        new_bytes = sum(_nbytes(d) + _nbytes(v) for d, v in host_cols.values())
+        self._evict_for(key, new_bytes)
+        new_cols = {
+            cname: (torch.tensor(d, device=self.device),
+                    None if v is None else torch.tensor(v, device=self.device))
+            for cname, (d, v) in host_cols.items()}
+        del host_cols
 
         if cols is None:
             cols = {"__num_rows__": n}
             m = {"capacity": cap, "rows": n, "ranges": ranges,
                  "unique_cols": unique_cols, "version": rel.version,
+                 "bytes": 0,
                  "unique_pairs": [tuple(p) for p in st.unique_pairs]
                  if st.exact else [],
                  "max_counts": dict(st.max_counts) if st.exact else {}}
@@ -574,13 +941,61 @@ class Executor:
         cols.update(new_cols)
         m["ranges"] = ranges
         m["unique_cols"] = unique_cols
+        m["bytes"] += new_bytes
+        policy.block_referenced(key)
         return cols, m
 
     def _drop_device_copy(self, name: str) -> None:
         """Forget every device copy of a relation (after a mutation, its
-        version moved on and the next query uploads the new data)."""
+        version moved on and the next query uploads the new data). Its
+        streamed segments stay until a newer version's are kept: a stream
+        under way may still read them."""
         for k in [k for k in self._device_cache if k[0] == name]:
             del self._device_cache[k]
+            self._policy().block_evicted(k)
+
+    # ----------------------------------------------------------------
+    # the device memory budget (Config.hbm_budget_bytes)
+    # ----------------------------------------------------------------
+    def _policy(self):
+        """The eviction policy the config names (eviction_policy,
+        eviction_lru_k), made anew when they change; the resident tables
+        count as referenced once by a new one."""
+        spec = (self.config.eviction_policy, self.config.eviction_lru_k)
+        if spec != self._eviction_spec:
+            self._eviction = make_policy(spec[0], k=spec[1])
+            self._eviction_spec = spec
+            for key in self._device_cache:
+                self._eviction.block_referenced(key)
+        return self._eviction
+
+    def _resident_bytes(self) -> int:
+        return sum(m["bytes"] for _c, m in self._device_cache.values())
+
+    def _evict_for(self, incoming_key, need: int) -> None:
+        """Make room for `need` more bytes of table incoming_key (the
+        reference's _evict_for, StorageManager::makeRoomForBlock): evict
+        other resident tables, the victims the policy chooses, and then
+        cached segments, the last kept first, until the resident tables and
+        the segment cache fit the budget; they are uploaded again on their
+        next use. The incoming table itself is never evicted."""
+        budget = self.config.hbm_budget_bytes
+        if not budget:
+            return
+        policy = self._policy()
+        resident = {k: m["bytes"] for k, (_c, m) in self._device_cache.items()
+                    if k != incoming_key}
+        held = self._device_cache.get(incoming_key)
+        fixed = need + (held[1]["bytes"] if held else 0)
+        while resident and sum(resident.values()) + fixed + \
+                self._seg_cache_bytes > budget:
+            victim = policy.choose_victim(resident)
+            del self._device_cache[victim]
+            policy.block_evicted(victim)
+            del resident[victim]
+        while self._seg_cache and sum(resident.values()) + fixed + \
+                self._seg_cache_bytes > budget:
+            self._seg_cache_bytes -= self._seg_cache.popitem()[1][2]
 
     # ================================================================
     # DDL
@@ -895,6 +1310,101 @@ def _column_for(typ: Type, attr, data: np.ndarray,
         return Column(typ, data.astype(typ.device_dtype, copy=False),
                       None if valid is None or valid.all() else valid, None)
     return Column.from_values(typ, _decode_column(attr, data, valid))
+
+
+class _SmaCache(dict):
+    """streaming.segment_minmax's cache of each segment's (min, max), keyed
+    (column, segment rows, version), holding every column and segment size
+    of one version. The copied segment_minmax clears the whole cache before
+    each entry it adds ("one version at a time"), so a scan filtered on
+    several columns would compute each column's ranges again for every
+    segment of every run; here clear() keeps them, and an entry of another
+    version drops the old version's."""
+
+    def clear(self):
+        pass
+
+    def __setitem__(self, key, value):
+        for k in [k for k in self if k[2] != key[2]]:
+            del self[k]
+        super().__setitem__(key, value)
+
+
+class _Snapshot:
+    """A streamed relation as it stood when its stream began: what
+    streaming.segment_survives and _segment_inputs read (name, data,
+    version, sma_blocks, and the relation's own _sma_cache), so that a
+    statement run between segments that changes the relation changes no
+    segment of the stream."""
+
+    def __init__(self, rel: CatalogRelation):
+        self.rel = rel
+        self.name = rel.name
+        self.data = rel.data
+        self.version = rel.version
+        self.sma_blocks = rel.sma_blocks
+        cache = rel.__dict__.get("_sma_cache")
+        if not isinstance(cache, _SmaCache):
+            cache = rel.__dict__["_sma_cache"] = _SmaCache(cache or {})
+        self._sma_cache = cache
+
+
+def _nbytes(x) -> int:
+    """Bytes of a numpy array or tensor; 0 for None."""
+    if x is None:
+        return 0
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return np.asarray(x).nbytes
+
+
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A device copy of a host slice: straight from the host column's
+    memory, with no padded or pinned copy (a copy on the CPU, whose tensor
+    must not share the column's memory)."""
+    if device.type == "cpu":
+        return torch.tensor(arr)
+    with warnings.catch_warnings():
+        # a store's memory-mapped column is read-only; it is only read
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(arr).to(device)
+
+
+def _concat_segments(attr, segs, vsegs):
+    """One partial column from its segments' pulls: (data, valid or
+    None)."""
+    if not segs:
+        return np.zeros((0,), attr.type.device_dtype), None
+    data = np.concatenate(segs)
+    if all(v is None for v in vsegs):
+        return data, None
+    return data, np.concatenate([
+        v if v is not None else np.ones(len(d), bool)
+        for d, v in zip(segs, vsegs)])
+
+
+def _tables_read(plan: L.LogicalNode, skip=()) -> Dict[str, set]:
+    """relation name -> the columns the plan reads of it, in the plans of
+    its scalar subqueries too, but those whose id is in skip."""
+    from quickstep_tpu_torch.expressions.subquery import SubqueryScalar
+    needed: Dict[str, set] = {}
+
+    def walk(node):
+        if isinstance(node, L.TableScan):
+            needed.setdefault(node.relation_name, set()).update(
+                a.name for a in node.attrs)
+        for c in node.children():
+            walk(c)
+        # subplans hold nested plans in expressions too
+        for e in _node_exprs(node):
+            stack = [e]
+            while stack:
+                x = stack.pop()
+                if isinstance(x, SubqueryScalar) and id(x.plan) not in skip:
+                    walk(x.plan)
+                stack.extend(x.children())
+    walk(plan)
+    return needed
 
 
 # =====================================================================

@@ -78,13 +78,15 @@ class PlanRunner:
                  input_meta: Dict[str, dict], config: Config,
                  device: torch.device,
                  overrides: Optional[Dict[int, JoinOverride]] = None,
-                 mesh=None):
+                 mesh=None, subqueries: Optional[Dict[tuple, tuple]] = None):
         """inputs: relation name -> {attr name -> (data, valid), "__num_rows__"}.
         input_meta: relation name -> {capacity, ranges, unique_cols, ...}.
         overrides are keyed by structural (preorder) node indices so they
         survive re-resolution of the same query. mesh: the
         parallel/mesh.py Mesh that a distributed run shards over, or
-        None."""
+        None. subqueries: scalar subqueries the executor already ran,
+        ("subquery", id(plan)) -> (value, present), which are not run
+        again."""
         self.mesh = mesh
         self.last_shuffle_info: Optional[dict] = None
         self.inputs = inputs
@@ -96,7 +98,7 @@ class PlanRunner:
         # shared subplans and scalar subqueries, run once per plan object
         self._memo: Dict[int, Chunk] = {}
         # ("subquery", id(plan)) -> (value, present): 0-d device tensors
-        self._subquery_slots: Dict[tuple, tuple] = {}
+        self._subquery_slots: Dict[tuple, tuple] = dict(subqueries or {})
         self.node_index: Dict[int, int] = {}
         self._assign_indices(plan, [0])
 

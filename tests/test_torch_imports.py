@@ -129,9 +129,45 @@ SF_TWINS_WITHOUT_JAX = textwrap.dedent("""
     print("SF TWINS OK")
 """)
 
+OUT_OF_CORE_WITHOUT_JAX = textwrap.dedent("""
+    import io, sys
+    from contextlib import redirect_stdout
+    sys.modules["jax"] = None          # any `import jax` now fails
+    import quickstep_tpu_torch.cli
+    import quickstep_tpu_torch.cli.network
+    import quickstep_tpu_torch.cli.repl
+    import quickstep_tpu_torch.exec.streaming
+    import quickstep_tpu_torch.storage.eviction
+    from quickstep_tpu_torch import Database
+    from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES, load_tpch
+    from quickstep_tpu_torch.config import Config
+    db = Database(config=Config(hbm_budget_bytes=300_000), device="cpu")
+    load_tpch(db, 0.002, 0)
+    for q in (1, 3, 6):
+        assert db.execute(TPCH_QUERIES[q]).rows, q
+        assert db.executor.last_stream_info["segments_run"] > 1, q
+    db.close()
+    out = io.StringIO()
+    with redirect_stdout(out):
+        quickstep_tpu_torch.cli.repl.main(
+            ["--device", "cpu", "-c", "SELECT 6 * 7;"])
+    assert "42" in out.getvalue(), out.getvalue()
+    bad = [m for m, mod in sys.modules.items() if mod is not None and (
+           m == "jax" or m.startswith("jax.")
+           or m == "quickstep_tpu" or m.startswith("quickstep_tpu."))]
+    assert not bad, bad
+    print("OUT OF CORE OK")
+""")
+
 # The host modules the port copies, and the function of each copy that was
 # changed for torch (compared without it).
 COPIES = {
+    "__main__.py": None,
+    "cli/__init__.py": None,
+    "cli/network.py": "main",
+    "cli/repl.py": "main",
+    "exec/streaming.py": None,
+    "storage/eviction.py": None,
     "storage/csv_io.py": None,
     "storage/native_io.py": "_load_library",
     "utils/testdb.py": None,
@@ -191,6 +227,12 @@ def test_scale_verification_twins_run_without_jax():
     proc = _run(["-c", SF_TWINS_WITHOUT_JAX], REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "SF TWINS OK" in proc.stdout
+
+
+def test_out_of_core_and_the_cli_run_without_jax():
+    proc = _run(["-c", OUT_OF_CORE_WITHOUT_JAX], REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "OUT OF CORE OK" in proc.stdout
 
 
 def _without_function(text, name):

@@ -62,7 +62,7 @@ def test_plan_cache_keyed_by_config():
     want = _reference(q)
     assert db.execute(q).rows == want
     # a knob the port's optimizer reads (optimizer/rules.py); the
-    # reference's test uses hbm_budget_bytes, which the port refuses
+    # reference's test uses hbm_budget_bytes
     db.config.reorder_hash_joins = False
     assert db.execute(q).rows == want
     assert len(_cached(db)) == 2
