@@ -25,11 +25,18 @@ that database get Q6's answer. Then the same generated tables go to a
 second database on an 8-shard mesh of the card (Config.distributed), where
 Q3, Q5, Q9, Q10 and Q18 take the shuffle join (K14-K16) and Q9 the
 two-phase GROUP BY, against the same oracle, with a census of K16's
-launches on both meshes (rows and slots of each build and probe); and the
-distributed aggregate-join step runs at 7.5 M rows per shard over 8 shards
-against a plain computation. W2, K14, K15 and K16 are also checked to make no host
-sync (the card's sync debug mode set to raise), and every operator over
-inputs of zero rows in SQL against sqlite (bench/zero_rows.py). Each
+launches on both meshes (rows and slots of each build and probe). Then
+the same mesh is spread over two processes on the card
+(parallel/multihost.py, gloo: NCCL refuses two ranks on one card, which is
+checked too), each holding four shards and uploading only their rows of
+the sharded tables, which the processes memory-map from .npy files: the
+same five queries cold and warm against the oracle and bit for bit
+against the one-process mesh's rows, each process launching K14-K16; and
+the distributed aggregate-join step runs at 7.5 M rows per shard over 8
+shards against a plain computation. W2, K14, K15 and K16 are also checked
+to make no host sync (the card's sync debug mode set to raise), and every
+operator over inputs of zero rows in SQL against sqlite
+(bench/zero_rows.py). Each
 SF10 query runs cold and then warm, and each warm run takes its plan from
 the executor's logical-plan cache.
 
@@ -44,6 +51,7 @@ its power limit, and the one before that holds the kernels' numbers.
 import gc
 import json
 import math
+import os
 import re
 import resource
 import statistics
@@ -84,6 +92,15 @@ SMALL_MESH_THRESHOLD = 2000
 # kernels each must launch: every one shuffles inner joins with the LIP on
 SHUFFLE_KERNELS = ("partition_dest", "scatter_compact", "bloom_filter")
 MESH_QUERIES = (3, 5, 9, 10, 18)
+# phase 7: the SF10 mesh of MESH_SHARDS shards spread over this many
+# processes on the one card, each a bench/multihost_run.py worker; NCCL
+# refuses two ranks on one card, so they meet through gloo, which carries
+# the card's tensors through host memory
+MULTIHOST_PROCS = 2
+MULTIHOST_BACKEND = "gloo"
+MULTIHOST_RUNS = 2              # cold and warm
+MULTIHOST_TIMEOUT_S = 600
+NCCL_REFUSAL_TIMEOUT_S = 120
 # a Q20 whose p_name prefix has rows at SF0.01 (the spec's 'forest%' has none)
 Q20_ROWS_PREFIX = "green"
 # Q11's HAVING fraction as the specification sets it, 0.0001 / SF, at SF10:
@@ -1671,13 +1688,14 @@ def phase_golden(cuda):
 
 
 def run_query(db, cuda, oracle, total, label, q, must, sql=None,
-              rel_tol=None, warm=WARM_RUNS, per_run=None):
+              rel_tol=None, warm=WARM_RUNS, per_run=None, rows_out=None):
     """One query cold and `warm` times warm against the exact oracle, its
     launches counted from 0 (they must include `must`, and per_run's
     kernels exactly that many times a run) and added to total; warm runs
     must take one host sync and no retry, and their plans from the
-    logical-plan cache (the cold run's entries, unchanged). Returns (times
-    in ms, peak device memory in GiB)."""
+    logical-plan cache (the cold run's entries, unchanged). Each run's rows
+    go to the list rows_out when one is given. Returns (times in ms, peak
+    device memory in GiB)."""
     from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES, with_tiebreak
     from quickstep_tpu_torch.bench.tpch_fullgen import (
         ORACLE_REL_TOL, check_rows)
@@ -1691,6 +1709,8 @@ def run_query(db, cuda, oracle, total, label, q, must, sql=None,
         t0 = time.perf_counter()
         rows = db.execute(sql).rows
         times.append((time.perf_counter() - t0) * 1000)
+        if rows_out is not None:
+            rows_out.append(rows)
         syncs.append(db.executor.host_syncs)
         retries.append(db.executor.retries)
         check_rows(q, rows, oracle, rel_tol)
@@ -2201,7 +2221,8 @@ def phase_large_mesh(cuda, generated, single, total):
     (every table but nation and region shards): MESH_QUERIES cold and warm
     against the exact oracle, each launching K14-K16, Q9 through the
     two-phase GROUP BY; times and peak memory beside the one-device run's.
-    Adds the launches to total."""
+    Adds the launches to total. Returns, for each query, (its rows of each
+    run, its times in ms, its peak device memory in GiB)."""
     from quickstep_tpu_torch import Database
     from quickstep_tpu_torch.bench.tpch_fullgen import load_tables
     from quickstep_tpu_torch.config import Config
@@ -2220,13 +2241,16 @@ def phase_large_mesh(cuda, generated, single, total):
         two_phase[0] += out is not None
         return out
     PlanRunner._dist_sort_groupby = counted
+    out = {}
     try:
         load_tables(db, tables, stats)
         for q in MESH_QUERIES:
             two_phase[0] = 0
+            rows = []
             times, peak = run_query(db, cuda, oracle, total,
                                     f"Q{q} ({MESH_SHARDS} shards)", q,
-                                    SHUFFLE_KERNELS)
+                                    SHUFFLE_KERNELS, rows_out=rows)
+            out[q] = (rows, times, peak)
             info = PlanRunner.trace_shuffle_info
             one = single[q]
             log(f"    one device: cold {one[0][0]:.1f} ms, warm "
@@ -2236,6 +2260,7 @@ def phase_large_mesh(cuda, generated, single, total):
             if q == 9 and not two_phase[0]:
                 raise AssertionError("Q9 on the mesh took the one-phase "
                                      "GROUP BY")
+        return out
     finally:
         PlanRunner._dist_sort_groupby = real
         db.executor._device_cache.clear()
@@ -2243,6 +2268,163 @@ def phase_large_mesh(cuda, generated, single, total):
         del db
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def spawn_workers(args, out, timeout):
+    """MULTIHOST_PROCS bench/multihost_run.py processes (fresh interpreters,
+    never a fork of this one) meeting at a free local port, each writing
+    out.<its id> and its output to out.<its id>.log (a file, so that no
+    worker stalls on a full pipe while this process waits for another);
+    returns (their exit codes, their outputs). A worker still running at
+    the timeout is killed, with every other, and the timeout raised."""
+    import pathlib
+    import socket
+    root = pathlib.Path(__file__).resolve().parent
+    worker = root / "quickstep_tpu_torch" / "bench" / "multihost_run.py"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    # the processes share the card: segments that grow keep its memory
+    # from fragmenting into each one's cache
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs, logs = [], [f"{out}.{i}.log" for i in range(MULTIHOST_PROCS)]
+    for i, log in enumerate(logs):
+        with open(log, "wb") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(worker), str(i), str(MULTIHOST_PROCS),
+                 str(port), out] + args, cwd=str(root), env=env, stdout=f,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for log in logs:
+        with open(log, errors="replace") as f:
+            outs.append(f.read())
+    return [p.returncode for p in procs], outs
+
+
+def phase_multihost(cuda, generated, mesh):
+    """The SF_LARGE tables on the MESH_SHARDS-shard mesh spread over
+    MULTIHOST_PROCS processes on the card (parallel/multihost.py), each
+    holding MESH_SHARDS / MULTIHOST_PROCS local shards and uploading only
+    their rows of a sharded table; the tables are written once as .npy
+    files, which each process memory-maps. First two ranks asking for NCCL
+    on the one card must both refuse. Then MESH_QUERIES cold and warm on
+    every process: each run against the exact oracle and bit for bit
+    against phase 6's rows (`mesh`, phase_large_mesh's result), each
+    process launching K14, K15 and K16 and uploading half of each sharded
+    table; its times beside phase 6's, what crossed the processes and its
+    peak memory are logged. Returns the workers' launches, summed."""
+    import pathlib
+    import pickle
+    import shutil
+    from quickstep_tpu_torch.bench.multihost_run import write_tables
+    from quickstep_tpu_torch.bench.tpch_fullgen import check_rows
+    from quickstep_tpu_torch.config import Config
+    tables, stats, oracle, _made = generated
+    local = MESH_SHARDS // MULTIHOST_PROCS
+    # the workers' threshold, the default: tables at or above it shard
+    threshold = Config().replicate_threshold_rows
+    log(f"phase 7: TPC-H SF{SF_LARGE:g} on an {MESH_SHARDS}-shard mesh over "
+        f"{MULTIHOST_PROCS} processes on the card ({local} shards each, "
+        f"{MULTIHOST_BACKEND})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total_bytes = torch.cuda.mem_get_info()
+    log(f"  this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
+        f"GiB of the card's memory; {free / 2**30:.2f} of "
+        f"{total_bytes / 2**30:.2f} GiB free")
+    work = pathlib.Path(__file__).resolve().parent / "build" / "multihost"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        rcs, outs = spawn_workers(["--backend", "nccl", "--device", "cuda:0",
+                                   "--star"], str(work / "nccl"),
+                                  NCCL_REFUSAL_TIMEOUT_S)
+        refused = [rc != 0 and "NCCL needs a card per rank" in out
+                   for rc, out in zip(rcs, outs)]
+        if not all(refused):
+            raise AssertionError("two NCCL ranks on one card did not both "
+                                 f"refuse: exit codes {rcs}\n" +
+                                 "\n".join(o[-2000:] for o in outs))
+        log(f"  two ranks asking for NCCL on cuda:0 both refuse (exit codes "
+            f"{rcs}, {time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        write_tables(str(work / "tables"), tables, stats)
+        log(f"  tables written as .npy in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        rcs, outs = spawn_workers(
+            ["--device", "cuda:0", "--backend", MULTIHOST_BACKEND,
+             "--local-shards", str(local), "--tables", str(work / "tables"),
+             "--queries", ",".join(str(q) for q in MESH_QUERIES),
+             "--runs", str(MULTIHOST_RUNS)],
+            str(work / "out"), MULTIHOST_TIMEOUT_S)
+        if any(rcs):
+            raise AssertionError(f"a worker failed: exit codes {rcs}\n" +
+                                 "\n".join(o[-3000:] for o in outs))
+        results = []
+        for i in range(MULTIHOST_PROCS):
+            with open(work / f"out.{i}", "rb") as f:
+                results.append(pickle.load(f))
+        log(f"  {MULTIHOST_PROCS} workers ran in "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    total = dict.fromkeys(cuda.LAUNCHES, 0)
+    for res in results:
+        fig = res["figures"]
+        who = f"process {fig['process']}"
+        for q in MESH_QUERIES:
+            runs = res["rows"][f"Q{q}"]
+            want = mesh[q][0][0]
+            for rows in runs:
+                check_rows(q, rows, oracle)
+                if rows != want:
+                    raise AssertionError(f"{who} Q{q}: its rows differ from "
+                                         "phase 6's")
+            qf = fig["queries"][f"Q{q}"]
+            one = mesh[q][1]
+            moved = qf["mesh"][0]["collectives"]
+            gathers = qf["mesh"][0]["gathers"]
+            log(f"  {who} Q{q}: peak device memory "
+                f"{qf['peak_bytes'] / 2**30:.2f} GiB (phase 6: "
+                f"{mesh[q][2]:.2f}); cold {qf['ms'][0]:.1f} ms, warm "
+                + ", ".join(f"{t:.1f}" for t in qf["ms"][1:])
+                + f" (phase 6: cold {one[0]:.1f}, warm "
+                + ", ".join(f"{t:.1f}" for t in one[1:])
+                + f"); {len(runs[0])} rows match the oracle and phase 6 bit "
+                f"for bit; retries {qf['retries']}; sent (cold run) "
+                + ", ".join(f"{k} {v['calls']} calls {v['bytes']} B"
+                            for k, v in sorted(moved.items()))
+                + "; gathered inputs "
+                + (", ".join(f"{g['from']}->{g['into']} {g['rows']} rows "
+                             f"{g['bytes']} B" for g in gathers) or "none"))
+        idle = [k for k in SHUFFLE_KERNELS if not fig["launches"][k]]
+        if idle:
+            raise AssertionError(f"{who} never launched {idle}")
+        for table, up in sorted(fig["uploads"].items()):
+            share = up["bytes"] / up["table_bytes"]
+            want_share = 1 / MULTIHOST_PROCS if up["sharded"] else 1.0
+            if up["sharded"] != (tables[table].n >= threshold) or \
+                    share != want_share:
+                raise AssertionError(f"{who} uploaded {up} of {table}")
+        log(f"  {who}: uploaded " + ", ".join(
+            f"{t} {u['bytes'] / 2**20:.1f} of {u['table_bytes'] / 2**20:.1f}"
+            " MiB" for t, u in sorted(fig["uploads"].items()))
+            + f"; peak device memory {fig['peak_bytes'] / 2**30:.2f} GiB; "
+            "launches " + ", ".join(f"{k} {v}" for k, v in
+                                    fig["launches"].items() if v))
+        for k, v in fig["launches"].items():
+            total[k] += v
+    return total
 
 
 def phase_dist_step(cuda):
@@ -2290,7 +2472,7 @@ def phase_dist_step(cuda):
     bound = sum(t.numel() * t.element_size() for t in args[:4]) \
         / HBM_BYTES_PER_S * 1e3
     err = float((sums - want_sums).abs().max())
-    log(f"phase 7: distributed_agg_join_step, {MESH_SHARDS} shards x "
+    log(f"phase 8: distributed_agg_join_step, {MESH_SHARDS} shards x "
         f"{N_SHARD_ROWS} rows: matches the plain computation (max abs err "
         f"{err:.3e}); {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bound:.3f} ms; launches {launches}")
@@ -2401,10 +2583,11 @@ def main():
         for k, v in counts.items():
             one_device[k] += v
     with bloom_census() as large_census:
-        phase_large_mesh(cuda, generated, single, launches)
+        mesh = phase_large_mesh(cuda, generated, single, launches)
     large_census.report(f"SF{SF_LARGE:g} mesh")
     large_census.calls += small_census.calls
     large_census.report("both meshes")
+    add(phase_multihost(cuda, generated, mesh))
     del generated
     add(phase_dist_step(cuda))
     log("launches over the run: " + ", ".join(

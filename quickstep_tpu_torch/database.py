@@ -5,7 +5,10 @@ that holds the tables and runs the operators is named explicitly ("cuda" or
 "cpu"), and so is the shard count of the mesh that `Config.distributed`
 runs on (`mesh_shards`, n row shards of that device, the counterpart of the
 reference's mesh over the devices JAX sees); nothing probes the hardware to
-choose either.
+choose either. Once parallel/multihost.py's `bootstrap` has run, every
+process makes its own Database with the same config and catalog, and
+`mesh_shards` counts its local shards: the mesh has that many times the
+process count.
 """
 
 from __future__ import annotations

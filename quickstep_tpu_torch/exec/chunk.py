@@ -11,6 +11,10 @@ gathered once, at the point of use (expression evaluation or the output
 pull), usually after the row set has been filtered and compacted. Each
 gather is one `multi_gather` (K6 on CUDA) per shared RowIds.
 
+A chunk may hold only one process's rows of a multi-process mesh
+(`sharded`); exec/runner.py gathers it before an operator that has no
+per-shard form.
+
 Unlike the reference, gather chains have no depth cap (the reference's
 module-global cap works around the TPU compiler), and `restrict_valid` never
 mutates a RowIds that another chunk may hold.
@@ -179,6 +183,10 @@ class Chunk:
     # row-wise functional dependencies (determinant ids -> dependent ids)
     fds: List[Tuple[frozenset, frozenset]] = dataclasses.field(
         default_factory=list)
+    # under a multi-process mesh: the chunk holds only this process's rows
+    # (its local shards'), `capacity` of them; the other processes hold the
+    # rest, and `bound` counts the live rows of them all
+    sharded: bool = False
 
     @property
     def device(self) -> torch.device:

@@ -27,6 +27,16 @@ same kernels as a resident run, and the partial rows merge on the host or
 in one resident run over them. Segments whose min/max rule out a scan
 predicate never leave the host.
 
+Over several processes (Config.distributed after parallel/multihost.py's
+bootstrap) every process runs the same statements on the same catalog. A
+table at or above replicate_threshold_rows is uploaded as this process's
+shards' rows only (multihost.local_rows), a smaller one whole; the plan's
+result is gathered to every process, its runtime flags are OR'd over the
+processes before the host reads them, so every process retries together,
+and every other host decision (the presentation sort, the overrides) is
+taken from replicated values. Only process 0 writes the learned
+overrides. A statement other than a SELECT ends in a barrier.
+
 DDL, DML and commands run against the catalog on the host, as in the
 reference. INSERT ... SELECT runs its SELECT through run_plan and appends
 its columns without decoding them where the types match; the predicates and
@@ -67,7 +77,9 @@ from quickstep_tpu_torch.exec.result import QueryResult
 from quickstep_tpu_torch.expressions.scalar import EvalContext, Lit
 from quickstep_tpu_torch.ops import kernels as K
 from quickstep_tpu_torch.ops.sort import order_permutation
-from quickstep_tpu_torch.parallel.mesh import make_mesh, pad_to_multiple
+from quickstep_tpu_torch.parallel import multihost
+from quickstep_tpu_torch.parallel.mesh import (
+    all_gather, make_mesh, pad_to_multiple, por)
 from quickstep_tpu_torch.storage.eviction import make_policy
 
 # Plan runs per statement before the retry gives up (each run installs at
@@ -92,12 +104,18 @@ class Executor:
         # kept; None for a database on no store
         self.store = store
         # Config.distributed: a mesh of mesh_shards row shards on the device
-        # (exec/executor.py:80-87 of the reference, whose mesh is every
-        # device JAX sees); nothing probes the hardware for the count
+        # of each process (exec/executor.py:80-87 of the reference, whose
+        # mesh is every device JAX sees); nothing probes the hardware for
+        # the count
         self.mesh = None
         if config.distributed and mesh_shards is not None:
             self.mesh = make_mesh(mesh_shards, device,
-                                  config.default_mesh_axis)
+                                  config.default_mesh_axis,
+                                  group=multihost.world_group())
+        # what crossed the processes in the last statement (Mesh.counts:
+        # each collective's calls and bytes sent, each gathered operator
+        # input); None without a mesh
+        self.last_mesh_info: Optional[dict] = None
         # the runtime flags the last plan run produced, by name, with their
         # values (the reference's last_flags)
         self.last_flags: Dict[str, bool] = {}
@@ -170,13 +188,17 @@ class Executor:
         if self.config.distributed and self.mesh is None:
             raise ExecutionError(
                 "distributed = True needs the mesh's shard count: "
-                "Database(config, device=..., mesh_shards=n)")
+                "Database(config, device=..., mesh_shards=n), n shards of "
+                "this process's device (after multihost.bootstrap, of each "
+                "process's)")
 
     def execute_statement(self, stmt: A.Statement) -> QueryResult:
         t0 = time.perf_counter()
         self._check_config()
         self.host_syncs = 0
         self.retries = 0
+        if self.mesh is not None:
+            self.mesh.reset_counts()
         if isinstance(stmt, A.SelectStmt):
             res = self._run_select(stmt)
         else:
@@ -187,6 +209,11 @@ class Executor:
                 # statistics-chosen joins, constant folds): drop them all,
                 # those made while this statement ran included
                 self._logical_plan_cache.clear()
+            # every process's catalog has taken the statement (the
+            # reference's commit ordering)
+            multihost.barrier()
+        if self.mesh is not None:
+            self.last_mesh_info = self.mesh.counts()
         res.execution_time = time.perf_counter() - t0
         return res
 
@@ -268,9 +295,12 @@ class Executor:
 
     def _save_overrides(self) -> None:
         """Write the learned overrides into the store directory, which must
-        exist: none is created (the reference's open fails without one)."""
+        exist: none is created (the reference's open fails without one).
+        Over several processes only the conductor writes; every process
+        learns the same overrides, from the same flags."""
         path = self._overrides_path()
-        if path is None or not os.path.isdir(os.path.dirname(path) or "."):
+        if path is None or not os.path.isdir(os.path.dirname(path) or ".") \
+                or not multihost.is_conductor():
             return
         raw = {key: {str(nid): dataclasses.asdict(ov)
                      for nid, ov in ovs.items()}
@@ -387,7 +417,7 @@ class Executor:
             runner = PlanRunner(device_plan, inputs, meta, self.config,
                                 self.device, overrides, mesh=self.mesh,
                                 subqueries=subqueries)
-            chunk = runner.exec(device_plan)
+            chunk = runner.result(device_plan)
             fired, pulled = self._pull_outputs(device_plan, chunk, out_attrs,
                                                runner.flags, host_sort)
             if not fired:
@@ -774,6 +804,11 @@ class Executor:
         count = chunk.alive.sum(dtype=torch.int64)
         names = list(flags)
         flag_t = torch.stack([flags[k] for k in names]) if names else None
+        if flag_t is not None and self.mesh is not None and \
+                self.mesh.world > 1:
+            # a flag fired on any process fires on every one: they retry
+            # together (the chunk itself was gathered to every process)
+            flag_t = por(self.mesh, [flag_t])
         on_device = host_sort is not None and host_sort.limit is not None
         if on_device:
             order = self._device_sort_order(host_sort, chunk)
@@ -888,8 +923,12 @@ class Executor:
         not padded: capacity is the row count, rounded up under a mesh to a
         multiple of its shards with dead rows (the reference's _bucket,
         executor.py:1188), so that each shard holds an equal row range.
-        Under a device memory budget the eviction policy makes room first
-        (_evict_for), and the entry's "bytes" count what was uploaded."""
+        Over several processes a table at or above replicate_threshold_rows
+        is uploaded as this process's shards' rows only (the metadata's
+        "sharded", "local_capacity" and "offset", its first row), a smaller
+        one whole (the reference's executor.py:1146-1156). Under a device
+        memory budget the eviction policy makes room first (_evict_for),
+        and the entry's "bytes" count what was uploaded."""
         key = (rel.name, rel.version)
         names = [a.name for a in rel.attributes
                  if needed is None or a.name in needed]
@@ -908,18 +947,25 @@ class Executor:
             missing = names
 
         n = rel.data.num_rows
-        shards = 1 if self.mesh is None else self.mesh.n
+        mesh = self.mesh
+        shards = 1 if mesh is None else mesh.n
         cap = K.round_up(n, shards)
+        sharded = mesh is not None and mesh.world > 1 and \
+            n >= self.config.replicate_threshold_rows
+
+        def held(arr):
+            # the rows this process holds, dead rows padding the last shard
+            return multihost.local_rows(mesh, arr) if sharded \
+                else pad_to_multiple(arr, shards)
         st = rel.statistics
         ranges = dict(m["ranges"]) if m is not None else {}
         unique_cols = set(m["unique_cols"]) if m is not None else set()
         host_cols = {}
         for cname in missing:
             col = rel.data.columns[cname]
-            valid = None if col.valid is None else pad_to_multiple(
-                np.asarray(col.valid, dtype=bool), shards)
-            host_cols[cname] = (pad_to_multiple(np.asarray(col.data), shards),
-                                valid)
+            valid = None if col.valid is None else held(
+                np.asarray(col.valid, dtype=bool))
+            host_cols[cname] = (held(np.asarray(col.data)), valid)
             self._column_meta(rel, cname, ranges, unique_cols)
         new_bytes = sum(_nbytes(d) + _nbytes(v) for d, v in host_cols.values())
         self._evict_for(key, new_bytes)
@@ -933,10 +979,14 @@ class Executor:
             cols = {"__num_rows__": n}
             m = {"capacity": cap, "rows": n, "ranges": ranges,
                  "unique_cols": unique_cols, "version": rel.version,
-                 "bytes": 0,
+                 "bytes": 0, "sharded": sharded,
                  "unique_pairs": [tuple(p) for p in st.unique_pairs]
                  if st.exact else [],
                  "max_counts": dict(st.max_counts) if st.exact else {}}
+            if sharded:
+                per = cap // mesh.n
+                m["local_capacity"] = per * mesh.local_n
+                m["offset"] = per * mesh.local_ids[0]
             self._device_cache[key] = (cols, m)
         cols.update(new_cols)
         m["ranges"] = ranges
@@ -1141,6 +1191,12 @@ class Executor:
                  if oa.expr_id in used}
         d, v = e.eval(EvalContext(slots, device=self.device))
         n, cap = rel.data.num_rows, meta["capacity"]
+        if meta["sharded"]:
+            # this process's rows: every process's, in rank order
+            held = meta["local_capacity"]
+            d, v = all_gather(self.mesh, [
+                torch.broadcast_to(d, (held,)),
+                None if v is None else torch.broadcast_to(v, (held,))])
         d = torch.broadcast_to(d, (cap,))[:n]
         v = None if v is None else torch.broadcast_to(v, (cap,))[:n]
         d, v = self._to_host([d, v])

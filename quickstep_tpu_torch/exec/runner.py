@@ -19,9 +19,20 @@ Under a mesh (Config.distributed, parallel/mesh.py) two operators run per
 shard, as the reference's shard_map bodies do: the shuffle join
 (_shuffle_join: radix exchange of both sides by join key, then the join
 core on each shard) and the two-phase sort GROUP BY (_dist_sort_groupby).
-Their per-shard bodies run as a Python loop over the shards, in shard
-order; every other operator runs over the whole tensors, which on a
-one-device mesh gives the rows the reference's GSPMD partitioning gives.
+Their per-shard bodies run as a Python loop over the local shards, in
+shard order; every other operator runs over the whole tensors, which on a
+one-process mesh gives the rows the reference's GSPMD partitioning gives.
+Over several processes (parallel/multihost.py) a chunk may hold only this
+process's rows (Chunk.sharded): a table scan of a sharded table, Filter
+and Project over such a chunk, and the shuffle join's output. The shuffle
+join and the two-phase GROUP BY take it as it is and cross the processes
+through the mesh's collectives; any other operator gets it gathered first
+(`exec` without local=True, _whole: every process's rows in rank order,
+which is the one-process mesh's chunk), as the GSPMD partitioner gathers
+where it cannot partition, and each such gather is recorded with its bytes
+(Mesh.gathers). So every process computes the one-process mesh's rows bit
+for bit, and takes every decision that steers a collective from
+replicated values only.
 
 Capacities are row counts, not padded buckets, so any operator may meet an
 input of zero rows: a gather into a source of zero rows yields invalid rows
@@ -51,6 +62,12 @@ from quickstep_tpu_torch.ops import sort as S
 # cross products above this many rows are refused (reference runner.py:1887)
 CROSS_JOIN_LIMIT = 1 << 26
 _SIGN = -(1 << 63)          # the int64 with only its sign bit set
+
+
+def _gcap(chunk: Chunk, mesh) -> int:
+    """The chunk's capacity over every process: the one-process mesh's
+    capacity, which every capacity-driven decision reads."""
+    return chunk.capacity * mesh.world if chunk.sharded else chunk.capacity
 
 
 def _flip_cmp(op: str) -> str:
@@ -88,6 +105,10 @@ class PlanRunner:
         ("subquery", id(plan)) -> (value, present), which are not run
         again."""
         self.mesh = mesh
+        # a mesh over several processes: chunks may hold local rows
+        self._per_process = mesh is not None and mesh.world > 1
+        # the nodes being run, innermost last (a gather's consumer)
+        self._running: List[L.LogicalNode] = []
         self.last_shuffle_info: Optional[dict] = None
         self.inputs = inputs
         self.input_meta = input_meta
@@ -118,17 +139,80 @@ class PlanRunner:
                     self._assign_indices(x.plan, counter)
                 stack.extend(x.children())
 
-    def exec(self, node: L.LogicalNode) -> Chunk:
+    def exec(self, node: L.LogicalNode, local: bool = False) -> Chunk:
+        """Run node. With local=True (a caller that runs per shard) its
+        chunk may hold only this process's rows; otherwise such a chunk is
+        gathered first (_whole)."""
         m = getattr(self, f"_exec_{type(node).__name__}", None)
         if m is None:
             raise ExecutionError(f"no executor for {type(node).__name__}")
-        return m(node)
+        self._running.append(node)
+        try:
+            chunk = m(node)
+        finally:
+            self._running.pop()
+        return chunk if local else self._whole(chunk, node)
+
+    def result(self, node: L.LogicalNode) -> Chunk:
+        """The plan's result, on every process: a sharded root chunk is
+        gathered as its live rows alone, in rank order, which is their
+        order on the one-process mesh (the executor's pull reads nothing
+        else)."""
+        return self._whole(self.exec(node, local=True), node, live_only=True)
 
     def _exec_memo(self, plan: L.LogicalNode) -> Chunk:
+        """plan's chunk, run once per plan object (possibly sharded)."""
         key = id(plan)
         if key not in self._memo:
-            self._memo[key] = self.exec(plan)
+            self._memo[key] = self.exec(plan, local=True)
         return self._memo[key]
+
+    def _whole(self, chunk: Chunk, src: Optional[L.LogicalNode] = None,
+               live_only: bool = False) -> Chunk:
+        """A sharded chunk's rows from every process, in rank order (one
+        all_gather of its live mask and every attribute's data and
+        validity), on every process; a chunk that is not sharded as it is.
+        Each gather is recorded in mesh.gathers: the operator it feeds
+        ("result" for the executor's pull), the one that made it, its rows
+        and the bytes this process sent. With live_only, each process sends
+        its live rows alone, in order, padded with dead rows to the most
+        any process has (their counts cross first, and are read on the
+        host)."""
+        if not chunk.sharded:
+            return chunk
+        from quickstep_tpu_torch.parallel.mesh import all_gather
+        mesh = self.mesh
+        eids = [a.expr_id for a in chunk.attrs]
+        sent = mesh.moved.get("gather", {}).get("bytes", 0)
+        if live_only:
+            count = chunk.alive.sum(dtype=torch.int64).reshape(1)
+            counts = all_gather(mesh, [count], "gather")[0].tolist()
+            rows, mine = max(counts), counts[mesh.rank]
+            take = torch.zeros(rows, dtype=torch.int64, device=self.device)
+            take[:mine] = K.stable_partition(chunk.alive, limit=mine)
+            datas, valids = chunk.take_columns(take, eids)
+            alive = torch.arange(rows, device=self.device) < mine
+        else:
+            rows = chunk.capacity
+            chunk.ensure(eids)
+            datas = [_full(chunk.slots[eid][0], rows) for eid in eids]
+            valids = [chunk.slots[eid][1] for eid in eids]
+            alive = chunk.alive
+        tensors = [alive]
+        for d, v in zip(datas, valids):
+            tensors += [d, None if v is None else _full(v, rows)]
+        g = all_gather(mesh, tensors, "gather")
+        slots = {eid: (g[1 + 2 * i], g[2 + 2 * i])
+                 for i, eid in enumerate(eids)}
+        out = dataclasses.replace(chunk, slots=slots, alive=g[0],
+                                  capacity=rows * mesh.world, sharded=False)
+        into = self._running[-1] if self._running else None
+        mesh.gathers.append({
+            "into": type(into).__name__ if into is not None else "result",
+            "from": type(src).__name__ if src is not None else "",
+            "rows": out.capacity,
+            "bytes": mesh.moved["gather"]["bytes"] - sent})
+        return out
 
     # ----------------------------------------------------------------
     # scan, shared subplans
@@ -136,7 +220,9 @@ class PlanRunner:
     def _exec_TableScan(self, node: L.TableScan) -> Chunk:
         cols = self.inputs[node.relation_name]
         meta = self.input_meta[node.relation_name]
-        capacity = meta["capacity"]
+        # a sharded table: this process's rows, from row `offset` on
+        capacity = meta.get("local_capacity", meta["capacity"])
+        offset = meta.get("offset", 0)
         slots = {}
         ranges = {}
         unique_sets = []
@@ -153,12 +239,14 @@ class PlanRunner:
         for pair in meta.get("unique_pairs", ()):
             if all(p in by_name for p in pair):
                 unique_sets.append(frozenset(by_name[p] for p in pair))
-        alive = K.alive_mask(capacity, cols["__num_rows__"], self.device)
+        alive = K.alive_mask(capacity, cols["__num_rows__"] - offset,
+                             self.device)
         if node.sample_kind:
             # TUPLESAMPLE / BLOCKSAMPLE n PERCENT (SampleOperator.hpp:60): a
             # Bernoulli sample by the hash of the row index. The compare is
             # unsigned: both sides get their sign bit flipped.
-            r = K.hash_keys([torch.arange(capacity, dtype=torch.int64,
+            r = K.hash_keys([torch.arange(offset, offset + capacity,
+                                          dtype=torch.int64,
                                           device=self.device)])
             thresh = min(int((node.sample_percent / 100.0) * (2 ** 64 - 1)),
                          2 ** 64 - 1)
@@ -167,7 +255,8 @@ class PlanRunner:
         fds = [(u, all_ids) for u in unique_sets]
         return Chunk(attrs=list(node.attrs), slots=slots, alive=alive,
                      capacity=capacity, ranges=ranges, unique_sets=unique_sets,
-                     fds=fds, max_counts=max_counts, bound=meta.get("rows"))
+                     fds=fds, max_counts=max_counts, bound=meta.get("rows"),
+                     sharded=meta.get("sharded", False))
 
     def _exec_Generator(self, node: L.Generator) -> Chunk:
         """generate_series(start, end[, step]), integer or DOUBLE."""
@@ -211,7 +300,8 @@ class PlanRunner:
                      capacity=inner.capacity, ranges=ranges, unique_sets=uniq,
                      fds=fds, max_counts={remap[i]: v for i, v in
                                           inner.max_counts.items()
-                                          if i in remap})
+                                          if i in remap},
+                     sharded=inner.sharded)
 
     # ----------------------------------------------------------------
     # filter / project
@@ -234,7 +324,7 @@ class PlanRunner:
             if isinstance(x, SubqueryScalar):
                 key = ("subquery", id(x.plan))
                 if key not in self._subquery_slots:
-                    sub = self._exec_memo(x.plan)
+                    sub = self._whole(self._exec_memo(x.plan), x.plan)
                     if sub.capacity == 0:
                         # no row: a NULL of the column's dtype
                         dt = K.torch_dtype(sub.attrs[0].type.device_dtype)
@@ -259,12 +349,12 @@ class PlanRunner:
         return d
 
     def _exec_Filter(self, node: L.Filter) -> Chunk:
-        chunk = self.exec(node.input)
+        chunk = self.exec(node.input, local=True)
         passed = self._eval_pred(chunk, node.predicate)
         return dataclasses.replace(chunk, alive=chunk.alive & passed)
 
     def _exec_Project(self, node: L.Project) -> Chunk:
-        chunk = self.exec(node.input)
+        chunk = self.exec(node.input, local=True)
         slots = {}
         ranges = {}
         for e, a in zip(node.exprs, node.attrs):
@@ -292,7 +382,8 @@ class PlanRunner:
                if i in chunk.max_counts}
         return Chunk(attrs=list(node.attrs), slots=slots, alive=chunk.alive,
                      capacity=chunk.capacity, bound=chunk.bound, ranges=ranges,
-                     unique_sets=uniq, fds=fds, max_counts=mcs)
+                     unique_sets=uniq, fds=fds, max_counts=mcs,
+                     sharded=chunk.sharded)
 
     # ----------------------------------------------------------------
     # aggregate
@@ -311,7 +402,66 @@ class PlanRunner:
                 None if v is None else v.contiguous())
 
     def _exec_Aggregate(self, node: L.Aggregate) -> Chunk:
-        chunk = self.exec(node.input)
+        """GROUP BY and scalar aggregates. A sharded input is gathered
+        first unless it takes the two-phase sort GROUP BY (_agg_route)."""
+        chunk = self.exec(node.input, local=True)
+        if chunk.sharded and not self._agg_route(node, chunk):
+            chunk = self._whole(chunk, node.input)
+        return self._aggregate(node, chunk)
+
+    def _agg_route(self, node: L.Aggregate, chunk: Chunk) -> bool:
+        """Whether a sharded chunk takes the two-phase sort GROUP BY
+        (_dist_sort_groupby) as it is, decided before any key is evaluated
+        from what _aggregate's route reads: a GROUP BY without DISTINCT
+        aggregates, no key deferred to a representative row, sort keys of
+        known integer ranges, and a domain the two-phase route takes. The
+        dense route needs keys without NULLs, which shows only once they
+        are evaluated, so a chunk whose domain it could take is gathered:
+        a gathered chunk takes the one-process mesh's route, whichever it
+        is."""
+        if not node.group_by or any(s.distinct for s in node.aggregates):
+            return False
+        keep = self._reduce_group_keys(node.group_by, chunk)
+        key_ranges = [infer_range(ge, chunk.ranges) for ge in node.group_by]
+        if self._deferred_keys(node, chunk, keep) or \
+                self._dense_ok(key_ranges, [None] * len(key_ranges)):
+            return False
+        span_total = 1
+        for i in keep:
+            dt = K.torch_dtype(node.group_by[i].type.device_dtype)
+            if key_ranges[i] is None or dt.is_floating_point:
+                return False
+            span_total *= key_ranges[i][1] - key_ranges[i][0] + 2
+        return self._two_phase_ok(_gcap(chunk, self.mesh), span_total)
+
+    def _deferred_keys(self, node: L.Aggregate, chunk: Chunk,
+                       keep: List[int]) -> set:
+        """The group keys deferred to each group's representative row:
+        outside the minimal sort cover `keep`, a plain Attr over a non-null
+        slot with the output dtype (none with a DISTINCT aggregate)."""
+        defer = set()
+        if any(s.distinct for s in node.aggregates):
+            return defer
+        for i, ge in enumerate(node.group_by):
+            if i in keep or not isinstance(ge, Attr):
+                continue
+            src = chunk.slots.get(ge.expr_id)
+            if src is None:
+                continue
+            if getattr(src, "lazy", False):
+                nonnull = src.base_valid is None and src.rid.chain_ok_none()
+                base = src.base
+            else:
+                nonnull = src[1] is None
+                base = src[0]
+            if nonnull and base.dim() != 0 and base.dtype == K.torch_dtype(
+                    node.group_attrs[i].type.device_dtype):
+                defer.add(i)
+        return defer
+
+    def _aggregate(self, node: L.Aggregate, chunk: Chunk) -> Chunk:
+        """The aggregate over chunk; a sharded chunk is one that _agg_route
+        sends to the two-phase sort GROUP BY."""
         distinct_flags = [s.distinct for s in node.aggregates]
         if not node.group_by:
             return self._scalar_aggregate(node, chunk)
@@ -331,26 +481,9 @@ class PlanRunner:
         pre_slots = dict(chunk.slots)
 
         # Decide FD-deferral before evaluating any key, so that a deferred
-        # key is never gathered at input capacity. Deferral needs: outside
-        # the minimal sort cover, a plain Attr over a non-null slot with the
-        # output dtype.
+        # key is never gathered at input capacity.
         keep = self._reduce_group_keys(node.group_by, chunk)
-        defer = set()
-        for i, ge in enumerate(node.group_by):
-            if any(distinct_flags) or i in keep or not isinstance(ge, Attr):
-                continue
-            src = chunk.slots.get(ge.expr_id)
-            if src is None:
-                continue
-            if getattr(src, "lazy", False):
-                nonnull = src.base_valid is None and src.rid.chain_ok_none()
-                base = src.base
-            else:
-                nonnull = src[1] is None
-                base = src[0]
-            if nonnull and base.dim() != 0 and base.dtype == K.torch_dtype(
-                    node.group_attrs[i].type.device_dtype):
-                defer.add(i)
+        defer = self._deferred_keys(node, chunk, keep)
 
         key_ranges = [infer_range(ge, chunk.ranges) for ge in node.group_by]
 
@@ -527,7 +660,9 @@ class PlanRunner:
                 [key_data[i] for i in carried],
                 [key_valid[i] for i in carried], agg_inputs, chunk.alive,
                 packed, sub_positions, span_total,
-                [key_ranges[i] for i in keep])
+                [key_ranges[i] for i in keep], chunk.sharded)
+        assert dist is not None or not chunk.sharded, \
+            "_agg_route sent a sharded chunk off the two-phase GROUP BY"
         capacity = chunk.capacity
         if dist is not None:
             out_keys, out_valids, occupied, results, capacity = dist
@@ -562,7 +697,8 @@ class PlanRunner:
                      unique_sets=uniq, fds=fds)
 
     def _dist_sort_groupby(self, key_data, key_valid, agg_inputs, alive,
-                           packed, sort_subset, span_total, keep_ranges):
+                           packed, sort_subset, span_total, keep_ranges,
+                           sharded=False):
         """Two-phase sort GROUP BY over the mesh (quickstep_tpu/exec/
         runner.py:656, the reference's per-partition AggregationOperator
         and FinalizeAggregationOperator split). Phase 1, per shard: the sort
@@ -570,32 +706,32 @@ class PlanRunner:
         cap_p >= the key domain's span rows (so no shard's groups can
         overflow it). Phase 2: one sort group-by over the n * cap_p partial
         rows with merge aggregates (count -> sum, sum -> sum, min/max ->
-        min/max, avg -> sum / count). Returns (out_keys, out_valids,
-        occupied, results, capacity) in sort_groupby's shape, or None where
-        it does not apply (no mesh, unknown key domain, or a domain too
-        wide for the partials to be smaller than a shard)."""
+        min/max, avg -> sum / count). Phase 1 runs on this process's
+        shards, of its rows where the input is sharded, else of the whole
+        input; the partial rows are gathered to every process in shard order
+        (all_gather) and phase 2 runs on each. Returns (out_keys,
+        out_valids, occupied, results, capacity) in sort_groupby's shape,
+        or None where it does not apply (unknown key domain, or
+        _two_phase_ok refuses it)."""
+        from quickstep_tpu_torch.parallel.mesh import all_gather
+        held = alive.shape[0]
+        cap = held * self.mesh.world if sharded else held
+        if packed is None or not self._two_phase_ok(cap, span_total):
+            return None
         mesh = self.mesh
-        if mesh is None or not self.config.use_partition_rule or \
-                packed is None:
-            return None
         n = mesh.n
-        cap = alive.shape[0]
-        if n <= 1 or cap % n or span_total >= 2 ** 31:
-            return None
         lc = cap // n
         cap_p = K.next_pow2(max(8, span_total))
-        if cap_p > lc // 2:
-            return None
         # phase-1 aggregates: avg splits into its mergeable sum and count
         p_specs = [("sum" if fn == "avg" else fn, v, vd)
                    for fn, v, vd in agg_inputs]
         nk = len(key_data)
 
         def cut(t, sl):
-            return None if t is None else _full(t, cap)[sl]
+            return None if t is None else _full(t, held)[sl]
 
         parts = []
-        for i in range(n):
+        for i in (range(mesh.local_n) if sharded else mesh.local_ids):
             sl = slice(i * lc, (i + 1) * lc)
             out_k, out_v, occ, ng, res = G.sort_groupby(
                 [cut(d, sl) for d in key_data],
@@ -615,9 +751,9 @@ class PlanRunner:
             g = K.multi_gather(flat, order)
             row_ok = torch.arange(cap_p, device=self.device) < ng
             parts.append(g + [row_ok])
-        merged = [None if parts[0][j] is None else
-                  torch.cat([p[j] for p in parts])
-                  for j in range(len(parts[0]))]
+        merged = all_gather(mesh, [
+            None if parts[0][j] is None else torch.cat([p[j] for p in parts])
+            for j in range(len(parts[0]))])
         pk_m = merged[0]
         kd_m = merged[1:1 + nk]
         kv_m = merged[1 + nk:1 + 2 * nk]
@@ -656,6 +792,17 @@ class PlanRunner:
                     data = data.to(torch.float64) / torch.clamp(nn, min=1)
                 results.append((data, nn))
         return out_keys, out_valids, occupied, results, n * cap_p
+
+    def _two_phase_ok(self, cap: int, span_total: int) -> bool:
+        """Whether the two-phase GROUP BY takes an input of cap rows over
+        every process whose packed key spans span_total values: a mesh of
+        several shards that divide cap, and partials (each shard's groups,
+        in the span rounded up to a power of two) at most half a shard."""
+        mesh = self.mesh
+        if mesh is None or not self.config.use_partition_rule or \
+                mesh.n <= 1 or cap % mesh.n or span_total >= 2 ** 31:
+            return False
+        return K.next_pow2(max(8, span_total)) <= cap // mesh.n // 2
 
     def _fill_agg_slots(self, node, results, slots):
         for spec, a, (data, nn) in zip(node.aggregates, node.agg_attrs, results):
@@ -748,8 +895,13 @@ class PlanRunner:
             return self._cross_join(node)
         if not node.left_keys:
             return self._nested_loops_join(node)
-        probe = self._squeeze(self.exec(node.left))
-        build = self._squeeze(self.exec(node.right))
+        # A side may hold only this process's rows (a multi-process mesh):
+        # the shuffle join runs per shard, every other route gathers both
+        # sides. The keys are evaluated before the route is decided, since
+        # the shuffle reads whether a key has NULLs; a gathered side's keys
+        # are evaluated again (a lookup for a plain column).
+        probe = self._squeeze(self.exec(node.left, local=True))
+        build = self._squeeze(self.exec(node.right, local=True))
         # Estimate-driven dynamic compaction: compact each side to ~4x its
         # cost-model estimate before any join gather; an under-estimate
         # raises a flag and the executor re-runs without it.
@@ -760,25 +912,15 @@ class PlanRunner:
         build = self._est_compact(build, node.est_right_rows,
                                   self._no_compact(idx0, "build"),
                                   f"compact_build_{idx0}")
-
-        pk_data = []
-        pk_valid0 = bk_valid0 = None
-        pk_valid = bk_valid = None   # AND of all key validity masks
-        for i, e in enumerate(node.left_keys):
-            d, v = probe.broadcast(*self._eval(probe, e))
-            if i == 0:
-                pk_valid0 = v
-            if v is not None:
-                pk_valid = v if pk_valid is None else (pk_valid & v)
-            pk_data.append(d)
-        bk_data = []
-        for i, e in enumerate(node.right_keys):
-            d, v = build.broadcast(*self._eval(build, e))
-            if i == 0:
-                bk_valid0 = v
-            if v is not None:
-                bk_valid = v if bk_valid is None else (bk_valid & v)
-            bk_data.append(d)
+        keys = self._join_keys(node, probe, build)
+        ov = self.overrides.get(idx0)
+        route, strategy, build_unique = self._join_route(node, probe, build,
+                                                         keys, ov)
+        if route != "shuffle" and (probe.sharded or build.sharded):
+            probe = self._whole(probe, node.left)
+            build = self._whole(build, node.right)
+            keys = self._join_keys(node, probe, build)
+        pk_data, pk_valid0, pk_valid, bk_data, bk_valid0, bk_valid = keys
         # SQL equality never matches NULL keys: rows whose key is NULL are
         # excluded from matching (but still surface as unmatched rows in
         # left and anti joins).
@@ -801,33 +943,80 @@ class PlanRunner:
                 alive = alive & ~torch.any(build.alive & ~bk_valid0)
             return dataclasses.replace(out, alive=alive)
 
+        if route == "filter":
+            # FilterJoin strength reduction: semi/anti joins over one
+            # ranged integer key need only the exact presence filter.
+            from quickstep_tpu_torch.ops import bloom as B
+            r = self._key_ranges(node.right_keys, build)[0]
+            lo, domain = r[0], r[1] - r[0] + 1
+            bits = B.exact_filter_build(bk_data[0], bmask, lo, domain)
+            matched = B.exact_filter_probe(bits, pk_data[0], pmask, lo)
+            if node.kind == "anti":
+                matched = probe.alive & ~matched
+            return na_correct(dataclasses.replace(
+                probe, alive=probe.alive & matched))
+        if route == "full":
+            return self._full_join(node, probe, build, pk_data, bk_data, ov,
+                                   build_unique, pmask, bmask)
+        if route == "semi_stats":
+            out = self._semi_stats_join(node, probe, build, pk_data, bk_data,
+                                        pmask, bmask)
+            if out is not None:
+                return na_correct(out)
+            route = "shuffle" if self._shuffles(node, probe, build, keys) \
+                else "local"
+        if route == "shuffle":
+            return na_correct(self._shuffle_join(
+                node, probe, build, pk_data, bk_data, ov, strategy,
+                build_unique))
+        return na_correct(self._join_local(
+            node, probe, build, pk_data, bk_data, strategy, build_unique,
+            pmask, bmask))
+
+    def _join_keys(self, node, probe, build):
+        """Each side's join key columns at its capacity, the first key's
+        validity and the AND of every key's: (pk_data, pk_valid0, pk_valid,
+        bk_data, bk_valid0, bk_valid), validities None where no key has
+        NULLs."""
+        out = []
+        for chunk, exprs in ((probe, node.left_keys),
+                             (build, node.right_keys)):
+            data, valid0, valid = [], None, None
+            for i, e in enumerate(exprs):
+                d, v = chunk.broadcast(*self._eval(chunk, e))
+                if i == 0:
+                    valid0 = v
+                if v is not None:
+                    valid = v if valid is None else (valid & v)
+                data.append(d)
+            out += [data, valid0, valid]
+        return tuple(out)
+
+    def _join_route(self, node, probe, build, keys, ov):
+        """(route, strategy, build_unique) of an equi-join, decided from
+        the plan, the statistics and the capacities over every process
+        alone: "filter" (the FilterJoin's exact presence filter), "full",
+        "semi_stats" (which may fall back to the next two), "shuffle" or
+        "local" (the join core on the whole sides)."""
+        bk_data = keys[3]
         # FilterJoin strength reduction: semi/anti joins over one ranged
         # integer key need only the exact presence filter.
         if node.kind in ("semi", "anti") and node.residual is None and \
                 len(bk_data) == 1 and self.config.use_filter_joins:
             r = self._key_ranges(node.right_keys, build)[0]
+            bcap, pcap = _gcap(build, self.mesh), _gcap(probe, self.mesh)
             if r is not None and (r[1] - r[0] + 1) <= \
                     self.config.direct_join_domain_limit and \
                     (r[1] - r[0] + 1) <= max(
-                        int(self.config.direct_join_density * build.capacity),
-                        4 * probe.capacity):
-                from quickstep_tpu_torch.ops import bloom as B
-                lo, domain = r[0], r[1] - r[0] + 1
-                bits = B.exact_filter_build(bk_data[0], bmask, lo, domain)
-                matched = B.exact_filter_probe(bits, pk_data[0], pmask, lo)
-                if node.kind == "anti":
-                    matched = probe.alive & ~matched
-                return na_correct(dataclasses.replace(
-                    probe, alive=probe.alive & matched))
-
+                        int(self.config.direct_join_density * bcap),
+                        4 * pcap):
+                return "filter", None, None
         build_key_ids = [e.expr_id for e in node.right_keys
                          if isinstance(e, Attr)]
         build_unique = (len(build_key_ids) == len(node.right_keys)) and \
             build.is_unique(build_key_ids)
-        ov = self.overrides.get(idx0)
         if node.kind == "full":
-            return self._full_join(node, probe, build, pk_data, bk_data, ov,
-                                   build_unique, pmask, bmask)
+            return "full", None, build_unique
         if ov and ov.strategy:
             strategy = ov.strategy
         elif build_unique or node.kind in ("semi", "anti"):
@@ -841,18 +1030,28 @@ class PlanRunner:
                 (ov is None or ov.strategy is None):
             # a compaction override (no_compact_*) keeps the join on the
             # run-statistics path; only a strategy override leaves it
-            out = self._semi_stats_join(node, probe, build, pk_data, bk_data,
-                                        pmask, bmask)
-            if out is not None:
-                return na_correct(out)
-        if pk_valid is None and bk_valid is None:
-            out = self._shuffle_join(node, probe, build, pk_data, bk_data, ov,
-                                     strategy, build_unique)
-            if out is not None:
-                return na_correct(out)
-        return na_correct(self._join_local(
-            node, probe, build, pk_data, bk_data, strategy, build_unique,
-            pmask, bmask))
+            return "semi_stats", strategy, build_unique
+        if self._shuffles(node, probe, build, keys):
+            return "shuffle", strategy, build_unique
+        return "local", strategy, build_unique
+
+    def _shuffles(self, node, probe, build, keys) -> bool:
+        """Whether the key-partitioned join over the mesh applies: a mesh of
+        several shards, an inner, left, semi or anti join that is not
+        null-aware, keys without NULLs, a build side at or above
+        replicate_threshold_rows (a broadcast build is cheaper for a
+        smaller one), and both sides' capacities multiples of the shard
+        count."""
+        mesh = self.mesh
+        if mesh is None or not self.config.use_partition_rule:
+            return False
+        n = mesh.n
+        if n <= 1 or node.kind not in ("inner", "left", "semi", "anti") or \
+                node.null_aware or keys[2] is not None or keys[5] is not None:
+            return False
+        pcap, bcap = _gcap(probe, self.mesh), _gcap(build, self.mesh)
+        return bcap >= self.config.replicate_threshold_rows and \
+            not pcap % n and not bcap % n
 
     def _join_local(self, node, probe, build, pk_data, bk_data, strategy,
                     build_unique, pmask, bmask):
@@ -868,28 +1067,22 @@ class PlanRunner:
                       strategy, build_unique) -> Optional[Chunk]:
         """Key-partitioned join over the mesh (quickstep_tpu/exec/
         runner.py:1042, the Partition rule, PartitionAwareInsertDestination
-        and PartitionedHashTablePool analog): both sides are radix-exchanged
-        by join key (parallel/shuffle.py), then the join core runs on each
-        shard. Returns None where it does not apply (no mesh, a build side
-        below replicate_threshold_rows, another join kind). Bucket sizes,
-        salting, probe slices and the LIP filter follow the reference, so
-        overflow and retry behave as there; each shard's flags and each
-        slice's are OR'd, and nothing is read on the host."""
+        and PartitionedHashTablePool analog), where _shuffles says it
+        applies: both sides are radix-exchanged by join key
+        (parallel/shuffle.py), then the join core runs on each shard. Each
+        process runs its local shards, of its rows of a sharded side or of
+        the whole of a replicated one, and its output holds their rows
+        (sharded over several processes). Bucket sizes, salting, probe
+        slices and the LIP filter follow the reference and are sized from
+        the capacities over every process, so overflow and retry behave as
+        there; each shard's flags and each slice's are OR'd, the LIP's
+        words over every shard (por), and nothing is read on the host."""
         from quickstep_tpu_torch.ops import bloom as B
         from quickstep_tpu_torch.parallel import shuffle as SH
-        from quickstep_tpu_torch.parallel.mesh import shard_rows
+        from quickstep_tpu_torch.parallel.mesh import por, shard_rows
         mesh = self.mesh
-        if mesh is None or not self.config.use_partition_rule:
-            return None
         n = mesh.n
-        if n <= 1 or node.kind not in ("inner", "left", "semi", "anti") or \
-                node.null_aware:
-            return None
-        # a broadcast (replicated) build is cheaper for small build sides
-        if build.capacity < self.config.replicate_threshold_rows:
-            return None
-        if probe.capacity % n or build.capacity % n:
-            return None
+        pcap, bcap = _gcap(probe, self.mesh), _gcap(build, self.mesh)
 
         # the exchange moves whole columns: gather pending row-id maps
         probe.materialize_all()
@@ -915,7 +1108,7 @@ class PlanRunner:
         nkeys = len(pk_data)
 
         factor = ov.shuffle_factor if ov else 1
-        lp, lb = probe.capacity // n, build.capacity // n
+        lp, lb = pcap // n, bcap // n
         # heavy-hitter salting: when the hottest build key exceeds one
         # shard's average build share, split its probe stream over salt
         # partitions
@@ -925,14 +1118,12 @@ class PlanRunner:
             mc = min((build.max_counts[i] for i in key_ids
                       if i in build.max_counts), default=None)
             if mc is not None and mc > lb:
-                salt = min(n, K.next_pow2(-(-mc * n // build.capacity)))
+                salt = min(n, K.next_pow2(-(-mc * n // bcap)))
         # receive buckets sized from the estimated live rows (4x cushion);
         # the shuffle_factor retry backs up an under-estimate
         est_p, est_b = node.est_left_rows, node.est_right_rows
-        live_p = min(1.0, 4.0 * est_p / max(probe.capacity, 1)) \
-            if est_p else 1.0
-        live_b = min(1.0, 4.0 * est_b / max(build.capacity, 1)) \
-            if est_b else 1.0
+        live_p = min(1.0, 4.0 * est_p / max(pcap, 1)) if est_p else 1.0
+        live_b = min(1.0, 4.0 * est_b / max(bcap, 1)) if est_b else 1.0
         # skew cushion: 1.25x the mean plus the heaviest probe key where
         # the statistics know it, else 2x
         pk_ids = [e.expr_id for e in node.left_keys if isinstance(e, Attr)]
@@ -963,8 +1154,7 @@ class PlanRunner:
         lip_bits = 0
         sel = 1.0
         if use_lip:
-            lip_bits = K.next_pow2(
-                int(min(max(4 * build.capacity, 1024), 1 << 22)))
+            lip_bits = K.next_pow2(int(min(max(4 * bcap, 1024), 1 << 22)))
             branges = self._key_ranges(node.right_keys, build)
             pranges = self._key_ranges(node.left_keys, probe)
             if len(branges) == 1 and branges[0] is not None and \
@@ -976,7 +1166,7 @@ class PlanRunner:
                     sel = 0.0
                 else:
                     inside = (ohi - olo + 1) / max(phi - plo + 1, 1)
-                    hit = min(1.0, build.capacity / max(bhi - blo + 1, 1))
+                    hit = min(1.0, bcap / max(bhi - blo + 1, 1))
                     sel = inside * hit
             # never below 1/8 of the unfiltered buckets: a wrong estimate
             # costs a retry
@@ -997,8 +1187,11 @@ class PlanRunner:
 
         idx = self.node_index[id(node)]
         pre_flags = set(self.flags)
-        p_sh = [shard_rows(mesh, a) for a in p_arrays + [probe.alive]]
-        b_sh = [shard_rows(mesh, a) for a in b_arrays + [build.alive]]
+        p_sh = [shard_rows(mesh, a, probe.sharded)
+                for a in p_arrays + [probe.alive]]
+        b_sh = [shard_rows(mesh, a, build.sharded)
+                for a in b_arrays + [build.alive]]
+        local = range(mesh.local_n)
 
         def rebuild(chunk, layout, ex, alive, cap):
             pos = 1 + nkeys   # the packed key and the key columns lead
@@ -1022,28 +1215,27 @@ class PlanRunner:
             mesh, b_sh[0], [list(cols) for cols in zip(*b_sh[:-1])],
             b_sh[-1], bb, salt=salt, probe_side=False)
         build_loc = [rebuild(build, b_layout, b_ex[j], b_alive[j], recv_b)
-                     for j in range(n)]
+                     for j in local]
         lip = None
         if use_lip:
-            for i in range(n):
-                bits = B.bloom_build([b_sh[0][i]], b_sh[-1][i], lip_bits)
-                lip = bits if lip is None else (lip | bits)
+            lip = por(mesh, [B.bloom_build([b_sh[0][i]], b_sh[-1][i],
+                                           lip_bits) for i in local])
 
         new_flags: Dict[str, torch.Tensor] = {}
-        outs = [[] for _ in range(n)]
+        outs = [[] for _ in local]
         for ci in range(chunks):
             sl = slice(ci * lc, (ci + 1) * lc)
-            keys_c = [p_sh[0][i][sl] for i in range(n)]
-            alive_c = [p_sh[-1][i][sl] for i in range(n)]
+            keys_c = [p_sh[0][i][sl] for i in local]
+            alive_c = [p_sh[-1][i][sl] for i in local]
             if lip is not None:
                 alive_c = [B.bloom_probe(lip, [k], a, lip_bits)
                            for k, a in zip(keys_c, alive_c)]
-            pays = [[col[i][sl] for col in p_sh[:-1]] for i in range(n)]
+            pays = [[col[i][sl] for col in p_sh[:-1]] for i in local]
             p_ex, p_alive, p_over = SH.radix_exchange(
                 mesh, keys_c, pays, alive_c, bp_c, salt=salt,
                 probe_side=True)
             over = over | p_over
-            for j in range(n):
+            for j in local:
                 pk_loc, probe_loc = rebuild(probe, p_layout, p_ex[j],
                                             p_alive[j], recv_p_c)
                 bk_loc, b_loc = build_loc[j]
@@ -1059,7 +1251,9 @@ class PlanRunner:
         for k, v in new_flags.items():
             self.flags[k] = (self.flags[k] | v) if k in self.flags else v
         # shard-major, as shard_map concatenates its outputs
-        return concat_chunks([o for shard in outs for o in shard])
+        out = concat_chunks([o for shard in outs for o in shard])
+        out.sharded = self._per_process
+        return out
 
     def _key_ranges(self, keys, chunk):
         return [infer_range(e, chunk.ranges) for e in keys]
@@ -1783,8 +1977,12 @@ class PlanRunner:
                      unique_sets=list(chunk.unique_sets), fds=list(chunk.fds))
 
     def _squeeze(self, chunk: Chunk) -> Chunk:
-        """Compact when the static bound is much smaller than capacity."""
-        if chunk.bound is not None and chunk.bound * 2 <= chunk.capacity:
+        """Compact when the static bound is much smaller than capacity (the
+        capacity over every process: a sharded chunk is gathered first)."""
+        if chunk.bound is not None and \
+                chunk.bound * 2 <= _gcap(chunk, self.mesh):
+            if chunk.sharded:
+                chunk = self._whole(chunk)
             return self._compact_chunk(chunk, chunk.bound)
         return chunk
 

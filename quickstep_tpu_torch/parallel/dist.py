@@ -2,10 +2,11 @@
 
 The counterpart of quickstep_tpu/parallel/dist.py: filter, broadcast-join
 probe and dense group-by on each row shard, then the partial states summed
-over the mesh (psum, the pipeline breaker). Each shard runs K3 (the direct
-build of the replicated build side and the probe) and K2 (the dense
-group-by) on CUDA tensors, their plain versions on CPU tensors; the step
-has no kernel of its own.
+over the mesh (psum, the pipeline breaker, which crosses the processes of
+a multi-process mesh). Each local shard runs K3 (the direct build of the
+replicated build side and the probe) and K2 (the dense group-by) on CUDA
+tensors, their plain versions on CPU tensors; the step has no kernel of
+its own.
 """
 
 from __future__ import annotations
@@ -25,8 +26,11 @@ DOMAIN = 1 << 12
 def distributed_agg_join_step(mesh: Mesh, axis: str = "x"):
     """fn(l_key, l_val, l_grp, l_alive, b_key, b_alive) -> (group sums
     float64[N_GROUPS], group counts int64[N_GROUPS]): the l_* columns are
-    row-sharded over the mesh (their length a multiple of its shards),
-    b_key (unique keys in [0, DOMAIN)) and b_alive replicated."""
+    row-sharded over the mesh, each process passing the rows of its own
+    shards (multihost.local_rows; one process passes them all, their
+    length a multiple of its shards), b_key (unique keys in [0, DOMAIN))
+    and b_alive replicated. Every process gets the same sums, bit for bit
+    those of the one-process mesh of as many shards."""
     if axis != mesh.axis:
         raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
 
@@ -42,11 +46,12 @@ def distributed_agg_join_step(mesh: Mesh, axis: str = "x"):
         return sums, counts.to(torch.int64)
 
     def fn(l_key, l_val, l_grp, l_alive, b_key, b_alive):
-        shards = zip(*(shard_rows(mesh, t)
+        shards = zip(*(shard_rows(mesh, t, local=True)
                        for t in (l_key, l_val, l_grp, l_alive)))
         parts = [local_step(*s, b_key, b_alive) for s in shards]
         # pipeline breaker: combine the partial states over the mesh
-        return psum([p[0] for p in parts]), psum([p[1] for p in parts])
+        return (psum(mesh, [p[0] for p in parts]),
+                psum(mesh, [p[1] for p in parts]))
 
     return fn
 
@@ -54,7 +59,9 @@ def distributed_agg_join_step(mesh: Mesh, axis: str = "x"):
 def make_example_inputs(mesh: Mesh, rows_per_chip: int = 256,
                         build_rows: int = 64):
     """The reference's inputs (quickstep_tpu/parallel/dist.py:67), from the
-    same numpy generator, on the mesh's device."""
+    same numpy generator, on the mesh's device: of the l_* columns this
+    process's rows."""
+    from quickstep_tpu_torch.parallel.multihost import local_rows
     n = mesh.n * rows_per_chip
     rng = np.random.default_rng(0)
     l_key = rng.integers(0, build_rows, n).astype(np.int64)
@@ -66,5 +73,6 @@ def make_example_inputs(mesh: Mesh, rows_per_chip: int = 256,
 
     def on(a):
         return torch.from_numpy(a).to(mesh.device)
-    return (on(l_key), on(l_val), on(l_grp), on(l_alive),
+    return (on(local_rows(mesh, l_key)), on(local_rows(mesh, l_val)),
+            on(local_rows(mesh, l_grp)), on(local_rows(mesh, l_alive)),
             replicate(mesh, on(b_key)), replicate(mesh, on(b_alive)))

@@ -3,11 +3,13 @@
 The counterpart of quickstep_tpu/parallel/shuffle.py: each shard buckets
 its rows by the hash partition of their key, and the buckets are exchanged
 with the mesh's `all_to_all`, so that afterwards every shard holds exactly
-the rows whose keys hash to it. Every shard sends `n_parts` buckets of
-`bucket_cap` rows; a bucket that overflows raises a flag, OR'd over the
-shards, that the executor answers by re-running with larger buckets, and
-heavy build keys can be salted (`salt > 1`): build rows go to `salt`
-consecutive partitions and each probe row picks one.
+the rows whose keys hash to it. A process runs its local shards' sides,
+and the exchange crosses the processes of a multi-process mesh. Every
+shard sends `n_parts` buckets of `bucket_cap` rows; a bucket that
+overflows raises a flag, OR'd over the shards, that the executor answers
+by re-running with larger buckets, and heavy build keys can be salted
+(`salt > 1`): build rows go to `salt` consecutive partitions and each
+probe row picks one.
 
 Per shard (`radix_bucket`), on CUDA tensors: K14 (ops/cuda.py
 partition_dest) gives each row its slot and each bucket its occupied count
@@ -143,17 +145,16 @@ def radix_exchange(mesh: Mesh, packed_keys: List[torch.Tensor],
                    payloads: List[List[torch.Tensor]],
                    alives: List[torch.Tensor], bucket_cap: int,
                    salt: int = 1, probe_side: bool = True):
-    """quickstep_tpu/parallel/shuffle.py:43 over the mesh: per shard i,
-    packed_keys[i] (int64), payloads[i] (1-D columns) and alives[i]. Every
-    shard buckets its rows (radix_bucket) and bucket j of shard i becomes
-    segment i of shard j. Returns (per shard the exchanged payload, per
-    shard the exchanged live mask, 0-d bool overflow OR'd over the shards),
-    each shard holding mesh.n * bucket_cap rows."""
-    n = mesh.n
-    local = [radix_bucket(k, p, a, n, bucket_cap, salt, probe_side)
+    """quickstep_tpu/parallel/shuffle.py:43 over the mesh: per local shard
+    i, packed_keys[i] (int64), payloads[i] (1-D columns) and alives[i].
+    Every local shard buckets its rows (radix_bucket) and bucket j of
+    global shard i becomes segment i of global shard j, every column and
+    the live mask in one all_to_all. Returns (per local shard the exchanged
+    payload, per local shard the exchanged live mask, 0-d bool overflow
+    OR'd over every shard of the mesh by pmax), each shard holding mesh.n
+    * bucket_cap rows."""
+    local = [radix_bucket(k, p, a, mesh.n, bucket_cap, salt, probe_side)
              for k, p, a in zip(packed_keys, payloads, alives)]
-    ncols = len(payloads[0])
-    cols = [all_to_all(mesh, [b[0][c] for b in local]) for c in range(ncols)]
-    exch = [[cols[c][j] for c in range(ncols)] for j in range(n)]
-    alive_out = all_to_all(mesh, [b[1] for b in local])
-    return exch, alive_out, pmax([b[2] for b in local])
+    moved = all_to_all(mesh, [list(b[0]) + [b[1]] for b in local])
+    return ([m[:-1] for m in moved], [m[-1] for m in moved],
+            pmax(mesh, [b[2] for b in local]))

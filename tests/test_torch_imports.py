@@ -5,6 +5,7 @@ TPC-H generators make the same data (and oracle) as the reference's."""
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import textwrap
@@ -159,6 +160,20 @@ OUT_OF_CORE_WITHOUT_JAX = textwrap.dedent("""
     print("OUT OF CORE OK")
 """)
 
+MULTIHOST_WITHOUT_JAX = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None          # any `import jax` now fails
+    import quickstep_tpu_torch.parallel.multihost
+    import quickstep_tpu_torch.transaction
+    from quickstep_tpu_torch.bench import multihost_run
+    multihost_run.main(sys.argv[1:])
+    bad = [m for m, mod in sys.modules.items() if mod is not None and (
+           m == "jax" or m.startswith("jax.")
+           or m == "quickstep_tpu" or m.startswith("quickstep_tpu."))]
+    assert not bad, bad
+    print("MULTIHOST OK")
+""")
+
 # The host modules the port copies, and the function of each copy that was
 # changed for torch (compared without it).
 COPIES = {
@@ -174,6 +189,8 @@ COPIES = {
     "utils/golden.py": None,
     "utils/reference_plan.py": None,
     "utils/visualize.py": "profile_plan",
+    "transaction/__init__.py": None,
+    "transaction/lock_manager.py": None,
 }
 
 # Runs tools/sf100_fullgen.py as its own __main__, with the copy of the
@@ -233,6 +250,31 @@ def test_out_of_core_and_the_cli_run_without_jax():
     proc = _run(["-c", OUT_OF_CORE_WITHOUT_JAX], REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "OUT OF CORE OK" in proc.stdout
+
+
+def test_multihost_runs_without_jax(tmp_path):
+    """Two processes of bench/multihost_run.py (gloo, the star battery),
+    neither loading jax or quickstep_tpu."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MULTIHOST_WITHOUT_JAX, str(rank), "2", port,
+         str(tmp_path / "mh"), "--device", "cpu", "--star"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+        assert "MULTIHOST OK" in out
 
 
 def _without_function(text, name):
