@@ -36,9 +36,15 @@ the distributed aggregate-join step runs at 7.5 M rows per shard over 8
 shards against a plain computation. W2, K14, K15 and K16 are also checked
 to make no host sync (the card's sync debug mode set to raise), and every
 operator over inputs of zero rows in SQL against sqlite
-(bench/zero_rows.py). Each
-SF10 query runs cold and then warm, and each warm run takes its plan from
-the executor's logical-plan cache.
+(bench/zero_rows.py). Last (phase 9), bench/sf100_fullgen.py's on-disk
+store of SF10, written in three chunks by its own process during phase 0
+(phase 1 waits for it), is opened memory-mapped in a database with the
+budget of 10^9 bytes, and the eleven queries of its oracle.json run cold
+and warm through bench/sf100_full_verify.py's comparison, the rows of
+both runs held to the oracle, each streamed query in at least two
+segments; the store is removed after. Each SF10 query runs cold and then warm, and each warm
+run of the resident phases takes its plan from the executor's
+logical-plan cache.
 
     python3 chip_smoke.py
 
@@ -211,6 +217,16 @@ OPERATOR_RUNS = {
     "o4": ("hash_keys", "merge_unique_probe", "multi_gather"),
     "o5": ("order_permutation",),
 }
+# phase 9: bench/sf100_fullgen.py's on-disk store of SF_LARGE in chunks of
+# this many orders (three chunks of SF10's 15 M), written under build/ by
+# its own process during phase 0 (phase 1 waits for it), then the eleven
+# queries of its oracle.json through bench/sf100_full_verify.py's
+# comparison on the card under STREAM_BUDGET, the columns memory-mapped
+# from the store
+STORE_CHUNK_ORDERS = 5_000_000
+# seconds the writer may take in all (it took 93 s on an H100 host)
+STORE_WRITER_TIMEOUT = 400
+
 KERNELS = {   # name: (source, the reference function it replaces)
     "scalar_agg": ("quickstep_tpu_torch/csrc/agg_kernels.cu",
                    "quickstep_tpu/ops/groupby.py:435"),
@@ -2542,6 +2558,127 @@ def phase_dml(db, oracle, cuda):
     return dict(cuda.LAUNCHES)
 
 
+class StoreWriter:
+    """bench/sf100_fullgen.py writing the SF_LARGE store under build/ in its
+    own process (its log and the temporary directory it writes the oracle's
+    second copy to beside the store), started at once through
+    bench/sf100_campaign.py's run_child on a thread of its own; finish()
+    waits for it and returns (its exit code, seconds, peak RSS in bytes),
+    stop() kills it if it still runs and removes the store."""
+
+    def __init__(self):
+        import pathlib
+        from quickstep_tpu_torch.bench.sf100_campaign import run_child
+        root = pathlib.Path(__file__).resolve().parent
+        self.store = root / "build" / "sf10_store"
+        self.tmp = root / "build" / "sf10_store_tmp"
+        self.remove()
+        self.tmp.mkdir(parents=True)
+        self.log_path = root / "build" / "sf10_store.log"
+        env = dict(os.environ, TMPDIR=str(self.tmp), PYTHONPATH=str(root))
+        self.stopping = threading.Event()
+        self.done = None          # (exit code, seconds, peak RSS bytes)
+        self.t0 = time.perf_counter()
+
+        def write():
+            self.done = run_child(
+                [sys.executable, "-m",
+                 "quickstep_tpu_torch.bench.sf100_fullgen", f"{SF_LARGE:g}",
+                 str(STORE_CHUNK_ORDERS), str(self.store)], self.log_path,
+                timeout=STORE_WRITER_TIMEOUT, stop=self.stopping,
+                cwd=str(root), env=env)
+        self.thread = threading.Thread(target=write, daemon=True)
+        self.thread.start()
+
+    def finish(self):
+        self.thread.join()
+        return self.done
+
+    def remove(self):
+        import shutil
+        for d in (self.store, self.tmp):
+            shutil.rmtree(d, ignore_errors=True)
+
+    def stop(self):
+        self.stopping.set()
+        self.thread.join()
+        self.remove()
+
+
+def phase_store(cuda, writer, written):
+    """Phase 9: the SF_LARGE store that `writer` wrote, `written` being its
+    (exit code, seconds, peak RSS in bytes), opened memory-mapped in a
+    database on the card under STREAM_BUDGET: the eleven queries of its
+    oracle.json cold and warm through bench/sf100_full_verify.py's check,
+    each ok in both runs, each that streams (STREAMED_QUERIES) in at least
+    two segments and launching the kernels LARGE_QUERIES names for it, the
+    others resident; the store is removed after. Returns the kernels'
+    launches."""
+    from quickstep_tpu_torch.bench import sf100_full_verify as V
+    _rc, secs, rss = written
+    store = writer.store
+    size = sum(os.path.getsize(os.path.join(d, n))
+               for d, _sub, names in os.walk(store) for n in names)
+    log(f"phase 9: the SF{SF_LARGE:g} store of bench/sf100_fullgen.py "
+        f"({STORE_CHUNK_ORDERS} orders a chunk), {size} bytes written in "
+        f"{secs:.1f} s by its own process (peak RSS {rss / 2**30:.2f} "
+        f"GiB) during phase 0; its eleven oracle queries "
+        f"under a budget of {STREAM_BUDGET} bytes, memory-mapped")
+    with open(store / "oracle.json") as f:
+        oracle = json.load(f)
+    queries = [int(q) for q in V.DEFAULT_QS.split(",")]
+    if sorted(k for k in oracle if k != "rows") != \
+            sorted(f"q{q}" for q in queries):
+        raise AssertionError(f"oracle.json holds {sorted(oracle)}")
+    total = dict.fromkeys(cuda.LAUNCHES, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    db = V.open_store(str(store), STREAM_BUDGET, "cuda")
+    try:
+        lineitem = db.catalog.default_database.get_relation("lineitem")
+        if not isinstance(lineitem.data.columns["l_orderkey"].data,
+                          np.memmap):
+            raise AssertionError("lineitem's columns are not memory-mapped")
+        for q in queries:
+            cuda.reset_launches()
+            rec = V.check_query(db, q, oracle[f"q{q}"])
+            launches = dict(cuda.LAUNCHES)
+            for k, v in launches.items():
+                total[k] += v
+            cold, warm = rec["runs"]["cold"], rec["runs"]["warm"]
+            if not (rec["ok"] and rec["ok_cold"] and rec["ok_warm"]):
+                raise AssertionError(f"store Q{q}: not ok against the "
+                                     f"oracle: {rec}")
+            for run in (cold, warm):
+                streamed = run["segments"] > 0
+                if streamed != (q in STREAMED_QUERIES) or (
+                        streamed and run["segments_run"] < 2):
+                    raise AssertionError(f"store Q{q}: {run}")
+            missing = [k for k in LARGE_QUERIES[q] if not launches[k]]
+            if missing:
+                raise AssertionError(f"store Q{q} never launched {missing}: "
+                                     f"{launches}")
+            log(f"  store Q{q}: {rec['rows']} rows ok cold and warm; " + "; ".join(
+                f"{name} {run['ms']:.1f} ms, segments "
+                f"{run['segments_run']}/{run['segments']}, uploaded "
+                f"{run['bytes_streamed']} B" + (
+                    f" at {run['bytes_streamed'] / run['upload_s'] / 1e9:.2f}"
+                    " GB/s" if run["upload_s"] > 0 else "") +
+                f", peak device memory "
+                f"{run['peak_device_bytes'] / 2**30:.3f} GiB"
+                for name, run in (("cold", cold), ("warm", warm))) +
+                f"; host RSS {warm['host_rss_bytes'] / 2**30:.2f} GiB")
+        return total
+    finally:
+        db.executor._device_cache.clear()
+        db.executor._seg_cache.clear()
+        db.close()
+        del db
+        gc.collect()
+        torch.cuda.empty_cache()
+        writer.remove()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -2549,6 +2686,14 @@ def main():
     card = gpu_name_and_power()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     from quickstep_tpu_torch.ops import cuda, groupby as G
+    writer = StoreWriter()
+    try:
+        run_phases(card, cuda, G, t_start, writer)
+    finally:
+        writer.stop()
+
+
+def run_phases(card, cuda, G, t_start, writer):
     t0 = time.perf_counter()
     generated = build_while(generate_large)
     log(f"phase 0: kernels built (nvcc {cuda.BUILD_SECONDS:.1f} s)"
@@ -2556,6 +2701,17 @@ def main():
         else "phase 0: kernels loaded from an earlier build")
     log(f"  and the SF{SF_LARGE:g} tables and oracles made meanwhile, "
         f"{time.perf_counter() - t0:.1f} s in all")
+    # the store writer ends before the timed phases begin
+    running = writer.done is None
+    written = writer.finish()
+    log(f"  the store writer ended at "
+        f"{writer.t0 + written[1] - t_start:.1f} s of the smoke with exit "
+        f"code {written[0]}" + (
+            ", phase 1 having waited for it" if running else ""))
+    if written[0] != 0:
+        with open(writer.log_path, errors="replace") as f:
+            raise AssertionError(f"the store writer exited with "
+                                 f"{written[0]}: {f.read()[-2000:]}")
 
     rows = phase_kernels(G)
     torch.cuda.empty_cache()
@@ -2590,6 +2746,10 @@ def main():
     add(phase_multihost(cuda, generated, mesh))
     del generated
     add(phase_dist_step(cuda))
+    stored = phase_store(cuda, writer, written)
+    add(stored)
+    for k, v in stored.items():
+        one_device[k] += v
     log("launches over the run: " + ", ".join(
         f"{k} {v}" for k, v in launches.items()))
     log("launches on one device: " + ", ".join(

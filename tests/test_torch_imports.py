@@ -174,6 +174,24 @@ MULTIHOST_WITHOUT_JAX = textwrap.dedent("""
     print("MULTIHOST OK")
 """)
 
+SF100_TOOLS_WITHOUT_JAX = textwrap.dedent("""
+    import os, sys
+    sys.modules["jax"] = None          # any `import jax` now fails
+    from quickstep_tpu_torch.bench import (sf100_campaign, sf100_full_verify,
+                                           sf100_fullgen)
+    out = sys.argv[1]
+    sys.argv = ["sf100_fullgen", "0.002", "1000", out]
+    sf100_fullgen.main()
+    assert sf100_full_verify.main(
+        [out, "0", "6,1,3", os.path.join(out, "verify.json"),
+         "--device", "cpu"]) == 0
+    bad = [m for m, mod in sys.modules.items() if mod is not None and (
+           m == "jax" or m.startswith("jax.")
+           or m == "quickstep_tpu" or m.startswith("quickstep_tpu."))]
+    assert not bad, bad
+    print("SF100 TOOLS OK")
+""")
+
 # The host modules the port copies, and the function of each copy that was
 # changed for torch (compared without it).
 COPIES = {
@@ -191,6 +209,27 @@ COPIES = {
     "utils/visualize.py": "profile_plan",
     "transaction/__init__.py": None,
     "transaction/lock_manager.py": None,
+}
+
+# The tools the port copies into bench/: the copy of sf100_fullgen.py is the
+# tool but for these (copy, tool) passages, imports renamed; of
+# sf100_full_verify.py's copy the functions named are the tool's.
+TOOL_COPIES = {
+    "sf100_fullgen.py": [
+        ("    python -m quickstep_tpu.bench.sf100_fullgen [scale=100] \\\n"
+         "        [chunk_orders=10000000] [outdir]",
+         "    python tools/sf100_fullgen.py [scale=100] "
+         "[chunk_orders=10000000] [outdir]"),
+        ("import tempfile\n", ""),
+        ("REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(\n"
+         "    os.path.abspath(__file__))))\n",
+         "REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath("
+         "__file__)))\nsys.path.insert(0, REPO_ROOT)\n"),
+        ('    with open(os.path.join(tempfile.gettempdir(), '
+         '"sf100_full_oracle.json"),\n              "w") as f:',
+         '    with open("/tmp/sf100_full_oracle.json", "w") as f:'),
+    ],
+    "sf100_full_verify.py": ("DEFAULT_QS", "norm", "row_eq"),
 }
 
 # Runs tools/sf100_fullgen.py as its own __main__, with the copy of the
@@ -252,6 +291,15 @@ def test_out_of_core_and_the_cli_run_without_jax():
     assert "OUT OF CORE OK" in proc.stdout
 
 
+def test_sf100_tools_run_without_jax(tmp_path):
+    """bench/sf100_fullgen.py writes a store and bench/sf100_full_verify.py
+    checks three of its queries, neither loading jax or quickstep_tpu."""
+    proc = _run(["-c", SF100_TOOLS_WITHOUT_JAX, str(tmp_path / "store")],
+                REPO, TMPDIR=str(tmp_path))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "SF100 TOOLS OK" in proc.stdout
+
+
 def test_multihost_runs_without_jax(tmp_path):
     """Two processes of bench/multihost_run.py (gloo, the star battery),
     neither loading jax or quickstep_tpu."""
@@ -303,6 +351,39 @@ def test_copied_host_modules_equal_their_sources(path):
     assert _without_function(copy, COPIES[path]) == \
         _without_function(source, COPIES[path])
     assert "jax" not in copy
+
+
+def _top_level(text, name):
+    """The top-level function or assignment `name` of text: its first line
+    up to the next top-level statement."""
+    lines = text.split("\n")
+    start = next(i for i, line in enumerate(lines)
+                 if line.startswith((f"def {name}(", f"{name} = ")))
+    end = next(i for i in range(start + 1, len(lines))
+               if lines[i] and not lines[i][0].isspace())
+    return "\n".join(lines[start:end]).rstrip()
+
+
+@pytest.mark.parametrize("name", sorted(TOOL_COPIES))
+def test_copied_tools_equal_their_sources(name):
+    """Each copy of a tool names it on its first line; sf100_fullgen.py's is
+    the tool with quickstep_tpu renamed but for TOOL_COPIES' passages,
+    sf100_full_verify.py's holds the tool's comparison as it is."""
+    with open(os.path.join(REPO, "quickstep_tpu_torch", "bench", name)) as f:
+        first, copy = f.read().split("\n", 1)
+    with open(os.path.join(REPO, "tools", name)) as f:
+        source = f.read()
+    assert first.startswith(f"# Copied from tools/{name};")
+    assert "jax" not in copy
+    copy = copy.replace("quickstep_tpu_torch", "quickstep_tpu")
+    if name == "sf100_fullgen.py":
+        for mine, theirs in TOOL_COPIES[name]:
+            assert copy.count(mine) == 1, mine
+            copy = copy.replace(mine, theirs)
+        assert copy == source
+    else:
+        for fn in TOOL_COPIES[name]:
+            assert _top_level(copy, fn) == _top_level(source, fn), fn
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
