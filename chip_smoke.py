@@ -98,6 +98,17 @@ SMALL_MESH_THRESHOLD = 2000
 # kernels each must launch: every one shuffles inner joins with the LIP on
 SHUFFLE_KERNELS = ("partition_dest", "scatter_compact", "bloom_filter")
 MESH_QUERIES = (3, 5, 9, 10, 18)
+# SF10 queries on the same mesh that shuffle nothing: their aggregate runs
+# on each shard's rows (K2 for Q1, K1 for Q6, once a shard a run) and the
+# partials fold over the mesh
+MESH_AGG_QUERIES = (1, 6)
+# the gathers into an Aggregate that phase 7 may meet (runner.py _agg_route:
+# no per-shard form), and the queries that must gather into no Aggregate
+# and no probe side of a Join
+GATHERED_AGGREGATES = ("sort GROUP BY outside the two-phase route",
+                       "DISTINCT aggregate")
+NO_AGGREGATE_GATHER = (1, 5, 6)
+NO_PROBE_GATHER = (5, 9, 10, 18)
 # phase 7: the SF10 mesh of MESH_SHARDS shards spread over this many
 # processes on the one card, each a bench/multihost_run.py worker; NCCL
 # refuses two ranks on one card, so they meet through gloo, which carries
@@ -1928,7 +1939,7 @@ def phase_large(cuda, generated):
                 seen.update(calls=0, sorts=[])
                 times = run(label, q, must, sql,
                             per_run=Q1_PER_RUN if q == 1 else None)
-                if q in MESH_QUERIES:
+                if q in MESH_QUERIES + MESH_AGG_QUERIES:
                     single[q] = times
                 if seen["sorts"] or (q in COMPACTING) != (seen["calls"] > 0):
                     raise AssertionError(
@@ -2236,9 +2247,10 @@ def phase_large_mesh(cuda, generated, single, total):
     MESH_SHARDS shards of the card at the default replicate threshold
     (every table but nation and region shards): MESH_QUERIES cold and warm
     against the exact oracle, each launching K14-K16, Q9 through the
-    two-phase GROUP BY; times and peak memory beside the one-device run's.
-    Adds the launches to total. Returns, for each query, (its rows of each
-    run, its times in ms, its peak device memory in GiB)."""
+    two-phase GROUP BY, then MESH_AGG_QUERIES, each launching its aggregate
+    kernel once a shard a run; times and peak memory beside the one-device
+    run's. Adds the launches to total. Returns, for each query, (its rows
+    of each run, its times in ms, its peak device memory in GiB)."""
     from quickstep_tpu_torch import Database
     from quickstep_tpu_torch.bench.tpch_fullgen import load_tables
     from quickstep_tpu_torch.config import Config
@@ -2260,14 +2272,18 @@ def phase_large_mesh(cuda, generated, single, total):
     out = {}
     try:
         load_tables(db, tables, stats)
-        for q in MESH_QUERIES:
+        for q in MESH_QUERIES + MESH_AGG_QUERIES:
             two_phase[0] = 0
             rows = []
+            must = SHUFFLE_KERNELS if q in MESH_QUERIES else LARGE_QUERIES[q]
+            per_run = None if q in MESH_QUERIES else \
+                dict.fromkeys(LARGE_QUERIES[q], MESH_SHARDS)
             times, peak = run_query(db, cuda, oracle, total,
                                     f"Q{q} ({MESH_SHARDS} shards)", q,
-                                    SHUFFLE_KERNELS, rows_out=rows)
+                                    must, per_run=per_run, rows_out=rows)
             out[q] = (rows, times, peak)
-            info = PlanRunner.trace_shuffle_info
+            info = PlanRunner.trace_shuffle_info if q in MESH_QUERIES \
+                else "none"
             one = single[q]
             log(f"    one device: cold {one[0][0]:.1f} ms, warm "
                 + ", ".join(f"{t:.1f}" for t in one[0][1:])
@@ -2332,12 +2348,16 @@ def phase_multihost(cuda, generated, mesh):
     holding MESH_SHARDS / MULTIHOST_PROCS local shards and uploading only
     their rows of a sharded table; the tables are written once as .npy
     files, which each process memory-maps. First two ranks asking for NCCL
-    on the one card must both refuse. Then MESH_QUERIES cold and warm on
-    every process: each run against the exact oracle and bit for bit
-    against phase 6's rows (`mesh`, phase_large_mesh's result), each
-    process launching K14, K15 and K16 and uploading half of each sharded
-    table; its times beside phase 6's, what crossed the processes and its
-    peak memory are logged. Returns the workers' launches, summed."""
+    on the one card must both refuse. Then MESH_QUERIES and
+    MESH_AGG_QUERIES cold and warm on every process: each run against the
+    exact oracle and bit for bit against phase 6's rows (`mesh`,
+    phase_large_mesh's result), each process launching K1, K2, K14, K15
+    and K16 and uploading half of each sharded table, and gathering no
+    input of an operator that runs per shard (no Aggregate input but of
+    the GATHERED_AGGREGATES kinds, none for NO_AGGREGATE_GATHER, and no
+    probe side of a Join for NO_PROBE_GATHER); its times beside phase 6's,
+    what crossed the processes, each query's gathered bytes and its peak
+    memory are logged. Returns the workers' launches, summed."""
     import pathlib
     import pickle
     import shutil
@@ -2380,7 +2400,8 @@ def phase_multihost(cuda, generated, mesh):
         rcs, outs = spawn_workers(
             ["--device", "cuda:0", "--backend", MULTIHOST_BACKEND,
              "--local-shards", str(local), "--tables", str(work / "tables"),
-             "--queries", ",".join(str(q) for q in MESH_QUERIES),
+             "--queries", ",".join(str(q) for q in MESH_QUERIES +
+                                   MESH_AGG_QUERIES),
              "--runs", str(MULTIHOST_RUNS)],
             str(work / "out"), MULTIHOST_TIMEOUT_S)
         if any(rcs):
@@ -2398,7 +2419,7 @@ def phase_multihost(cuda, generated, mesh):
     for res in results:
         fig = res["figures"]
         who = f"process {fig['process']}"
-        for q in MESH_QUERIES:
+        for q in MESH_QUERIES + MESH_AGG_QUERIES:
             runs = res["rows"][f"Q{q}"]
             want = mesh[q][0][0]
             for rows in runs:
@@ -2410,6 +2431,14 @@ def phase_multihost(cuda, generated, mesh):
             one = mesh[q][1]
             moved = qf["mesh"][0]["collectives"]
             gathers = qf["mesh"][0]["gathers"]
+            split = [g for g in gathers if (
+                g["into"] == "Aggregate" and (
+                    q in NO_AGGREGATE_GATHER or
+                    g["why"] not in GATHERED_AGGREGATES)) or (
+                q in NO_PROBE_GATHER and g["why"].startswith("probe side"))]
+            if split:
+                raise AssertionError(f"{who} Q{q} gathered the input of an "
+                                     f"operator that runs per shard: {split}")
             log(f"  {who} Q{q}: peak device memory "
                 f"{qf['peak_bytes'] / 2**30:.2f} GiB (phase 6: "
                 f"{mesh[q][2]:.2f}); cold {qf['ms'][0]:.1f} ms, warm "
@@ -2420,10 +2449,12 @@ def phase_multihost(cuda, generated, mesh):
                 f"for bit; retries {qf['retries']}; sent (cold run) "
                 + ", ".join(f"{k} {v['calls']} calls {v['bytes']} B"
                             for k, v in sorted(moved.items()))
-                + "; gathered inputs "
-                + (", ".join(f"{g['from']}->{g['into']} {g['rows']} rows "
-                             f"{g['bytes']} B" for g in gathers) or "none"))
-        idle = [k for k in SHUFFLE_KERNELS if not fig["launches"][k]]
+                + f"; gathered {sum(g['bytes'] for g in gathers)} B: "
+                + (", ".join(f"{g['from']}->{g['into']} ({g['why']}) "
+                             f"{g['rows']} rows {g['bytes']} B"
+                             for g in gathers) or "none"))
+        idle = [k for k in SHUFFLE_KERNELS + ("scalar_agg", "dense_groupby")
+                if not fig["launches"][k]]
         if idle:
             raise AssertionError(f"{who} never launched {idle}")
         for table, up in sorted(fig["uploads"].items()):

@@ -80,6 +80,14 @@ DML = (
     "INSERT INTO dm SELECT k + 1000 * g, v FROM fact",
     "DELETE FROM dm WHERE v % 7 = 0",
     "UPDATE dm SET v = v + 1 WHERE k > 2000",
+    # a nullable key of a dense domain: its GROUP BY leaves the dense route
+    # once the key is evaluated, and 50 rows a shard are too few for the
+    # two-phase route's partials, so it gathers
+    "CREATE TABLE nk (g INT, v BIGINT NOT NULL)",
+    "INSERT INTO nk VALUES " + ", ".join(
+        f"({'NULL' if i % 11 == 0 else i % 97}, {i * 7 % 23})"
+        for i in range(200)),
+    "\\analyze nk",
 )
 DML_QUERIES = {
     "dml_count": "SELECT COUNT(*), SUM(v), MIN(k), MAX(k) FROM dm",
@@ -87,6 +95,8 @@ DML_QUERIES = {
                   "GROUP BY r ORDER BY r",
     "dml_join": "SELECT d.name, COUNT(*) AS c FROM dm, dim d "
                 "WHERE dm.k % 32 + 1 = d.k GROUP BY d.name ORDER BY d.name",
+    "dml_nullable_groups": "SELECT g, COUNT(*) AS c, SUM(v) AS s FROM nk "
+                           "GROUP BY g ORDER BY g",
 }
 
 

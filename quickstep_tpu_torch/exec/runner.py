@@ -15,24 +15,35 @@ that the executor reads with the result and answers with a retry. A scalar
 subquery is evaluated inside the plan, its value and presence kept as 0-d
 device tensors, so the query keeps its one host sync.
 
-Under a mesh (Config.distributed, parallel/mesh.py) two operators run per
-shard, as the reference's shard_map bodies do: the shuffle join
-(_shuffle_join: radix exchange of both sides by join key, then the join
-core on each shard) and the two-phase sort GROUP BY (_dist_sort_groupby).
-Their per-shard bodies run as a Python loop over the local shards, in
-shard order; every other operator runs over the whole tensors, which on a
+Under a mesh (Config.distributed, parallel/mesh.py) these operators run
+per shard, as the reference's shard_map bodies and its GSPMD partitioner
+split them: the shuffle join (_shuffle_join: radix exchange of both sides
+by join key, then the join core on each shard), the two-phase sort GROUP
+BY (_dist_sort_groupby), the scalar aggregates without DISTINCT and the
+dense GROUP BY (K1 and K2 on each shard's rows, the partial states folded
+in shard order: _per_shard, the pattern of the reference's
+parallel/dist.py distributed_agg_join_step), and the broadcast joins that
+keep at most one build row a probe row (the exact filter, the unique
+join: the probe side's rows as they are against the whole build side).
+Their per-shard bodies run as a Python loop over the shards in shard
+order; every other operator runs over the whole tensors, which on a
 one-process mesh gives the rows the reference's GSPMD partitioning gives.
 Over several processes (parallel/multihost.py) a chunk may hold only this
 process's rows (Chunk.sharded): a table scan of a sharded table, Filter
-and Project over such a chunk, and the shuffle join's output. The shuffle
-join and the two-phase GROUP BY take it as it is and cross the processes
+and Project over such a chunk, the shuffle join's and a broadcast join's
+output. The per-shard operators take it as it is and cross the processes
 through the mesh's collectives; any other operator gets it gathered first
 (`exec` without local=True, _whole: every process's rows in rank order,
 which is the one-process mesh's chunk), as the GSPMD partitioner gathers
-where it cannot partition, and each such gather is recorded with its bytes
-(Mesh.gathers). So every process computes the one-process mesh's rows bit
-for bit, and takes every decision that steers a collective from
-replicated values only.
+where it cannot partition (its sort GROUP BY over a wide key span:
+quickstep_tpu/exec/runner.py:661-664), and each such gather is recorded
+with its bytes and why it was made (Mesh.gathers). So every process
+computes the one-process mesh's rows bit for bit, and takes every
+decision that steers a collective from replicated values only: the plan,
+the statistics, the capacities over every process (_gcap), and whether a
+column has a validity tensor, which a sharded scan gives or omits alike
+on every process (the host catalog's column decides it), so the dense
+route's test for NULL keys needs no collective.
 
 Capacities are row counts, not padded buckets, so any operator may meet an
 input of zero rows: a gather into a source of zero rows yields invalid rows
@@ -158,7 +169,8 @@ class PlanRunner:
         gathered as its live rows alone, in rank order, which is their
         order on the one-process mesh (the executor's pull reads nothing
         else)."""
-        return self._whole(self.exec(node, local=True), node, live_only=True)
+        return self._whole(self.exec(node, local=True), node, "result",
+                           live_only=True)
 
     def _exec_memo(self, plan: L.LogicalNode) -> Chunk:
         """plan's chunk, run once per plan object (possibly sharded)."""
@@ -168,16 +180,17 @@ class PlanRunner:
         return self._memo[key]
 
     def _whole(self, chunk: Chunk, src: Optional[L.LogicalNode] = None,
+               why: str = "no per-shard form",
                live_only: bool = False) -> Chunk:
         """A sharded chunk's rows from every process, in rank order (one
         all_gather of its live mask and every attribute's data and
         validity), on every process; a chunk that is not sharded as it is.
         Each gather is recorded in mesh.gathers: the operator it feeds
-        ("result" for the executor's pull), the one that made it, its rows
-        and the bytes this process sent. With live_only, each process sends
-        its live rows alone, in order, padded with dead rows to the most
-        any process has (their counts cross first, and are read on the
-        host)."""
+        ("result" for the executor's pull), the one that made it, why, its
+        rows and the bytes this process sent. With live_only, each process
+        sends its live rows alone, in order, padded with dead rows to the
+        most any process has (their counts cross first, and are read on
+        the host)."""
         if not chunk.sharded:
             return chunk
         from quickstep_tpu_torch.parallel.mesh import all_gather
@@ -210,6 +223,7 @@ class PlanRunner:
         mesh.gathers.append({
             "into": type(into).__name__ if into is not None else "result",
             "from": type(src).__name__ if src is not None else "",
+            "why": why,
             "rows": out.capacity,
             "bytes": mesh.moved["gather"]["bytes"] - sent})
         return out
@@ -324,7 +338,8 @@ class PlanRunner:
             if isinstance(x, SubqueryScalar):
                 key = ("subquery", id(x.plan))
                 if key not in self._subquery_slots:
-                    sub = self._whole(self._exec_memo(x.plan), x.plan)
+                    sub = self._whole(self._exec_memo(x.plan), x.plan,
+                                      "scalar subquery")
                     if sub.capacity == 0:
                         # no row: a NULL of the column's dtype
                         dt = K.torch_dtype(sub.attrs[0].type.device_dtype)
@@ -403,36 +418,89 @@ class PlanRunner:
 
     def _exec_Aggregate(self, node: L.Aggregate) -> Chunk:
         """GROUP BY and scalar aggregates. A sharded input is gathered
-        first unless it takes the two-phase sort GROUP BY (_agg_route)."""
+        first where _agg_route gives a reason."""
         chunk = self.exec(node.input, local=True)
-        if chunk.sharded and not self._agg_route(node, chunk):
-            chunk = self._whole(chunk, node.input)
+        if chunk.sharded:
+            why = self._agg_route(node, chunk)
+            if why is not None:
+                chunk = self._whole(chunk, node.input, why)
         return self._aggregate(node, chunk)
 
-    def _agg_route(self, node: L.Aggregate, chunk: Chunk) -> bool:
-        """Whether a sharded chunk takes the two-phase sort GROUP BY
-        (_dist_sort_groupby) as it is, decided before any key is evaluated
-        from what _aggregate's route reads: a GROUP BY without DISTINCT
-        aggregates, no key deferred to a representative row, sort keys of
-        known integer ranges, and a domain the two-phase route takes. The
-        dense route needs keys without NULLs, which shows only once they
-        are evaluated, so a chunk whose domain it could take is gathered:
-        a gathered chunk takes the one-process mesh's route, whichever it
-        is."""
+    def _agg_route(self, node: L.Aggregate, chunk: Chunk) -> Optional[str]:
+        """Why a sharded chunk is gathered before the aggregate, or None
+        where it is reduced as it is: a scalar aggregate or a dense GROUP
+        BY (a domain _dense_ok takes) per shard, or the two-phase sort
+        GROUP BY. Decided before any key is evaluated, from the plan, the
+        ranges and the capacity over every process. A dense domain whose
+        keys turn out nullable leaves the dense route once they are
+        evaluated (_aggregate): that chunk takes the two-phase GROUP BY, or
+        is gathered then."""
+        if any(s.distinct for s in node.aggregates):
+            return "DISTINCT aggregate"
+        if not self._splits(chunk):
+            return "capacity does not split into the shards"
+        if not node.group_by:
+            return None
+        key_ranges = [infer_range(ge, chunk.ranges) for ge in node.group_by]
+        if self._dense_ok(key_ranges, [None] * len(key_ranges)) or \
+                self._two_phase_sort(node, chunk):
+            return None
+        return "sort GROUP BY outside the two-phase route"
+
+    def _two_phase_sort(self, node: L.Aggregate, chunk: Chunk) -> bool:
+        """Whether the sort GROUP BY of node over chunk takes the two-phase
+        route (_dist_sort_groupby): no DISTINCT aggregate, no key deferred
+        to a representative row, sort keys of known integer ranges, and a
+        domain _two_phase_ok takes."""
         if not node.group_by or any(s.distinct for s in node.aggregates):
             return False
         keep = self._reduce_group_keys(node.group_by, chunk)
-        key_ranges = [infer_range(ge, chunk.ranges) for ge in node.group_by]
-        if self._deferred_keys(node, chunk, keep) or \
-                self._dense_ok(key_ranges, [None] * len(key_ranges)):
+        if self._deferred_keys(node, chunk, keep):
             return False
         span_total = 1
         for i in keep:
+            r = infer_range(node.group_by[i], chunk.ranges)
             dt = K.torch_dtype(node.group_by[i].type.device_dtype)
-            if key_ranges[i] is None or dt.is_floating_point:
+            if r is None or dt.is_floating_point:
                 return False
-            span_total *= key_ranges[i][1] - key_ranges[i][0] + 2
+            span_total *= r[1] - r[0] + 2
         return self._two_phase_ok(_gcap(chunk, self.mesh), span_total)
+
+    def _splits(self, chunk: Chunk) -> bool:
+        """Whether a per-shard aggregate takes chunk: a mesh of several
+        shards and a capacity over every process that splits into equal
+        shard row ranges (replicated facts: every process decides alike)."""
+        mesh = self.mesh
+        return mesh is not None and mesh.n > 1 and \
+            _gcap(chunk, mesh) % mesh.n == 0
+
+    def _shard_slices(self, chunk: Chunk) -> List[slice]:
+        """The row ranges of chunk that this process reduces, in shard
+        order: its local shards' of a sharded chunk; every shard's of a
+        whole one, which each process folds itself, with no collective."""
+        parts = self.mesh.local_n if chunk.sharded else self.mesh.n
+        per = chunk.capacity // parts
+        return [slice(i * per, (i + 1) * per) for i in range(parts)]
+
+    def _per_shard(self, chunk: Chunk, reduce, agg_inputs):
+        """reduce(slice, specs) -> (flags, results) on each shard's rows
+        (_shard_slices), with the aggregates' specs cut to the shard
+        (ops/groupby.py partial_specs); the flags are OR'd and the partial
+        states folded in shard order (parallel/mesh.py fold_partials: over
+        the processes for a sharded chunk). Returns (the folded flags, the
+        merged results)."""
+        from quickstep_tpu_torch.parallel.mesh import fold_partials
+        parts = []
+        for sl in self._shard_slices(chunk):
+            specs = [(fn, None if v is None else _full(v, chunk.capacity)[sl],
+                      None if vd is None else _full(vd, chunk.capacity)[sl])
+                     for fn, v, vd in G.partial_specs(agg_inputs)]
+            flags, res = reduce(sl, specs)
+            parts.append([("or", f) for f in flags] +
+                         G.partial_states(agg_inputs, res))
+        folded = fold_partials(self.mesh, parts, local=chunk.sharded)
+        return folded[:len(flags)], G.merge_partials(agg_inputs,
+                                                     folded[len(flags):])
 
     def _deferred_keys(self, node: L.Aggregate, chunk: Chunk,
                        keep: List[int]) -> set:
@@ -461,7 +529,7 @@ class PlanRunner:
 
     def _aggregate(self, node: L.Aggregate, chunk: Chunk) -> Chunk:
         """The aggregate over chunk; a sharded chunk is one that _agg_route
-        sends to the two-phase sort GROUP BY."""
+        reduces as it is."""
         distinct_flags = [s.distinct for s in node.aggregates]
         if not node.group_by:
             return self._scalar_aggregate(node, chunk)
@@ -511,6 +579,13 @@ class PlanRunner:
 
         key_data, key_valid = eval_keys(defer)
         use_dense = self._dense_ok(key_ranges, key_valid)
+        if chunk.sharded and not use_dense and \
+                not self._two_phase_sort(node, chunk):
+            # nullable keys left the dense route, and the sort route has no
+            # per-shard form here: whether a key has a validity tensor is
+            # replicated, so every process gathers
+            return self._aggregate(node, self._whole(
+                chunk, node.input, "nullable keys of a dense domain"))
         if use_dense and defer:
             # dense needs every key materialized (tiny domains only)
             defer = set()
@@ -564,9 +639,22 @@ class PlanRunner:
         return offsets, sizes, strides, acc
 
     def _dense_aggregate(self, node, chunk, key_data, key_ranges, agg_inputs):
+        """The dense GROUP BY (K2). Under a mesh whose shards split the
+        chunk, K2 runs on each shard's rows into the domain-sized table and
+        the tables fold in shard order (occupied by por, sums and counts by
+        psum, MIN and MAX by pmin and pmax); the output step runs once, on
+        the folded table."""
         offsets, sizes, strides, domain = self._dense_layout(key_ranges)
-        occupied, results = G.dense_aggregate(key_data, offsets, strides,
-                                              domain, agg_inputs, chunk.alive)
+        if self._splits(chunk):
+            def reduce(sl, specs):
+                occ, res = G.dense_aggregate(
+                    [_full(k, chunk.capacity)[sl] for k in key_data],
+                    offsets, strides, domain, specs, chunk.alive[sl])
+                return [occ], res
+            (occupied,), results = self._per_shard(chunk, reduce, agg_inputs)
+        else:
+            occupied, results = G.dense_aggregate(
+                key_data, offsets, strides, domain, agg_inputs, chunk.alive)
         # reconstruct group keys by unpacking the dense index
         gidx = torch.arange(domain, dtype=torch.int64, device=chunk.device)
         slots = {}
@@ -662,7 +750,7 @@ class PlanRunner:
                 packed, sub_positions, span_total,
                 [key_ranges[i] for i in keep], chunk.sharded)
         assert dist is not None or not chunk.sharded, \
-            "_agg_route sent a sharded chunk off the two-phase GROUP BY"
+            "a sharded chunk reached the one-phase sort GROUP BY"
         capacity = chunk.capacity
         if dist is not None:
             out_keys, out_valids, occupied, results, capacity = dist
@@ -813,21 +901,26 @@ class PlanRunner:
                 slots[a.expr_id] = (data, nn > 0)
 
     def _scalar_aggregate(self, node: L.Aggregate, chunk: Chunk) -> Chunk:
-        # One output row, capacity 8 as in the reference.
+        """One output row, capacity 8 as in the reference. Without DISTINCT
+        under a mesh whose shards split the chunk, K1 runs on each shard's
+        rows and each value and its non-null count fold in shard order
+        (sums and counts by psum, MIN and MAX by pmin and pmax, AVG their
+        folded sum over the folded count)."""
         capacity = 8
         alive = K.alive_mask(capacity, 1, chunk.device)
+        agg_inputs = [self._agg_input(chunk, spec) for spec in node.aggregates]
+        if self._splits(chunk) and \
+                not any(s.distinct for s in node.aggregates):
+            def reduce(sl, specs):
+                return [], [G.scalar_agg(fn, v, vd, chunk.alive[sl])
+                            for fn, v, vd in specs]
+            _, results = self._per_shard(chunk, reduce, agg_inputs)
+        else:
+            results = [self._scalar_whole(spec, inp, chunk.alive)
+                       for spec, inp in zip(node.aggregates, agg_inputs)]
         slots = {}
-        for spec, a in zip(node.aggregates, node.agg_attrs):
-            fn, vals, valid = self._agg_input(chunk, spec)
-            if spec.distinct and fn == "count":
-                val = G.distinct_count(vals, valid, chunk.alive)
-                nn = torch.ones((), dtype=torch.int64, device=chunk.device)
-            elif spec.distinct:
-                # SUM/AVG/MIN/MAX DISTINCT: each distinct live value once
-                s, starts = G.dedup_values(vals, valid, chunk.alive)
-                val, nn = G.scalar_agg(fn, s, None, starts)
-            else:
-                val, nn = G.scalar_agg(fn, vals, valid, chunk.alive)
+        for spec, a, (val, nn) in zip(node.aggregates, node.agg_attrs,
+                                      results):
             data = torch.broadcast_to(
                 val.to(K.torch_dtype(a.type.device_dtype)), (capacity,))
             if spec.fn == "count":
@@ -836,6 +929,19 @@ class PlanRunner:
                 slots[a.expr_id] = (data, alive & (nn > 0))
         return Chunk(attrs=list(node.output), slots=slots, alive=alive,
                      capacity=capacity, ranges={})
+
+    @staticmethod
+    def _scalar_whole(spec, agg_input, live):
+        """(value, non-null count) of one scalar aggregate over every row."""
+        fn, vals, valid = agg_input
+        if spec.distinct and fn == "count":
+            return (G.distinct_count(vals, valid, live),
+                    torch.ones((), dtype=torch.int64, device=live.device))
+        if spec.distinct:
+            # SUM/AVG/MIN/MAX DISTINCT: each distinct live value once
+            s, starts = G.dedup_values(vals, valid, live)
+            return G.scalar_agg(fn, s, None, starts)
+        return G.scalar_agg(fn, vals, valid, live)
 
     def _distinct_aggregate(self, node, chunk, key_data, key_valid,
                             agg_inputs, distinct_flags):
@@ -896,10 +1002,12 @@ class PlanRunner:
         if not node.left_keys:
             return self._nested_loops_join(node)
         # A side may hold only this process's rows (a multi-process mesh):
-        # the shuffle join runs per shard, every other route gathers both
-        # sides. The keys are evaluated before the route is decided, since
-        # the shuffle reads whether a key has NULLs; a gathered side's keys
-        # are evaluated again (a lookup for a plain column).
+        # the shuffle join runs per shard; the exact filter and the unique
+        # join, whose output rows are probe rows, run on the probe's rows
+        # as they are against the whole build side; the other routes gather
+        # both sides. The keys are evaluated before the route is decided,
+        # since the shuffle reads whether a key has NULLs; a gathered side's
+        # keys are evaluated again (a lookup for a plain column).
         probe = self._squeeze(self.exec(node.left, local=True))
         build = self._squeeze(self.exec(node.right, local=True))
         # Estimate-driven dynamic compaction: compact each side to ~4x its
@@ -916,9 +1024,15 @@ class PlanRunner:
         ov = self.overrides.get(idx0)
         route, strategy, build_unique = self._join_route(node, probe, build,
                                                          keys, ov)
-        if route != "shuffle" and (probe.sharded or build.sharded):
-            probe = self._whole(probe, node.left)
-            build = self._whole(build, node.right)
+        per_probe = route == "filter" or (route == "local" and
+                                          strategy == "unique")
+        if route != "shuffle" and (build.sharded or (
+                probe.sharded and not per_probe)):
+            how = route if strategy is None else f"{route} {strategy}"
+            probe = probe if per_probe else self._whole(
+                probe, node.left, f"probe side of the {how} join")
+            build = self._whole(build, node.right,
+                                f"build side of the {how} join")
             keys = self._join_keys(node, probe, build)
         pk_data, pk_valid0, pk_valid, bk_data, bk_valid0, bk_valid = keys
         # SQL equality never matches NULL keys: rows whose key is NULL are
@@ -1261,7 +1375,10 @@ class PlanRunner:
     def _unique_join(self, node, probe, build, pk_data, bk_data, check_dups,
                      pmask, bmask):
         """Build once, probe with at most one match per probe row: inner,
-        left, semi and anti joins against unique (PK-style) build sides."""
+        left, semi and anti joins against unique (PK-style) build sides.
+        The probe may hold one process's rows (sharded; the build is
+        whole): each row's match reads the build alone, the dup flag too,
+        and the route reads the capacity over every process."""
         ranges = self._key_ranges(node.right_keys, build)
         use_direct = False
         if len(bk_data) == 1 and ranges[0] is not None:
@@ -1272,7 +1389,7 @@ class PlanRunner:
             use_direct = (domain <= self.config.direct_join_domain_limit and
                           (domain <= self.config.direct_join_density *
                            build.capacity or
-                           domain <= 4 * probe.capacity))
+                           domain <= 4 * _gcap(probe, self.mesh)))
         if use_direct:
             lo, hi = ranges[0]
             domain = hi - lo + 1
@@ -1328,7 +1445,8 @@ class PlanRunner:
         out = Chunk(attrs=list(node.output), slots=slots, alive=alive,
                     capacity=probe.capacity, bound=probe.bound,
                     ranges=ranges_out,
-                    unique_sets=list(probe.unique_sets), fds=fds)
+                    unique_sets=list(probe.unique_sets), fds=fds,
+                    sharded=probe.sharded)
         if node.residual is not None:
             passed = self._eval_pred(out, node.residual)
             if node.kind == "left":
@@ -1982,7 +2100,7 @@ class PlanRunner:
         if chunk.bound is not None and \
                 chunk.bound * 2 <= _gcap(chunk, self.mesh):
             if chunk.sharded:
-                chunk = self._whole(chunk)
+                chunk = self._whole(chunk, why="compaction")
             return self._compact_chunk(chunk, chunk.bound)
         return chunk
 

@@ -393,6 +393,56 @@ def scalar_agg_plain(fn: str, vals: Optional[torch.Tensor],
 
 
 # ---------------------------------------------------------------------
+# partial states: an aggregate split over row shards and folded
+# (exec/runner.py's per-shard scalar and dense aggregates, the reference's
+# parallel/dist.py distributed_agg_join_step)
+# ---------------------------------------------------------------------
+
+def partial_specs(agg_specs: List[AggIn]) -> List[AggIn]:
+    """Each aggregate's spec on one shard: AVG becomes its SUM (its count
+    comes with every result), merged after the fold."""
+    return [("sum" if fn == "avg" else fn, v, vd) for fn, v, vd in agg_specs]
+
+
+def partial_states(agg_specs: List[AggIn], results) -> list:
+    """One shard's (op, tensor) states of the aggregates, from its results
+    [(data, non-null count)] under partial_specs, as parallel/mesh.py
+    fold_partials folds them: COUNT its count; SUM and AVG their sum in
+    the accumulator's dtype (int64 or float64) and their count; MIN and MAX
+    their value (the sentinel where a shard has none) and their count."""
+    states = []
+    for (fn, vals, _valid), (data, nn) in zip(agg_specs, results):
+        if fn == "count":
+            states.append(("sum", nn))
+            continue
+        if fn in ("sum", "avg"):
+            states.append(("sum", data.to(_acc_dtype(vals.dtype))))
+        else:
+            states.append((fn, data))
+        states.append(("sum", nn))
+    return states
+
+
+def merge_partials(agg_specs: List[AggIn], folded: list) -> list:
+    """The aggregates' (data, non-null count) from their folded states, in
+    the dtypes a reduction of the whole input gives."""
+    it = iter(folded)
+    results = []
+    for fn, vals, _valid in agg_specs:
+        if fn == "count":
+            nn = next(it)
+            results.append((nn, nn))
+            continue
+        data, nn = next(it), next(it)
+        if fn == "sum":
+            data = data.to(_sum_dtype(vals.dtype))
+        elif fn == "avg":
+            data = data.to(torch.float64) / torch.clamp(nn, min=1)
+        results.append((data, nn))
+    return results
+
+
+# ---------------------------------------------------------------------
 # scalar DISTINCT: one sort, then the live run starts (K12)
 # ---------------------------------------------------------------------
 

@@ -14,13 +14,15 @@ row ranges (views) of one tensor; a per-shard body runs as a Python loop
 over the local shards in shard order (the order of `shard_map`'s
 outputs). The collectives are named after `jax.lax`'s and cross the
 processes through torch.distributed: `all_to_all` (dist.all_to_all_single
-of equal buckets), `all_gather` (rows in rank order), and `psum`, `pmax`
-and `por`, which gather every shard's value and fold them in shard order,
-so that their results are bit for bit those of the one-process mesh with
-the same global shard count, floats included (all_reduce's ring order
-would not be). Every tensor crosses as its bytes (uint8), so no backend's
-dtype limits apply; under gloo a CUDA tensor is staged through host
-memory, under NCCL it crosses from the card. Each collective adds the
+of equal buckets), `all_gather` (rows in rank order), and `psum`,
+`pmin`, `pmax` and `por`, which gather every shard's value and fold them
+in shard order, so that their results are bit for bit those of the
+one-process mesh with the same global shard count, floats included
+(all_reduce's ring order would not be); `fold_partials` folds a list of
+partial states with them, one call for each kind. Every tensor crosses
+as its bytes (uint8), so no backend's dtype limits apply; under gloo a
+CUDA tensor is staged through host memory, under NCCL it crosses from
+the card. Each collective adds the
 bytes this process sends to the others to `Mesh.moved`.
 """
 
@@ -277,10 +279,12 @@ def _all_to_all_bytes(mesh: Mesh, cols, ms) -> list:
              for c, (off, nb) in enumerate(widths)] for j in range(s)]
 
 
-def _fold(mesh: Mesh, parts: List[torch.Tensor], op, name: str):
-    """Every shard's value, gathered to every process and folded left in
-    shard order."""
-    if mesh.world > 1:
+def _fold(mesh: Mesh, parts: List[torch.Tensor], op, name: str,
+          local: bool = True):
+    """Every shard's value folded left in shard order: parts holds the
+    local shards' values, gathered from every process first; with local
+    False, every shard's of the mesh, folded here."""
+    if local and mesh.world > 1:
         parts = list(all_gather(mesh, [torch.stack(parts)], name)[0]
                      .unbind(0))
     out = parts[0]
@@ -300,6 +304,36 @@ def pmax(mesh: Mesh, parts: List[torch.Tensor]) -> torch.Tensor:
     return _fold(mesh, parts, torch.maximum, "pmax")
 
 
+def pmin(mesh: Mesh, parts: List[torch.Tensor]) -> torch.Tensor:
+    """jax.lax.pmin: the minimum over the shards."""
+    return _fold(mesh, parts, torch.minimum, "pmin")
+
+
 def por(mesh: Mesh, parts: List[torch.Tensor]) -> torch.Tensor:
     """The bitwise OR over the shards (bool flags, bit words)."""
     return _fold(mesh, parts, torch.bitwise_or, "por")
+
+
+_FOLDS = {"sum": (torch.add, "psum"), "min": (torch.minimum, "pmin"),
+          "max": (torch.maximum, "pmax"), "or": (torch.bitwise_or, "por")}
+
+
+def fold_partials(mesh: Mesh, parts: List[list], local: bool) -> list:
+    """Per-shard partial states folded left in shard order. parts holds a
+    list a shard of (op, tensor) pairs, op one of "sum", "min", "max" and
+    "or", every shard's pairs alike; returns the folded tensors in their
+    order. With local, parts are this process's local shards' and cross
+    the processes as psum, pmin, pmax and por do, one call for each (op,
+    dtype, shape); else they are every shard's of the mesh and fold here,
+    with the same torch ops in the same order, so both give the
+    one-process mesh's bits."""
+    groups: Dict[tuple, List[int]] = {}
+    for j, (op, t) in enumerate(parts[0]):
+        groups.setdefault((op, t.dtype, tuple(t.shape)), []).append(j)
+    out: list = [None] * len(parts[0])
+    for (op, _dtype, _shape), idx in groups.items():
+        stacked = [torch.stack([p[j][1] for j in idx]) for p in parts]
+        acc = _fold(mesh, stacked, *_FOLDS[op], local=local)
+        for k, j in enumerate(idx):
+            out[j] = acc[k]
+    return out

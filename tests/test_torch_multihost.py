@@ -7,14 +7,20 @@ single-process rows (tests/test_multihost.py:55-59); each process uploads
 only its shards' rows of a sharded table, a retry is taken by both, and
 INSERT, DELETE and UPDATE of a sharded table give the one-process rows.
 
-Where the port's multi-process path deliberately differs from the
-reference's (quickstep_tpu/parallel/multihost.py under GSPMD), and the
-cases here that show each:
-- an operator other than scan, filter, project, the shuffle join and the
-  two-phase GROUP BY gathers its sharded input, where the GSPMD
-  partitioner would split it over the mesh: the rows are the one-process
-  mesh's (the star and TPC-H cases), and each gather is counted with its
-  bytes (test_gathers_and_exchanges_are_counted);
+The scalar aggregates, the dense GROUP BY and the broadcast joins that
+keep at most one build row a probe row run on each process's rows, their
+partial states folded over the processes, as the GSPMD partitioner splits
+them (test_per_shard_operators_gather_nothing). Where the port's
+multi-process path deliberately differs from the reference's
+(quickstep_tpu/parallel/multihost.py under GSPMD), and the cases here
+that show each:
+- Sort, Limit, Distinct, window inputs, DISTINCT aggregates, a sort
+  GROUP BY outside the two-phase route, and the semi-statistics,
+  expansion and full outer joins gather their sharded input, where the
+  GSPMD partitioner would split some of them over the mesh: the rows are
+  the one-process mesh's (the star and TPC-H cases), and each gather is
+  counted with its bytes and why it was made
+  (test_gathers_and_exchanges_are_counted);
 - psum, pmax and por gather every shard's value and fold in shard order,
   where the reference reduces in XLA's order, so that every process
   returns the one-process mesh's bits, floats included
@@ -252,8 +258,8 @@ def test_block_locality(runs):
     """A sharded table's upload on each process is its half; a replicated
     one is whole on each."""
     mh, _one = runs
-    sharded = {"fact", "sk_build", "sk_probe", "sk_dup", "dm", "lineitem",
-               "orders", "partsupp"}
+    sharded = {"fact", "sk_build", "sk_probe", "sk_dup", "dm", "nk",
+               "lineitem", "orders", "partsupp"}
     for m in mh:
         up = m["figures"]["uploads"]
         assert {t for t, u in up.items() if u["sharded"]} == sharded
@@ -264,17 +270,71 @@ def test_block_locality(runs):
 
 
 def test_gathers_and_exchanges_are_counted(runs):
-    """last_mesh_info: an aggregate over a sharded table gathers its input
-    (rows of every process), a shuffle join exchanges by all_to_all."""
+    """last_mesh_info: Q1's aggregate over a sharded table reduces each
+    process's rows and gathers nothing; Q16's COUNT(DISTINCT), which has no
+    per-shard form, gathers its input (rows of every process) by a
+    replicated decision, with its bytes and its reason; a shuffle join
+    exchanges by all_to_all."""
     mh, _one = runs
     for m in mh:
         queries = m["figures"]["queries"]
         q1 = queries["Q1"]["mesh"][0]
-        assert [g["into"] for g in q1["gathers"]] == ["Aggregate"]
-        assert q1["gathers"][0]["bytes"] == \
-            q1["collectives"]["gather"]["bytes"] > 0
+        assert q1["gathers"] == [] and "gather" not in q1["collectives"]
+        q16 = queries["Q16"]["mesh"][0]
+        assert [(g["into"], g["why"]) for g in q16["gathers"]] == \
+            [("Aggregate", "DISTINCT aggregate")]
+        assert q16["gathers"][0]["bytes"] == \
+            q16["collectives"]["gather"]["bytes"] > 0
         q3 = queries["Q3"]["mesh"][0]["collectives"]
         assert q3["all_to_all"]["calls"] > 0 and q3["all_to_all"]["bytes"] > 0
+
+
+# the per-shard operators' queries and the folds each must cross the
+# processes by: psum for sums and counts, pmin and pmax for MIN and MAX,
+# por for a dense GROUP BY's occupied groups
+PER_SHARD = {
+    "filter_agg": ("psum", "pmin", "pmax"),
+    "groupby": ("psum", "por"),
+    "join_agg": ("psum", "por"),
+    "semi": ("psum",),
+    "Q1": ("psum", "por"),
+    "Q5": ("psum", "por"),
+    "Q6": ("psum",),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PER_SHARD))
+def test_per_shard_operators_gather_nothing(runs, name):
+    """The scalar aggregates, the dense GROUP BYs and the broadcast joins
+    of these queries run on each process's rows: no input is gathered into
+    an Aggregate, no probe side into a Join, their partials fold by the
+    collectives named, and the rows are the one-process mesh's bit for
+    bit."""
+    mh, one = runs
+    for m in mh:
+        info = m["figures"]["queries"][name]["mesh"][0]
+        assert not [g for g in info["gathers"] if g["into"] == "Aggregate"
+                    or g["why"].startswith("probe side")], info["gathers"]
+        for coll in PER_SHARD[name]:
+            moved = info["collectives"].get(coll)
+            assert moved and moved["calls"] > 0 and moved["bytes"] > 0, \
+                (coll, info["collectives"])
+        assert m["rows"][name] == [list(one["rows"][name])]
+
+
+def test_a_nullable_dense_key_gathers_by_a_replicated_decision(runs):
+    """nk's key g spans 97 values (a dense domain) and holds NULLs: its
+    GROUP BY leaves the dense route once g is evaluated (a validity tensor
+    that every process's scan has alike), and 50 rows a shard are too few
+    for the two-phase route, so both processes gather its input and return
+    the one-process rows."""
+    mh, one = runs
+    for m in mh:
+        info = m["figures"]["queries"]["dml_nullable_groups"]["mesh"][0]
+        assert [(g["into"], g["why"]) for g in info["gathers"]] == \
+            [("Aggregate", "nullable keys of a dense domain")]
+        assert m["rows"]["dml_nullable_groups"] == \
+            [list(one["rows"]["dml_nullable_groups"])]
 
 
 @pytest.mark.parametrize("name", sorted(MR.RETRY_QUERIES))
