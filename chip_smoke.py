@@ -108,7 +108,18 @@ MESH_AGG_QUERIES = (1, 6)
 GATHERED_AGGREGATES = ("sort GROUP BY outside the two-phase route",
                        "DISTINCT aggregate")
 NO_AGGREGATE_GATHER = (1, 5, 6)
-NO_PROBE_GATHER = (5, 9, 10, 18)
+NO_PROBE_GATHER = (5, 9, 10, 18, 21)
+# SF10 queries whose semi and anti joins run on each process's rows in
+# phase 7, and the kernels each must launch on the 8-shard mesh: K3's
+# presence filter, which each process builds from its own build rows and
+# ORs (por_filter; Q4 over lineitem, Q16's NOT IN over supplier, Q20 over
+# partsupp, Q22 over orders: every one a sharded table), and K8's run
+# statistics on each process's probe rows against the gathered build (Q21)
+MESH_SEMI_QUERIES = {4: ("direct_join",), 16: ("direct_join",),
+                     20: ("direct_join",), 21: ("merge_cmp_probe",),
+                     22: ("direct_join",)}
+# the queries whose exact filter's build side phase 7 must not gather
+NO_BUILD_GATHER = (4, 16, 20, 22)
 # phase 7: the SF10 mesh of MESH_SHARDS shards spread over this many
 # processes on the one card, each a bench/multihost_run.py worker; NCCL
 # refuses two ranks on one card, so they meet through gloo, which carries
@@ -408,10 +419,14 @@ def phase_kernels(G):
     log(f"phase 1: kernels vs plain versions, {n} rows")
     for dt, v in vals.items():
         for fn in ("sum", "min", "max"):
+            main = fn == "sum" and dt == torch.int64
+            # the main case's one PyTorch call: the masked sum itself
             case("scalar_agg", f"{fn} {str(dt)[6:]}",
                  lambda fn=fn, v=v: G.scalar_agg(fn, v, None, alive),
                  lambda fn=fn, v=v: G.scalar_agg_plain(fn, v, None, alive),
-                 main=(fn == "sum" and dt == torch.int64), inputs=(v, alive))
+                 main=main, inputs=(v, alive),
+                 library=(lambda v=v: torch.masked.sum(v, mask=alive))
+                 if main else None)
     case("scalar_agg", "count", lambda: G.scalar_agg("count", None, None, alive),
          lambda: G.scalar_agg_plain("count", None, None, alive))
     case("scalar_agg", "sum float64 nullable",
@@ -1939,7 +1954,8 @@ def phase_large(cuda, generated):
                 seen.update(calls=0, sorts=[])
                 times = run(label, q, must, sql,
                             per_run=Q1_PER_RUN if q == 1 else None)
-                if q in MESH_QUERIES + MESH_AGG_QUERIES:
+                if q in MESH_QUERIES + MESH_AGG_QUERIES + \
+                        tuple(MESH_SEMI_QUERIES):
                     single[q] = times
                 if seen["sorts"] or (q in COMPACTING) != (seen["calls"] > 0):
                     raise AssertionError(
@@ -2248,7 +2264,8 @@ def phase_large_mesh(cuda, generated, single, total):
     (every table but nation and region shards): MESH_QUERIES cold and warm
     against the exact oracle, each launching K14-K16, Q9 through the
     two-phase GROUP BY, then MESH_AGG_QUERIES, each launching its aggregate
-    kernel once a shard a run; times and peak memory beside the one-device
+    kernel once a shard a run, then MESH_SEMI_QUERIES, each launching its
+    semi join's kernel; times and peak memory beside the one-device
     run's. Adds the launches to total. Returns, for each query, (its rows
     of each run, its times in ms, its peak device memory in GiB)."""
     from quickstep_tpu_torch import Database
@@ -2272,11 +2289,12 @@ def phase_large_mesh(cuda, generated, single, total):
     out = {}
     try:
         load_tables(db, tables, stats)
-        for q in MESH_QUERIES + MESH_AGG_QUERIES:
+        for q in MESH_QUERIES + MESH_AGG_QUERIES + tuple(MESH_SEMI_QUERIES):
             two_phase[0] = 0
             rows = []
-            must = SHUFFLE_KERNELS if q in MESH_QUERIES else LARGE_QUERIES[q]
-            per_run = None if q in MESH_QUERIES else \
+            must = SHUFFLE_KERNELS if q in MESH_QUERIES else \
+                MESH_SEMI_QUERIES.get(q, LARGE_QUERIES[q])
+            per_run = None if q not in MESH_AGG_QUERIES else \
                 dict.fromkeys(LARGE_QUERIES[q], MESH_SHARDS)
             times, peak = run_query(db, cuda, oracle, total,
                                     f"Q{q} ({MESH_SHARDS} shards)", q,
@@ -2348,14 +2366,16 @@ def phase_multihost(cuda, generated, mesh):
     holding MESH_SHARDS / MULTIHOST_PROCS local shards and uploading only
     their rows of a sharded table; the tables are written once as .npy
     files, which each process memory-maps. First two ranks asking for NCCL
-    on the one card must both refuse. Then MESH_QUERIES and
-    MESH_AGG_QUERIES cold and warm on every process: each run against the
-    exact oracle and bit for bit against phase 6's rows (`mesh`,
-    phase_large_mesh's result), each process launching K1, K2, K14, K15
-    and K16 and uploading half of each sharded table, and gathering no
-    input of an operator that runs per shard (no Aggregate input but of
-    the GATHERED_AGGREGATES kinds, none for NO_AGGREGATE_GATHER, and no
-    probe side of a Join for NO_PROBE_GATHER); its times beside phase 6's,
+    on the one card must both refuse. Then MESH_QUERIES, MESH_AGG_QUERIES
+    and MESH_SEMI_QUERIES cold and warm on every process: each run against
+    the exact oracle and bit for bit against phase 6's rows (`mesh`,
+    phase_large_mesh's result), each process launching K1, K2, K3, K8,
+    K14, K15 and K16 and uploading half of each sharded table, and
+    gathering no input of an operator that runs per shard (no Aggregate
+    input but of the GATHERED_AGGREGATES kinds, none for
+    NO_AGGREGATE_GATHER, no probe side of a Join for NO_PROBE_GATHER, and
+    no build side of an exact filter for NO_BUILD_GATHER); its times
+    beside phase 6's,
     what crossed the processes, each query's gathered bytes and its peak
     memory are logged. Returns the workers' launches, summed."""
     import pathlib
@@ -2401,7 +2421,8 @@ def phase_multihost(cuda, generated, mesh):
             ["--device", "cuda:0", "--backend", MULTIHOST_BACKEND,
              "--local-shards", str(local), "--tables", str(work / "tables"),
              "--queries", ",".join(str(q) for q in MESH_QUERIES +
-                                   MESH_AGG_QUERIES),
+                                   MESH_AGG_QUERIES +
+                                   tuple(MESH_SEMI_QUERIES)),
              "--runs", str(MULTIHOST_RUNS)],
             str(work / "out"), MULTIHOST_TIMEOUT_S)
         if any(rcs):
@@ -2419,7 +2440,7 @@ def phase_multihost(cuda, generated, mesh):
     for res in results:
         fig = res["figures"]
         who = f"process {fig['process']}"
-        for q in MESH_QUERIES + MESH_AGG_QUERIES:
+        for q in MESH_QUERIES + MESH_AGG_QUERIES + tuple(MESH_SEMI_QUERIES):
             runs = res["rows"][f"Q{q}"]
             want = mesh[q][0][0]
             for rows in runs:
@@ -2435,10 +2456,17 @@ def phase_multihost(cuda, generated, mesh):
                 g["into"] == "Aggregate" and (
                     q in NO_AGGREGATE_GATHER or
                     g["why"] not in GATHERED_AGGREGATES)) or (
-                q in NO_PROBE_GATHER and g["why"].startswith("probe side"))]
+                q in NO_PROBE_GATHER and
+                g["why"].startswith("probe side")) or (
+                q in NO_BUILD_GATHER and
+                g["why"] == "build side of the filter join")]
             if split:
                 raise AssertionError(f"{who} Q{q} gathered the input of an "
                                      f"operator that runs per shard: {split}")
+            if q in NO_BUILD_GATHER and \
+                    not moved.get("por_filter", {}).get("bytes"):
+                raise AssertionError(f"{who} Q{q}: no presence bits crossed "
+                                     f"the processes: {moved}")
             log(f"  {who} Q{q}: peak device memory "
                 f"{qf['peak_bytes'] / 2**30:.2f} GiB (phase 6: "
                 f"{mesh[q][2]:.2f}); cold {qf['ms'][0]:.1f} ms, warm "
@@ -2453,7 +2481,8 @@ def phase_multihost(cuda, generated, mesh):
                 + (", ".join(f"{g['from']}->{g['into']} ({g['why']}) "
                              f"{g['rows']} rows {g['bytes']} B"
                              for g in gathers) or "none"))
-        idle = [k for k in SHUFFLE_KERNELS + ("scalar_agg", "dense_groupby")
+        idle = [k for k in SHUFFLE_KERNELS + ("scalar_agg", "dense_groupby",
+                                              "direct_join", "merge_cmp_probe")
                 if not fig["launches"][k]]
         if idle:
             raise AssertionError(f"{who} never launched {idle}")

@@ -16,8 +16,9 @@ many, and runs, in this order:
 - --star: the mesh's collectives over collective_inputs, the star battery
   (QUERIES over build_db, copies of tests/multihost_worker.py's), then
   RETRY_QUERIES (each raises a runtime flag on one process's shards only,
-  and the retry must be taken together) and DML (INSERT, DELETE and
-  UPDATE of a sharded table, then DML_QUERIES);
+  and the retry must be taken together), SEMI_QUERIES over SEMI_TABLES
+  (the semi, anti and expansion joins on each process's rows) and DML
+  (INSERT, DELETE and UPDATE of a sharded table, then DML_QUERIES);
 - --scale SF: the 22 TPC-H queries (bench/tpch.py, replicate threshold
   1000 as in tests/multihost_worker.py), or those --queries names; or
   --tables DIR: the tables write_tables wrote (memory-mapped, so that the
@@ -72,6 +73,78 @@ RETRY_QUERIES = {
                      "sk_build b WHERE p.k = b.k",
     "retry_join": "SELECT COUNT(*), SUM(a.u), SUM(b.u) FROM sk_dup a, "
                   "sk_dup b WHERE a.k = b.k",
+}
+# the semi, anti and expansion joins that run on each process's rows
+# (exec/runner.py _exec_Join), over two tables made by SQL alone, so that
+# quickstep_tpu builds the same: sb, the build side, and sp, the probe side,
+# both shard at STAR_THRESHOLD (on 2 processes x 2 shards process 0 holds
+# sb's ids 0-99 and sp's ids 0-119). sb.k runs 3-4 rows a value; sb.nk is
+# NULL on three rows of process 0's first shard alone, and holds a run of
+# 12 rows of SEMI_RUN_KEY, which sp.pk holds on process 0's rows alone, so
+# that an expansion join over nk overflows its 8 slots (no statistics) on
+# process 0 only; sp.pk is NULL on both processes' rows.
+SEMI_RUN_KEY = 200
+
+
+def _sb_nk(i: int):
+    if i in (3, 11, 29):
+        return "NULL"
+    return SEMI_RUN_KEY if 150 <= i < 162 else 1 + 3 * i % 80
+
+
+def _sp_pk(i: int):
+    if i % 9 == 4:
+        return "NULL"
+    return SEMI_RUN_KEY if i < 5 else 1 + 5 * i % 90
+
+
+SEMI_TABLES = (
+    "CREATE TABLE sb (id INT NOT NULL, k INT NOT NULL, nk INT, "
+    "w INT NOT NULL)",
+    "INSERT INTO sb VALUES " + ", ".join(
+        f"({i}, {1 + 7 * i % 60}, {_sb_nk(i)}, {13 * i % 17})"
+        for i in range(200)),
+    "CREATE TABLE sp (id INT NOT NULL, k INT NOT NULL, pk INT, "
+    "w INT NOT NULL, v BIGINT NOT NULL)",
+    "INSERT INTO sp VALUES " + ", ".join(
+        f"({i}, {1 + 11 * i % 70}, {_sp_pk(i)}, {7 * i % 17}, {3 * i % 101})"
+        for i in range(240)),
+)
+SEMI_QUERIES = {
+    # the exact filter over a sharded build: presence OR'd (por_filter)
+    "semi_filter": "SELECT COUNT(*), SUM(v) FROM sp WHERE k IN "
+                   "(SELECT k FROM sb WHERE w > 4)",
+    "anti_filter": "SELECT COUNT(*), SUM(v) FROM sp WHERE NOT EXISTS "
+                   "(SELECT * FROM sb WHERE sb.k = sp.k AND sb.w > 9)",
+    # NOT IN: a NULL in process 0's build rows alone empties the result
+    # on both; a build whose live rows are process 0's alone drops the NULL
+    # probe keys on both; a build empty everywhere passes them
+    "not_in_null_one_side": "SELECT COUNT(*), SUM(v) FROM sp WHERE pk NOT IN "
+                            "(SELECT nk FROM sb)",
+    "not_in_empty_one_side": "SELECT COUNT(*), SUM(v) FROM sp WHERE pk NOT "
+                             "IN (SELECT k FROM sb WHERE id < 90)",
+    "not_in_empty": "SELECT COUNT(*), SUM(v) FROM sp WHERE pk NOT IN "
+                    "(SELECT k FROM sb WHERE id < 0)",
+    # the run statistics (K8) on each process's probe rows
+    "semi_stats_ne": "SELECT COUNT(*), SUM(v) FROM sp WHERE EXISTS "
+                     "(SELECT * FROM sb WHERE sb.k = sp.k AND sb.w <> sp.w)",
+    "anti_stats_lt": "SELECT COUNT(*), SUM(v) FROM sp WHERE NOT EXISTS "
+                     "(SELECT * FROM sb WHERE sb.k = sp.k AND sb.w < sp.w)",
+    # a residual of another shape: the run statistics decline; over keys
+    # without NULLs the shuffle takes the probe as it is, over nullable
+    # keys the expansion join does, and overflows on process 0 alone
+    "semi_expand_shuffle": "SELECT COUNT(*), SUM(v) FROM sp WHERE EXISTS "
+                           "(SELECT * FROM sb WHERE sb.k = sp.k AND "
+                           "(sb.w > sp.w OR sb.id < 20))",
+    "semi_expand_local": "SELECT COUNT(*), SUM(v) FROM sp WHERE EXISTS "
+                         "(SELECT * FROM sb WHERE sb.nk = sp.pk AND "
+                         "(sb.w > sp.w OR sb.id < 20))",
+    # many-to-many expansion joins over the nullable key: both overflow on
+    # process 0 alone
+    "inner_expand": "SELECT COUNT(*), SUM(sp.v), SUM(sb.w) FROM sp, sb "
+                    "WHERE sp.pk = sb.nk",
+    "left_expand": "SELECT COUNT(*), SUM(sp.v), SUM(sb.w) FROM sp LEFT JOIN "
+                   "sb ON sp.pk = sb.nk",
 }
 DML = (
     "CREATE TABLE dm (k INT NOT NULL, v BIGINT NOT NULL)",
@@ -320,6 +393,9 @@ def main(argv=None) -> None:
         run_queries(db, QUERIES, args.runs, rows, figures)
         add_skew_tables(db, db.executor.mesh.n)
         run_queries(db, RETRY_QUERIES, args.runs, rows, figures)
+        for stmt in SEMI_TABLES:
+            db.execute(stmt)
+        run_queries(db, SEMI_QUERIES, args.runs, rows, figures)
         for stmt in DML:
             db.execute(stmt)
         run_queries(db, DML_QUERIES, args.runs, rows, figures)

@@ -22,12 +22,14 @@ by join key, then the join core on each shard), the two-phase sort GROUP
 BY (_dist_sort_groupby), the scalar aggregates without DISTINCT and the
 dense GROUP BY (K1 and K2 on each shard's rows, the partial states folded
 in shard order: _per_shard, the pattern of the reference's
-parallel/dist.py distributed_agg_join_step), and the broadcast joins that
-keep at most one build row a probe row (the exact filter, the unique
-join: the probe side's rows as they are against the whole build side).
-Their per-shard bodies run as a Python loop over the shards in shard
-order; every other operator runs over the whole tensors, which on a
-one-process mesh gives the rows the reference's GSPMD partitioning gives.
+parallel/dist.py distributed_agg_join_step), the exact filter (each
+process's presence bits OR'd, each probing its own rows), and the
+broadcast joins whose output rows are probe rows (the unique,
+semi-statistics and expansion joins: the probe side's rows as they are
+against the whole build side). Their per-shard bodies run as a Python
+loop over the shards in shard order; every other operator runs over the
+whole tensors, which on a one-process mesh gives the rows the reference's
+GSPMD partitioning gives.
 Over several processes (parallel/multihost.py) a chunk may hold only this
 process's rows (Chunk.sharded): a table scan of a sharded table, Filter
 and Project over such a chunk, the shuffle join's and a broadcast join's
@@ -79,6 +81,22 @@ def _gcap(chunk: Chunk, mesh) -> int:
     """The chunk's capacity over every process: the one-process mesh's
     capacity, which every capacity-driven decision reads."""
     return chunk.capacity * mesh.world if chunk.sharded else chunk.capacity
+
+
+def _compact_capacity(rows: int, mesh) -> int:
+    """A compaction's capacity for `rows` live rows: under a mesh, a
+    multiple of its shards."""
+    quantum = 8 if mesh is None else max(8, mesh.n)
+    return max(K.round_up(rows, quantum), quantum)
+
+
+def _squeezed_gcap(chunk: Chunk, mesh) -> int:
+    """The capacity over every process that PlanRunner._squeeze gives
+    chunk."""
+    cap = _gcap(chunk, mesh)
+    if chunk.bound is None or chunk.bound * 2 > cap:
+        return cap
+    return min(cap, _compact_capacity(chunk.bound, mesh))
 
 
 def _flip_cmp(op: str) -> str:
@@ -1002,14 +1020,22 @@ class PlanRunner:
         if not node.left_keys:
             return self._nested_loops_join(node)
         # A side may hold only this process's rows (a multi-process mesh):
-        # the shuffle join runs per shard; the exact filter and the unique
-        # join, whose output rows are probe rows, run on the probe's rows
-        # as they are against the whole build side; the other routes gather
-        # both sides. The keys are evaluated before the route is decided,
-        # since the shuffle reads whether a key has NULLs; a gathered side's
-        # keys are evaluated again (a lookup for a plain column).
+        # the shuffle join runs per shard; the exact filter ORs each
+        # process's presence bits and probes its own rows; the
+        # semi-statistics, unique and expansion joins, whose output rows
+        # are probe rows, run on the probe's rows as they are against the
+        # whole build side; the full join gathers both sides. The keys are
+        # evaluated before the route is decided, since the shuffle reads
+        # whether a key has NULLs; a gathered side's keys are evaluated
+        # again (a lookup for a plain column).
         probe = self._squeeze(self.exec(node.left, local=True))
-        build = self._squeeze(self.exec(node.right, local=True))
+        build = self.exec(node.right, local=True)
+        # a filter build stays on each process's rows, uncompacted: the
+        # route is tested at the capacity the squeeze would give it, which
+        # every process computes alike
+        if not (build.sharded and self._filter_route(
+                node, probe, build, _squeezed_gcap(build, self.mesh))):
+            build = self._squeeze(build)
         # Estimate-driven dynamic compaction: compact each side to ~4x its
         # cost-model estimate before any join gather; an under-estimate
         # raises a flag and the executor re-runs without it.
@@ -1024,13 +1050,13 @@ class PlanRunner:
         ov = self.overrides.get(idx0)
         route, strategy, build_unique = self._join_route(node, probe, build,
                                                          keys, ov)
-        per_probe = route == "filter" or (route == "local" and
-                                          strategy == "unique")
-        if route != "shuffle" and (build.sharded or (
-                probe.sharded and not per_probe)):
+        gather_probe = route == "full"
+        if route not in ("shuffle", "filter") and (build.sharded or (
+                probe.sharded and gather_probe)):
             how = route if strategy is None else f"{route} {strategy}"
-            probe = probe if per_probe else self._whole(
-                probe, node.left, f"probe side of the {how} join")
+            if gather_probe:
+                probe = self._whole(probe, node.left,
+                                    f"probe side of the {how} join")
             build = self._whole(build, node.right,
                                 f"build side of the {how} join")
             keys = self._join_keys(node, probe, build)
@@ -1044,26 +1070,40 @@ class PlanRunner:
         def na_correct(out):
             """[NOT] IN three-valued logic: a NULL operand never passes
             against a non-empty inner side; NOT IN passes nothing when the
-            inner side holds a NULL. Device tensors throughout: no sync."""
+            inner side holds a NULL. Both facts read the whole inner side:
+            a sharded one's are OR'd over the processes. Device tensors
+            throughout: no sync."""
             if not node.null_aware or node.kind not in ("semi", "anti"):
                 return out
             alive = out.alive
-            if pk_valid0 is not None:
-                if node.kind == "semi":
-                    alive = alive & pk_valid0
-                else:
-                    alive = alive & (pk_valid0 | ~torch.any(build.alive))
-            if node.kind == "anti" and bk_valid0 is not None:
-                alive = alive & ~torch.any(build.alive & ~bk_valid0)
+            if pk_valid0 is not None and node.kind == "semi":
+                alive = alive & pk_valid0
+            elif node.kind == "anti" and (pk_valid0 is not None or
+                                          bk_valid0 is not None):
+                any_live = torch.any(build.alive)
+                any_null = torch.zeros_like(any_live) if bk_valid0 is None \
+                    else torch.any(build.alive & ~bk_valid0)
+                facts = torch.stack([any_live, any_null])
+                if build.sharded:
+                    from quickstep_tpu_torch.parallel.mesh import por
+                    facts = por(self.mesh, [facts], "por_null_aware")
+                if pk_valid0 is not None:
+                    alive = alive & (pk_valid0 | ~facts[0])
+                alive = alive & ~facts[1]
             return dataclasses.replace(out, alive=alive)
 
         if route == "filter":
             # FilterJoin strength reduction: semi/anti joins over one
-            # ranged integer key need only the exact presence filter.
+            # ranged integer key need only the exact presence filter. A
+            # sharded build's presence is each process's OR'd (exact, so
+            # the bits are the whole build's).
             from quickstep_tpu_torch.ops import bloom as B
             r = self._key_ranges(node.right_keys, build)[0]
             lo, domain = r[0], r[1] - r[0] + 1
             bits = B.exact_filter_build(bk_data[0], bmask, lo, domain)
+            if build.sharded:
+                from quickstep_tpu_torch.parallel.mesh import por
+                bits = por(self.mesh, [bits], "por_filter")
             matched = B.exact_filter_probe(bits, pk_data[0], pmask, lo)
             if node.kind == "anti":
                 matched = probe.alive & ~matched
@@ -1112,19 +1152,9 @@ class PlanRunner:
         alone: "filter" (the FilterJoin's exact presence filter), "full",
         "semi_stats" (which may fall back to the next two), "shuffle" or
         "local" (the join core on the whole sides)."""
-        bk_data = keys[3]
-        # FilterJoin strength reduction: semi/anti joins over one ranged
-        # integer key need only the exact presence filter.
-        if node.kind in ("semi", "anti") and node.residual is None and \
-                len(bk_data) == 1 and self.config.use_filter_joins:
-            r = self._key_ranges(node.right_keys, build)[0]
-            bcap, pcap = _gcap(build, self.mesh), _gcap(probe, self.mesh)
-            if r is not None and (r[1] - r[0] + 1) <= \
-                    self.config.direct_join_domain_limit and \
-                    (r[1] - r[0] + 1) <= max(
-                        int(self.config.direct_join_density * bcap),
-                        4 * pcap):
-                return "filter", None, None
+        if self._filter_route(node, probe, build,
+                              _gcap(build, self.mesh)):
+            return "filter", None, None
         build_key_ids = [e.expr_id for e in node.right_keys
                          if isinstance(e, Attr)]
         build_unique = (len(build_key_ids) == len(node.right_keys)) and \
@@ -1148,6 +1178,22 @@ class PlanRunner:
         if self._shuffles(node, probe, build, keys):
             return "shuffle", strategy, build_unique
         return "local", strategy, build_unique
+
+    def _filter_route(self, node, probe, build, bcap: int) -> bool:
+        """FilterJoin strength reduction: whether a semi/anti join over one
+        ranged integer key needs only the exact presence filter, with the
+        build side's capacity over every process bcap."""
+        if node.kind not in ("semi", "anti") or node.residual is not None \
+                or len(node.right_keys) != 1 or \
+                not self.config.use_filter_joins:
+            return False
+        r = self._key_ranges(node.right_keys, build)[0]
+        if r is None:
+            return False
+        domain = r[1] - r[0] + 1
+        return domain <= self.config.direct_join_domain_limit and \
+            domain <= max(int(self.config.direct_join_density * bcap),
+                          4 * _gcap(probe, self.mesh))
 
     def _shuffles(self, node, probe, build, keys) -> bool:
         """Whether the key-partitioned join over the mesh applies: a mesh of
@@ -1464,7 +1510,9 @@ class PlanRunner:
         and a probe expression, without expansion: EXISTS (x in run(k) with
         v OP x) is decided by the run's min and max of x (Q21's correlated
         <> EXISTS). Returns None when the residual has another shape; the
-        caller then takes the expansion join."""
+        caller then takes the expansion join. The probe may hold one
+        process's rows (sharded; the build is whole): each row's answer
+        reads the build's statistics alone."""
         res = node.residual
         if not (isinstance(res, Cmp) and res.op in ("<>", "<", ">", "<=",
                                                     ">=")):
@@ -1540,7 +1588,12 @@ class PlanRunner:
         """Sort-based expansion join: duplicate build keys, semi/anti joins
         with a residual, many-to-many inner and left joins. Each probe row
         gets K candidate slots (K7); a longer run raises join_overflow_<idx>
-        and the executor re-runs with 4 K."""
+        and the executor re-runs with 4 K. The probe may hold one process's
+        rows (sharded; the build is whole): K reads the build alone, the
+        output is its rows' K slots each, row-major, so that the processes'
+        outputs in rank order are the one-process mesh's, and the flag,
+        made from this process's rows, is OR'd over the processes with
+        the result (Executor._pull_outputs), which nothing reads before."""
         ov = self.overrides.get(self.node_index[id(node)])
         packed_b, packed_p, hashed = self._pack_keys(node, build, probe,
                                                      bk_data, pk_data)
@@ -1586,9 +1639,12 @@ class PlanRunner:
         for a in build.attrs:
             slots[a.expr_id] = build_lazy[a.expr_id]
         alive = torch.repeat_interleave(probe.alive, k) & ok
-        pb = probe.bound if probe.bound is not None else probe.capacity
+        # the static bound holds over every process, as the capacity there
+        gcap = _gcap(probe, self.mesh)
+        pb = probe.bound if probe.bound is not None else gcap
         out = Chunk(attrs=list(node.output), slots=slots, alive=alive,
-                    capacity=cap, bound=min(pb * k, cap),
+                    capacity=cap, bound=min(pb * k, gcap * k),
+                    sharded=probe.sharded,
                     ranges={**{a.expr_id: probe.ranges.get(a.expr_id)
                                for a in probe.attrs},
                             **{a.expr_id: build.ranges.get(a.expr_id)
@@ -1719,8 +1775,7 @@ class PlanRunner:
         is at least the live row count). Only the row-id maps move; payload
         columns stay LazyCols against their bases. Under a mesh the
         capacity stays a multiple of its shards."""
-        quantum = 8 if self.mesh is None else max(8, self.mesh.n)
-        target = max(K.round_up(target, quantum), quantum)
+        target = _compact_capacity(target, self.mesh)
         if target >= chunk.capacity:
             return chunk
         # K9 on the card writes only the target's head of the order, and

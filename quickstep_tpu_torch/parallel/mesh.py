@@ -309,9 +309,11 @@ def pmin(mesh: Mesh, parts: List[torch.Tensor]) -> torch.Tensor:
     return _fold(mesh, parts, torch.minimum, "pmin")
 
 
-def por(mesh: Mesh, parts: List[torch.Tensor]) -> torch.Tensor:
-    """The bitwise OR over the shards (bool flags, bit words)."""
-    return _fold(mesh, parts, torch.bitwise_or, "por")
+def por(mesh: Mesh, parts: List[torch.Tensor],
+        name: str = "por") -> torch.Tensor:
+    """The bitwise OR over the shards (bool flags, bit words), its bytes
+    counted in Mesh.moved under name."""
+    return _fold(mesh, parts, torch.bitwise_or, name)
 
 
 _FOLDS = {"sum": (torch.add, "psum"), "min": (torch.minimum, "pmin"),

@@ -7,11 +7,13 @@ its LIP filter) and Q9 the two-phase GROUP BY at the SF10 thresholds scaled
 to SF0.01; distributed_agg_join_step against quickstep_tpu's on the 8
 virtual devices of tests/conftest.py; the queries whose aggregates and
 broadcast joins run per shard (TPC-H Q1, Q5, Q6, Q14, Q19 and the star
-battery of tests/multihost_worker.py) against quickstep_tpu's own mesh of
-those 8 devices; the per-shard K1 and K2 plain versions, their partial
-states folded (parallel/mesh.py fold_partials), against quickstep_tpu's
-scalar_agg and dense_groupby over the whole input; and a capacity that
-does not split into the shards, which runs the aggregate whole."""
+battery of tests/multihost_worker.py), and bench/multihost_run.py's
+SEMI_QUERIES (the semi, anti and expansion joins that run on each
+process's rows), against quickstep_tpu's own mesh of those 8 devices;
+the per-shard K1 and K2 plain versions, their partial states folded
+(parallel/mesh.py fold_partials), against quickstep_tpu's scalar_agg and
+dense_groupby over the whole input; and a capacity that does not split
+into the shards, which runs the aggregate whole."""
 
 import numpy as np
 import pytest
@@ -231,6 +233,29 @@ def test_star_battery_matches_the_reference_mesh(star_pair, name):
     ref, port = star_pair
     _assert_rows_close(ref.execute(MR.QUERIES[name]).rows,
                        port.execute(MR.QUERIES[name]).rows, name)
+
+
+@pytest.fixture(scope="module")
+def semi_pair(star_pair):
+    """star_pair with multihost_run's SEMI_TABLES made by the same SQL in
+    both databases."""
+    ref, port = star_pair
+    for stmt in MR.SEMI_TABLES:
+        ref.execute(stmt)
+        port.execute(stmt)
+    return ref, port
+
+
+@pytest.mark.parametrize("name", sorted(MR.SEMI_QUERIES))
+def test_semi_battery_matches_the_reference_mesh(semi_pair, name):
+    """The semi, anti and expansion joins that run on each process's rows
+    (NOT IN with a NULL or an empty build on one process's shards, the run
+    statistics, expansion overflows) on the port's 8-shard mesh against
+    quickstep_tpu's 8-device mesh: integers exact, floats within
+    REL_TOL."""
+    ref, port = semi_pair
+    _assert_rows_close(ref.execute(MR.SEMI_QUERIES[name]).rows,
+                       port.execute(MR.SEMI_QUERIES[name]).rows, name)
 
 
 # ---------------------------------------------------------------------

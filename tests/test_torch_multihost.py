@@ -10,17 +10,22 @@ INSERT, DELETE and UPDATE of a sharded table give the one-process rows.
 The scalar aggregates, the dense GROUP BY and the broadcast joins that
 keep at most one build row a probe row run on each process's rows, their
 partial states folded over the processes, as the GSPMD partitioner splits
-them (test_per_shard_operators_gather_nothing). Where the port's
-multi-process path deliberately differs from the reference's
+them (test_per_shard_operators_gather_nothing). So do the exact filter,
+whose presence bits each process builds from its own build rows and ORs
+(test_a_filter_build_stays_on_each_process), and the semi-statistics and
+expansion joins, whose probe side stays on each process's rows against
+one gathered build (test_semi_battery_matches_one_process_mesh,
+test_q21_keeps_its_probe_sides). Where the port's multi-process path
+deliberately differs from the reference's
 (quickstep_tpu/parallel/multihost.py under GSPMD), and the cases here
 that show each:
 - Sort, Limit, Distinct, window inputs, DISTINCT aggregates, a sort
-  GROUP BY outside the two-phase route, and the semi-statistics,
-  expansion and full outer joins gather their sharded input, where the
-  GSPMD partitioner would split some of them over the mesh: the rows are
-  the one-process mesh's (the star and TPC-H cases), and each gather is
-  counted with its bytes and why it was made
-  (test_gathers_and_exchanges_are_counted);
+  GROUP BY outside the two-phase route, the full outer join (both
+  sides), and the build side of a unique, semi-statistics or expansion
+  join gather their sharded input, where the GSPMD partitioner would
+  split some of them over the mesh: the rows are the one-process mesh's
+  (the star, battery and TPC-H cases), and each gather is counted with
+  its bytes and why it was made (test_gathers_and_exchanges_are_counted);
 - psum, pmax and por gather every shard's value and fold in shard order,
   where the reference reduces in XLA's order, so that every process
   returns the one-process mesh's bits, floats included
@@ -179,6 +184,11 @@ def runs(tmp_path_factory):
         for name, sql in MR.RETRY_QUERIES.items():
             one["rows"][name] = db.execute(sql).rows
             one["retries"][name] = db.executor.retries
+        for stmt in MR.SEMI_TABLES:
+            db.execute(stmt)
+        for name, sql in MR.SEMI_QUERIES.items():
+            one["rows"][name] = db.execute(sql).rows
+            one["retries"][name] = db.executor.retries
         for stmt in MR.DML:
             db.execute(stmt)
         for name, sql in MR.DML_QUERIES.items():
@@ -258,8 +268,8 @@ def test_block_locality(runs):
     """A sharded table's upload on each process is its half; a replicated
     one is whole on each."""
     mh, _one = runs
-    sharded = {"fact", "sk_build", "sk_probe", "sk_dup", "dm", "nk",
-               "lineitem", "orders", "partsupp"}
+    sharded = {"fact", "sk_build", "sk_probe", "sk_dup", "sb", "sp", "dm",
+               "nk", "lineitem", "orders", "partsupp"}
     for m in mh:
         up = m["figures"]["uploads"]
         assert {t for t, u in up.items() if u["sharded"]} == sharded
@@ -347,6 +357,78 @@ def test_a_retry_is_taken_by_both_processes(runs, name):
     for m in mh:
         assert m["figures"]["queries"][name]["retries"] == [1]
         assert m["rows"][name] == [list(one["rows"][name])]
+
+
+# the exact filters over a sharded build: each process's presence bits
+# OR'd by por_filter, no build side gathered (TPC-H Q4's lineitem, Q20's
+# partsupp, Q22's orders at SF0.003 and a threshold of 1000)
+FILTER_BUILD = ("Q4", "Q20", "Q22", "semi_filter", "anti_filter",
+                "not_in_null_one_side", "not_in_empty_one_side",
+                "not_in_empty")
+# NOT IN whose correction reads the whole build: its two facts OR'd
+NULL_AWARE = ("not_in_null_one_side", "not_in_empty_one_side",
+              "not_in_empty")
+# expansion joins that overflow their 8 slots on process 0's rows alone
+OVERFLOW_ON_ONE = ("semi_expand_local", "inner_expand", "left_expand")
+
+
+def _gathered(info, why):
+    return [g for g in info["gathers"] if g["why"].startswith(why)]
+
+
+@pytest.mark.parametrize("name", FILTER_BUILD)
+def test_a_filter_build_stays_on_each_process(runs, name):
+    """The exact filter's build side is not gathered (neither for the join
+    nor for compaction): each process's presence bits cross by por_filter,
+    and the rows and retries are the one-process mesh's bit for bit."""
+    mh, one = runs
+    for m in mh:
+        q = m["figures"]["queries"][name]
+        info = q["mesh"][0]
+        assert not _gathered(info, "build side of the filter") and \
+            not _gathered(info, "compaction"), info["gathers"]
+        assert info["collectives"]["por_filter"]["bytes"] > 0, \
+            info["collectives"]
+        assert m["rows"][name] == [list(one["rows"][name])]
+        assert q["retries"] == [one["retries"][name]]
+
+
+@pytest.mark.parametrize("name", sorted(MR.SEMI_QUERIES))
+def test_semi_battery_matches_one_process_mesh(runs, name):
+    """Every semi, anti and expansion join of the battery keeps its probe
+    side on each process's rows, and returns the one-process mesh's rows
+    and retries bit for bit: the null-aware NOT IN ORs its two facts about
+    the whole build (a NULL on process 0's build rows alone empties the
+    result on both; a build live on process 0 alone drops the NULL probe
+    keys on both), and an expansion that overflows on process 0's rows
+    alone is retried once by both."""
+    mh, one = runs
+    if name in OVERFLOW_ON_ONE:
+        assert one["retries"][name] == 1
+    if name == "not_in_null_one_side":
+        assert one["rows"][name][0][0] == 0
+    for m in mh:
+        q = m["figures"]["queries"][name]
+        info = q["mesh"][0]
+        assert not _gathered(info, "probe side"), info["gathers"]
+        if name in NULL_AWARE:
+            assert info["collectives"]["por_null_aware"]["bytes"] > 0
+        assert m["rows"][name] == [list(one["rows"][name])]
+        assert q["retries"] == [one["retries"][name]]
+
+
+def test_q21_keeps_its_probe_sides(runs):
+    """Q21's EXISTS and NOT EXISTS take the run statistics on each
+    process's rows of lineitem: only their build sides are gathered, and
+    the retries are the one-process mesh's."""
+    mh, one = runs
+    for m in mh:
+        q = m["figures"]["queries"]["Q21"]
+        info = q["mesh"][0]
+        assert not _gathered(info, "probe side"), info["gathers"]
+        assert [g["why"] for g in info["gathers"]] == \
+            ["build side of the semi_stats expand join"] * 2
+        assert q["retries"] == [one["retries"]["Q21"]]
 
 
 @pytest.mark.parametrize("name", sorted(MR.DML_QUERIES))
