@@ -3,8 +3,11 @@ holds each against its plain torch version at SF10 shapes and at zero rows,
 checks all 22 TPC-H queries (and a Q20 variant that returns rows) at SF0.01
 against sqlite, on one device and on an 8-shard mesh of the card, runs the
 reference's golden corpus (16 reference and 3
-execute files) on the card, and runs all 22 TPC-H queries, and Q11 with the
-specification's fraction (0.0001 / SF), at SF10 with all 8 tables generated
+execute files) on the card, holds the card to the port's CPU path, and a
+4-shard mesh of the card to the card, over bench/differential.py's
+edge-case databases (phase 2d: 8 seeds and the CAST table, every query of
+the battery, every kernel launched), and runs all 22 TPC-H queries, and
+Q11 with the specification's fraction (0.0001 / SF), at SF10 with all 8 tables generated
 in the process and resident on the card, against the generator's exact
 oracles, with their row counts beside the reference's SF10 run against
 sqlite (SF10_VERIFY.json), then Q9 once more after partsupp is reloaded
@@ -248,6 +251,12 @@ OPERATOR_RUNS = {
 STORE_CHUNK_ORDERS = 5_000_000
 # seconds the writer may take in all (it took 93 s on an H100 host)
 STORE_WRITER_TIMEOUT = 400
+# phase 2d: bench/differential.py's seeds (one of each of its size
+# classes), on one device of the card and on a mesh of it whose
+# replicate threshold shards every table of more than 8 rows
+DIFF_SEEDS = range(8)
+DIFF_MESH_SHARDS = 4
+DIFF_MESH_THRESHOLD_ROWS = 8
 
 KERNELS = {   # name: (source, the reference function it replaces)
     "scalar_agg": ("quickstep_tpu_torch/csrc/agg_kernels.cu",
@@ -1729,6 +1738,86 @@ def phase_golden(cuda):
     return launches
 
 
+def phase_differential(cuda):
+    """Phase 2d: bench/differential.py's edge-case databases of DIFF_SEEDS
+    (one of each size class) and its CAST table, each loaded into a port
+    database on the CPU, one on the card and one on a DIFF_MESH_SHARDS-shard
+    mesh of the card; every query of the battery runs on all three, the
+    card's rows held to the CPU's (the rows tier-1 holds to quickstep_tpu)
+    and the mesh's to the card's one device. Every kernel must launch on
+    the one device (K14-K16 on the mesh).
+    Returns (the one device's launches, the mesh's)."""
+    from quickstep_tpu_torch import Database
+    from quickstep_tpu_torch.bench import differential as D
+    from quickstep_tpu_torch.config import Config
+    log(f"phase 2d: bench/differential.py's edge-case databases, seeds "
+        f"{DIFF_SEEDS.start}-{DIFF_SEEDS.stop - 1} and the CAST table: the "
+        f"card against the port's CPU path, then a {DIFF_MESH_SHARDS}-shard "
+        f"mesh of the card against the card")
+    t0 = time.perf_counter()
+    cfg = Config()
+    cfg.distributed = True
+    cfg.replicate_threshold_rows = DIFF_MESH_THRESHOLD_ROWS
+    host, card = Database(device="cpu"), Database(device="cuda")
+    mesh = Database(config=cfg, device="cuda", mesh_shards=DIFF_MESH_SHARDS)
+    one_device = dict.fromkeys(cuda.LAUNCHES, 0)
+    on_mesh = dict.fromkeys(cuda.LAUNCHES, 0)
+
+    def counted(into, db, query):
+        cuda.reset_launches()
+        out = D.run_query(db, query)
+        for k, v in cuda.LAUNCHES.items():
+            into[k] += v
+        return out
+    bad, n_queries = [], 0
+    try:
+        batteries = [(seed, D.make_database(seed), D.queries(seed))
+                     for seed in DIFF_SEEDS]
+        batteries.append(("casts", D.cast_tables(),
+                          list(D.CAST_QUERIES.values())))
+        for seed, tables, battery in batteries:
+            for db in (host, card, mesh):
+                D.load_tables(db, tables)
+            for query in battery:
+                n_queries += 1
+                want = D.run_query(host, query)
+                got = counted(one_device, card, query)
+                why = (f"setup counts {got[0]} against {want[0]}"
+                       if got[0] != want[0] else
+                       D.same_rows(got[1], want[1], query, tables,
+                                   rel=REL_TOL[torch.float64], abs_tol=0.0,
+                                   accumulate="DOUBLE"))
+                if why:
+                    bad.append(f"card against CPU, seed {seed}: "
+                               f"{query.sql}: {why}")
+                why = D.mesh_difference(counted(on_mesh, mesh, query), got,
+                                        query, tables)
+                if why:
+                    bad.append(f"mesh against card, seed {seed}: "
+                               f"{query.sql}: {why}")
+    finally:
+        for db in (host, card, mesh):
+            db.close()
+    secs = time.perf_counter() - t0
+    missing = [k for k in cuda.LAUNCHES if not (
+        on_mesh if k in SHUFFLE_KERNELS else one_device)[k]]
+    log(f"  phase 2d: {len(batteries)} databases, {n_queries} queries on "
+        f"the CPU, the card and the mesh; kernels launched on one device "
+        f"{sum(1 for v in one_device.values() if v)}, on the mesh "
+        f"{sum(1 for v in on_mesh.values() if v)} of {len(cuda.LAUNCHES)}; "
+        f"{len(bad)} mismatches; {secs:.1f} s")
+    log("  phase 2d launches on one device: " + ", ".join(
+        f"{k} {v}" for k, v in one_device.items()))
+    log("  phase 2d launches on the mesh: " + ", ".join(
+        f"{k} {v}" for k, v in on_mesh.items()))
+    if bad:
+        raise AssertionError(f"phase 2d: {len(bad)} mismatches\n" +
+                             "\n".join(bad[:10]))
+    if missing:
+        raise AssertionError(f"phase 2d never launched {missing}")
+    return one_device, on_mesh
+
+
 def run_query(db, cuda, oracle, total, label, q, must, sql=None,
               rel_tol=None, warm=WARM_RUNS, per_run=None, rows_out=None):
     """One query cold and `warm` times warm against the exact oracle, its
@@ -2791,11 +2880,14 @@ def run_phases(card, cuda, G, t_start, writer):
     small_census.report(f"SF{SF_SMALL} mesh")
     golden = phase_golden(cuda)
     add(golden)
+    edge_one, edge_mesh = phase_differential(cuda)
+    add(edge_one)
+    add(edge_mesh)
     large, single = phase_large(cuda, generated)
     add(large)
     streamed = phase_streamed(cuda, generated)
     add(streamed)
-    for counts in (small, golden, large, streamed):
+    for counts in (small, golden, edge_one, large, streamed):
         for k, v in counts.items():
             one_device[k] += v
     with bloom_census() as large_census:

@@ -85,9 +85,11 @@ ZERO_ROW_QUERIES = {
                              "max(id) FROM empty_t)",
     "join_after_empty_filter": "SELECT f.id, g.tag FROM full_t f JOIN "
                                "full_t g ON f.id = g.id WHERE g.id > 100",
-    # the empty table's VARCHAR column as a LIKE operand, a join key, a
-    # subquery's key and a set operation's column
+    # the empty table's VARCHAR column as a LIKE operand, in an IN list, a
+    # join key, a subquery's key and a set operation's column
     "like_varchar_empty": "SELECT id FROM empty_t WHERE tag LIKE '%a%'",
+    "in_list_varchar_empty": "SELECT id FROM empty_t WHERE tag IN ('a', "
+                             "'zz', '')",
     "join_varchar_empty": "SELECT f.id, e.id FROM full_t f JOIN empty_t e "
                           "ON f.tag = e.tag",
     "exists_varchar_empty": "SELECT id FROM full_t WHERE EXISTS (SELECT * "

@@ -953,6 +953,12 @@ class PlanRunner:
         """(value, non-null count) of one scalar aggregate over every row."""
         fn, vals, valid = agg_input
         if spec.distinct and fn == "count":
+            if vals.is_floating_point():
+                # a NaN counts as no value (sqlite stores it as NULL, and
+                # quickstep_tpu's NaNs sort past its padding rows, which
+                # the port has not got)
+                valid = ~torch.isnan(vals) if valid is None else \
+                    valid & ~torch.isnan(vals)
             return (G.distinct_count(vals, valid, live),
                     torch.ones((), dtype=torch.int64, device=live.device))
         if spec.distinct:

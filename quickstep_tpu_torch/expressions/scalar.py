@@ -365,7 +365,10 @@ class Cast(Expr):
         src, dst = self.operand.type, self.type
         if src.is_decimal or dst.is_decimal:
             return _decimal_cast(d, src, dst), v
-        return d.to(torch_dtype(self.type.device_dtype)), v
+        out = torch_dtype(self.type.device_dtype)
+        if d.is_floating_point() and not out.is_floating_point:
+            return float_to_int(d, out), v
+        return d.to(out), v
 
     def key(self):
         return ("cast", int(self.type.type_id), self.type.scale,
@@ -392,7 +395,29 @@ def _decimal_cast(d, src, dst):
     # numeric -> decimal
     if src.is_integral:
         return (d.to(torch.int64) * (10 ** dst.scale)).to(out)
-    return torch.round(d.to(torch.float64) * (10.0 ** dst.scale)).to(out)
+    return float_to_int(torch.round(d.to(torch.float64) * (10.0 ** dst.scale)),
+                        out)
+
+
+# the largest double not above each integer dtype's maximum: 2^31 - 1 is a
+# double, 2^63 - 1 is not (it rounds up to 2^63, out of range)
+_LARGEST_DOUBLE = {torch.int32: float(2**31 - 1),
+                   torch.int64: float(2**63 - 1024)}
+
+
+def float_to_int(d, out):
+    """Floats to the integer dtype `out` as XLA's convert (quickstep_tpu's
+    astype) does on every backend: truncation toward zero, saturated at
+    out's bounds (±inf too), NaN to 0. Tensor.to leaves an out-of-range
+    value undefined (INT_MIN on an x86 CPU), so the value is clamped in
+    float64 first and a value above the largest double not above the
+    maximum becomes the maximum."""
+    x = d.to(torch.float64)
+    hi = _LARGEST_DOUBLE[out]
+    conv = torch.nan_to_num(x, nan=0.0).clamp(float(torch.iinfo(out).min),
+                                              hi).to(out)
+    top = torch.full((), torch.iinfo(out).max, dtype=out, device=d.device)
+    return torch.where(x > hi, top, conv)
 
 
 @dataclasses.dataclass

@@ -656,7 +656,9 @@ class Resolver:
                             try:
                                 env[a.expr_id] = (int(st.min_values[a.name]),
                                                   int(st.max_values[a.name]))
-                            except (TypeError, ValueError):
+                            except (TypeError, ValueError, OverflowError):
+                                # no range: a float column's statistics
+                                # may be NaN (ValueError) or +-inf
                                 pass
                 for c in n.children():
                     walk(c)

@@ -1,0 +1,26 @@
+"""The port against quickstep_tpu over bench/differential.py's edge-case
+databases on the CPU: window functions (W1-W4), scalar subqueries and
+DML (INSERT ... SELECT, UPDATE and DELETE on a table of their own, then
+a SELECT). Each case runs its family's share of one seed's battery
+(differential.rotation) through both engines, as
+differential_engines.Engines.check runs it: rows compare as
+differential.same_rows says, and a query on the shape of one of
+ROADMAP's known reference faults is held against sqlite instead."""
+
+import pytest
+
+from differential_engines import Engines, cases
+
+FAMILIES = ("window", "scalar_subquery", "dml")
+
+
+@pytest.fixture(scope="module")
+def engines():
+    e = Engines()
+    yield e
+    e.close()
+
+
+@pytest.mark.parametrize("seed,family", cases(FAMILIES))
+def test_port_matches_reference(engines, seed, family):
+    engines.check(seed, family)

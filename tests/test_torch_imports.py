@@ -75,6 +75,15 @@ DML_AND_OPERATORS_WITHOUT_JAX = textwrap.dedent("""
         failures = run_golden_file(f"tests/golden/reference/{name}.test", db)
         assert not failures, failures[0]
         db.close()
+    # the differential battery's generator, loader and a share of its
+    # queries, and the smoke that runs it on the card
+    import chip_smoke
+    from quickstep_tpu_torch.bench import differential as D
+    db = Database(device="cpu")
+    D.load_tables(db, D.make_database(6))
+    for query in D.rotation(6, D.queries(6))[:4]:
+        D.run_query(db, query)
+    db.close()
     bad = [m for m, mod in sys.modules.items() if mod is not None and (
            m == "jax" or m.startswith("jax.")
            or m == "quickstep_tpu" or m.startswith("quickstep_tpu."))]

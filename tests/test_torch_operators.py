@@ -351,9 +351,9 @@ REFERENCE_FAULTS = {
     # (quickstep_tpu/exec/runner.py:2053)
     "union_empty", "except_empty", "union_all_varchar_empty",
     "intersect_varchar_empty",
-    # DictBitmapProbe indexes an empty LIKE bitmap
+    # DictBitmapProbe indexes an empty LIKE or IN-list bitmap
     # (quickstep_tpu/expressions/scalar.py:521)
-    "like_varchar_empty",
+    "like_varchar_empty", "in_list_varchar_empty",
     # the string join key's code remap is empty
     # (quickstep_tpu/expressions/scalar.py:651, from exec/runner.py:940)
     "join_varchar_empty", "left_join_varchar_empty", "exists_varchar_empty",
