@@ -33,8 +33,13 @@ the same mesh is spread over two processes on the card
 (parallel/multihost.py, gloo: NCCL refuses two ranks on one card, which is
 checked too), each holding four shards and uploading only their rows of
 the sharded tables, which the processes memory-map from .npy files: the
-same five queries cold and warm against the oracle and bit for bit
-against the one-process mesh's rows, each process launching K14-K16; and
+mesh's queries cold and warm against the oracle and bit for bit against
+the one-process mesh's rows, each process launching K1-K3, K8 and K14-K16;
+then (phase 7b) the same mesh over two members of this process on the
+card (parallel/local_group.py: a thread a member, four shards each), the
+same queries cold and warm held to the same checks and to phase 7's
+gathers, a member made to fail raising on every member, and, on a machine
+with two or more cards, one member a card; and
 the distributed aggregate-join step runs at 7.5 M rows per shard over 8
 shards against a plain computation. W2, K14, K15 and K16 are also checked
 to make no host sync (the card's sync debug mode set to raise), and every
@@ -131,6 +136,12 @@ MULTIHOST_PROCS = 2
 MULTIHOST_BACKEND = "gloo"
 MULTIHOST_RUNS = 2              # cold and warm
 MULTIHOST_TIMEOUT_S = 600
+# phase 7b: the same mesh over this many members of one process on the one
+# card (parallel/local_group.py), and the most seconds a member's failure
+# may take to raise on every member
+LOCAL_MEMBERS = 2
+LOCAL_MEMBER_RUNS = 2           # cold and warm
+MEMBER_FAIL_S = 10.0
 NCCL_REFUSAL_TIMEOUT_S = 120
 # a Q20 whose p_name prefix has rows at SF0.01 (the spec's 'forest%' has none)
 Q20_ROWS_PREFIX = "green"
@@ -2456,27 +2467,23 @@ def phase_multihost(cuda, generated, mesh):
     their rows of a sharded table; the tables are written once as .npy
     files, which each process memory-maps. First two ranks asking for NCCL
     on the one card must both refuse. Then MESH_QUERIES, MESH_AGG_QUERIES
-    and MESH_SEMI_QUERIES cold and warm on every process: each run against
-    the exact oracle and bit for bit against phase 6's rows (`mesh`,
-    phase_large_mesh's result), each process launching K1, K2, K3, K8,
-    K14, K15 and K16 and uploading half of each sharded table, and
+    and MESH_SEMI_QUERIES cold and warm on every process, each run against
+    the exact oracle and bit for bit against phase 6's rows
+    (`mesh`, phase_large_mesh's result), each process launching K1, K2,
+    K3, K8, K14, K15 and K16 and uploading half of each sharded table, and
     gathering no input of an operator that runs per shard (no Aggregate
     input but of the GATHERED_AGGREGATES kinds, none for
     NO_AGGREGATE_GATHER, no probe side of a Join for NO_PROBE_GATHER, and
     no build side of an exact filter for NO_BUILD_GATHER); its times
-    beside phase 6's,
-    what crossed the processes, each query's gathered bytes and its peak
-    memory are logged. Returns the workers' launches, summed."""
+    beside phase 6's, what crossed the processes, each query's gathered
+    bytes and its peak memory are logged (check_ranks). Returns
+    check_ranks' launches and summary."""
     import pathlib
     import pickle
     import shutil
     from quickstep_tpu_torch.bench.multihost_run import write_tables
-    from quickstep_tpu_torch.bench.tpch_fullgen import check_rows
-    from quickstep_tpu_torch.config import Config
-    tables, stats, oracle, _made = generated
+    tables, stats, _oracle, _made = generated
     local = MESH_SHARDS // MULTIHOST_PROCS
-    # the workers' threshold, the default: tables at or above it shard
-    threshold = Config().replicate_threshold_rows
     log(f"phase 7: TPC-H SF{SF_LARGE:g} on an {MESH_SHARDS}-shard mesh over "
         f"{MULTIHOST_PROCS} processes on the card ({local} shards each, "
         f"{MULTIHOST_BACKEND})")
@@ -2525,10 +2532,41 @@ def phase_multihost(cuda, generated, mesh):
             f"{time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return check_ranks(cuda, results, "process", generated, mesh)
+
+
+def check_ranks(cuda, results, kind, generated, mesh, others=()):
+    """The checks of phases 7 and 7b on each rank's bench/multihost_run.py
+    figures (`kind` "process" or "member"; world len(results)): every run
+    of MESH_QUERIES, MESH_AGG_QUERIES and MESH_SEMI_QUERIES against the
+    exact oracle and bit for bit against phase 6's rows (`mesh`), no input
+    gathered that runs per shard, presence bits crossing for
+    NO_BUILD_GATHER, K1, K2, K3, K8 and K14-K16 launched, and 1 / world of
+    each sharded table uploaded; each query's peak memory, times beside
+    phase 6's (and each of `others`' (label, {q: ms of each run})), bytes
+    sent by each collective and gathered, and each rank's uploads and
+    launches are logged. Returns the ranks' launches, summed, and a
+    summary: rank 0's ms of each query's runs ("ms") and each rank's
+    gathers of each query's cold run ("gathers")."""
+    from quickstep_tpu_torch.bench.tpch_fullgen import check_rows
+    from quickstep_tpu_torch.config import Config
+    tables, _stats, oracle, _made = generated
+    world = len(results)
+    # the ranks' threshold, the default: tables at or above it shard
+    threshold = Config().replicate_threshold_rows
+    # members on one card share its allocator: its peak is theirs together
+    card_share = " (the card's, its members' together)" if kind == \
+        "member" and len({r["figures"]["device"] for r in results}) < world \
+        else ""
     total = dict.fromkeys(cuda.LAUNCHES, 0)
+    queries = MESH_QUERIES + MESH_AGG_QUERIES + tuple(MESH_SEMI_QUERIES)
+    summary = {"ms": {q: results[0]["figures"]["queries"][f"Q{q}"]["ms"]
+                      for q in queries},
+        "gathers": [{q: res["figures"]["queries"][f"Q{q}"]["mesh"][0][
+            "gathers"] for q in queries} for res in results]}
     for res in results:
         fig = res["figures"]
-        who = f"process {fig['process']}"
+        who = f"{kind} {fig['process']}"
         for q in MESH_QUERIES + MESH_AGG_QUERIES + tuple(MESH_SEMI_QUERIES):
             runs = res["rows"][f"Q{q}"]
             want = mesh[q][0][0]
@@ -2557,11 +2595,13 @@ def phase_multihost(cuda, generated, mesh):
                 raise AssertionError(f"{who} Q{q}: no presence bits crossed "
                                      f"the processes: {moved}")
             log(f"  {who} Q{q}: peak device memory "
-                f"{qf['peak_bytes'] / 2**30:.2f} GiB (phase 6: "
-                f"{mesh[q][2]:.2f}); cold {qf['ms'][0]:.1f} ms, warm "
-                + ", ".join(f"{t:.1f}" for t in qf["ms"][1:])
+                f"{qf['peak_bytes'] / 2**30:.2f} GiB{card_share} (phase 6: "
+                f"{mesh[q][2]:.2f}); cold {qf['ms'][0]:.1f} ms"
+                + "".join(f", warm {t:.1f}" for t in qf["ms"][1:])
                 + f" (phase 6: cold {one[0]:.1f}, warm "
                 + ", ".join(f"{t:.1f}" for t in one[1:])
+                + "".join(f"; {label} cold " + ", warm ".join(
+                    f"{t:.1f}" for t in ms[q]) for label, ms in others)
                 + f"); {len(runs[0])} rows match the oracle and phase 6 bit "
                 f"for bit; retries {qf['retries']}; sent (cold run) "
                 + ", ".join(f"{k} {v['calls']} calls {v['bytes']} B"
@@ -2577,7 +2617,7 @@ def phase_multihost(cuda, generated, mesh):
             raise AssertionError(f"{who} never launched {idle}")
         for table, up in sorted(fig["uploads"].items()):
             share = up["bytes"] / up["table_bytes"]
-            want_share = 1 / MULTIHOST_PROCS if up["sharded"] else 1.0
+            want_share = 1 / world if up["sharded"] else 1.0
             if up["sharded"] != (tables[table].n >= threshold) or \
                     share != want_share:
                 raise AssertionError(f"{who} uploaded {up} of {table}")
@@ -2589,7 +2629,148 @@ def phase_multihost(cuda, generated, mesh):
                                     fig["launches"].items() if v))
         for k, v in fig["launches"].items():
             total[k] += v
+    return total, summary
+
+
+def host_rss() -> int:
+    """This process's resident bytes now."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class rss_peak:
+    """The most resident bytes this process held while the block ran,
+    sampled every 0.2 s by a thread of its own (`peak`, once it ends)."""
+
+    def __enter__(self):
+        self.peak = host_rss()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.2):
+                self.peak = max(self.peak, host_rss())
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, host_rss())
+
+
+def phase_local_mesh(cuda, generated, mesh, spread):
+    """The SF_LARGE tables on the MESH_SHARDS-shard mesh spread over
+    LOCAL_MEMBERS members of this process on the card
+    (parallel/local_group.py through bench/multihost_run.py run_members:
+    one thread a member, its own catalog and executor, the host tables
+    shared), each holding MESH_SHARDS / LOCAL_MEMBERS shards: MESH_QUERIES,
+    MESH_AGG_QUERIES and MESH_SEMI_QUERIES cold and warm on every member,
+    checked as phase 7 checks its processes (check_ranks), and each
+    member's gathers those of phase 7's process of the same index
+    (`spread`, phase_multihost's summary), with times beside phase 6's
+    and phase 7's and the host's resident bytes. Then a member made to
+    raise in a statement makes it raise on every member within
+    MEMBER_FAIL_S, and the next statement runs. Where the machine has two
+    or more cards, the same queries run again with one member a card over
+    4 (or 2) cards, held to phase 6 bit for bit; else one line says that
+    part did not run. Returns the members' launches, summed."""
+    from quickstep_tpu_torch.bench import multihost_run as MR
+    tables, stats, _oracle, _made = generated
+    queries = MESH_QUERIES + MESH_AGG_QUERIES + tuple(MESH_SEMI_QUERIES)
+    local = MESH_SHARDS // LOCAL_MEMBERS
+    log(f"phase 7b: TPC-H SF{SF_LARGE:g} on an {MESH_SHARDS}-shard mesh over "
+        f"{LOCAL_MEMBERS} members of this process on cuda:0 ({local} "
+        "shards each)")
+    log(f"  card: {gpu_name_and_power()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with rss_peak() as rss:
+        before = rss.peak
+        results = MR.run_members(["cuda:0"] * LOCAL_MEMBERS, local,
+                                 tables=(tables, stats), queries=queries,
+                                 runs=LOCAL_MEMBER_RUNS)
+    log(f"  {LOCAL_MEMBERS} members ran in {time.perf_counter() - t0:.1f} "
+        f"s; host resident {before / 2**30:.2f} GiB before, at most "
+        f"{rss.peak / 2**30:.2f} GiB while they ran (the members share the "
+        "host tables)")
+    total, summary = check_ranks(cuda, results, "member", generated, mesh,
+                                 others=[("phase 7", spread["ms"])])
+    if len(spread["gathers"]) == LOCAL_MEMBERS:
+        for i, (mine, theirs) in enumerate(zip(summary["gathers"],
+                                               spread["gathers"])):
+            if mine != theirs:
+                raise AssertionError(
+                    f"member {i}'s gathers are not phase 7's process {i}'s: "
+                    + "; ".join(f"Q{q} {mine[q]} vs {theirs[q]}"
+                                for q in queries if mine[q] != theirs[q]))
+        log(f"  every member's gathers (into, from, why, rows, bytes) are "
+            f"phase 7's process's of the same index, in all "
+            f"{len(queries)} queries")
+    member_failure()
+    count = torch.cuda.device_count()
+    if count < 2:
+        log("  one member a card: not run, this machine has "
+            f"{count} card (it needs two or more)")
+        return total
+    k = 4 if count >= 4 else 2
+    log(f"  one member a card over {k} of {count} cards "
+        f"({MESH_SHARDS // k} shards each):")
+    results = MR.run_members([f"cuda:{i}" for i in range(k)],
+                             MESH_SHARDS // k, tables=(tables, stats),
+                             queries=queries, runs=LOCAL_MEMBER_RUNS)
+    cards, _summary = check_ranks(cuda, results, "member", generated, mesh,
+                                  others=[("phase 7", spread["ms"]),
+                                          ("one card", summary["ms"])])
+    for name, v in cards.items():
+        total[name] += v
     return total
+
+
+def member_failure():
+    """MR.build_db's star on LOCAL_MEMBERS members of cuda:0: member 1's
+    plan raises on purpose while member 0 runs on into the query's
+    exchanges; execute must raise member 1's error on every member within
+    MEMBER_FAIL_S, the next statement give the rows of before, and close
+    stop every member's thread."""
+    from quickstep_tpu_torch.bench import multihost_run as MR
+    db = MR.build_db(MR.config(MR.STAR_THRESHOLD), "cuda", 2,
+                     mesh_devices=["cuda:0"] * LOCAL_MEMBERS)
+    threads = [t.thread for t in db._threads]
+    try:
+        sql = MR.QUERIES["join_agg"]
+        want = db.execute(sql).rows
+        victim = db.members[1]
+
+        def fail(*args, **kwargs):
+            raise RuntimeError("member 1 fails on purpose")
+        victim.run_plan = fail
+        t0 = time.perf_counter()
+        try:
+            db.execute(sql)
+        except RuntimeError as e:
+            if "on purpose" not in str(e):
+                raise
+        else:
+            raise AssertionError("a member's failure did not raise")
+        took = time.perf_counter() - t0
+        if took > MEMBER_FAIL_S:
+            raise AssertionError(f"a member's failure took {took:.1f} s to "
+                                 "raise")
+        del victim.run_plan
+        if db.execute(sql).rows != want:
+            raise AssertionError("the statement after a member's failure "
+                                 "returned other rows")
+    finally:
+        db.close()
+    for t in threads:
+        t.join(MEMBER_FAIL_S)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a member's thread outlived close")
+    log(f"  member 1 raising on purpose: execute raised its error on every "
+        f"member in {took * 1000:.1f} ms; the next statement's rows are "
+        f"those of before; close stopped all {len(threads)} threads")
 
 
 def phase_dist_step(cuda):
@@ -2895,7 +3076,9 @@ def run_phases(card, cuda, G, t_start, writer):
     large_census.report(f"SF{SF_LARGE:g} mesh")
     large_census.calls += small_census.calls
     large_census.report("both meshes")
-    add(phase_multihost(cuda, generated, mesh))
+    spread_launches, spread = phase_multihost(cuda, generated, mesh)
+    add(spread_launches)
+    add(phase_local_mesh(cuda, generated, mesh, spread))
     del generated
     add(phase_dist_step(cuda))
     stored = phase_store(cuda, writer, written)

@@ -32,6 +32,10 @@ a card, peak device memory; the bytes it uploaded of each table beside
 the table's bytes, its peak memory (device, or host on the CPU) and, on a
 card, each kernel's launches. A rank that fails exits non-zero;
 the caller bounds the run with a timeout.
+
+`run_members` runs the same batteries over members of one process instead
+(parallel/local_group.py, Database(..., mesh_devices=...)) and returns
+each member's rows and figures in the same form.
 """
 
 from __future__ import annotations
@@ -179,11 +183,18 @@ def config(threshold: int):
                   display_timing=False)
 
 
-def build_db(cfg, device, mesh_shards):
+def build_db(cfg, device, mesh_shards, mesh_devices=None):
     """Deterministic two-table star: fact(k, g, v) x dim(k, name)
-    (tests/multihost_worker.py's build_db on the port)."""
+    (tests/multihost_worker.py's build_db on the port), over members of
+    this process where mesh_devices names them."""
     from quickstep_tpu_torch import Database
-    db = Database(config=cfg, device=device, mesh_shards=mesh_shards)
+    return fill_star(Database(config=cfg, device=device,
+                              mesh_shards=mesh_shards,
+                              mesh_devices=mesh_devices))
+
+
+def fill_star(db):
+    """build_db's tables in db; returns db."""
     db.execute("CREATE TABLE dim (k INT NOT NULL, name VARCHAR(10) NOT NULL)")
     db.execute("INSERT INTO dim VALUES " + ", ".join(
         f"({k}, 'd{k % 7}')" for k in range(1, 33)))
@@ -324,17 +335,20 @@ def uploads(db) -> dict:
     return out
 
 
-def run_queries(db, queries: dict, runs: int, rows: dict, figures: dict):
+def run_queries(db, queries: dict, runs: int, rows: dict, figures: dict,
+                reset_peak: bool = True):
     """Each query `runs` times: its rows of each run into rows[name], its
     times, what crossed the processes and, on a card, the peak memory of
-    its runs into figures["queries"][name]."""
+    its runs into figures["queries"][name] (since this rank's reset of the
+    card's peak before the query, or, without reset_peak, another's: the
+    members that share a card share its allocator)."""
     import torch
     card = db.device.type == "cuda"
     for name, sql in queries.items():
         rows[name] = []
         fig = figures["queries"].setdefault(name, {
             "ms": [], "retries": [], "host_syncs": [], "mesh": []})
-        if card:
+        if card and reset_peak:
             torch.cuda.reset_peak_memory_stats(db.device)
         for _ in range(runs):
             t0 = time.perf_counter()
@@ -346,6 +360,114 @@ def run_queries(db, queries: dict, runs: int, rows: dict, figures: dict):
             fig["mesh"].append(db.executor.last_mesh_info)
         if card:
             fig["peak_bytes"] = torch.cuda.max_memory_allocated(db.device)
+
+
+def batteries(make_db, each, finish, star=False, scale=0.0, tables=None,
+              queries=None, runs=1, reset_peak=lambda rank: True) -> None:
+    """The runs of --star, then of --scale or of `tables` (a (tables,
+    stats) pair of bench/tpch_fullgen.py's generate or read_tables), with
+    --queries' numbers, on the ranks of this process: make_db(cfg) makes a
+    database; each(db, fn) calls fn(rank, its rows, its figures) for every
+    rank this process runs (a process's database itself, or each member
+    on its thread), and finish(db) ends each database."""
+    def per_rank(db, qs):
+        each(db, lambda rank, rows, fig: run_queries(
+            rank, qs, runs, rows, fig, reset_peak(rank)))
+
+    if star:
+        db = fill_star(make_db(config(STAR_THRESHOLD)))
+        each(db, lambda rank, _rows, fig: fig.__setitem__(
+            "collectives", run_collectives(rank.executor.mesh)))
+        per_rank(db, QUERIES)
+        add_skew_tables(db, db.executor.mesh.n)
+        per_rank(db, RETRY_QUERIES)
+        for stmt in SEMI_TABLES:
+            db.execute(stmt)
+        per_rank(db, SEMI_QUERIES)
+        for stmt in DML:
+            db.execute(stmt)
+        per_rank(db, DML_QUERIES)
+        finish(db)
+    if scale or tables is not None:
+        from quickstep_tpu_torch.bench.tpch import (
+            TPCH_QUERIES, load_tpch, with_tiebreak)
+        from quickstep_tpu_torch.config import Config
+        numbers = sorted(TPCH_QUERIES) if not queries else list(queries)
+        if tables is not None:
+            from quickstep_tpu_torch.bench.tpch_fullgen import load_tables
+            db = make_db(Config(distributed=True))
+            each(db, lambda rank, _rows, _fig: load_tables(rank, *tables))
+            qs = {f"Q{q}": with_tiebreak(q, TPCH_QUERIES[q])
+                  for q in numbers}
+        else:
+            db = make_db(config(TPCH_THRESHOLD))
+            each(db, lambda rank, _rows, _fig: load_tpch(rank, scale=scale,
+                                                         seed=0))
+            qs = {f"Q{q}": TPCH_QUERIES[q] for q in numbers}
+        per_rank(db, qs)
+        finish(db)
+
+
+def peak_bytes(figures: dict, device) -> int:
+    """The most memory a rank held: on a card its queries' peaks and the
+    allocator's, else the process's resident peak."""
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+        return max([q.get("peak_bytes", 0)
+                    for q in figures["queries"].values()] +
+                   [torch.cuda.max_memory_allocated(device)])
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def run_members(devices, local_shards: int, star: bool = False,
+                scale: float = 0.0, tables=None, queries=None,
+                runs: int = 1) -> list:
+    """main's runs over members of this process instead of processes
+    (Database(..., mesh_devices=devices), one member a device, each with
+    local_shards shards; `tables` a (tables, stats) pair that every member
+    loads, sharing the host arrays). Returns each member's {"rows",
+    "figures"} in member order, as each process writes them
+    (figures["process"] the member's index, "launches" its thread's)."""
+    import threading
+    import torch
+    from quickstep_tpu_torch import Database
+    card = torch.device(devices[0]).type == "cuda"
+    out = [{"rows": {}, "figures": {
+        "process": i, "world": len(devices), "local_shards": local_shards,
+        "device": str(devices[i]), "backend": "members", "queries": {},
+        "uploads": {}}} for i in range(len(devices))]
+    if card:
+        from quickstep_tpu_torch.ops import cuda
+        torch.cuda.init()
+        cuda.reset_launches()
+
+    def each(db, fn):
+        return db.on_members(lambda m: fn(m, out[m.index]["rows"],
+                                          out[m.index]["figures"]))
+
+    def finish(db):
+        def counts(m, _rows, fig):
+            fig["uploads"].update(uploads(m))
+            if card:
+                mine = fig.setdefault("launches", dict.fromkeys(
+                    cuda.LAUNCHES, 0))
+                for name, n in cuda.launches_of(
+                        threading.current_thread()).items():
+                    mine[name] += n
+        each(db, counts)
+        db.close()
+
+    batteries(lambda cfg: Database(
+        config=cfg, device="cuda" if card else "cpu",
+        mesh_shards=local_shards, mesh_devices=devices), each, finish, star,
+        scale, tables, queries, runs,
+        # the first member on each device resets its peak before a query
+        lambda m: list(devices).index(devices[m.index]) == m.index)
+    for m in out:
+        m["figures"]["peak_bytes"] = peak_bytes(m["figures"],
+                                                m["figures"]["device"])
+    return out
 
 
 def main(argv=None) -> None:
@@ -383,56 +505,20 @@ def main(argv=None) -> None:
         from quickstep_tpu_torch.ops import cuda
         cuda.reset_launches()
         torch.cuda.init()       # the allocator's statistics need it
-    shards = args.local_shards
 
-    if args.star:
-        from quickstep_tpu_torch.parallel.mesh import make_mesh
-        figures["collectives"] = run_collectives(make_mesh(
-            shards, device, group=multihost.world_group()))
-        db = build_db(config(STAR_THRESHOLD), device, shards)
-        run_queries(db, QUERIES, args.runs, rows, figures)
-        add_skew_tables(db, db.executor.mesh.n)
-        run_queries(db, RETRY_QUERIES, args.runs, rows, figures)
-        for stmt in SEMI_TABLES:
-            db.execute(stmt)
-        run_queries(db, SEMI_QUERIES, args.runs, rows, figures)
-        for stmt in DML:
-            db.execute(stmt)
-        run_queries(db, DML_QUERIES, args.runs, rows, figures)
+    def finish(db):
         figures["uploads"].update(uploads(db))
         db.close()
-    if args.scale or args.tables:
-        from quickstep_tpu_torch import Database
-        from quickstep_tpu_torch.bench.tpch import (
-            TPCH_QUERIES, load_tpch, with_tiebreak)
-        from quickstep_tpu_torch.config import Config
-        numbers = sorted(TPCH_QUERIES) if not args.queries else \
-            [int(q) for q in args.queries.split(",")]
-        if args.tables:
-            from quickstep_tpu_torch.bench.tpch_fullgen import load_tables
-            db = Database(config=Config(distributed=True), device=device,
-                          mesh_shards=shards)
-            load_tables(db, *read_tables(args.tables))
-            queries = {f"Q{q}": with_tiebreak(q, TPCH_QUERIES[q])
-                       for q in numbers}
-        else:
-            db = Database(config=config(TPCH_THRESHOLD), device=device,
-                          mesh_shards=shards)
-            load_tpch(db, scale=args.scale, seed=0)
-            queries = {f"Q{q}": TPCH_QUERIES[q] for q in numbers}
-        run_queries(db, queries, args.runs, rows, figures)
-        figures["uploads"].update(uploads(db))
-        db.close()
-
+    from quickstep_tpu_torch import Database
+    batteries(lambda cfg: Database(config=cfg, device=device,
+                                   mesh_shards=args.local_shards),
+              lambda db, fn: fn(db, rows, figures), finish, args.star,
+              args.scale, read_tables(args.tables) if args.tables else None,
+              [int(q) for q in args.queries.split(",")] if args.queries
+              else None, args.runs)
+    figures["peak_bytes"] = peak_bytes(figures, device)
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        figures["peak_bytes"] = max(
-            [q.get("peak_bytes", 0) for q in figures["queries"].values()] +
-            [torch.cuda.max_memory_allocated(device)])
         figures["launches"] = dict(cuda.LAUNCHES)
-    else:
-        figures["peak_bytes"] = resource.getrusage(
-            resource.RUSAGE_SELF).ru_maxrss * 1024
     multihost.barrier()
     with open(f"{args.out}.{args.proc_id}", "wb") as f:
         pickle.dump({"rows": rows, "figures": figures}, f)

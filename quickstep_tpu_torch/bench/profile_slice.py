@@ -4,7 +4,7 @@ device memory.
 
     python -m quickstep_tpu_torch.bench.profile_slice [--scale 10] [--runs 5]
         [--queries 6,1] [--trace-dir DIR] [--mesh-shards N] [--compactions]
-        [--shuffle-census]
+        [--shuffle-census] [--members K]
 
 --queries takes TPC-H query numbers and the names of bench/tpch_fullgen.py's
 WINDOW_QUERIES (w1 to w6) and OPERATOR_QUERIES (o1 to o5). Q1 and Q6 alone run on lineitem's 7 columns from
@@ -32,6 +32,15 @@ cold, then once warm, and prints the K14 calls of the warm run
 (parallel/shuffle.py partition_dest: the rows of each, its partitions,
 salt and side), then the medians over all the queries' calls, which are
 K14's and K15's most common shapes; then it profiles as above.
+
+With --members K (and --mesh-shards S) it holds the mesh of K x S shards
+in one process against the same mesh over K members of the process on
+the card (Database(..., mesh_devices=["cuda:0"] * K),
+parallel/local_group.py), one database after the other on the same
+generated tables: for each query, the median of `2 * runs` warm
+`Database.execute` calls and, under torch.profiler over `runs` more, the
+device time per run, the device busy share and the device operations per
+run (every member's), and whether both returned the same rows.
 """
 
 from __future__ import annotations
@@ -212,6 +221,64 @@ def shuffle_census(db, queries):
           f"{sum(c[0] < 1_000_000 for c in every)}", flush=True)
 
 
+def profile_execute(db, q, runs, label):
+    """Warm Database.execute medians and device figures of query q on db
+    (any database: every member's device work is counted). Returns its
+    rows."""
+    sql = NAMED_QUERIES[q] if isinstance(q, str) else TPCH_QUERIES[q]
+    rows = db.execute(sql).rows         # cold run: uploads the columns
+    exec_ms = _ms(lambda: db.execute(sql), 2 * runs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            db.execute(sql)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000 / runs
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        raise RuntimeError(f"{label}: the profiler saw no device activity")
+    device_ms = sum(e.time_range.elapsed_us() for e in device) / 1000 / runs
+    print(f"{label}: Database.execute median {exec_ms:.3f} ms; profiled "
+          f"{wall_ms:.3f} ms per run, device time {device_ms:.3f} ms per "
+          f"run, device busy share {device_ms / wall_ms:.3f}, "
+          f"{len(device) / runs:.0f} device ops per run", flush=True)
+    return rows
+
+
+def compare_members(scale, queries, runs, members, shards):
+    """The one-process mesh of members x shards shards against the same
+    mesh over `members` members of cuda:0 (see the module's docstring)."""
+    from quickstep_tpu_torch.bench.tpch_fullgen import generate, load_tables
+    t0 = time.perf_counter()
+    tables, stats, _oracle = generate(scale, lambda msg: None)
+    print(f"all 8 tables SF{scale:g} generated in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    got = {}
+    for k in (1, members):
+        if k == 1:
+            db = Database(config=Config(distributed=True), device="cuda",
+                          mesh_shards=members * shards)
+            load_tables(db, tables, stats)
+            where = f"one process, {members * shards} shards"
+        else:
+            db = Database(config=Config(distributed=True), device="cuda",
+                          mesh_shards=shards,
+                          mesh_devices=["cuda:0"] * members)
+            db.on_members(lambda m: load_tables(m, tables, stats))
+            where = f"{members} members x {shards} shards"
+        try:
+            for q in queries:
+                rows = profile_execute(db, q, runs, f"Q{q} ({where})")
+                got.setdefault(q, []).append(rows)
+        finally:
+            db.close()
+    for q, (one, spread) in got.items():
+        print(f"Q{q}: the members' rows are the one-process mesh's: "
+              f"{one == spread}", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -226,11 +293,20 @@ def main(argv=None):
                     help="print each query's compactions; no profile")
     ap.add_argument("--shuffle-census", action="store_true",
                     help="print each query's K14 calls before the profile")
+    ap.add_argument("--members", type=int, default=None,
+                    help="the mesh over this many members of the process "
+                         "against the one-process mesh")
     args = ap.parse_args(argv)
     queries = [q if q in NAMED_QUERIES else int(q)
                for q in args.queries.split(",")]
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: torch.cuda.is_available() is false")
+    if args.members is not None:
+        if args.mesh_shards is None:
+            raise SystemExit("--members needs --mesh-shards, each member's")
+        compare_members(args.scale, queries, args.runs, args.members,
+                        args.mesh_shards)
+        return
     cfg = Config(distributed=args.mesh_shards is not None)
     db = Database(config=cfg, device="cuda", mesh_shards=args.mesh_shards)
     try:

@@ -141,15 +141,14 @@ def main(argv=None):
     ap.add_argument("--port", type=int, default=3000)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--storage_path", default=None)
-    ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
-                    help="where the server's tables live (server mode)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the server's tables live (server mode; the "
+                    "card unless the CPU is asked for)")
     ap.add_argument("--hbm_budget_bytes", default=0, type=int,
                     help="device memory budget of the server (0: none)")
     ap.add_argument("--connect", default=None, help="host:port (client mode)")
     ap.add_argument("-c", "--command", default=None)
     args = ap.parse_args(argv)
-    if not args.connect and args.device is None:
-        ap.error("the server needs --device cuda or --device cpu")
 
     if args.connect:
         host, _, port = args.connect.partition(":")

@@ -23,8 +23,9 @@ BANNER = """quickstep-tpu shell. Type SQL terminated by ';', \\q to quit."""
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(prog="quickstep_tpu_torch")
-    ap.add_argument("--device", required=True, choices=("cuda", "cpu"),
-                    help="where the tables live and the operators run")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the tables live and the operators run "
+                    "(the card unless the CPU is asked for)")
     ap.add_argument("--storage_path", default=None,
                     help="catalog/data directory (persisted on \\q)")
     ap.add_argument("--initialize_db", action="store_true",

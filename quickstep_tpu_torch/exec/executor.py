@@ -28,7 +28,9 @@ in one resident run over them. Segments whose min/max rule out a scan
 predicate never leave the host.
 
 Over several processes (Config.distributed after parallel/multihost.py's
-bootstrap) every process runs the same statements on the same catalog. A
+bootstrap), or several members of one process (parallel/local_group.py,
+one Executor a member on the member's thread and device), every process
+runs the same statements on the same catalog. A
 table at or above replicate_threshold_rows is uploaded as this process's
 shards' rows only (multihost.local_rows), a smaller one whole; the plan's
 result is gathered to every process, its runtime flags are OR'd over the
@@ -77,7 +79,7 @@ from quickstep_tpu_torch.exec.result import QueryResult
 from quickstep_tpu_torch.expressions.scalar import EvalContext, Lit
 from quickstep_tpu_torch.ops import kernels as K
 from quickstep_tpu_torch.ops.sort import order_permutation
-from quickstep_tpu_torch.parallel import multihost
+from quickstep_tpu_torch.parallel import local_group, multihost
 from quickstep_tpu_torch.parallel.mesh import (
     all_gather, make_mesh, pad_to_multiple, por)
 from quickstep_tpu_torch.storage.eviction import make_policy
@@ -108,6 +110,12 @@ class Executor:
         # mesh is every device JAX sees); nothing probes the hardware for
         # the count
         self.mesh = None
+        # the member of a mesh over members that this executor runs (its
+        # thread's, parallel/local_group.py), else None
+        self.member = local_group.current()
+        if self.member is not None and self.member.device != device:
+            raise ExecutionError(f"{self.member} runs an executor on "
+                                 f"{device}")
         if config.distributed and mesh_shards is not None:
             self.mesh = make_mesh(mesh_shards, device,
                                   config.default_mesh_axis,
@@ -171,6 +179,7 @@ class Executor:
     def preload(self) -> None:
         """Upload every relation to the device (PreloaderThread analog,
         flag preload_buffer_pool)."""
+        use_device(self.device)
         for rel in self.db.relations.values():
             self._device_table(rel, None)
 
@@ -182,9 +191,21 @@ class Executor:
     # statement dispatch
     # ================================================================
     def _check_config(self) -> None:
-        """Refuse a distributed run without its shard count, and take the
-        eviction policy the config names now (an unknown one raises)."""
+        """Refuse a distributed run without its shard count, a mesh over
+        members without Config.distributed or within a torch.distributed
+        group (processes x members is not ported), and take the eviction
+        policy the config names now (an unknown one raises)."""
         self._policy()
+        if self.member is not None:
+            if not self.config.distributed:
+                raise ExecutionError(
+                    "a mesh over members (mesh_devices) needs "
+                    "Config.distributed = True")
+            if multihost.processes() > 1:
+                raise ExecutionError(
+                    "mesh_devices in a process of a torch.distributed group: "
+                    "a mesh spans either the processes (one device each) "
+                    "or the members of one process, not both")
         if self.config.distributed and self.mesh is None:
             raise ExecutionError(
                 "distributed = True needs the mesh's shard count: "
@@ -195,6 +216,7 @@ class Executor:
     def execute_statement(self, stmt: A.Statement) -> QueryResult:
         t0 = time.perf_counter()
         self._check_config()
+        use_device(self.device)
         self.host_syncs = 0
         self.retries = 0
         if self.mesh is not None:
@@ -1412,6 +1434,16 @@ def _nbytes(x) -> int:
     if isinstance(x, torch.Tensor):
         return x.numel() * x.element_size()
     return np.asarray(x).nbytes
+
+
+def use_device(device: torch.device) -> None:
+    """Make a card with an index the calling thread's current device, where
+    it is not yet: the kernels launch on the current device (ops/cuda.py
+    _stream), and a statement may run on any thread (the PolicyEnforcer's,
+    a member's, the caller's)."""
+    if device.type == "cuda" and device.index is not None and \
+            torch.cuda.current_device() != device.index:
+        torch.cuda.set_device(device)
 
 
 def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -7,10 +7,12 @@ checkout), which is loaded with ctypes. The library is rebuilt whenever a
 hash of the sources and flags changes. Nothing is compiled or loaded when
 this module is imported.
 
-Every wrapper checks device, dtype, shape and contiguity, allocates the
-kernel's outputs and scratch with torch, launches on torch's current CUDA
-stream, raises when the launch reports an error, and adds one to its entry in
-LAUNCHES for each kernel launch it makes.
+Every wrapper checks device, dtype, shape and contiguity (its tensors on the
+calling thread's current device: _stream), allocates the kernel's outputs
+and scratch with torch, launches on torch's current CUDA stream, raises
+when the launch reports an error, and adds one to its entry in LAUNCHES
+(and in its thread's THREAD_LAUNCHES, under a lock) for each kernel launch
+it makes.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -77,11 +79,33 @@ _BLOCKS_PER_SM = 8
 
 _lib = None
 _lock = threading.Lock()
+# LAUNCHES again, by the thread that launched: a member of a mesh over
+# members launches from its own thread
+THREAD_LAUNCHES: Dict[threading.Thread, Dict[str, int]] = {}
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        THREAD_LAUNCHES.clear()
+
+
+def _launched(name: str) -> None:
+    """One launch of kernel `name`, in LAUNCHES and in the calling thread's
+    THREAD_LAUNCHES (threads launch at once: counted under a lock)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+        mine = THREAD_LAUNCHES.setdefault(threading.current_thread(),
+                                          dict.fromkeys(LAUNCHES, 0))
+        mine[name] += 1
+
+
+def launches_of(thread: threading.Thread) -> Dict[str, int]:
+    """The launches made from `thread` since reset_launches."""
+    with _count_lock:
+        return dict(THREAD_LAUNCHES.get(thread, dict.fromkeys(LAUNCHES, 0)))
 
 
 def _nvcc() -> str:
@@ -319,13 +343,13 @@ def masked_reduce(fn: str, vals: Optional[torch.Tensor],
     part_cnt = torch.empty(blocks, dtype=torch.int64, device=device)
     out_val = torch.empty((), dtype=out_dt, device=device)
     out_cnt = torch.empty((), dtype=torch.int64, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
+    stream = _stream(device)
     err = lib.qs_masked_reduce(
         _FN[fn], _DTYPE[dtype], _ptr(vals if fn != "count" else None),
         _ptr(valid), _ptr(alive), n, _ptr(part_val), _ptr(part_cnt), blocks,
         _ptr(out_val), _ptr(out_cnt), stream)
     _check(lib, err, "masked_reduce")
-    LAUNCHES["scalar_agg"] += 1
+    _launched("scalar_agg")
     if fn == "count":
         return out_cnt, out_cnt
     return out_val, out_cnt
@@ -554,7 +578,7 @@ def _dense_launches(lib, key_cols, key_offsets, key_strides, domain, alive,
         err = lib.qs_dense_aggregate(ctypes.byref(args), blocks, smem,
                                      int(lane), stream)
         _check(lib, err, "dense_aggregate")
-        LAUNCHES["dense_groupby"] += 1
+        _launched("dense_groupby")
 
 
 def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
@@ -564,6 +588,16 @@ def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
 
 
 def _stream(device: torch.device) -> int:
+    """The current stream of `device`, on which a kernel for tensors there
+    launches. The kernels launch on the CUDA runtime's current device (and
+    some read its SM count), so a tensor on another card raises: a member
+    of a mesh over cards launches only on its own (torch.cuda.set_device
+    on its thread)."""
+    here = torch.cuda.current_device()
+    if device.index is not None and device.index != here:
+        raise ValueError(f"a kernel's tensors are on {device} while this "
+                         f"thread's current device is cuda:{here}: set the "
+                         "device first (torch.cuda.set_device)")
     return torch.cuda.current_stream(device).cuda_stream
 
 
@@ -627,7 +661,7 @@ def segment_reduce(fn: str, change: torch.Tensor, s_alive: torch.Tensor,
         _ptr(vals if fn != "count" else None), _ptr(valid), _ptr(out_val),
         _ptr(out_nn), _ptr(scratch), _stream(device))
     _check(lib, err, "segment_reduce")
-    LAUNCHES["sort_groupby"] += 1
+    _launched("sort_groupby")
     return (out_nn if fn == "count" else out_val), out_nn
 
 
@@ -682,7 +716,7 @@ def direct_build(key: torch.Tensor, alive: torch.Tensor, lo: int, domain: int,
         int(domain), _ptr(table), _ptr(bits), _ptr(dup), _blocks(n, device),
         _stream(device))
     _check(lib, err, "direct_build")
-    LAUNCHES["direct_join"] += 1
+    _launched("direct_join")
     return buf, (None if presence else dup != 0)
 
 
@@ -720,7 +754,7 @@ def direct_probe(table: torch.Tensor, key: torch.Tensor, alive: torch.Tensor,
         _ptr(bidx), _ptr(matched), _blocks(-(-n // 4), device),
         _stream(device))
     _check(lib, err, "direct_probe")
-    LAUNCHES["direct_join"] += 1
+    _launched("direct_join")
     return matched if presence else (bidx, matched)
 
 
@@ -760,7 +794,7 @@ def sorted_probe(sorted_key: torch.Tensor, order: torch.Tensor,
                    UNIQUE_PROBE_BLOCKS_PER_SM * _sms(device))),
         _stream(device))
     _check(lib, err, "sorted_probe")
-    LAUNCHES["merge_unique_probe"] += 1
+    _launched("merge_unique_probe")
     return bidx, matched, dup != 0
 
 
@@ -852,12 +886,12 @@ def multi_gather(cols: List[torch.Tensor], idx: torch.Tensor,
                 *head, ctypes.cast(c_offsets, ctypes.c_void_p), row, n_src,
                 _ptr(packed), *tail, _blocks(n_src, device), _stream(device))
             _check(lib, err, "multi_gather (packed)")
-            LAUNCHES["multi_gather_packed"] += 1
+            _launched("multi_gather_packed")
         else:
             err = lib.qs_multi_gather(*head, n_src, *tail,
                                       _blocks(m, device), _stream(device))
             _check(lib, err, "multi_gather")
-            LAUNCHES["multi_gather"] += 1
+            _launched("multi_gather")
     return outs
 
 
@@ -939,7 +973,7 @@ def expand_probe(sorted_key: torch.Tensor, order: torch.Tensor,
                    FENCE_BLOCKS_PER_SM * _sms(device))),
         _stream(device))
     _check(lib, err, "expand_probe")
-    LAUNCHES["expand_probe"] += 1
+    _launched("expand_probe")
     return rows, counts, overflow != 0
 
 
@@ -1010,7 +1044,7 @@ def run_stats_probe(build_key: torch.Tensor, bmask: torch.Tensor,
                        UNIQUE_PROBE_BLOCKS_PER_SM * _sms(device))),
             _stream(device))
         _check(lib, err, "run_stats_probe")
-        LAUNCHES["merge_cmp_probe"] += 1
+        _launched("merge_cmp_probe")
     if op is None:
         return matched, out_min, out_max
     return matched
@@ -1057,7 +1091,7 @@ def stable_partition(mask: torch.Tensor, limit: Optional[int] = None,
             _ptr(src), n, m, _ptr(scratch), _ptr(out), _ptr(out_mask),
             _SCATTER_BLOCKS_PER_SM * _sms(device), _stream(device))
         _check(lib, err, "stable_partition")
-        LAUNCHES["sort_groupby_compact"] += 1
+        _launched("sort_groupby_compact")
     return (out, out_mask) if with_mask else out
 
 
@@ -1114,7 +1148,7 @@ def window_prefix(fn: str, vals: Optional[torch.Tensor], live: torch.Tensor,
         int(peer_start is None), *[_ptr(t) for t in ins], n, _ptr(scratch),
         _ptr(out_val), _ptr(out_cnt), _stream(device))
     _check(lib, err, "window_prefix")
-    LAUNCHES["window_prefix"] += 1
+    _launched("window_prefix")
     return out_val, out_cnt
 
 
@@ -1158,7 +1192,7 @@ def frame_bounds(seg_start: torch.Tensor, mode: str, start: Optional[int],
         int(start is None), int(end is None), _ptr(scratch), _ptr(lo),
         _ptr(hi), _stream(device))
     _check(lib, err, "frame_bounds")
-    LAUNCHES["frame_bounds"] += 1
+    _launched("frame_bounds")
     return lo, hi
 
 
@@ -1196,7 +1230,7 @@ def frame_minmax(fn: str, c: torch.Tensor, lo: torch.Tensor,
                               _ptr(table), nsuper, levels, _ptr(out),
                               _stream(device))
     _check(lib, err, "frame_minmax")
-    LAUNCHES["frame_minmax"] += 1
+    _launched("frame_minmax")
     return out
 
 
@@ -1225,7 +1259,7 @@ def sliding_sum(c: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     err = lib.qs_sliding_sum(_DTYPE[c.dtype], *[_ptr(t) for t in ins], n,
                              _ptr(scratch), _ptr(out), _stream(device))
     _check(lib, err, "sliding_sum")
-    LAUNCHES["sliding_sum"] += 1
+    _launched("sliding_sum")
     return out
 
 
@@ -1283,7 +1317,7 @@ def hash_keys(cols: List[torch.Tensor]) -> torch.Tensor:
                            ctypes.cast(codes, ctypes.c_void_p), n, _ptr(out),
                            _blocks(n, device), _stream(device))
     _check(lib, err, "hash_keys")
-    LAUNCHES["hash_keys"] += 1
+    _launched("hash_keys")
     return out
 
 
@@ -1355,7 +1389,7 @@ def oa_build(cols: List[torch.Tensor], alive: torch.Tensor,
                               _ptr(alive), n, _ptr(table), table_size,
                               _ptr(dup), _blocks(n, device), _stream(device))
     _check(lib, err, "oa_build")
-    LAUNCHES["open_addressing"] += 1
+    _launched("open_addressing")
     return table, dup != 0
 
 
@@ -1419,7 +1453,7 @@ def oa_probe(table, bcols: List[torch.Tensor], pcols: List[torch.Tensor],
             ctypes.cast(codes, ctypes.c_void_p), _ptr(alive), n, _ptr(out),
             _ptr(matched), _blocks(n, device), _stream(device))
         _check(lib, err, "oa_probe")
-        LAUNCHES["open_addressing"] += 1
+        _launched("open_addressing")
         return out, matched
     size = int(table.shape[0]) if table.dim() == 1 else -1
     _require(table, "table", device, size, (torch.int32,))
@@ -1444,7 +1478,7 @@ def oa_probe(table, bcols: List[torch.Tensor], pcols: List[torch.Tensor],
                           _ptr(out), _ptr(matched), _blocks(n, device),
                           _stream(device))
     _check(lib, err, "oa_probe")
-    LAUNCHES["open_addressing"] += 1
+    _launched("open_addressing")
     return out, matched
 
 
@@ -1468,7 +1502,7 @@ def run_starts(s: torch.Tensor, n_live: torch.Tensor, count: bool):
                             _ptr(flags), _ptr(total), _blocks(n, device),
                             _stream(device))
     _check(lib, err, "run_starts")
-    LAUNCHES["distinct_count"] += 1
+    _launched("distinct_count")
     return total if count else flags
 
 
@@ -1500,7 +1534,7 @@ def radix_sort_live(vals: torch.Tensor, valid: Optional[torch.Tensor],
                                  _blocks(n, device), 4 * sms,
                                  _stream(device))
     _check(lib, err, "radix_sort_live")
-    LAUNCHES["distinct_sort"] += 1
+    _launched("distinct_sort")
     return out, n_live
 
 
@@ -1575,7 +1609,7 @@ def order_permutation(keys: List[torch.Tensor],
         _ptr(codes), _ptr(vals), _ptr(spans), _ptr(scratch),
         _blocks(n, device), 4 * _sms(device), _stream(device))
     _check(lib, err, "order_permutation")
-    LAUNCHES["order_permutation"] += 1
+    _launched("order_permutation")
     return out
 
 
@@ -1709,7 +1743,7 @@ def partition_dest(key: torch.Tensor, alive: torch.Tensor, n_parts: int,
                                           _ptr(dest), _ptr(counts),
                                           _ptr(overflow), stream),
                "partition_dest")
-    LAUNCHES["partition_dest"] += 1
+    _launched("partition_dest")
     return (dest, overflow, counts) if with_counts else (dest, overflow)
 
 
@@ -1749,7 +1783,7 @@ def bucket_rows(dest: torch.Tensor, counts: torch.Tensor, rows: int,
                              reciprocal(cap), _ptr(counts), _ptr(idx),
                              _ptr(occ), grid, _stream(device))
     _check(lib, err, "bucket_rows")
-    LAUNCHES["scatter_compact"] += 1
+    _launched("scatter_compact")
     return idx, occ
 
 
@@ -1787,7 +1821,7 @@ def scatter_compact(col: torch.Tensor, dest: torch.Tensor, capacity: int,
         _fill_bits(fill, col.dtype), _ptr(out),
         _blocks(max(n, capacity), device), _stream(device))
     _check(lib, err, "scatter_compact")
-    LAUNCHES["scatter_compact"] += 1
+    _launched("scatter_compact")
     return out
 
 
@@ -1822,7 +1856,7 @@ def bloom_build(cols: List[torch.Tensor], alive: torch.Tensor,
                              n, _ptr(words), nbits, _blocks(n, device),
                              _stream(device))
     _check(lib, err, "bloom_build")
-    LAUNCHES["bloom_filter"] += 1
+    _launched("bloom_filter")
     return words
 
 
@@ -1848,5 +1882,5 @@ def bloom_probe(words: torch.Tensor, cols: List[torch.Tensor],
                              n, _ptr(words), nbits, _ptr(out),
                              _blocks(n, device), _stream(device))
     _check(lib, err, "bloom_probe")
-    LAUNCHES["bloom_filter"] += 1
+    _launched("bloom_filter")
     return out

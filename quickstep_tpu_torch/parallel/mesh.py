@@ -1,29 +1,32 @@
-"""A mesh of row shards over one or more processes, and its collectives.
+"""A mesh of row shards over one or more processes or members, and its
+collectives.
 
 The counterpart of quickstep_tpu/parallel/mesh.py. The reference's mesh is a
 1-D `jax.sharding.Mesh` over chips, driven by one process per host; its
 tests run it over 8 virtual CPU devices in one process, and over 2
 processes in tests/test_multihost.py. Here a mesh is n = world x local
 shards: each of `world` processes (ranks of a torch.distributed group,
-parallel/multihost.py) holds `local_n` shards on its one torch device, and
-process r holds the global shards r * local_n .. r * local_n + local_n - 1.
-One process (no group) holds all n shards, as before.
+parallel/multihost.py), or of `world` members of one process (threads
+each driving its own device, parallel/local_group.py), holds `local_n`
+shards on its one torch device, and rank r holds the global shards
+r * local_n .. r * local_n + local_n - 1. One process (no group) holds all
+n shards on one device, as before.
 
-A sharded column on a process is its local shards' rows, local_n equal
+A sharded column on a rank is its local shards' rows, local_n equal
 row ranges (views) of one tensor; a per-shard body runs as a Python loop
 over the local shards in shard order (the order of `shard_map`'s
 outputs). The collectives are named after `jax.lax`'s and cross the
-processes through torch.distributed: `all_to_all` (dist.all_to_all_single
-of equal buckets), `all_gather` (rows in rank order), and `psum`,
-`pmin`, `pmax` and `por`, which gather every shard's value and fold them
-in shard order, so that their results are bit for bit those of the
-one-process mesh with the same global shard count, floats included
-(all_reduce's ring order would not be); `fold_partials` folds a list of
-partial states with them, one call for each kind. Every tensor crosses
-as its bytes (uint8), so no backend's dtype limits apply; under gloo a
-CUDA tensor is staged through host memory, under NCCL it crosses from
-the card. Each collective adds the
-bytes this process sends to the others to `Mesh.moved`.
+ranks through torch.distributed, or between members by device copies:
+`all_to_all` (all_to_all_single of equal buckets), `all_gather` (rows in
+rank order), and `psum`, `pmin`, `pmax` and `por`, which gather every
+shard's value and fold them in shard order, so that their results are bit
+for bit those of the one-process mesh with the same global shard count,
+floats included (all_reduce's ring order would not be); `fold_partials`
+folds a list of partial states with them, one call for each kind. Every
+tensor crosses as its bytes (uint8), so no backend's dtype limits apply;
+under gloo a CUDA tensor is staged through host memory, under NCCL and
+between members it crosses from the card. Each collective adds the bytes
+this rank sends to the others to `Mesh.moved`.
 """
 
 from __future__ import annotations
@@ -33,11 +36,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-DISTINCT_DEVICES = ("a mesh over distinct devices in one process is not "
-                    "ported: run one process per card, each a rank of a "
-                    "torch.distributed group (parallel/multihost.py "
-                    "bootstrap, then Database(..., mesh_shards=<local "
-                    "shards>)); ROADMAP queue 1 item 5a")
+from quickstep_tpu_torch.parallel.local_group import Member
+
 _ALIGN = 8          # bytes: each column of an exchange starts at a multiple
 # a collective moves at most this many bytes from each process at once (a
 # larger one runs as several): bounded messages for the backend and bounded
@@ -47,21 +47,34 @@ PIECE_BYTES = 1 << 28
 
 class Mesh:
     """n shards along one axis: `devices` holds each local shard's device
-    (every one the same), `group` the torch.distributed group whose ranks
-    each hold as many (None: this process holds them all)."""
+    (every one the same: over several devices each is a member's, and the
+    member its group), `group` the torch.distributed group whose ranks, or
+    the parallel/local_group.py Member whose group's members, each hold as
+    many (None: this process holds them all)."""
 
     def __init__(self, devices: Sequence, axis: str = "x", group=None):
         devs = [torch.device(d) for d in devices]
         if not devs:
             raise ValueError("a mesh needs at least one shard")
         if len(set(devs)) > 1:
-            raise NotImplementedError(DISTINCT_DEVICES)
+            raise ValueError(
+                f"the local shards of a mesh share one device, not "
+                f"{sorted({str(d) for d in devs})}: a mesh over several "
+                "devices in one process has one member a device "
+                "(Database(config, mesh_shards=s, mesh_devices=[...]), "
+                "parallel/local_group.py)")
         self.device = devs[0]
         self.local_n = len(devs)
         self.axis = axis
         self.group = group
         self.world, self.rank = 1, 0
-        if group is not None:
+        self._member = isinstance(group, Member)
+        if self._member:
+            if group.device != self.device:
+                raise ValueError(f"{group} holds its shards on "
+                                 f"{group.device}, not {self.device}")
+            self.world, self.rank = group.world, group.rank
+        elif group is not None:
             import torch.distributed as dist
             self.world = dist.get_world_size(group)
             self.rank = dist.get_rank(group)
@@ -69,9 +82,10 @@ class Mesh:
         first = self.rank * self.local_n
         self.local_ids = list(range(first, first + self.local_n))
         # gloo carries host tensors: a CUDA tensor is staged through host
-        # memory (never by a silent switch of backend)
-        self._stage = group is not None and self.device.type == "cuda" and \
-            _backend(group) == "gloo"
+        # memory (never by a silent switch of backend); members copy from
+        # card to card
+        self._stage = group is not None and not self._member and \
+            self.device.type == "cuda" and _backend(group) == "gloo"
         # collective name -> {"calls", "bytes"}: bytes this process sent to
         # the others; gathers: one entry per operator input gathered
         self.moved: Dict[str, Dict[str, int]] = {}
@@ -85,8 +99,9 @@ class Mesh:
                                  f"shards; these hold {counts}")
 
     def __repr__(self) -> str:
+        who = "member" if self._member else "process"
         where = "" if self.world == 1 else \
-            f", process {self.rank} of {self.world}"
+            f", {who} {self.rank} of {self.world}"
         return (f"Mesh({self.n} shards, {self.local_n} on {self.device}"
                 f"{where}, axis {self.axis!r})")
 
@@ -114,7 +129,9 @@ def _backend(group) -> str:
 def make_mesh(n_shards: int, device, axis: str = "x", group=None) -> Mesh:
     """n_shards shards of one device in this process (make_mesh:20's
     counterpart: the shard count is given, nothing probes the hardware);
-    with a group, each of its ranks holds n_shards of the mesh."""
+    with a group, each of its ranks holds n_shards of the mesh: a
+    torch.distributed group's processes, or a LocalGroup's members (group
+    the Member, device its device)."""
     if n_shards < 1:
         raise ValueError(f"mesh of {n_shards} shards")
     return Mesh([device] * n_shards, axis, group)
@@ -195,8 +212,13 @@ def _pieces(nbytes: int):
 def _all_gather_bytes(mesh: Mesh, src: torch.Tensor,
                       dst: torch.Tensor) -> None:
     """Row r of dst [world, len(src)] (uint8, on the mesh's device) gets
-    process r's src, PIECE_BYTES at a time."""
+    rank r's src: between processes PIECE_BYTES at a time, between members
+    in one exchange (device copies need no bounded messages)."""
     import torch.distributed as dist
+    if mesh._member:
+        if src.numel():
+            mesh.group.all_gather(dst, src)
+        return
     for a, b in _pieces(src.numel()):
         if mesh._stage:
             piece = src[a:b].cpu()
@@ -210,11 +232,15 @@ def _all_gather_bytes(mesh: Mesh, src: torch.Tensor,
 
 
 def _all_to_all_rows(mesh: Mesh, send: torch.Tensor) -> torch.Tensor:
-    """dist.all_to_all_single of send [world, R] uint8 (row q goes to
-    process q; row q of the result came from process q), PIECE_BYTES of
-    each row at a time."""
+    """all_to_all_single of send [world, R] uint8 (row q goes to rank q;
+    row q of the result came from rank q): between processes PIECE_BYTES
+    of each row at a time, between members in one exchange."""
     import torch.distributed as dist
     out = torch.empty_like(send)
+    if mesh._member:
+        if send.shape[1]:
+            mesh.group.all_to_all(out, send)
+        return out
     for a, b in _pieces(send.shape[1]):
         piece = send[:, a:b].contiguous()
         src = piece.cpu() if mesh._stage else piece

@@ -23,6 +23,12 @@ and so does this port:
   DML run on every process's catalog and end in a barrier (commit
   ordering).
 
+The same mesh over members of one process (parallel/local_group.py,
+Database(..., mesh_devices=[...])) runs on these functions too: where the
+calling thread runs a member, world_group, is_multiprocess, process_index,
+is_conductor and barrier answer for its group (member 0 the conductor),
+and the processes' group is not consulted.
+
 Bootstrap: call `bootstrap(coordinator, num_processes, process_id,
 backend)` before creating the Database (whose mesh_shards then counts the
 local shards), or let it read QSTPU_COORDINATOR, QSTPU_NUM_PROCS and
@@ -40,6 +46,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+from quickstep_tpu_torch.parallel import local_group
 
 BACKENDS = ("gloo", "nccl")
 # how long a rank waits for the others at the store and in a collective
@@ -106,26 +114,41 @@ def _check_card_per_rank(store, world: int, rank: int, dev) -> None:
 
 
 def world_group():
-    """The group of every process once bootstrap has run, else None (one
-    process: a mesh without a group)."""
-    return torch.distributed.group.WORLD if is_multiprocess() else None
+    """The calling thread's member, where it runs one; else the group of
+    every process once bootstrap has run, else None (one process: a mesh
+    without a group)."""
+    member = local_group.current()
+    if member is not None:
+        return member
+    return torch.distributed.group.WORLD if processes() > 1 else None
+
+
+def processes() -> int:
+    """The torch.distributed group's size (1 before bootstrap)."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_available() and \
+        dist.is_initialized() else 1
 
 
 def is_multiprocess() -> bool:
-    import torch.distributed as dist
-    return dist.is_available() and dist.is_initialized() and \
-        dist.get_world_size() > 1
+    """Whether the mesh spans more than one rank: the calling thread's
+    member's group, else the processes."""
+    member = local_group.current()
+    return member.world > 1 if member is not None else processes() > 1
 
 
 def process_index() -> int:
+    member = local_group.current()
+    if member is not None:
+        return member.rank
     import torch.distributed as dist
     return dist.get_rank() if dist.is_available() and \
         dist.is_initialized() else 0
 
 
 def is_conductor() -> bool:
-    """Process 0 owns user-facing IO (REPL, network CLI, result printing)
-    and the learned overrides' file."""
+    """Process (or member) 0 owns user-facing IO (REPL, network CLI, result
+    printing) and the learned overrides' file."""
     return process_index() == 0
 
 
@@ -157,8 +180,12 @@ def all_gather_to_host(mesh, tensors: List[Optional[torch.Tensor]]
 
 
 def barrier() -> None:
-    """Cross-process sync point (DDL/DML commit ordering)."""
-    if is_multiprocess():
+    """Cross-process (or cross-member) sync point (DDL/DML commit
+    ordering)."""
+    member = local_group.current()
+    if member is not None:
+        member.barrier()
+    elif processes() > 1:
         torch.distributed.barrier()
 
 

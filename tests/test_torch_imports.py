@@ -183,6 +183,21 @@ MULTIHOST_WITHOUT_JAX = textwrap.dedent("""
     print("MULTIHOST OK")
 """)
 
+LOCAL_MESH_WITHOUT_JAX = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None          # any `import jax` now fails
+    import quickstep_tpu_torch.parallel.local_group
+    from quickstep_tpu_torch.bench import multihost_run
+    members = multihost_run.run_members(["cpu", "cpu"], 2, star=True)
+    assert [m["rows"]["groupby"] for m in members] == \
+        [members[0]["rows"]["groupby"]] * 2
+    bad = [m for m, mod in sys.modules.items() if mod is not None and (
+           m == "jax" or m.startswith("jax.")
+           or m == "quickstep_tpu" or m.startswith("quickstep_tpu."))]
+    assert not bad, bad
+    print("LOCAL MESH OK")
+""")
+
 SF100_TOOLS_WITHOUT_JAX = textwrap.dedent("""
     import os, sys
     sys.modules["jax"] = None          # any `import jax` now fails
@@ -307,6 +322,15 @@ def test_sf100_tools_run_without_jax(tmp_path):
                 REPO, TMPDIR=str(tmp_path))
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "SF100 TOOLS OK" in proc.stdout
+
+
+def test_local_mesh_runs_without_jax():
+    """A mesh over two members of one process (parallel/local_group.py,
+    bench/multihost_run.py run_members, the star battery) loads neither
+    jax nor quickstep_tpu."""
+    proc = _run(["-c", LOCAL_MESH_WITHOUT_JAX], REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOCAL MESH OK" in proc.stdout
 
 
 def test_multihost_runs_without_jax(tmp_path):

@@ -2326,3 +2326,104 @@ def test_segment_reduce_takes_unaligned_inputs(card):
     want = TC.segment_reduce("sum", change, s_alive, perm, v, None)
     for g, w in zip(got, want):
         _same(g, w, 0.0)
+
+
+# ---------------------------------------------------------------------
+# kernels launched from the threads of a mesh over members
+# (parallel/local_group.py)
+# ---------------------------------------------------------------------
+from quickstep_tpu_torch.parallel import local_group as TLG  # noqa: E402
+
+
+def _on_members(devices, fn):
+    """fn(member) on the thread of each member of a group over devices."""
+    group = TLG.LocalGroup(devices)
+    threads = [TLG.MemberThread(m) for m in group.members]
+    try:
+        return TLG.run_on_members(threads, fn, group.members), threads
+    finally:
+        for t in threads:
+            t.stop()
+
+
+@pytest.mark.cuda
+def test_a_member_launches_on_its_own_card(card):
+    """K1 from each member's thread of two members on the last card runs
+    there, on that thread's current device, and counts in that thread's
+    launches; the results are the plain version's."""
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    vals, valid, alive, _keys = _inputs(torch.float64, "nulls", dev)
+    TC.reset_launches()
+
+    def run(m):
+        assert torch.cuda.current_device() == dev.index
+        return TC.masked_reduce("sum", vals, valid, alive)
+    got, threads = _on_members([dev, dev], run)
+    want = TG.scalar_agg_plain("sum", vals, valid, alive)
+    for out in got:
+        assert out[0].device == dev
+        _same(out[0], want[0], RTOL[torch.float64])
+    assert [TC.launches_of(t.thread)["scalar_agg"] for t in threads] == [1, 1]
+    assert TC.LAUNCHES["scalar_agg"] == 2
+
+
+@pytest.mark.cuda
+def test_a_tensor_on_another_card_raises(card):
+    """A kernel never launches on the wrong card: a member on card 0 given
+    tensors on card 1 raises, naming both."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    other = torch.device("cuda", 1)
+    vals, valid, alive, _keys = _inputs(torch.float64, "nulls", other)
+    with pytest.raises(ValueError, match="cuda:1.*cuda:0"):
+        _on_members([torch.device("cuda", 0)], lambda m: TC.masked_reduce(
+            "sum", vals, valid, alive))
+
+
+@pytest.mark.cuda
+def test_one_member_a_card_matches_the_one_process_mesh(card):
+    """TPC-H Q3 at SF0.01 on one member a card over min(count, 4) cards
+    (8 shards in all) returns the rows of the one-process 8-shard mesh of
+    one card, bit for bit."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two cards")
+    from quickstep_tpu_torch import Database
+    from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES, load_tpch
+    from quickstep_tpu_torch.config import Config
+    k = 4 if count >= 4 else 2
+    one = Database(config=Config(distributed=True,
+                                 replicate_threshold_rows=2000),
+                   device="cuda:0", mesh_shards=8)
+    load_tpch(one, scale=0.01, seed=0)
+    want = one.execute(TPCH_QUERIES[3]).rows
+    one.close()
+    db = Database(config=Config(distributed=True,
+                                replicate_threshold_rows=2000),
+                  device="cuda", mesh_shards=8 // k,
+                  mesh_devices=[f"cuda:{i}" for i in range(k)])
+    try:
+        db.on_members(lambda m: load_tpch(m, scale=0.01, seed=0))
+        assert db.execute(TPCH_QUERIES[3]).rows == want
+    finally:
+        db.close()
+
+
+@pytest.mark.cuda
+def test_a_database_on_another_card_runs_without_members(card):
+    """A Database on the second card, without members, runs its statements
+    on its PolicyEnforcer's thread there: TPC-H Q3 at SF0.01 returns the
+    rows of the same database on the first card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from quickstep_tpu_torch import Database
+    from quickstep_tpu_torch.bench.tpch import TPCH_QUERIES, load_tpch
+    rows = []
+    for device in ("cuda:0", "cuda:1"):
+        db = Database(device=device)
+        try:
+            load_tpch(db, scale=0.01, seed=0)
+            rows.append(db.execute(TPCH_QUERIES[3]).rows)
+        finally:
+            db.close()
+    assert rows[0] == rows[1] and rows[0]

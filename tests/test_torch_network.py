@@ -76,11 +76,13 @@ def _run(*args):
 
 
 def test_the_front_ends_need_the_device():
-    """python -m quickstep_tpu_torch needs --device; with it, -c runs the
-    statements (the REPL's path, reading display_timing from the config);
-    the server refuses to start without one."""
+    """python -m quickstep_tpu_torch runs on the card unless --device cpu
+    asks for the CPU: without a card the default refuses (never a quiet
+    CPU run); with --device cpu, -c runs the statements (the REPL's path,
+    reading display_timing from the config); the server's default refuses
+    alike."""
     proc = _run("-m", "quickstep_tpu_torch", "-c", "SELECT 1;")
-    assert proc.returncode != 0 and "--device" in proc.stderr
+    assert proc.returncode != 0 and "finds no CUDA device" in proc.stderr
     proc = _run("-m", "quickstep_tpu_torch", "--device", "cpu",
                 "--display_timing", "false", "-c",
                 "CREATE TABLE t (a INT NOT NULL); "
@@ -89,4 +91,4 @@ def test_the_front_ends_need_the_device():
     assert "9" in proc.stdout and "(1 rows)" in proc.stdout
     assert "Time:" not in proc.stdout
     proc = _run("-m", "quickstep_tpu_torch.cli.network", "--port", "0")
-    assert proc.returncode != 0 and "--device" in proc.stderr
+    assert proc.returncode != 0 and "finds no CUDA device" in proc.stderr

@@ -124,7 +124,10 @@ def test_distributed_needs_the_shard_count():
 
 
 def test_mesh_over_distinct_devices_raises():
-    with pytest.raises(NotImplementedError, match="distinct devices"):
+    """A mesh over several devices in one process has one member a device
+    (Database(..., mesh_devices=[...])): the local shards of one mesh share
+    one device."""
+    with pytest.raises(ValueError, match="one member a device"):
         TM.Mesh([torch.device("cuda", 0), torch.device("cuda", 1)])
     mesh = TM.make_mesh(8, "cpu")
     assert mesh.n == 8 and mesh.axis == "x"
